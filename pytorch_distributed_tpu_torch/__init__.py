@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of ``pytorch_distributed_tpu``, for an NVIDIA H100.
+
+The JAX package stays as the reference; this package grows beside it slice
+by slice and imports nothing of it (nor of JAX). Slice 1 is GPT-2 serving
+through the paged KV cache, with the paged decode-attention kernel written
+in CUDA C++ (``ops/csrc``). Entry points run on the card unless the caller
+passes ``device="cpu"``.
+"""
+
+from pytorch_distributed_tpu_torch._device import resolve_device  # noqa: F401
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,250 @@
+"""GPT-2 language model in PyTorch, with the serving (KV-cached) forward.
+
+Port of ``pytorch_distributed_tpu/models/gpt2.py`` (dense GPT-2 only):
+learned positional embeddings, pre-LN blocks, GELU(tanh), causal
+self-attention, weight-tied LM head. Parameters are kept in
+``cfg.param_dtype`` and the compute runs in ``cfg.dtype``, as the flax
+model's Dense/LayerNorm ``dtype``/``param_dtype`` split does; LayerNorm
+statistics are taken in fp32.
+
+Parameter names mirror the flax paths (``h.<i>.attn.c_attn`` for
+``h_<i>/attn/c_attn``), so ``models.convert`` maps one onto the other.
+
+The cached forward (``kv_cache=...``) updates the cache in place. On the
+paged cache, a one-token step (decode) scatters the new K/V through the
+block table and runs ``ops.paged_decode_attention`` -- the CUDA kernel on
+the card -- while a longer window (prefill) runs the plain
+``paged_cached_attention``; the slotted cache runs ``cached_attention``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pytorch_distributed_tpu_torch._device import resolve_device
+from pytorch_distributed_tpu_torch.ops.decode_attention import cached_attention
+from pytorch_distributed_tpu_torch.ops.paged_attention import (
+    _scatter_new,
+    paged_cached_attention,
+    paged_decode_attention,
+)
+
+__all__ = ["GPT2Config", "GPT2", "default_attention", "gpt2_125m"]
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    n_positions: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    layer_norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.float32
+    param_dtype: torch.dtype = torch.float32
+    # LM-head inputs in fp32 (the default), or in the compute dtype with
+    # fp32 accumulation and output
+    head_in_fp32: bool = True
+
+
+def default_attention(q, k, v, *, causal: bool = True):
+    """Reference softmax attention, ``[B, T, H, D]`` layout, fp32 softmax."""
+    B, T, H, D = q.shape
+    scale = 1.0 / torch.sqrt(torch.tensor(float(D))).to(q.dtype)
+    scores = torch.einsum("bthd,bshd->bhts", q, k) * scale
+    if causal:
+        mask = torch.tril(torch.ones(T, T, dtype=torch.bool, device=q.device))
+        scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+def _linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+
+
+def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, cfg: GPT2Config) -> torch.Tensor:
+    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                     ln.bias.float(), cfg.layer_norm_eps)
+    return y.to(cfg.dtype)
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, cfg: GPT2Config, device=None):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(dtype=cfg.param_dtype, device=device)
+        self.c_attn = nn.Linear(cfg.n_embd, 3 * cfg.n_embd, **kw)
+        self.c_proj = nn.Linear(cfg.n_embd, cfg.n_embd, **kw)
+
+    def forward(self, x, *, layer_cache=None, position_offset=None):
+        cfg = self.cfg
+        B, T, C = x.shape
+        H, D = cfg.n_head, C // cfg.n_head
+        q, k, v = _linear(x, self.c_attn, cfg.dtype).split(C, dim=-1)
+        q = q.view(B, T, H, D)
+        k = k.view(B, T, H, D)
+        v = v.view(B, T, H, D)
+        if layer_cache is None:
+            y = default_attention(q, k, v, causal=True)
+        elif len(layer_cache) == 3:
+            k_pages, v_pages, tables = layer_cache
+            if T == 1:
+                pos = position_offset.long()[:, None]
+                _scatter_new(k_pages, k, tables, pos)
+                _scatter_new(v_pages, v, tables, pos)
+                y = paged_decode_attention(q, k_pages, v_pages, tables,
+                                           position_offset)
+            else:
+                y, _, _ = paged_cached_attention(
+                    q, k, v, k_pages, v_pages, tables, position_offset)
+        else:
+            y, _, _ = cached_attention(q, k, v, layer_cache[0],
+                                       layer_cache[1], position_offset)
+        return _linear(y.reshape(B, T, C), self.c_proj, cfg.dtype)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: GPT2Config, device=None):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(dtype=cfg.param_dtype, device=device)
+        self.c_fc = nn.Linear(cfg.n_embd, 4 * cfg.n_embd, **kw)
+        self.c_proj = nn.Linear(4 * cfg.n_embd, cfg.n_embd, **kw)
+
+    def forward(self, x):
+        y = F.gelu(_linear(x, self.c_fc, self.cfg.dtype), approximate="tanh")
+        return _linear(y, self.c_proj, self.cfg.dtype)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: GPT2Config, device=None):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(eps=cfg.layer_norm_eps, dtype=cfg.param_dtype, device=device)
+        self.ln_1 = nn.LayerNorm(cfg.n_embd, **kw)
+        self.attn = SelfAttention(cfg, device)
+        self.ln_2 = nn.LayerNorm(cfg.n_embd, **kw)
+        self.mlp = MLP(cfg, device)
+
+    def forward(self, x, *, layer_cache=None, position_offset=None):
+        x = x + self.attn(_layer_norm(x, self.ln_1, self.cfg),
+                          layer_cache=layer_cache,
+                          position_offset=position_offset)
+        return x + self.mlp(_layer_norm(x, self.ln_2, self.cfg))
+
+
+class GPT2(nn.Module):
+    """GPT-2 LM. ``forward(tokens [B, T]) -> logits [B, T, V]`` (fp32).
+
+    ``kv_cache`` (a ``serving.KVCache`` or ``serving.paging.PagedKVCache``)
+    switches on the serving forward: positions come from
+    ``position_offset`` (``[B]`` int32, the current length of each
+    sequence), each block attends over its cache instead of the T x T causal
+    window, and the call returns ``(logits, kv_cache)`` with the cache
+    updated in place. Prefill is this path at T = padded prompt length,
+    decode at T = 1.
+
+    ``device=None`` means the CUDA card (and raises without one); weights
+    are drawn from a ``torch.Generator`` seeded with ``seed`` on that device.
+    """
+
+    def __init__(self, cfg: GPT2Config, *, device=None, seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        kw = dict(dtype=cfg.param_dtype, device=device)
+        self.wte = nn.Parameter(torch.empty(cfg.vocab_size, cfg.n_embd, **kw))
+        self.wpe = nn.Parameter(torch.empty(cfg.n_positions, cfg.n_embd, **kw))
+        self.h = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layer))
+        self.ln_f = nn.LayerNorm(cfg.n_embd, eps=cfg.layer_norm_eps, **kw)
+        self.reset_parameters(torch.Generator(device=device).manual_seed(seed))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The flax model's initializers: normal(0.02) token and normal(0.01)
+        position tables, LeCun-normal projections, normal(0.02/sqrt(2L))
+        residual outputs, zero biases, unit LayerNorm scales."""
+        proj_std = 0.02 / math.sqrt(2 * self.cfg.n_layer)
+        self.wte.normal_(0.0, 0.02, generator=generator)
+        self.wpe.normal_(0.0, 0.01, generator=generator)
+        for block in self.h:
+            for lin in (block.attn.c_attn, block.mlp.c_fc):
+                # truncated at two sigma; 0.8796 restores unit variance
+                std = lin.in_features ** -0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(lin.weight, std=std, a=-2 * std,
+                                      b=2 * std, generator=generator)
+            for lin in (block.attn.c_proj, block.mlp.c_proj):
+                lin.weight.normal_(0.0, proj_std, generator=generator)
+            for lin in (block.attn.c_attn, block.attn.c_proj,
+                        block.mlp.c_fc, block.mlp.c_proj):
+                lin.bias.zero_()
+        for ln in [self.ln_f] + [m for b in self.h for m in (b.ln_1, b.ln_2)]:
+            ln.weight.fill_(1.0)
+            ln.bias.zero_()
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        # weight-tied LM head; logits in fp32 for a stable softmax
+        w = self.wte if self.cfg.head_in_fp32 else self.wte.to(self.cfg.dtype)
+        return torch.matmul(x.float(), w.float().t())
+
+    def forward(self, tokens, *, kv_cache=None, position_offset=None,
+                n_layers=None):
+        if n_layers is not None:
+            raise NotImplementedError(
+                "n_layers (the self-drafting draft forward) comes with "
+                "speculative decoding, ROADMAP A.15"
+            )
+        if kv_cache is not None:
+            return self._cached_forward(tokens, kv_cache, position_offset)
+        cfg = self.cfg
+        T = tokens.shape[1]
+        if T > cfg.n_positions:
+            raise ValueError(
+                f"sequence length {T} exceeds n_positions {cfg.n_positions}"
+            )
+        x = self.wte[tokens.long()].to(cfg.dtype) + self.wpe[:T].to(cfg.dtype)
+        for block in self.h:
+            x = block(x)
+        return self._head(_layer_norm(x, self.ln_f, cfg))
+
+    def _cached_forward(self, tokens, kv_cache, position_offset
+                        ) -> Tuple[torch.Tensor, object]:
+        cfg = self.cfg
+        B, T = tokens.shape
+        if kv_cache.k.shape[0] != cfg.n_layer:
+            raise ValueError(
+                f"kv_cache has {kv_cache.k.shape[0]} layers, model has "
+                f"{cfg.n_layer}"
+            )
+        if position_offset is None:
+            position_offset = torch.zeros(B, dtype=torch.int32,
+                                          device=tokens.device)
+        # learned positional embedding at each token's GLOBAL position; the
+        # clamp guards the padded tail of an over-long prefill (those query
+        # rows are discarded by the engine)
+        pos = position_offset.long()[:, None] + torch.arange(
+            T, device=tokens.device)
+        pos = pos.clamp(max=cfg.n_positions - 1)
+        x = self.wte[tokens.long()].to(cfg.dtype) + self.wpe[pos].to(cfg.dtype)
+        # duck-typed cache dispatch: a paged cache carries block tables
+        tables = getattr(kv_cache, "block_tables", None)
+        for i, block in enumerate(self.h):
+            layer_cache = (
+                (kv_cache.k[i], kv_cache.v[i], tables) if tables is not None
+                else (kv_cache.k[i], kv_cache.v[i])
+            )
+            x = block(x, layer_cache=layer_cache,
+                      position_offset=position_offset)
+        return self._head(_layer_norm(x, self.ln_f, cfg)), kv_cache
+
+
+def gpt2_125m(*, device=None, seed: int = 0, **overrides) -> GPT2:
+    """GPT-2 125M (the reference's config #4 model) with seeded weights."""
+    return GPT2(GPT2Config(**overrides), device=device, seed=seed)

@@ -1,0 +1,30 @@
+"""Attention ops of the port: plain torch ops and the CUDA decode kernel.
+
+Exports are lazy (PEP 562), as in the JAX package's ``ops``: importing this
+package loads no op module, and no kernel is built until a CUDA tensor
+reaches its wrapper, so the package imports on a machine without ``nvcc``.
+"""
+
+_LAZY = {
+    "cached_attention": "pytorch_distributed_tpu_torch.ops.decode_attention",
+    "paged_cached_attention": "pytorch_distributed_tpu_torch.ops.paged_attention",
+    "paged_decode_attention": "pytorch_distributed_tpu_torch.ops.paged_attention",
+    "paged_decode_attention_reference":
+        "pytorch_distributed_tpu_torch.ops.paged_attention",
+}
+
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        value = getattr(importlib.import_module(_LAZY[name]), name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))
