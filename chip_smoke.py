@@ -5,23 +5,36 @@ Run from the repository root on a machine with one NVIDIA H100::
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the sources in the checkout and
-prints one JSON line per phase:
+It builds the port's CUDA kernels from the sources in the checkout (one
+``nvcc`` per source, all at once) and drives both main paths of the port,
+serving and training, printing one JSON line per phase:
 
-  device   the card (``nvidia-smi`` name and power limit), library versions
-           and the kernel build time;
-  kernels  each CUDA kernel against its plain PyTorch version at the main
-           path's shapes, in fp32 and bf16, with its time, the plain
-           version's time, the least time the card could take (bound) and
-           one PyTorch library call's time for comparison;
-  parity   GPT-2 125M at full width, fp32, paged cache: the engine's greedy
-           tokens equal the argmax of the port's own uncached forward, and
-           every decode step of every layer launched the kernel;
-  serve    the main path: GPT-2 125M at full width in bf16, 16 requests with
-           a shared prefix through the continuous-batching scheduler over
-           the paged cache;
-  profile  torch.profiler over 10 decode steps of that engine: host wall
-           time against device busy time per step, and the top kernels.
+  device        the card (``nvidia-smi`` name and power limit), library
+                versions and the kernel build time;
+  kernels       each CUDA kernel against its plain PyTorch version at its
+                main path's shapes, in fp32 and bf16, with its time, the
+                plain version's time, the least time the card could take
+                (bound) and one PyTorch library call's time for comparison
+                (B7 paged decode; B1-B3 causal flash forward, dq, dk/dv,
+                with a ragged T checked too);
+  parity        GPT-2 125M at full width, fp32, paged cache: the engine's
+                greedy tokens equal the argmax of the port's own uncached
+                forward, and every decode step of every layer launched B7;
+  serve         serving's main path: GPT-2 125M at full width in bf16, 16
+                requests with a shared prefix through the continuous-batching
+                scheduler over the paged cache;
+  profile       torch.profiler over 10 decode steps of that engine: host wall
+                time against device busy time per step, and the top kernels;
+  train_parity  GPT-2 125M at full width, fp32 with TF32 off, B=2, T=1024,
+                3 steps: the trainer with the flash kernels against the same
+                trainer with dense attention (losses, step-1 gradients), and
+                every step of every layer launched B1, B2 and B3;
+  train         training's main path: ``examples/train_gpt2.py``'s ``main``
+                at its defaults (12 x 768, T=1024, global batch 8, bf16,
+                flash attention), 3 warm-up and 20 timed steps; then 10 steps
+                on one fixed batch, whose loss must fall;
+  train_profile torch.profiler over 3 training steps: device busy share, top
+                kernels, and B1-B3's share of the busy time.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -30,6 +43,7 @@ that line; without a CUDA device it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import importlib
 import json
 import statistics
 import subprocess
@@ -42,22 +56,56 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from pytorch_distributed_tpu_torch.models import gpt2_125m
+from pytorch_distributed_tpu_torch.examples import train_gpt2
+from pytorch_distributed_tpu_torch.models import GPT2Config, gpt2_125m
 from pytorch_distributed_tpu_torch.ops import _build
 from pytorch_distributed_tpu_torch.ops import paged_attention as pa
+from pytorch_distributed_tpu_torch.parallel import NoShard
 from pytorch_distributed_tpu_torch.serving import (
     InferenceEngine,
     Request,
     Scheduler,
 )
+from pytorch_distributed_tpu_torch.trainer import Trainer, lm_loss
 
-# Published H100 SXM peaks (NVIDIA data sheet), used for the bounds
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
+# the module (the package attribute of the same name is the function)
+fa = importlib.import_module("pytorch_distributed_tpu_torch.ops.flash_attention")
+
+# Published dense peaks (NVIDIA data sheets), used for the bounds, keyed by
+# a substring of torch.cuda.get_device_name: bf16 tensor-core FLOP/s, fp32
+# (CUDA-core) FLOP/s, HBM bytes/s. The first match wins; "H100" alone is the
+# SXM part (e.g. "NVIDIA H100 80GB HBM3").
+PEAKS = (
+    ("H100 PCIe", (756e12, 51e12, 2.0e12)),
+    ("H100 NVL", (835e12, 60e12, 3.9e12)),
+    ("H100", (989e12, 67e12, 3.35e12)),
+)
 
 KERNEL_SOURCE = "pytorch_distributed_tpu_torch/ops/csrc/paged_decode_attention.cu"
 KERNEL_REPLACES = "pytorch_distributed_tpu/ops/paged_attention.py:128"
 TOLERANCE = {"float32": 2e-5, "bfloat16": 1.6e-2}  # atol = rtol
+
+FLASH_SOURCE = "pytorch_distributed_tpu_torch/ops/csrc/flash_attention_causal.cu"
+FLASH_KERNELS = (  # (name, counter key, replaced TPU kernel)
+    ("flash_causal_fwd", "fwd",
+     "pytorch_distributed_tpu/ops/flash_attention.py:179"),
+    ("flash_causal_dq", "dq",
+     "pytorch_distributed_tpu/ops/flash_attention.py:293"),
+    ("flash_causal_dkv", "dkv",
+     "pytorch_distributed_tpu/ops/flash_attention.py:334"),
+)
+# kernel vs plain version, |a - b| <= tol * (1 + |b|): fp32 sums in another
+# order; bf16 outputs rounded once from fp32 (one bf16 ulp is 2**-8 of the
+# value) and p rounded to bf16 before PV in both
+FLASH_TOLERANCE = {"float32": 2e-4, "bfloat16": 2e-2}
+
+
+def peaks():
+    name = torch.cuda.get_device_name(0)
+    for key, value in PEAKS:
+        if key in name:
+            return value
+    raise SystemExit(f"chip_smoke: no published peaks for {name!r}")
 
 
 def emit(obj) -> None:
@@ -136,8 +184,9 @@ def kernel_phase():
         n_bytes = (2 * n_visible * H * D * elt + 2 * B * H * D * elt
                    + 4 * n_entries + 4 * B)
         n_flops = 4 * n_visible * H * D
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_flops / FP32_FLOPS_PER_S * 1e3
+        _, fp32_peak, hbm = peaks()
+        t_bytes = n_bytes / hbm * 1e3
+        t_ops = n_flops / fp32_peak * 1e3
         results[name] = {
             "max_abs_err": err,
             "tolerance": tol,
@@ -257,6 +306,18 @@ def serve_phase():
     return launches, engine
 
 
+def _device_kernels(prof):
+    """Device-side events summed by name, without the ranges that
+    ``record_function`` annotations (``Optimizer.step#...``) leave on the
+    device timeline: those cover kernels already counted. Such a range
+    carries the name of its host-side event, which no kernel does."""
+    events = prof.key_averages()
+    host = {e.key for e in events if e.device_type == DeviceType.CPU}
+    return [e for e in events
+            if e.device_type == DeviceType.CUDA and e.key not in host
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def profile_phase(engine):
     """Where a decode step's time goes: torch.profiler over 10 steady decode
     steps of the serve engine at 8 active slots (host wall time vs device
@@ -277,8 +338,7 @@ def profile_phase(engine):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     n_steps = sched.decode_steps - steps0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = _device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     paged_ms = sum(e.self_device_time_total for e in kernels
                    if "paged_decode" in e.key) / 1e3
@@ -294,6 +354,287 @@ def profile_phase(engine):
                            "calls_per_step": e.count / n_steps} for e in top]})
 
 
+def _flash_inputs(B, T, H, D, dtype, g):
+    """q, k, v as the strided views of one fused qkv projection (the layout
+    GPT-2's c_attn split hands the kernels) and a contiguous upstream grad."""
+    qkv = torch.randn(B, T, 3 * H * D, generator=g).to(dtype).cuda()
+    q, k, v = (x.view(B, T, H, D) for x in qkv.split(H * D, dim=-1))
+    do = torch.randn(B, T, H, D, generator=g).to(dtype).cuda()
+    return q, k, v, do
+
+
+def _flash_check(q, k, v, do, tol):
+    """B1-B3 each against its plain version; the backward kernels take the
+    plain forward's lse and delta, so each kernel is held on its own.
+    Returns the max abs error per kernel, lse and delta."""
+    out, lse = fa.flash_causal_fwd(q, k, v)
+    ref_out, ref_lse = fa.flash_causal_fwd_reference(q, k, v)
+    delta = torch.einsum("bthd,bthd->bht", do.float(),
+                         ref_out.float()).contiguous()
+    args = (q, k, v, do, ref_lse, delta)
+    pairs = {
+        "fwd": [(out, ref_out), (lse, ref_lse)],
+        "dq": [(fa.flash_causal_dq(*args), fa.flash_causal_dq_reference(*args))],
+        "dkv": list(zip(fa.flash_causal_dkv(*args),
+                        fa.flash_causal_dkv_reference(*args))),
+    }
+    torch.cuda.synchronize()
+    errs = {}
+    for key, items in pairs.items():
+        errs[key] = 0.0
+        for a, b in items:
+            a, b = a.float(), b.float()
+            err = (a - b).abs()
+            check(bool((err <= tol * (1 + b.abs())).all()),
+                  f"flash {key} kernel vs plain version ({q.dtype}, "
+                  f"T={q.shape[1]}): max_abs_err {err.max().item()}")
+            errs[key] = max(errs[key], err.max().item())
+    return errs, ref_lse, delta
+
+
+def flash_kernel_phase():
+    """B1-B3 at the training path's shape (B=8, T=1024, H=12, D=64) in fp32
+    and bf16, and a ragged T=1000 checked in both. Times are CUDA-event
+    medians with the L2 flushed before each call."""
+    B, T, H, D = 8, 1024, 12, 64
+    g = torch.Generator().manual_seed(4)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    bf16_peak, fp32_peak, hbm = peaks()
+    n_vis = B * H * T * (T + 1) // 2   # visible (query, key) pairs
+    results, ragged = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        tol = FLASH_TOLERANCE[name]
+        ragged[name] = _flash_check(*_flash_inputs(2, 1000, H, D, dtype, g),
+                                    tol)[0]
+        q, k, v, do = _flash_inputs(B, T, H, D, dtype, g)
+        errs, lse, delta = _flash_check(q, k, v, do, tol)
+        args = (q, k, v, do, lse, delta)
+
+        # library yardstick: SDPA(is_causal=True) on [B, H, T, D] copies made
+        # beforehand (the transposes excluded); its autograd backward
+        # computes dq, dk and dv together
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+        def lib_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+        def lib_bwd():
+            torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
+
+        library = {"fwd": time_ms(lib_fwd, 50, flush),
+                   "bwd": time_ms(lib_bwd, 50, flush)}
+        elt, n = q.element_size(), B * T * H * D
+        stats = B * H * T * 4                 # one fp32 [B, H, T] vector
+        work = {  # bytes (inputs read once, outputs written once), flops
+            "fwd": (4 * n * elt + stats, 4 * D * n_vis),
+            "dq": (5 * n * elt + 2 * stats, 6 * D * n_vis),
+            "dkv": (6 * n * elt + 2 * stats, 8 * D * n_vis),
+        }
+        calls = {
+            "fwd": (lambda: fa.flash_causal_fwd(q, k, v),
+                    lambda: fa.flash_causal_fwd_reference(q, k, v)),
+            "dq": (lambda: fa.flash_causal_dq(*args),
+                   lambda: fa.flash_causal_dq_reference(*args)),
+            "dkv": (lambda: fa.flash_causal_dkv(*args),
+                    lambda: fa.flash_causal_dkv_reference(*args)),
+        }
+        peak = bf16_peak if dtype == torch.bfloat16 else fp32_peak
+        per = {}
+        for key, (kernel, plain) in calls.items():
+            n_bytes, n_flops = work[key]
+            t_bytes = n_bytes / hbm * 1e3
+            t_ops = n_flops / peak * 1e3
+            per[key] = {
+                "max_abs_err": errs[key],
+                "tolerance": tol,
+                "ms": time_ms(kernel, 20, flush),
+                "plain_ms": time_ms(plain, 3, flush),
+                "library_ms": library["fwd" if key == "fwd" else "bwd"],
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": n_bytes,
+                "flops": n_flops,
+            }
+        results[name] = per
+        del qt, kt, vt, lib_out
+    emit({"phase": "kernels", "kernel": "flash_causal (B1 fwd, B2 dq, B3 dkv)",
+          "shape": {"B": B, "T": T, "H": H, "D": D,
+                    "layout": "q/k/v strided views of a fused [B, T, 3*H*D]"},
+          "ragged": {"B": 2, "T": 1000, "max_abs_err": ragged},
+          "tolerance": "|kernel - plain| <= tol * (1 + |plain|)",
+          "library_call": "F.scaled_dot_product_attention(is_causal=True) "
+                          "forward for B1; its autograd backward (dq, dk "
+                          "and dv together) for B2 and B3",
+          "peak_flops": {"bfloat16": bf16_peak, "float32": fp32_peak},
+          "results": results})
+    return results
+
+
+def _reset_flash_counts() -> None:
+    for key in fa.launches:
+        fa.launches[key] = 0
+
+
+def _lm_batches(n, B, T, seed):
+    rng = np.random.default_rng(seed)
+    vocab = GPT2Config().vocab_size
+    out = []
+    for _ in range(n):
+        tok = rng.integers(0, vocab, (B, T + 1)).astype(np.int32)
+        out.append((tok[:, :-1], tok[:, 1:]))
+    return out
+
+
+def _trainer(**cfg):
+    model = gpt2_125m(device="cuda", **cfg)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
+                            eps=1e-8)
+    policy = "bf16" if cfg.get("dtype") == torch.bfloat16 else "fp32"
+    trainer = Trainer(model, opt, NoShard("cuda"), loss_fn=lm_loss,
+                      policy=policy)
+    return trainer, trainer.init()
+
+
+def train_parity_phase():
+    """fp32 full-width GPT-2 125M, TF32 off, B=2, T=1024, 3 steps on the
+    same weights and batches: flash attention (B1-B3) against the dense
+    reference attention. Step-1 losses agree at rtol 1e-5 and later ones at
+    1e-4 (the runs' weights drift apart by rounding once Adam steps); every
+    step-1 gradient at 1e-4 of its tensor's largest element plus 1e-7
+    (sums taken in another order; the key-bias gradients are rounding noise
+    near 1e-9 in both)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    steps = 3
+    batches = _lm_batches(steps, 2, 1024, seed=5)
+    runs = {}
+    for attn in ("dense", "flash"):
+        trainer, state = _trainer(
+            seed=0, attn_impl=fa.flash_attention if attn == "flash" else None)
+        losses, grads = [], None
+        _reset_flash_counts()
+        for batch in batches:
+            state, m = trainer.step(state, batch)
+            losses.append(float(m["loss"]))
+            if grads is None:
+                grads = {n: p.grad.detach().clone()
+                         for n, p in trainer.model.named_parameters()}
+        runs[attn] = (losses, grads, dict(fa.launches))
+        del trainer, state
+        torch.cuda.empty_cache()
+    (dl, dg, dlaunch), (fl, fg, flaunch) = runs["dense"], runs["flash"]
+    worst, worst_name = 0.0, None
+    for name, want in dg.items():
+        err = (fg[name] - want).abs().max().item()
+        limit = 1e-4 * want.abs().max().item() + 1e-7
+        if worst_name is None or err / limit > worst:
+            worst, worst_name = err / limit, name
+    n_layer = GPT2Config().n_layer
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(fl, dl)]
+    emit({"phase": "train_parity", "dtype": "float32", "tf32": False,
+          "B": 2, "T": 1024, "steps": steps, "loss_flash": fl,
+          "loss_dense": dl, "loss_rel_err": loss_rel,
+          "grad_worst_err_over_limit": worst, "grad_worst_param": worst_name,
+          "launches_flash": flaunch, "launches_dense": dlaunch,
+          "expected_launches": n_layer * steps})
+    check(loss_rel[0] <= 1e-5 and max(loss_rel) <= 1e-4,
+          f"flash vs dense losses {fl} vs {dl}")
+    check(worst <= 1.0, f"step-1 gradient of {worst_name} off by "
+                        f"{worst:.3g} x its limit")
+    check(all(v == n_layer * steps for v in flaunch.values()),
+          f"flash launches {flaunch} != n_layer x steps {n_layer * steps}")
+    check(not any(dlaunch.values()), f"dense run launched {dlaunch}")
+
+
+def train_phase():
+    """Training's main path: the entry point at its defaults (GPT-2 125M,
+    12 x 768, T=1024, global batch 8, bf16 policy, flash attention, dense
+    LM loss), 3 warm-up and 20 timed steps."""
+    warm, timed = 3, 20
+    bf16_peak, _, _ = peaks()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_counts()
+    out = train_gpt2.main(["--steps", str(warm + timed)])
+    launches = dict(fa.launches)
+    peak_mem = torch.cuda.max_memory_allocated()
+    step_s = out["step_s"][warm:]
+    tokens_per_s = out["tokens_per_step"] * len(step_s) / sum(step_s)
+    q = statistics.quantiles(step_s, n=100, method="inclusive")
+    n_layer = GPT2Config().n_layer
+    expected = n_layer * (warm + timed)
+    emit({"phase": "train", "model": "gpt2-125m", "dtype": out["dtype"],
+          "attn": out["attn"], "global_batch": 8, "seq_len": 1024,
+          "n_params": out["n_params"], "warmup_steps": warm,
+          "timed_steps": timed, "step_p50_s": statistics.median(step_s),
+          "step_p99_s": q[98], "tokens_per_s": tokens_per_s,
+          "mfu": 6 * out["n_params"] * tokens_per_s / bf16_peak,
+          "mfu_peak_flops": bf16_peak,
+          "max_memory_allocated_bytes": peak_mem,
+          "loss_first": out["losses"][0], "loss_last": out["losses"][-1],
+          "kernel_launches": launches, "expected_launches": expected})
+    check(out["dtype"] == "bfloat16" and out["attn"] == "flash",
+          "the entry point's defaults are not bf16 + flash on the card")
+    check(all(np.isfinite(out["losses"])), "a training loss is not finite")
+    check(all(v == expected for v in launches.values()),
+          f"flash launches {launches} != n_layer x steps {expected}")
+    return launches
+
+
+def train_fixed_batch_phase():
+    """10 bf16 steps on one fixed batch (B=8, T=1024): the loss must fall."""
+    trainer, state = _trainer(seed=2, dtype=torch.bfloat16,
+                              attn_impl=fa.flash_attention)
+    batch = _lm_batches(1, 8, 1024, seed=6)[0]
+    losses = []
+    for _ in range(10):
+        state, m = trainer.step(state, batch)
+        losses.append(float(m["loss"]))
+    emit({"phase": "train_fixed_batch", "dtype": "bfloat16", "steps": 10,
+          "losses": losses})
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"loss did not fall on a fixed batch: {losses}")
+    return trainer, state, batch
+
+
+def train_profile_phase(trainer, state, batch):
+    """Where a training step's time goes: torch.profiler over 3 bf16 steps
+    (B=8, T=1024): host wall time against device busy time, top kernels,
+    and B1-B3's share of the busy time."""
+    state, _ = trainer.step(state, batch)
+    torch.cuda.synchronize()
+    steps = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    flash_ms = {key: sum(e.self_device_time_total for e in kernels
+                         if f"flash_causal_{key}_kernel" in e.key) / 1e3
+                for _, key, _ in FLASH_KERNELS}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    emit({"phase": "train_profile", "steps": steps,
+          "wall_ms_per_step": wall_ms / steps,
+          "device_busy_ms_per_step": busy_ms / steps,
+          "device_busy_share": busy_ms / wall_ms,
+          "flash_ms_per_step": {k: v / steps for k, v in flash_ms.items()},
+          "flash_share_of_busy": sum(flash_ms.values()) / busy_ms,
+          "device_kernels_per_step": sum(e.count for e in kernels) / steps,
+          "top_kernels": [{"name": e.key[:80],
+                           "ms_per_step": e.self_device_time_total / 1e3 / steps,
+                           "calls_per_step": e.count / steps} for e in top]})
+    check(busy_ms > 0, "the profiler saw no device time")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -305,7 +646,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _build.load("paged_decode_attention")
+    _build.load_all(["paged_decode_attention", "flash_attention_causal"])
     emit({"phase": "device", "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -313,13 +654,19 @@ def main() -> int:
           "build_s": time.perf_counter() - t0})
 
     kres = kernel_phase()
+    fres = flash_kernel_phase()
     parity_phase()
     torch.cuda.empty_cache()
     launches, engine = serve_phase()
     profile_phase(engine)
+    del engine
+    torch.cuda.empty_cache()
+    train_parity_phase()
+    train_launches = train_phase()
+    train_profile_phase(*train_fixed_batch_phase())
 
     main_dtype = kres["bfloat16"]  # the serve phase runs in bf16
-    emit({"kernels": [{
+    summary = [{
         "name": "paged_decode_attention",
         "route": "cuda",
         "source": KERNEL_SOURCE,
@@ -331,7 +678,28 @@ def main() -> int:
         "bound_ms": main_dtype["bound_ms"],
         "bound_by": main_dtype["bound_by"],
         "library_ms": main_dtype["library_ms"],
-    }]})
+        "library_call": "F.scaled_dot_product_attention on a dense view "
+                        "gathered beforehand",
+    }]
+    for name, key, replaces in FLASH_KERNELS:
+        r = fres["bfloat16"][key]  # the train phase runs in bf16
+        summary.append({
+            "name": name,
+            "route": "cuda",
+            "source": FLASH_SOURCE,
+            "replaces": replaces,
+            "launches": train_launches[key],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "library_call": "F.scaled_dot_product_attention(is_causal=True) "
+                            + ("forward" if key == "fwd" else
+                               "autograd backward (dq, dk, dv together)"),
+        })
+    emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

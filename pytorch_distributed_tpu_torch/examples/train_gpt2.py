@@ -1,0 +1,185 @@
+"""GPT-2 language-model training on one card: the port's training entry point.
+
+The one-device counterpart of ``examples/train_gpt2_fsdp.py`` (GPT-2 125M
+by default, AdamW, LM loss over synthetic WikiText-shaped token windows),
+with the same flags and defaults. The model runs under ``NoShard`` on the
+CUDA card, with the causal flash kernels (``--attn flash``, the default)
+as its attention. The bf16 policy runs the model in bf16 on the card, with
+fp32 parameters; on the CPU it runs in fp32, as the JAX script does off the
+TPU. ``--device cpu`` runs the plain versions of the kernels::
+
+    python -m pytorch_distributed_tpu_torch.examples.train_gpt2 \\
+        --device cpu --layers 2 --embd 64 --heads 4 --seq-len 64 --steps 5
+
+``main(argv)`` returns the run's metrics (per-step losses and times), so a
+caller can drive it in-process. Sharded runs (``--dp``), checkpoints
+(``--ckpt-dir``), MoE (``--moe-experts``) and the token-file corpus
+(``--data-bin``) are not ported yet and raise, naming their ROADMAP items.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--layers", type=int, default=12)
+    p.add_argument("--embd", type=int, default=768)
+    p.add_argument("--heads", type=int, default=12)
+    p.add_argument("--vocab", type=int, default=50257)
+    p.add_argument("--seq-len", type=int, default=1024)
+    p.add_argument("--global-batch", type=int, default=8)
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--weight-decay", type=float, default=0.01)
+    p.add_argument("--policy", default="bf16", choices=["fp32", "bf16"])
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each block in the backward (activation "
+                        "memory for FLOPs)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel size (not ported: ROADMAP A.4/A.11)")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="checkpoint directory (not ported: ROADMAP A.13)")
+    p.add_argument("--ckpt-every", type=int, default=50)
+    p.add_argument("--dataset-size", type=int, default=2048)
+    p.add_argument("--data-bin", default=None,
+                   help="binary token corpus (not ported: ROADMAP A.8); "
+                        "default synthetic")
+    p.add_argument("--num-workers", type=int, default=0,
+                   help="DataLoader worker processes")
+    p.add_argument("--mp-context", default="fork", choices=["fork", "spawn"],
+                   help="worker start method")
+    p.add_argument("--chunked-loss", type=int, default=0, metavar="N",
+                   help="use the vocab-chunked CE with N chunks")
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--prefetch", type=int, default=2,
+                   help="batches each loader worker prefetches")
+    p.add_argument("--moe-experts", type=int, default=0,
+                   help="routed experts per MoE block (not ported: ROADMAP "
+                        "A.14)")
+    p.add_argument("--moe-top-k", type=int, default=2)
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel size (MoE only; not ported)")
+    p.add_argument("--attn", default="flash", choices=["flash", "dense"],
+                   help="flash: the causal flash kernels; dense: the "
+                        "reference softmax attention")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card)")
+    return p.parse_args(argv)
+
+
+def _not_ported(args) -> Optional[str]:
+    if args.dp > 1:
+        return "--dp > 1 (data-parallel and FSDP strategies): ROADMAP A.4/A.11"
+    if args.ckpt_dir:
+        return "--ckpt-dir (sharded checkpoints): ROADMAP A.13"
+    if args.moe_experts or args.ep > 1:
+        return "--moe-experts/--ep (mixture of experts): ROADMAP A.14"
+    if args.data_bin:
+        return "--data-bin (the token-file dataset): ROADMAP A.8"
+    return None
+
+
+def main(argv=None) -> Dict:
+    args = parse_args(argv)
+    missing = _not_ported(args)
+    if missing:
+        raise NotImplementedError(f"not ported yet: {missing}")
+
+    from torch.utils.data import DataLoader
+
+    from pytorch_distributed_tpu_torch import resolve_device
+    from pytorch_distributed_tpu_torch.data import (
+        DistributedSampler,
+        SyntheticLMDataset,
+    )
+    from pytorch_distributed_tpu_torch.models import GPT2, GPT2Config
+    from pytorch_distributed_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+    from pytorch_distributed_tpu_torch.parallel import NoShard
+    from pytorch_distributed_tpu_torch.trainer import (
+        Trainer,
+        lm_loss,
+        make_chunked_lm_loss,
+    )
+
+    device = resolve_device(args.device)
+    on_card = device.type == "cuda"
+    cfg = GPT2Config(
+        vocab_size=args.vocab,
+        n_positions=args.seq_len,
+        n_embd=args.embd,
+        n_layer=args.layers,
+        n_head=args.heads,
+        dtype=torch.bfloat16 if (on_card and args.policy == "bf16")
+        else torch.float32,
+        remat=args.remat,
+        attn_impl=flash_attention if args.attn == "flash" else None,
+    )
+    model = GPT2(cfg, device=device, seed=args.seed)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=args.lr,
+                                  weight_decay=args.weight_decay, eps=1e-8)
+    loss_fn = (make_chunked_lm_loss(args.chunked_loss) if args.chunked_loss
+               else lm_loss)
+    trainer = Trainer(model, optimizer, NoShard(device), loss_fn=loss_fn,
+                      policy=args.policy if on_card else "fp32")
+
+    dataset = SyntheticLMDataset(args.dataset_size, seq_len=args.seq_len,
+                                 seed=args.seed)
+    dataset.vocab_size = min(args.vocab, dataset.vocab_size)
+    sampler = DistributedSampler(dataset, num_replicas=1, rank=0,
+                                 shuffle=True, seed=args.seed)
+    workers = dict(num_workers=args.num_workers)
+    if args.num_workers:
+        workers.update(prefetch_factor=args.prefetch,
+                       multiprocessing_context=args.mp_context)
+    loader = DataLoader(dataset, batch_size=args.global_batch,
+                        sampler=sampler, drop_last=True,
+                        pin_memory=on_card, **workers)
+
+    state = trainer.init()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"GPT-2: {n_params / 1e6:.1f}M params on {device} "
+          f"({cfg.dtype}, attention {args.attn})", flush=True)
+
+    losses: List[torch.Tensor] = []
+    step_s: List[float] = []
+    epoch = 0
+    while state.step < args.steps:
+        sampler.set_epoch(epoch)
+        for batch in loader:
+            if state.step >= args.steps:
+                break
+            t0 = time.perf_counter()
+            state, metrics = trainer.step(state, tuple(batch))
+            if on_card:
+                torch.cuda.synchronize(device)
+            step_s.append(time.perf_counter() - t0)
+            losses.append(metrics["loss"].detach())
+            if state.step % args.log_every == 0:
+                print(f"step {state.step} loss {float(metrics['loss']):.4f} "
+                      f"ppl {float(metrics['perplexity']):.1f}", flush=True)
+        epoch += 1
+
+    return {
+        "n_params": n_params,
+        "tokens_per_step": args.global_batch * args.seq_len,
+        "losses": [float(x) for x in losses],
+        "step_s": step_s,
+        "device": str(device),
+        "dtype": str(cfg.dtype).removeprefix("torch."),
+        "attn": args.attn,
+    }
+
+
+if __name__ == "__main__":
+    main()
+    sys.exit(0)

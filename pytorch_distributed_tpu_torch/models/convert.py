@@ -1,51 +1,103 @@
-"""Weight conversion from the JAX package's flax GPT-2 to the port's GPT2.
+"""State conversion between the JAX package's flax GPT-2 and the port's.
 
 Layout facts: a flax ``Dense`` kernel is ``[in, out]`` and a torch
 ``Linear`` weight ``[out, in]``; a flax ``LayerNorm`` has ``scale``/``bias``
 where torch has ``weight``/``bias``; the embedding tables copy as they are.
+
+Both directions are here: flax params -> ``GPT2.load_state_dict`` dict, the
+port's state dict -> a flax tree of numpy arrays (to compare trained
+parameters), and optax ``adamw`` state (``ScaleByAdamState`` count/mu/nu)
+-> ``torch.optim.AdamW`` state (``step``, ``exp_avg``, ``exp_avg_sq``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["gpt2_state_dict_from_flax"]
+__all__ = [
+    "gpt2_flax_from_state_dict",
+    "gpt2_state_dict_from_flax",
+    "load_adamw_state_from_optax",
+]
 
 
 def _t(a: Any) -> torch.Tensor:
     return torch.tensor(np.asarray(a))
 
 
-def _dense(tree) -> Dict[str, torch.Tensor]:
-    return {"weight": _t(tree["kernel"]).t().contiguous(),
-            "bias": _t(tree["bias"])}
+def _pairs(n_layer: int) -> Iterator[Tuple[Tuple[str, ...], str, bool]]:
+    """(flax path, torch name, transposed) for every GPT-2 parameter."""
+    yield ("wte",), "wte", False
+    yield ("wpe",), "wpe", False
+    yield ("ln_f", "scale"), "ln_f.weight", False
+    yield ("ln_f", "bias"), "ln_f.bias", False
+    for i in range(n_layer):
+        for ln in ("ln_1", "ln_2"):
+            yield (f"h_{i}", ln, "scale"), f"h.{i}.{ln}.weight", False
+            yield (f"h_{i}", ln, "bias"), f"h.{i}.{ln}.bias", False
+        for mod, lin in (("attn", "c_attn"), ("attn", "c_proj"),
+                         ("mlp", "c_fc"), ("mlp", "c_proj")):
+            yield (f"h_{i}", mod, lin, "kernel"), f"h.{i}.{mod}.{lin}.weight", True
+            yield (f"h_{i}", mod, lin, "bias"), f"h.{i}.{mod}.{lin}.bias", False
 
 
-def _norm(tree) -> Dict[str, torch.Tensor]:
-    return {"weight": _t(tree["scale"]), "bias": _t(tree["bias"])}
+def _get(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _n_layer_flax(params) -> int:
+    return sum(1 for k in params if k.startswith("h_"))
 
 
 def gpt2_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
     """The flax param tree (``variables["params"]``, numpy or jax leaves,
     paths ``h_<i>/attn/c_attn/kernel`` ...) as a ``GPT2.load_state_dict``
-    dict."""
-    sd = {"wte": _t(params["wte"]), "wpe": _t(params["wpe"])}
-    groups = {"ln_f": _norm(params["ln_f"])}
-    n_layer = sum(1 for k in params if k.startswith("h_"))
-    for i in range(n_layer):
-        blk = params[f"h_{i}"]
-        groups.update({
-            f"h.{i}.ln_1": _norm(blk["ln_1"]),
-            f"h.{i}.ln_2": _norm(blk["ln_2"]),
-            f"h.{i}.attn.c_attn": _dense(blk["attn"]["c_attn"]),
-            f"h.{i}.attn.c_proj": _dense(blk["attn"]["c_proj"]),
-            f"h.{i}.mlp.c_fc": _dense(blk["mlp"]["c_fc"]),
-            f"h.{i}.mlp.c_proj": _dense(blk["mlp"]["c_proj"]),
-        })
-    for prefix, tensors in groups.items():
-        for name, t in tensors.items():
-            sd[f"{prefix}.{name}"] = t
+    dict. Also maps any tree of the same structure (optax's mu/nu)."""
+    sd = {}
+    for path, name, transposed in _pairs(_n_layer_flax(params)):
+        t = _t(_get(params, path))
+        sd[name] = t.t().contiguous() if transposed else t
     return sd
+
+
+def gpt2_flax_from_state_dict(state_dict) -> Dict[str, Any]:
+    """The port's ``GPT2.state_dict()`` as a flax param tree of numpy
+    arrays (the inverse of :func:`gpt2_state_dict_from_flax`)."""
+    n_layer = len({k.split(".")[1] for k in state_dict if k.startswith("h.")})
+    tree: Dict[str, Any] = {}
+    for path, name, transposed in _pairs(n_layer):
+        a = state_dict[name].detach().cpu().float().numpy()
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(a.T) if transposed else a
+    return tree
+
+
+def load_adamw_state_from_optax(optimizer: torch.optim.Optimizer,
+                                model: torch.nn.Module, count, mu, nu) -> None:
+    """Set ``optimizer``'s ``torch.optim.AdamW`` state for ``model``'s
+    parameters from optax adamw state (``ScaleByAdamState``: ``count`` and
+    the ``mu``/``nu`` trees, numpy). optax's first and second moments are
+    torch's ``exp_avg`` and ``exp_avg_sq``, its ``count`` torch's ``step``.
+    Tensors go to each parameter's device (``step`` to the CPU unless the
+    group is ``capturable`` or ``fused``, as torch keeps it)."""
+    mu_sd = gpt2_state_dict_from_flax(mu)
+    nu_sd = gpt2_state_dict_from_flax(nu)
+    step = float(np.asarray(count))
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    for group in optimizer.param_groups:
+        on_device = group.get("capturable") or group.get("fused")
+        for p in group["params"]:
+            name = name_of[id(p)]
+            optimizer.state[p] = {
+                "step": torch.tensor(step, dtype=torch.float32,
+                                     device=p.device if on_device else "cpu"),
+                "exp_avg": mu_sd[name].to(p.device, p.dtype),
+                "exp_avg_sq": nu_sd[name].to(p.device, p.dtype),
+            }

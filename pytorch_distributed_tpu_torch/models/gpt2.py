@@ -1,4 +1,4 @@
-"""GPT-2 language model in PyTorch, with the serving (KV-cached) forward.
+"""GPT-2 language model in PyTorch: the training and the serving forward.
 
 Port of ``pytorch_distributed_tpu/models/gpt2.py`` (dense GPT-2 only):
 learned positional embeddings, pre-LN blocks, GELU(tanh), causal
@@ -9,6 +9,12 @@ statistics are taken in fp32.
 
 Parameter names mirror the flax paths (``h.<i>.attn.c_attn`` for
 ``h_<i>/attn/c_attn``), so ``models.convert`` maps one onto the other.
+
+The training forward calls ``cfg.attn_impl`` (``f(q, k, v, causal) ->
+out`` over ``[B, T, H, D]``; ``None`` means ``default_attention``), so
+``ops.flash_attention`` -- the CUDA causal kernels on the card -- plugs in
+without touching the module tree. ``remat=True`` recomputes each block in
+the backward (``torch.utils.checkpoint``, full per-block remat).
 
 The cached forward (``kv_cache=...``) updates the cache in place. On the
 paged cache, a one-token step (decode) scatters the new K/V through the
@@ -21,10 +27,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from pytorch_distributed_tpu_torch._device import resolve_device
@@ -45,12 +52,44 @@ class GPT2Config:
     n_embd: int = 768
     n_layer: int = 12
     n_head: int = 12
+    dropout: float = 0.0
     layer_norm_eps: float = 1e-5
     dtype: torch.dtype = torch.float32
     param_dtype: torch.dtype = torch.float32
+    # full per-block activation recomputation in the backward
+    remat: bool = False
+    # selective recomputation policy (a jax.checkpoint_policies name in the
+    # JAX package); needs remat=True
+    remat_policy: Optional[str] = None
+    moe_experts: int = 0          # 0 = dense model
+    # pluggable attention: f(q, k, v, causal) -> out, shapes [B, T, H, D]
+    attn_impl: Optional[Callable] = None
     # LM-head inputs in fp32 (the default), or in the compute dtype with
     # fp32 accumulation and output
     head_in_fp32: bool = True
+
+
+def _check_config(cfg: GPT2Config) -> None:
+    if cfg.n_embd % cfg.n_head:
+        raise ValueError(
+            f"n_embd {cfg.n_embd} does not split into {cfg.n_head} heads"
+        )
+    if cfg.remat_policy is not None and not cfg.remat:
+        raise ValueError(
+            "remat_policy set but remat=False -- the policy only selects "
+            "WHAT the recomputation saves; enable remat=True"
+        )
+    if cfg.remat_policy is not None:
+        raise NotImplementedError(
+            "selective remat policies are not ported yet (ROADMAP A.9); "
+            "remat=True recomputes whole blocks"
+        )
+    if cfg.dropout > 0:
+        raise NotImplementedError("dropout is not ported yet (ROADMAP A.9)")
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "mixture-of-experts blocks are not ported yet (ROADMAP A.14)"
+        )
 
 
 def default_attention(q, k, v, *, causal: bool = True):
@@ -92,7 +131,8 @@ class SelfAttention(nn.Module):
         k = k.view(B, T, H, D)
         v = v.view(B, T, H, D)
         if layer_cache is None:
-            y = default_attention(q, k, v, causal=True)
+            attn = cfg.attn_impl or default_attention
+            y = attn(q, k, v, causal=True)
         elif len(layer_cache) == 3:
             k_pages, v_pages, tables = layer_cache
             if T == 1:
@@ -143,6 +183,11 @@ class Block(nn.Module):
 class GPT2(nn.Module):
     """GPT-2 LM. ``forward(tokens [B, T]) -> logits [B, T, V]`` (fp32).
 
+    ``return_hidden=True`` returns the post-``ln_f`` hidden states
+    ``[B, T, C]`` instead of logits: the chunked cross-entropy loss
+    (``trainer.make_chunked_lm_loss``) applies the tied ``wte`` head itself,
+    so the fp32 ``[B, T, V]`` logits never materialize.
+
     ``kv_cache`` (a ``serving.KVCache`` or ``serving.paging.PagedKVCache``)
     switches on the serving forward: positions come from
     ``position_offset`` (``[B]`` int32, the current length of each
@@ -157,6 +202,7 @@ class GPT2(nn.Module):
 
     def __init__(self, cfg: GPT2Config, *, device=None, seed: int = 0):
         super().__init__()
+        _check_config(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         kw = dict(dtype=cfg.param_dtype, device=device)
@@ -194,8 +240,8 @@ class GPT2(nn.Module):
         w = self.wte if self.cfg.head_in_fp32 else self.wte.to(self.cfg.dtype)
         return torch.matmul(x.float(), w.float().t())
 
-    def forward(self, tokens, *, kv_cache=None, position_offset=None,
-                n_layers=None):
+    def forward(self, tokens, *, return_hidden: bool = False, kv_cache=None,
+                position_offset=None, n_layers=None):
         if n_layers is not None:
             raise NotImplementedError(
                 "n_layers (the self-drafting draft forward) comes with "
@@ -211,8 +257,15 @@ class GPT2(nn.Module):
             )
         x = self.wte[tokens.long()].to(cfg.dtype) + self.wpe[:T].to(cfg.dtype)
         for block in self.h:
-            x = block(x)
-        return self._head(_layer_norm(x, self.ln_f, cfg))
+            if cfg.remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(block, x,
+                                                      use_reentrant=False)
+            else:
+                x = block(x)
+        x = _layer_norm(x, self.ln_f, cfg)
+        if return_hidden:
+            return x
+        return self._head(x)
 
     def _cached_forward(self, tokens, kv_cache, position_offset
                         ) -> Tuple[torch.Tensor, object]:

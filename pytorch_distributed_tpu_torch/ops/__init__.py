@@ -1,12 +1,23 @@
-"""Attention ops of the port: plain torch ops and the CUDA decode kernel.
+"""Ops of the port: plain torch ops and the CUDA kernels (paged decode,
+causal flash attention forward and backward).
 
 Exports are lazy (PEP 562), as in the JAX package's ``ops``: importing this
 package loads no op module, and no kernel is built until a CUDA tensor
 reaches its wrapper, so the package imports on a machine without ``nvcc``.
 """
 
+_FLASH = "pytorch_distributed_tpu_torch.ops.flash_attention"
 _LAZY = {
     "cached_attention": "pytorch_distributed_tpu_torch.ops.decode_attention",
+    "chunked_cross_entropy": "pytorch_distributed_tpu_torch.ops.chunked_xent",
+    "flash_attention": _FLASH,
+    "flash_attention_with_lse": _FLASH,
+    "flash_causal_dkv": _FLASH,
+    "flash_causal_dkv_reference": _FLASH,
+    "flash_causal_dq": _FLASH,
+    "flash_causal_dq_reference": _FLASH,
+    "flash_causal_fwd": _FLASH,
+    "flash_causal_fwd_reference": _FLASH,
     "paged_cached_attention": "pytorch_distributed_tpu_torch.ops.paged_attention",
     "paged_decode_attention": "pytorch_distributed_tpu_torch.ops.paged_attention",
     "paged_decode_attention_reference":

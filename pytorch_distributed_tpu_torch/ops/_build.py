@@ -18,7 +18,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["load"]
+__all__ = ["load", "load_all"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / "ops" / "csrc"
@@ -47,32 +47,53 @@ def _nvcc() -> str:
     )
 
 
-def _build(name: str) -> Path:
+def _target(name: str):
     src = _SRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    lib = _BUILD_DIR / f"lib{name}-{digest}.so"
-    if lib.is_file():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a private name, then rename: a process building at the
-    # same time never loads a half-written library
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"building {src.name} failed (nvcc exit {proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    return lib
+    return src, _BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _build_all(names) -> None:
+    """Build every missing library, one ``nvcc`` per source, all started
+    together."""
+    running = []
+    for name in names:
+        src, lib = _target(name)
+        if lib.is_file():
+            continue
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # build under a private name, then rename: a process building at
+        # the same time never loads a half-written library
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((src, lib, tmp, proc))
+    failures = []
+    for src, lib, tmp, proc in running:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"building {src.name} failed (nvcc exit "
+                            f"{proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, lib)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
+def load_all(names) -> dict:
+    """The shared libraries built from ``csrc/<name>.cu`` for each name
+    (the missing ones built in parallel)."""
+    with _lock:
+        missing = [n for n in names if n not in _loaded]
+        _build_all(missing)
+        for name in missing:
+            _loaded[name] = ctypes.CDLL(str(_target(name)[1]))
+        return {n: _loaded[n] for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<name>.cu`` (built if needed)."""
-    with _lock:
-        if name not in _loaded:
-            _loaded[name] = ctypes.CDLL(str(_build(name)))
-        return _loaded[name]
+    return load_all([name])[name]

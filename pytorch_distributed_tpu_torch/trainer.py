@@ -1,0 +1,325 @@
+"""Trainer: the training step of the port.
+
+Port of ``pytorch_distributed_tpu/trainer.py`` for one device (``NoShard``).
+The JAX step is one jitted program over an immutable state; here the model
+holds the parameters and the optimizer its state, and ``step`` updates both
+in place. The step keeps the JAX step's order:
+
+  1. the policy casts the batch's floating tensors to the compute dtype;
+  2. microbatch accumulation: the grads of ``grad_accum_steps`` equal
+     slices of the batch are summed and divided by their count (the mean);
+  3. with a loss scaler: unscale, and an all-finite check over every grad;
+  4. global-norm clipping, ``grads * min(1, clip / (norm + 1e-6))``;
+  5. the optimizer step (``torch.optim.AdamW``: the same update as
+     ``optax.adamw``);
+  6. skip-on-inf: where the step was not finite, the old parameters and
+     optimizer state are kept (a device-side ``torch.where``; nothing is
+     read back to the host inside the step).
+
+Metrics are 0-d tensors on the device: ``loss``, ``grad_norm``,
+``all_finite``, the loss function's own (``perplexity`` for the LM losses)
+and, with a scaler, ``loss_scale``.
+
+A loss function is ``loss_fn(model, batch, train) -> (loss, metrics)``.
+
+Typical use::
+
+    model = GPT2(cfg, device="cuda")
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
+                            eps=1e-8)
+    trainer = Trainer(model, opt, NoShard(), loss_fn=lm_loss, policy="bf16")
+    state = trainer.init()
+    state, metrics = trainer.step(state, (tokens, targets))
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from pytorch_distributed_tpu_torch.amp import GradScaler, Policy, get_policy
+from pytorch_distributed_tpu_torch.ops.chunked_xent import chunked_cross_entropy
+from pytorch_distributed_tpu_torch.parallel import ShardingStrategy, TrainState
+
+__all__ = [
+    "Trainer",
+    "classification_loss",
+    "lm_loss",
+    "lm_loss_chunked",
+    "make_chunked_lm_loss",
+]
+
+
+# -- built-in task losses --------------------------------------------------
+# signature: loss_fn(model, batch, train) -> (loss, metrics)
+
+def classification_loss(model, batch, train: bool):
+    """Softmax cross-entropy on ``(inputs, labels)``. An optional third
+    batch element is a per-example validity mask (0/1): padded examples
+    contribute nothing, and the mean divides by the real example count."""
+    if len(batch) == 3:
+        x, y, mask = batch
+        mask = mask.float()
+    else:
+        x, y = batch
+        mask = None
+    logits = model(x).float()
+    per_ex = F.cross_entropy(logits, y.long(), reduction="none")
+    hit = (logits.argmax(-1) == y).float()
+    if mask is None:
+        return per_ex.mean(), {"accuracy": hit.mean()}
+    n = torch.clamp(mask.sum(), min=1.0)
+    return (per_ex * mask).sum() / n, {"accuracy": (hit * mask).sum() / n}
+
+
+def _reduce_lm_loss(per_tok, mask):
+    """Shared tail of the LM losses: mask-aware mean and perplexity. A
+    ``[B]`` mask weighs whole sequences, a ``[B, T]`` mask single tokens."""
+    if mask is None:
+        loss = per_tok.mean()
+    else:
+        if mask.dim() == 1:
+            mask = mask[:, None] * torch.ones_like(per_tok)
+        n = torch.clamp(mask.sum(), min=1.0)
+        loss = (per_tok * mask).sum() / n
+    return loss, {"perplexity": torch.exp(loss)}
+
+
+def _lm_batch(batch):
+    if len(batch) == 3:
+        tokens, targets, mask = batch
+        return tokens, targets, mask.float()
+    tokens, targets = batch
+    return tokens, targets, None
+
+
+def lm_loss(model, batch, train: bool):
+    """Next-token cross-entropy on ``(tokens, targets)`` over fp32 logits.
+    Optional third element: per-example or per-token validity mask."""
+    tokens, targets, mask = _lm_batch(batch)
+    logits = model(tokens).float()
+    B, T, V = logits.shape
+    per_tok = F.cross_entropy(logits.reshape(B * T, V),
+                              targets.reshape(-1).long(),
+                              reduction="none").reshape(B, T)
+    return _reduce_lm_loss(per_tok, mask)
+
+
+def make_chunked_lm_loss(n_chunks: int = 8) -> Callable:
+    """LM loss through :func:`ops.chunked_xent.chunked_cross_entropy`: the
+    fp32 ``[B, T, V]`` logits never materialize. The model must support
+    ``return_hidden=True`` and tie its head to ``wte``; the head runs on the
+    hidden states' dtype with fp32 accumulation."""
+
+    def lm_loss_chunked(model, batch, train: bool):
+        tokens, targets, mask = _lm_batch(batch)
+        hidden = model(tokens, return_hidden=True)
+        B, T, C = hidden.shape
+        W = model.wte.to(hidden.dtype)
+        per_tok = chunked_cross_entropy(
+            hidden.reshape(B * T, C), W, targets.reshape(-1), n_chunks
+        ).reshape(B, T)
+        return _reduce_lm_loss(per_tok, mask)
+
+    return lm_loss_chunked
+
+
+#: default chunked LM loss (8 vocab chunks)
+lm_loss_chunked = make_chunked_lm_loss()
+
+
+def _init_adam_state(optimizer: torch.optim.Optimizer) -> None:
+    """Create Adam/AdamW state now, as ``optax`` ``init`` does, instead of
+    at the first step: the skip-on-inf select then has an old state to keep
+    on step 1, and converted state can be loaded before any step. Layout as
+    torch's own lazy init (``step`` on the CPU unless the group is
+    ``capturable`` or ``fused``)."""
+    if not isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+        return
+    for group in optimizer.param_groups:
+        on_device = group.get("capturable") or group.get("fused")
+        for p in group["params"]:
+            state = optimizer.state[p]
+            if state:
+                continue
+            state["step"] = torch.zeros((), dtype=torch.float32,
+                                        device=p.device if on_device else "cpu")
+            state["exp_avg"] = torch.zeros_like(p)
+            state["exp_avg_sq"] = torch.zeros_like(p)
+            if group.get("amsgrad"):
+                state["max_exp_avg_sq"] = torch.zeros_like(p)
+
+
+def _microbatches(batch, accum: int) -> List:
+    if accum == 1:
+        return [batch]
+    n = batch[0].shape[0]
+    if n % accum:
+        raise ValueError(
+            f"batch of {n} does not split into {accum} equal microbatches"
+        )
+    return [tuple(x.reshape(accum, n // accum, *x.shape[1:])[i]
+                  for x in batch) for i in range(accum)]
+
+
+class Trainer:
+    """Builds and runs the train/eval step for a placement strategy.
+
+    Args:
+      model: ``torch.nn.Module``, its parameters on the strategy's device.
+      optimizer: a ``torch.optim`` optimizer over ``model``'s parameters.
+      strategy: placement (``NoShard``: the single card).
+      loss_fn: ``(model, batch, train) -> (loss, metrics)``; see
+        ``classification_loss`` / ``lm_loss`` / ``make_chunked_lm_loss``.
+      policy: 'fp32' | 'bf16' | 'fp16' | Policy -- batch cast and scaler
+        gating. (The model's compute dtype is its own ``cfg.dtype``.)
+      grad_accum_steps: microbatch count; the batch must divide by it.
+      scaler: GradScaler for fp16 (defaults to enabled iff policy is fp16).
+      clip_norm: global-norm gradient clipping threshold.
+      comm_hook: not ported (ROADMAP A.14); must be None.
+    """
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        optimizer: torch.optim.Optimizer,
+        strategy: ShardingStrategy,
+        *,
+        loss_fn: Callable = classification_loss,
+        policy="fp32",
+        grad_accum_steps: int = 1,
+        scaler: Optional[GradScaler] = None,
+        clip_norm: Optional[float] = None,
+        comm_hook=None,
+    ):
+        if comm_hook is not None:
+            raise NotImplementedError(
+                "gradient communication hooks (bf16/fp16 compression, "
+                "PowerSGD) are not ported yet: ROADMAP A.14"
+            )
+        self.model = model
+        self.optimizer = optimizer
+        self.strategy = strategy
+        self.loss_fn = loss_fn
+        self.policy: Policy = get_policy(policy)
+        self.grad_accum_steps = int(grad_accum_steps)
+        if scaler is None and self.policy.needs_loss_scaling:
+            scaler = GradScaler()
+        self.scaler = scaler
+        self.clip_norm = clip_norm
+        self._params = [p for p in model.parameters() if p.requires_grad]
+
+    @property
+    def _scaling(self) -> bool:
+        return self.scaler is not None and self.scaler.enabled
+
+    # -- init --------------------------------------------------------------
+    def init(self) -> TrainState:
+        """The train state at step 0; creates the optimizer state."""
+        dev = self.strategy.device
+        for name, p in self.model.named_parameters():
+            if p.device != dev:
+                raise ValueError(
+                    f"parameter {name} is on {p.device}, the strategy places "
+                    f"on {dev}"
+                )
+        if self._scaling and dev.type == "cuda":
+            # the skip-on-inf select covers Adam's step count too, so it
+            # must live on the card beside the all-finite flag
+            for group in self.optimizer.param_groups:
+                group["capturable"] = True
+        _init_adam_state(self.optimizer)
+        return TrainState(
+            step=0,
+            scaler=self.scaler.init(dev) if self.scaler else None,
+        )
+
+    # -- the step ----------------------------------------------------------
+    def step(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        """One optimizer step. ``batch`` is a tuple of numpy arrays or
+        tensors (placed on the strategy's device)."""
+        model, params = self.model, self._params
+        model.train(True)
+        batch = self.policy.cast_to_compute(self.strategy.place_batch(batch))
+        scaling = self._scaling
+        for p in params:
+            p.grad = None
+
+        losses, per_mb = [], []
+        for mb in _microbatches(batch, self.grad_accum_steps):
+            loss, metrics = self.loss_fn(model, mb, True)
+            (self.scaler.scale(loss, state.scaler) if scaling
+             else loss).backward()
+            losses.append(loss.detach())
+            per_mb.append({k: v.detach() for k, v in metrics.items()})
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        accum = len(losses)
+        if accum > 1:
+            grads = [g / accum for g in grads]
+        loss = torch.stack(losses).mean()
+        metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
+                   for k in per_mb[0]}
+
+        if scaling:
+            grads, all_finite = self.scaler.unscale(grads, state.scaler)
+            new_scaler = self.scaler.update(state.scaler, all_finite)
+        else:
+            all_finite = torch.ones((), dtype=torch.bool, device=loss.device)
+            new_scaler = state.scaler
+
+        grad_norm = torch.sqrt(sum((g.float() * g.float()).sum()
+                                   for g in grads))
+        if self.clip_norm is not None:
+            factor = torch.clamp(self.clip_norm / (grad_norm + 1e-6), max=1.0)
+            grads = [g * factor for g in grads]
+        for p, g in zip(params, grads):
+            p.grad = g.to(p.dtype)
+
+        if scaling:
+            self._step_or_keep(all_finite)
+        else:
+            self.optimizer.step()
+
+        out_metrics = {"loss": loss, "grad_norm": grad_norm,
+                       "all_finite": all_finite, **metrics}
+        if scaling:
+            out_metrics["loss_scale"] = state.scaler.scale
+        return state.replace(step=state.step + 1, scaler=new_scaler), out_metrics
+
+    @torch.no_grad()
+    def _step_or_keep(self, all_finite: torch.Tensor) -> None:
+        """Optimizer step, then keep the old params and optimizer state
+        wherever ``all_finite`` is False."""
+        opt = self.optimizer
+        old_params = [p.detach().clone() for p in self._params]
+        old_state = {p: {k: v.clone() for k, v in opt.state[p].items()
+                         if isinstance(v, torch.Tensor)}
+                     for p in self._params}
+        opt.step()
+        for p, old in zip(self._params, old_params):
+            p.copy_(torch.where(all_finite, p, old))
+        for p, saved in old_state.items():
+            st = opt.state[p]
+            for k, old in saved.items():
+                st[k].copy_(torch.where(all_finite.to(old.device), st[k], old))
+
+    def run(self, state: TrainState, batches, **kwargs):
+        raise NotImplementedError(
+            "Trainer.run (the pipelined AsyncRunner executor) is not ported "
+            "yet: ROADMAP A.6; call Trainer.step in a loop"
+        )
+
+    # -- eval --------------------------------------------------------------
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch) -> Dict:
+        self.model.train(False)
+        try:
+            batch = self.policy.cast_to_compute(
+                self.strategy.place_batch(batch))
+            loss, metrics = self.loss_fn(self.model, batch, False)
+        finally:
+            self.model.train(True)
+        return {"loss": loss, **metrics}
