@@ -6,8 +6,9 @@ Run from the repository root on a machine with one NVIDIA H100::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout (one
-``nvcc`` per source, all at once) and drives both main paths of the port,
-serving and training, printing one JSON line per phase:
+``nvcc`` per source, all at once) and drives the main paths of the port,
+serving, training and context-parallel training, printing one JSON line
+per phase:
 
   device        the card (``nvidia-smi`` name and power limit), library
                 versions and the kernel build time;
@@ -16,7 +17,12 @@ serving and training, printing one JSON line per phase:
                 plain version's time, the least time the card could take
                 (bound) and one PyTorch library call's time for comparison
                 (B7 paged decode; B1-B3 causal flash forward, dq, dk/dv,
-                with a ragged T checked too);
+                with a ragged T checked too; B4-B6 position-masked flash
+                forward, dq, dk/dv on every position pattern a ring hop
+                gives them);
+  cp_hops       the ring's own hop functions for 4 ranks emulated on the
+                card (plain and zigzag ring, T=4096): merged outputs and
+                gradients against B1-B3 on the whole sequence;
   parity        GPT-2 125M at full width, fp32, paged cache: the engine's
                 greedy tokens equal the argmax of the port's own uncached
                 forward, and every decode step of every layer launched B7;
@@ -34,7 +40,16 @@ serving and training, printing one JSON line per phase:
                 flash attention), 3 warm-up and 20 timed steps; then 10 steps
                 on one fixed batch, whose loss must fall;
   train_profile torch.profiler over 3 training steps: device busy share, top
-                kernels, and B1-B3's share of the busy time.
+                kernels, and B1-B3's share of the busy time;
+  train_cp_parity  the same model, batches and limits as train_parity, with
+                ring flash attention (B4-B6) under ``CPStrategy`` on a
+                one-rank NCCL group (one card: cp = 1) against
+                train_parity's dense run;
+  train_cp      context-parallel training's main path: GPT-2 125M, bf16,
+                B=8, T=1024, ring flash attention under ``CPStrategy``, 3
+                warm-up and 20 timed steps; then 10 steps on one fixed batch,
+                whose loss must fall;
+  train_cp_profile  as train_profile, for train_cp's steps and B4-B6.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -45,6 +60,7 @@ from __future__ import annotations
 
 import importlib
 import json
+import socket
 import statistics
 import subprocess
 import sys
@@ -56,11 +72,19 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from pytorch_distributed_tpu_torch import distributed as pdist
 from pytorch_distributed_tpu_torch.examples import train_gpt2
+from pytorch_distributed_tpu_torch.mesh import init_device_mesh
 from pytorch_distributed_tpu_torch.models import GPT2Config, gpt2_125m
 from pytorch_distributed_tpu_torch.ops import _build
 from pytorch_distributed_tpu_torch.ops import paged_attention as pa
-from pytorch_distributed_tpu_torch.parallel import NoShard
+from pytorch_distributed_tpu_torch.parallel import (
+    CPStrategy,
+    NoShard,
+    make_ring_attention,
+    zigzag_reorder,
+    zigzag_restore,
+)
 from pytorch_distributed_tpu_torch.serving import (
     InferenceEngine,
     Request,
@@ -68,8 +92,10 @@ from pytorch_distributed_tpu_torch.serving import (
 )
 from pytorch_distributed_tpu_torch.trainer import Trainer, lm_loss
 
-# the module (the package attribute of the same name is the function)
+# the modules (the package attributes of the same names are functions)
 fa = importlib.import_module("pytorch_distributed_tpu_torch.ops.flash_attention")
+cp = importlib.import_module(
+    "pytorch_distributed_tpu_torch.parallel.context_parallel")
 
 # Published dense peaks (NVIDIA data sheets), used for the bounds, keyed by
 # a substring of torch.cuda.get_device_name: bf16 tensor-core FLOP/s, fp32
@@ -94,6 +120,19 @@ FLASH_KERNELS = (  # (name, counter key, replaced TPU kernel)
     ("flash_causal_dkv", "dkv",
      "pytorch_distributed_tpu/ops/flash_attention.py:334"),
 )
+MASKED_SOURCE = "pytorch_distributed_tpu_torch/ops/csrc/flash_attention_masked.cu"
+MASKED_KERNELS = (
+    ("flash_masked_fwd", "mfwd",
+     "pytorch_distributed_tpu/ops/flash_attention.py:73"),
+    ("flash_masked_dq", "mdq",
+     "pytorch_distributed_tpu/ops/flash_attention.py:525"),
+    ("flash_masked_dkv", "mdkv",
+     "pytorch_distributed_tpu/ops/flash_attention.py:575"),
+)
+CAUSAL_KEYS = tuple(key for _, key, _ in FLASH_KERNELS)
+MASKED_KEYS = tuple(key for _, key, _ in MASKED_KERNELS)
+LIBRARIES = ("paged_decode_attention", "flash_attention_causal",
+             "flash_attention_masked")
 # kernel vs plain version, |a - b| <= tol * (1 + |b|): fp32 sums in another
 # order; bf16 outputs rounded once from fp32 (one bf16 ulp is 2**-8 of the
 # value) and p rounded to bf16 before PV in both
@@ -475,6 +514,330 @@ def flash_kernel_phase():
     return results
 
 
+def _zigzag_positions(owner, n, T):
+    """Global positions of rank ``owner``'s chunk of a zigzag ring."""
+    half = T // 2
+    idx = torch.arange(half)
+    return torch.cat([owner * half + idx, (2 * n - 1 - owner) * half + idx])
+
+
+def _masked_check(q, k, v, do, q_pos, kv_pos, tol, out_dtype=None):
+    """B4-B6 each against its plain version on one position pattern; the
+    backward kernels take the plain forward's lse and delta, so each kernel
+    is held on its own. Returns the max abs error per kernel and the
+    kernels' own results."""
+    pos = (q_pos, kv_pos)
+    out, lse = fa.flash_masked_fwd(q, k, v, *pos, out_dtype=out_dtype)
+    ref_out, ref_lse = fa.flash_masked_fwd_reference(q, k, v, *pos,
+                                                     out_dtype=out_dtype)
+    delta = fa.attention_delta(do, ref_out)
+    args = (q, k, v, do, ref_lse, delta, *pos)
+    dq, (dk, dv) = fa.flash_masked_dq(*args), fa.flash_masked_dkv(*args)
+    pairs = {
+        "mfwd": [(out, ref_out), (lse, ref_lse)],
+        "mdq": [(dq, fa.flash_masked_dq_reference(*args))],
+        "mdkv": list(zip((dk, dv), fa.flash_masked_dkv_reference(*args))),
+    }
+    torch.cuda.synchronize()
+    errs = {}
+    for key, items in pairs.items():
+        errs[key] = 0.0
+        for a, b in items:
+            a, b = a.float(), b.float()
+            err = (a - b).abs()
+            check(bool((err <= tol * (1 + b.abs())).all()),
+                  f"masked flash {key} kernel vs plain version ({q.dtype}, "
+                  f"Tq={q.shape[1]}, Tk={k.shape[1]}): max_abs_err "
+                  f"{err.max().item()}")
+            errs[key] = max(errs[key], err.max().item())
+    return errs, (out, lse, dq, dk, dv)
+
+
+def masked_kernel_phase():
+    """B4-B6 on every position pattern a ring hop gives them, in fp32 and
+    bf16, on strided q/k/v views of a fused projection (B=8, T=1024, H=12,
+    D=64): the diagonal hop, an all-visible past hop, an all-future hop
+    (exact zeros, lse -1e30), hop 1 of rank 1 of a 4-rank zigzag ring, no
+    positions, a rectangular hop (Tq=256, Tk=1024), a ragged T=1000 with
+    zigzag positions (B=2; each tile pair straddling the jump between the
+    two runs) and, in bf16, fp32 partial outputs. Times are taken on the
+    diagonal hop (the one train_cp runs): CUDA-event medians with the L2
+    flushed; the library call is ``F.scaled_dot_product_attention`` with the
+    boolean mask built from the positions."""
+    B, T, H, D = 8, 1024, 12, 64
+    g = torch.Generator().manual_seed(9)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    bf16_peak, fp32_peak, hbm = peaks()
+    ar = torch.arange(T)
+    patterns = {  # name: (Tq, Tk, B, q_pos, kv_pos, out_dtype)
+        "diagonal": (T, T, B, ar, ar, None),
+        "past": (T, T, B, T + ar, ar, None),
+        "future": (T, T, B, ar, T + ar, None),
+        "zigzag_rank1_hop1": (T, T, B, _zigzag_positions(1, 4, T),
+                              _zigzag_positions(0, 4, T), None),
+        "no_positions": (T, T, B, None, None, None),
+        "rectangular": (256, T, B, 768 + torch.arange(256), ar, None),
+        "ragged_T1000_zigzag": (1000, 1000, 2, _zigzag_positions(1, 4, 1000),
+                                _zigzag_positions(1, 4, 1000), None),
+        "fp32_out": (T, T, B, ar, ar, torch.float32),
+    }
+    results, pattern_errs = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        tol = FLASH_TOLERANCE[name]
+        pattern_errs[name] = {}
+        for pname, (Tq, Tk, Bp, qp, kp, od) in patterns.items():
+            if od is not None and dtype == torch.float32:
+                continue   # fp32 out from fp32 inputs is the plain case
+            qkv = torch.randn(Bp, Tq, 3 * H * D, generator=g).to(dtype).cuda()
+            q = qkv[..., :H * D].view(Bp, Tq, H, D)
+            kv = (qkv if Tk == Tq else torch.randn(
+                Bp, Tk, 3 * H * D, generator=g).to(dtype).cuda())
+            k, v = (kv[..., i * H * D:(i + 1) * H * D].view(Bp, Tk, H, D)
+                    for i in (1, 2))
+            do = torch.randn(Bp, Tq, H, D, generator=g).to(dtype).cuda()
+            pos = [None if p is None else p.cuda() for p in (qp, kp)]
+            errs, got = _masked_check(q, k, v, do, *pos, tol, od)
+            pattern_errs[name][pname] = errs
+            if pname == "future":
+                check(all(not bool(x.any()) for x in (got[0], *got[2:]))
+                      and bool((got[1] == -1e30).all()),
+                      "all-future hop: out and gradients not exactly 0 or "
+                      "lse not -1e30")
+            if pname != "diagonal":
+                continue
+            ref_lse = fa.flash_masked_fwd_reference(q, k, v, *pos)[1]
+            delta = fa.attention_delta(do, got[0])
+            args = (q, k, v, do, ref_lse, delta, *pos)
+            # library yardstick: SDPA with the boolean mask of the positions
+            # on [B, H, T, D] copies made beforehand; its autograd backward
+            # computes dq, dk and dv together
+            mask = pos[0][:, None] >= pos[1][None, :]
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                          for x in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+            def lib_fwd():
+                with torch.no_grad():
+                    F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+            def lib_bwd():
+                torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                    retain_graph=True)
+
+            library = {"fwd": time_ms(lib_fwd, 50, flush),
+                       "bwd": time_ms(lib_bwd, 50, flush)}
+            n_vis = Bp * H * int(mask.sum())   # visible (query, key) pairs
+            elt, n = q.element_size(), Bp * T * H * D
+            stats, n_pos = Bp * H * T * 4, 2 * T * 4
+            work = {  # bytes (inputs once, outputs once), flops
+                "mfwd": (4 * n * elt + stats + n_pos, 4 * D * n_vis),
+                "mdq": (5 * n * elt + 2 * stats + n_pos, 6 * D * n_vis),
+                "mdkv": (6 * n * elt + 2 * stats + n_pos, 8 * D * n_vis),
+            }
+            calls = {
+                "mfwd": (lambda: fa.flash_masked_fwd(q, k, v, *pos),
+                         lambda: fa.flash_masked_fwd_reference(q, k, v, *pos)),
+                "mdq": (lambda: fa.flash_masked_dq(*args),
+                        lambda: fa.flash_masked_dq_reference(*args)),
+                "mdkv": (lambda: fa.flash_masked_dkv(*args),
+                         lambda: fa.flash_masked_dkv_reference(*args)),
+            }
+            peak = bf16_peak if dtype == torch.bfloat16 else fp32_peak
+            per = {}
+            for key, (kernel, plain) in calls.items():
+                n_bytes, n_flops = work[key]
+                t_bytes = n_bytes / hbm * 1e3
+                t_ops = n_flops / peak * 1e3
+                per[key] = {
+                    "max_abs_err": errs[key],
+                    "tolerance": tol,
+                    "ms": time_ms(kernel, 20, flush),
+                    "plain_ms": time_ms(plain, 3, flush),
+                    "library_ms": library["fwd" if key == "mfwd" else "bwd"],
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "bytes": n_bytes,
+                    "flops": n_flops,
+                }
+            results[name] = per
+            del qt, kt, vt, lib_out
+    emit({"phase": "kernels",
+          "kernel": "flash_masked (B4 fwd, B5 dq, B6 dkv)",
+          "shape": {"B": B, "T": T, "H": H, "D": D,
+                    "layout": "q/k/v strided views of a fused [B, T, 3*H*D]"},
+          "timed_pattern": "diagonal",
+          "max_abs_err_by_pattern": pattern_errs,
+          "tolerance": "|kernel - plain| <= tol * (1 + |plain|)",
+          "library_call": "F.scaled_dot_product_attention(attn_mask=q_pos >= "
+                          "kv_pos) forward for B4; its autograd backward (dq, "
+                          "dk and dv together) for B5 and B6",
+          "peak_flops": {"bfloat16": bf16_peak, "float32": fp32_peak},
+          "results": results})
+    return results
+
+
+def cp_hops_phase():
+    """The ring's own hop functions (``_hop_forward``, ``_merge_partial``,
+    ``_hop_backward`` of ``parallel.context_parallel``) for a ring of 4
+    ranks emulated on the one card, plain and zigzag, at B=2, T=4096 global
+    (T_local 1024), bf16. The K/V (and dK/dV) rotation is a list rotation in
+    this process, so this phase does not exercise NCCL; it is the on-card
+    check of the merge over more than one hop. Each rank's merged output and
+    its dq, dk, dv, put together over the ranks (and zigzag-restored), must
+    match B1-B3 on the whole sequence within the bf16 tolerance."""
+    n, B, T, H, D = 4, 2, 4096, 12, 64
+    dtype = torch.bfloat16
+    tol = FLASH_TOLERANCE["bfloat16"]
+    g = torch.Generator().manual_seed(10)
+    q, k, v, do = _flash_inputs(B, T, H, D, dtype, g)
+    ref_out, ref_lse = fa.flash_causal_fwd(q, k, v)
+    ref_args = (q, k, v, do, ref_lse, fa.attention_delta(do, ref_out))
+    ref = {"out": ref_out, "dq": fa.flash_causal_dq(*ref_args)}
+    ref["dk"], ref["dv"] = fa.flash_causal_dkv(*ref_args)
+    report = {}
+    for zigzag in (False, True):
+        xs = [zigzag_reorder(x, n) if zigzag else x for x in (q, k, v, do)]
+        qs, ks, vs, dos = ([c for c in x.chunk(n, dim=1)] for x in xs)
+
+        def rotate(chunks):   # rank r receives what rank r - 1 held
+            return chunks[-1:] + chunks[:-1]
+
+        acc, kc, vc = [None] * n, ks, vs
+        for hop in range(n):
+            acc = [cp._merge_partial(acc[r], cp._hop_forward(
+                qs[r], kc[r], vc[r], r, n, hop, True, zigzag))
+                for r in range(n)]
+            kc, vc = rotate(kc), rotate(vc)
+        outs = [a[0].to(dtype) for a in acc]
+        deltas = [fa.attention_delta(dos[r], outs[r]) for r in range(n)]
+        grads = {name: [torch.zeros(B, T // n, H, D, device="cuda")
+                        for _ in range(n)] for name in ("dq", "dk", "dv")}
+        kc, vc = ks, vs
+        for hop in range(n):
+            for r in range(n):
+                parts = cp._hop_backward(qs[r], kc[r], vc[r], dos[r],
+                                         acc[r][1], deltas[r], r, n, hop,
+                                         True, zigzag)
+                for name, part in zip(("dq", "dk", "dv"), parts):
+                    grads[name][r] += part
+            kc, vc = rotate(kc), rotate(vc)
+            grads["dk"], grads["dv"] = rotate(grads["dk"]), rotate(grads["dv"])
+        got = {"out": outs, **{k_: [x.to(dtype) for x in xs_]
+                               for k_, xs_ in grads.items()}}
+        errs = {}
+        for name, chunks in got.items():
+            full = torch.cat(chunks, dim=1)
+            if zigzag:
+                full = zigzag_restore(full, n)
+            a, b = full.float(), ref[name].float()
+            err = (a - b).abs()
+            check(bool((err <= tol * (1 + b.abs())).all()),
+                  f"cp_hops ({'zigzag' if zigzag else 'plain'} ring) {name} "
+                  f"vs B1-B3 on the whole sequence: max_abs_err "
+                  f"{err.max().item()}")
+            errs[name] = err.max().item()
+        report["zigzag" if zigzag else "plain"] = errs
+    torch.cuda.synchronize()
+    emit({"phase": "cp_hops", "ranks": n, "B": B, "T": T, "T_local": T // n,
+          "H": H, "D": D, "dtype": "bfloat16", "tolerance": tol,
+          "nccl": False, "reference": "B1-B3 on the whole sequence",
+          "max_abs_err": report})
+
+
+def train_cp_parity_phase(mesh, batches, dense):
+    """train_parity's recipe (fp32 GPT-2 125M, TF32 off, B=2, T=1024, the
+    same weights and batches, the same limits) with ring flash attention
+    under ``CPStrategy`` on the one-rank NCCL group: the cp = 1 ring runs
+    the diagonal hop through B4-B6. Held against train_parity's dense run;
+    B4-B6 each launch n_layer x steps times, B1-B3 never."""
+    steps = len(batches)
+    ring = _parity_run(batches, attn_impl=make_ring_attention(mesh, "cp"),
+                       strategy=CPStrategy(mesh))
+    loss_rel, worst, worst_name = _parity_errors(ring, dense)
+    n_layer = GPT2Config().n_layer
+    emit({"phase": "train_cp_parity", "dtype": "float32", "tf32": False,
+          "B": 2, "T": 1024, "steps": steps, "cp": mesh.size("cp"),
+          "backend": torch.distributed.get_backend(),
+          "loss_ring": ring[0], "loss_dense": dense[0],
+          "loss_rel_err": loss_rel, "grad_worst_err_over_limit": worst,
+          "grad_worst_param": worst_name, "launches_ring": ring[2],
+          "expected_launches": n_layer * steps})
+    check(loss_rel[0] <= 1e-5 and max(loss_rel) <= 1e-4,
+          f"ring vs dense losses {ring[0]} vs {dense[0]}")
+    check(worst <= 1.0, f"step-1 gradient of {worst_name} off by "
+                        f"{worst:.3g} x its limit")
+    check(all(ring[2][k] == n_layer * steps for k in MASKED_KEYS)
+          and not any(ring[2][k] for k in CAUSAL_KEYS),
+          f"ring launches {ring[2]} != n_layer x steps {n_layer * steps} "
+          "of B4-B6 and none of B1-B3")
+
+
+def train_cp_phase(mesh):
+    """Context-parallel training's main path: GPT-2 125M at full width, bf16
+    policy, B=8, T=1024, ring flash attention under ``CPStrategy`` on the
+    NCCL group (cp = 1 on one card), dense LM loss, AdamW; 3 warm-up and 20
+    timed steps, each timed on the host clock to a synchronise; then 10
+    steps on one fixed batch, whose loss must fall, and a profile of 3
+    more (train_cp_profile)."""
+    warm, timed = 3, 20
+    B, T = 8, 1024
+    bf16_peak, _, _ = peaks()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, state = _trainer(seed=1, dtype=torch.bfloat16,
+                              attn_impl=make_ring_attention(mesh, "cp"),
+                              strategy=CPStrategy(mesh))
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    batches = _lm_batches(warm + timed, B, T, seed=8)
+    _reset_flash_counts()
+    losses, step_s = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(m["loss"].detach())
+    launches = dict(fa.launches)
+    peak_mem = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    step_s = step_s[warm:]
+    tokens_per_s = B * T * len(step_s) / sum(step_s)
+    quant = statistics.quantiles(step_s, n=100, method="inclusive")
+    fixed = _lm_batches(1, B, T, seed=6)[0]
+    fixed_losses = []
+    for _ in range(10):
+        state, m = trainer.step(state, fixed)
+        fixed_losses.append(float(m["loss"]))
+    n_layer = GPT2Config().n_layer
+    expected = n_layer * (warm + timed)
+    emit({"phase": "train_cp", "model": "gpt2-125m", "dtype": "bfloat16",
+          "attn": "ring flash (B4-B6)", "cp": mesh.size("cp"),
+          "backend": torch.distributed.get_backend(), "global_batch": B,
+          "seq_len": T, "n_params": n_params, "warmup_steps": warm,
+          "timed_steps": timed, "step_p50_s": statistics.median(step_s),
+          "step_p99_s": quant[98], "tokens_per_s": tokens_per_s,
+          "mfu": 6 * n_params * tokens_per_s / bf16_peak,
+          "mfu_peak_flops": bf16_peak,
+          "max_memory_allocated_bytes": peak_mem,
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "fixed_batch_losses": fixed_losses,
+          "kernel_launches": launches, "expected_launches": expected})
+    check(all(np.isfinite(losses)), "a training loss is not finite")
+    check(all(np.isfinite(fixed_losses)) and fixed_losses[-1] < fixed_losses[0],
+          f"loss did not fall on a fixed batch: {fixed_losses}")
+    check(all(launches[k] == expected for k in MASKED_KEYS)
+          and not any(launches[k] for k in CAUSAL_KEYS),
+          f"ring launches {launches} != n_layer x steps {expected} of B4-B6 "
+          "and none of B1-B3")
+    train_profile_phase(trainer, state, fixed, phase="train_cp_profile",
+                        kernels=MASKED_KERNELS)
+    del trainer, state
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _reset_flash_counts() -> None:
     for key in fa.launches:
         fa.launches[key] = 0
@@ -490,14 +853,45 @@ def _lm_batches(n, B, T, seed):
     return out
 
 
-def _trainer(**cfg):
+def _trainer(strategy=None, **cfg):
     model = gpt2_125m(device="cuda", **cfg)
     opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
                             eps=1e-8)
     policy = "bf16" if cfg.get("dtype") == torch.bfloat16 else "fp32"
-    trainer = Trainer(model, opt, NoShard("cuda"), loss_fn=lm_loss,
-                      policy=policy)
+    trainer = Trainer(model, opt, strategy or NoShard("cuda"),
+                      loss_fn=lm_loss, policy=policy)
     return trainer, trainer.init()
+
+
+def _parity_run(batches, **cfg):
+    """fp32 steps on the parity batches: losses, step-1 grads (kept on the
+    host, out of the later phases' peak memory), launches."""
+    trainer, state = _trainer(seed=0, **cfg)
+    losses, grads = [], None
+    _reset_flash_counts()
+    for batch in batches:
+        state, m = trainer.step(state, batch)
+        losses.append(float(m["loss"]))
+        if grads is None:
+            grads = {n: p.grad.detach().cpu()
+                     for n, p in trainer.model.named_parameters()}
+    launches = dict(fa.launches)
+    del trainer, state
+    torch.cuda.empty_cache()
+    return losses, grads, launches
+
+
+def _parity_errors(got, want):
+    """Per-step relative loss errors, and the step-1 gradient furthest from
+    its limit (1e-4 of the tensor's largest element plus 1e-7)."""
+    (gl, gg, _), (wl, wg, _) = got, want
+    worst, worst_name = 0.0, None
+    for name, w in wg.items():
+        err = (gg[name] - w).abs().max().item()
+        limit = 1e-4 * w.abs().max().item() + 1e-7
+        if worst_name is None or err / limit > worst:
+            worst, worst_name = err / limit, name
+    return [abs(a - b) / abs(b) for a, b in zip(gl, wl)], worst, worst_name
 
 
 def train_parity_phase():
@@ -512,43 +906,26 @@ def train_parity_phase():
     torch.backends.cudnn.allow_tf32 = False
     steps = 3
     batches = _lm_batches(steps, 2, 1024, seed=5)
-    runs = {}
-    for attn in ("dense", "flash"):
-        trainer, state = _trainer(
-            seed=0, attn_impl=fa.flash_attention if attn == "flash" else None)
-        losses, grads = [], None
-        _reset_flash_counts()
-        for batch in batches:
-            state, m = trainer.step(state, batch)
-            losses.append(float(m["loss"]))
-            if grads is None:
-                grads = {n: p.grad.detach().clone()
-                         for n, p in trainer.model.named_parameters()}
-        runs[attn] = (losses, grads, dict(fa.launches))
-        del trainer, state
-        torch.cuda.empty_cache()
-    (dl, dg, dlaunch), (fl, fg, flaunch) = runs["dense"], runs["flash"]
-    worst, worst_name = 0.0, None
-    for name, want in dg.items():
-        err = (fg[name] - want).abs().max().item()
-        limit = 1e-4 * want.abs().max().item() + 1e-7
-        if worst_name is None or err / limit > worst:
-            worst, worst_name = err / limit, name
+    dense = _parity_run(batches)
+    flash = _parity_run(batches, attn_impl=fa.flash_attention)
+    loss_rel, worst, worst_name = _parity_errors(flash, dense)
     n_layer = GPT2Config().n_layer
-    loss_rel = [abs(a - b) / abs(b) for a, b in zip(fl, dl)]
     emit({"phase": "train_parity", "dtype": "float32", "tf32": False,
-          "B": 2, "T": 1024, "steps": steps, "loss_flash": fl,
-          "loss_dense": dl, "loss_rel_err": loss_rel,
+          "B": 2, "T": 1024, "steps": steps, "loss_flash": flash[0],
+          "loss_dense": dense[0], "loss_rel_err": loss_rel,
           "grad_worst_err_over_limit": worst, "grad_worst_param": worst_name,
-          "launches_flash": flaunch, "launches_dense": dlaunch,
+          "launches_flash": flash[2], "launches_dense": dense[2],
           "expected_launches": n_layer * steps})
     check(loss_rel[0] <= 1e-5 and max(loss_rel) <= 1e-4,
-          f"flash vs dense losses {fl} vs {dl}")
+          f"flash vs dense losses {flash[0]} vs {dense[0]}")
     check(worst <= 1.0, f"step-1 gradient of {worst_name} off by "
                         f"{worst:.3g} x its limit")
-    check(all(v == n_layer * steps for v in flaunch.values()),
-          f"flash launches {flaunch} != n_layer x steps {n_layer * steps}")
-    check(not any(dlaunch.values()), f"dense run launched {dlaunch}")
+    check(all(flash[2][k] == n_layer * steps for k in CAUSAL_KEYS)
+          and not any(flash[2][k] for k in MASKED_KEYS),
+          f"flash launches {flash[2]} != n_layer x steps {n_layer * steps} "
+          "of B1-B3 and none of B4-B6")
+    check(not any(dense[2].values()), f"dense run launched {dense[2]}")
+    return batches, dense
 
 
 def train_phase():
@@ -581,8 +958,10 @@ def train_phase():
     check(out["dtype"] == "bfloat16" and out["attn"] == "flash",
           "the entry point's defaults are not bf16 + flash on the card")
     check(all(np.isfinite(out["losses"])), "a training loss is not finite")
-    check(all(v == expected for v in launches.values()),
-          f"flash launches {launches} != n_layer x steps {expected}")
+    check(all(launches[k] == expected for k in CAUSAL_KEYS)
+          and not any(launches[k] for k in MASKED_KEYS),
+          f"flash launches {launches} != n_layer x steps {expected} of B1-B3 "
+          "and none of B4-B6")
     return launches
 
 
@@ -602,10 +981,11 @@ def train_fixed_batch_phase():
     return trainer, state, batch
 
 
-def train_profile_phase(trainer, state, batch):
+def train_profile_phase(trainer, state, batch, phase="train_profile",
+                        kernels=FLASH_KERNELS):
     """Where a training step's time goes: torch.profiler over 3 bf16 steps
     (B=8, T=1024): host wall time against device busy time, top kernels,
-    and B1-B3's share of the busy time."""
+    and the flash kernels' (``kernels``) share of the busy time."""
     state, _ = trainer.step(state, batch)
     torch.cuda.synchronize()
     steps = 3
@@ -616,19 +996,21 @@ def train_profile_phase(trainer, state, batch):
             state, _ = trainer.step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = _device_kernels(prof)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    flash_ms = {key: sum(e.self_device_time_total for e in kernels
-                         if f"flash_causal_{key}_kernel" in e.key) / 1e3
-                for _, key, _ in FLASH_KERNELS}
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    emit({"phase": "train_profile", "steps": steps,
+    device = _device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    flash_ms = {key: sum(e.self_device_time_total for e in device
+                         if f"{name}_kernel" in e.key) / 1e3
+                for name, key, _ in kernels}
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+    emit({"phase": phase, "steps": steps,
           "wall_ms_per_step": wall_ms / steps,
           "device_busy_ms_per_step": busy_ms / steps,
           "device_busy_share": busy_ms / wall_ms,
           "flash_ms_per_step": {k: v / steps for k, v in flash_ms.items()},
           "flash_share_of_busy": sum(flash_ms.values()) / busy_ms,
-          "device_kernels_per_step": sum(e.count for e in kernels) / steps,
+          "nccl_ms_per_step": sum(e.self_device_time_total for e in device
+                                  if "nccl" in e.key.lower()) / 1e3 / steps,
+          "device_kernels_per_step": sum(e.count for e in device) / steps,
           "top_kernels": [{"name": e.key[:80],
                            "ms_per_step": e.self_device_time_total / 1e3 / steps,
                            "calls_per_step": e.count / steps} for e in top]})
@@ -646,7 +1028,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _build.load_all(["paged_decode_attention", "flash_attention_causal"])
+    _build.load_all(LIBRARIES)
     emit({"phase": "device", "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -655,15 +1037,32 @@ def main() -> int:
 
     kres = kernel_phase()
     fres = flash_kernel_phase()
+    mres = masked_kernel_phase()
+    cp_hops_phase()
     parity_phase()
     torch.cuda.empty_cache()
     launches, engine = serve_phase()
     profile_phase(engine)
     del engine
     torch.cuda.empty_cache()
-    train_parity_phase()
+    parity_batches, dense = train_parity_phase()
     train_launches = train_phase()
     train_profile_phase(*train_fixed_batch_phase())
+    torch.cuda.empty_cache()
+
+    # context parallelism over a one-rank NCCL group: one card, cp = 1
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    pdist.init_process_group(init_method=f"tcp://localhost:{port}", rank=0,
+                             world_size=1)
+    try:
+        mesh = init_device_mesh((1,), ("cp",))
+        train_cp_parity_phase(mesh, parity_batches, dense)
+        del dense
+        cp_launches = train_cp_phase(mesh)
+    finally:
+        pdist.destroy_process_group()
 
     main_dtype = kres["bfloat16"]  # the serve phase runs in bf16
     summary = [{
@@ -698,6 +1097,25 @@ def main() -> int:
             "library_call": "F.scaled_dot_product_attention(is_causal=True) "
                             + ("forward" if key == "fwd" else
                                "autograd backward (dq, dk, dv together)"),
+        })
+    for name, key, replaces in MASKED_KERNELS:
+        r = mres["bfloat16"][key]  # the train_cp phase runs in bf16
+        summary.append({
+            "name": name,
+            "route": "cuda",
+            "source": MASKED_SOURCE,
+            "replaces": replaces,
+            "launches": cp_launches[key],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "library_call": "F.scaled_dot_product_attention(attn_mask=q_pos "
+                            ">= kv_pos) " + ("forward" if key == "mfwd" else
+                                             "autograd backward (dq, dk, dv "
+                                             "together)"),
         })
     emit({"kernels": summary})
     print(smi, flush=True)

@@ -1,5 +1,5 @@
 """Ops of the port: plain torch ops and the CUDA kernels (paged decode,
-causal flash attention forward and backward).
+causal and position-masked flash attention forward and backward).
 
 Exports are lazy (PEP 562), as in the JAX package's ``ops``: importing this
 package loads no op module, and no kernel is built until a CUDA tensor
@@ -18,6 +18,12 @@ _LAZY = {
     "flash_causal_dq_reference": _FLASH,
     "flash_causal_fwd": _FLASH,
     "flash_causal_fwd_reference": _FLASH,
+    "flash_masked_dkv": _FLASH,
+    "flash_masked_dkv_reference": _FLASH,
+    "flash_masked_dq": _FLASH,
+    "flash_masked_dq_reference": _FLASH,
+    "flash_masked_fwd": _FLASH,
+    "flash_masked_fwd_reference": _FLASH,
     "paged_cached_attention": "pytorch_distributed_tpu_torch.ops.paged_attention",
     "paged_decode_attention": "pytorch_distributed_tpu_torch.ops.paged_attention",
     "paged_decode_attention_reference":

@@ -3,7 +3,9 @@
 Each ``ops/csrc/<name>.cu`` exposes a plain C interface (no PyTorch
 headers), so ``nvcc`` compiles it in seconds into
 ``pytorch_distributed_tpu_torch/_build/lib<name>-<hash>.so``; the hash
-covers the source and the flags, so an edited source builds anew. The build
+covers the source, every header it includes with quotes (``#include
+"x.cuh"``, looked up beside the including file, as ``nvcc`` does) and the
+flags, so an edited source or header builds anew. The build
 runs in the process that first launches the kernel, never at import, and a
 failed build raises: there is no fallback to a plain version.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,6 +30,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -47,12 +52,24 @@ def _nvcc() -> str:
     )
 
 
+def _sources(src: Path) -> list:
+    """``src`` and every file it includes with quotes, transitively."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path not in seen:
+            seen.append(path)
+            todo += [path.parent / m.decode()
+                     for m in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _target(name: str):
     src = _SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return src, _BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return src, _BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _build_all(names) -> None:

@@ -30,162 +30,23 @@
 // D+4 floats for 16-byte reads without bank conflicts). 256 threads form a
 // 16 x 16 grid; thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j
 // (i, j < 4) of each 64 x 64 score tile, so a row's max and sum reduce
-// over the 16 lanes of one half-warp with shuffles. Masking applies only
+// over the 16 lanes of one half-warp with shuffles (the tile pieces are in
+// flash_tiles.cuh, shared with the masked kernels). Masking applies only
 // on tiles that cross the diagonal or the ragged tail (T need not be a
 // multiple of 64). As in the TPU kernels: scores, m, l and every
 // accumulator are fp32, scale = 1/sqrt(D) in fp32, p is rounded to the
 // input dtype before the PV product in the forward, and rows whose lse is
 // <= -1e30/2 get p = 0 in the backward.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_tiles.cuh"
 
 namespace {
 
-constexpr int kTile = 64;        // rows of a Q tile and of a K/V tile
-constexpr int kThreads = 256;    // 16 x 16 threads, 4 x 4 cells each
-constexpr int kLP = kTile + 4;   // row stride (floats) of a 64 x 64 smem tile
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half(x); }
-
-// x rounded to T and back (p.astype(v.dtype) in the TPU kernel)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
-
-// A [B, T, H, D] tensor: base pointer and batch, time, head strides in
-// elements (D is contiguous).
-struct View {
-  void* ptr;
-  int64_t sb, st, sh;
-};
+using namespace flash;
 
 struct Dims {
   int T, H, D;
   float scale;
 };
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Rows t0 .. t0+63 of (b, h) into dst [64][kD + 4] as fp32; zero past T
-// and past D.
-template <typename T, int kD>
-__device__ __forceinline__ void load_tile(float* dst, const View& src, int b,
-                                          int h, int t0, const Dims& n) {
-  const T* base = static_cast<const T*>(src.ptr) + b * src.sb + h * src.sh;
-  for (int idx = threadIdx.x; idx < kTile * kD; idx += kThreads) {
-    const int r = idx / kD;
-    const int d = idx % kD;
-    const int t = t0 + r;
-    float x = 0.f;
-    if (t < n.T && d < n.D) x = to_f32(base[t * src.st + d]);
-    dst[r * (kD + 4) + d] = x;
-  }
-}
-
-// acc[i][j] = sum_d A[ra + 16 i][d] * Bm[rb + 16 j][d]   (A, Bm: [64][kD+4])
-template <int kD>
-__device__ __forceinline__ void dot_tile(float (&acc)[4][4], const float* A,
-                                         const float* Bm, int ra, int rb) {
-  constexpr int LD = kD + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < kD; d += 4) {
-    float4 a[4], bb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (ra + 16 * i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bb[j] = *reinterpret_cast<const float4*>(Bm + (rb + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float s = acc[i][j];
-        s = fmaf(a[i].x, bb[j].x, s);
-        s = fmaf(a[i].y, bb[j].y, s);
-        s = fmaf(a[i].z, bb[j].z, s);
-        s = fmaf(a[i].w, bb[j].w, s);
-        acc[i][j] = s;
-      }
-  }
-}
-
-// acc[i][j] += sum_c P[rp + 16 i][c] * M[c][tx + 16 j]
-// (P: [64][kLP] score tile, M: [64][kD+4] operand tile)
-template <int kD>
-__device__ __forceinline__ void pv_tile(float (&acc)[4][kD / 16], const float* P,
-                                        const float* M, int rp, int tx) {
-  constexpr int LD = kD + 4;
-  constexpr int kJ = kD / 16;
-#pragma unroll 2
-  for (int c = 0; c < kTile; c += 4) {
-    float4 p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      p[i] = *reinterpret_cast<const float4*>(P + (rp + 16 * i) * kLP + c);
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      float m[kJ];
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) m[j] = M[(c + cc) * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pi = cc == 0 ? p[i].x : cc == 1 ? p[i].y : cc == 2 ? p[i].z : p[i].w;
-#pragma unroll
-        for (int j = 0; j < kJ; ++j) acc[i][j] = fmaf(pi, m[j], acc[i][j]);
-      }
-    }
-  }
-}
-
-// Rows ty + 16 i of a [64, kD] fp32 accumulator tile, scaled by 1/div[i],
-// into rows t0 + ty + 16 i of (b, h) of dst; rows past T and columns past D
-// are not written.
-template <typename T, int kD>
-__device__ __forceinline__ void store_tile(const View& dst, int b, int h, int t0,
-                                           const float (&acc)[4][kD / 16],
-                                           const float (&div)[4], const Dims& n) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  T* base = static_cast<T*>(dst.ptr) + b * dst.sb + h * dst.sh;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty + 16 * i;
-    if (t >= n.T) continue;
-#pragma unroll
-    for (int j = 0; j < kD / 16; ++j) {
-      const int d = tx + 16 * j;
-      if (d < n.D) base[t * dst.st + d] = from_f32<T>(acc[i][j] / div[i]);
-    }
-  }
-}
 
 // ---------------------------------------------------------------- B1
 template <typename T, int kD>
@@ -207,7 +68,7 @@ flash_causal_fwd_kernel(View q, View k, View v, View out, float* lse, Dims n) {
   const int ty = threadIdx.x >> 4;
   const int q0 = qi * kTile;
 
-  load_tile<T, kD>(Qs, q, b, h, q0, n);
+  load_tile<T, kD>(Qs, q, b, h, q0, n.T, n.D);
   float m[4], l[4], acc[4][kJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -221,8 +82,8 @@ flash_causal_fwd_kernel(View q, View k, View v, View out, float* lse, Dims n) {
   for (int ki = 0; ki <= qi; ++ki) {
     const int k0 = ki * kTile;
     __syncthreads();  // the previous tile's Ks/Vs/Ps are consumed
-    load_tile<T, kD>(Ks, k, b, h, k0, n);
-    load_tile<T, kD>(Vs, v, b, h, k0, n);
+    load_tile<T, kD>(Ks, k, b, h, k0, n.T, n.D);
+    load_tile<T, kD>(Vs, v, b, h, k0, n.T, n.D);
     __syncthreads();
 
     float s[4][4];
@@ -261,7 +122,7 @@ flash_causal_fwd_kernel(View q, View k, View v, View out, float* lse, Dims n) {
   float safe[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) safe[i] = fmaxf(l[i], 1e-30f);
-  store_tile<T, kD>(out, b, h, q0, acc, safe, n);
+  store_tile<T, kD>(out, b, h, q0, acc, safe, n.T, n.D);
   if (tx == 0) {
     float* lse_bh = lse + (static_cast<int64_t>(b) * n.H + h) * n.T;
 #pragma unroll
@@ -295,8 +156,8 @@ flash_causal_dq_kernel(View q, View k, View v, View dout, const float* lse,
   const int q0 = qi * kTile;
   const int64_t bh = (static_cast<int64_t>(b) * n.H + h) * n.T;
 
-  load_tile<T, kD>(Qs, q, b, h, q0, n);
-  load_tile<T, kD>(dOs, dout, b, h, q0, n);
+  load_tile<T, kD>(Qs, q, b, h, q0, n.T, n.D);
+  load_tile<T, kD>(dOs, dout, b, h, q0, n.T, n.D);
   float lse_r[4], delta_r[4], acc[4][kJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -310,8 +171,8 @@ flash_causal_dq_kernel(View q, View k, View v, View dout, const float* lse,
   for (int ki = 0; ki <= qi; ++ki) {
     const int k0 = ki * kTile;
     __syncthreads();
-    load_tile<T, kD>(Ks, k, b, h, k0, n);
-    load_tile<T, kD>(Vs, v, b, h, k0, n);
+    load_tile<T, kD>(Ks, k, b, h, k0, n.T, n.D);
+    load_tile<T, kD>(Vs, v, b, h, k0, n.T, n.D);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -335,7 +196,7 @@ flash_causal_dq_kernel(View q, View k, View v, View dout, const float* lse,
   }
 
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_tile<T, kD>(dq, b, h, q0, acc, one, n);
+  store_tile<T, kD>(dq, b, h, q0, acc, one, n.T, n.D);
 }
 
 // ---------------------------------------------------------------- B3
@@ -364,8 +225,8 @@ flash_causal_dkv_kernel(View q, View k, View v, View dout, const float* lse,
   const int k0 = ki * kTile;
   const int64_t bh = (static_cast<int64_t>(b) * n.H + h) * n.T;
 
-  load_tile<T, kD>(Ks, k, b, h, k0, n);
-  load_tile<T, kD>(Vs, v, b, h, k0, n);
+  load_tile<T, kD>(Ks, k, b, h, k0, n.T, n.D);
+  load_tile<T, kD>(Vs, v, b, h, k0, n.T, n.D);
   float dk_acc[4][kJ], dv_acc[4][kJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -376,8 +237,8 @@ flash_causal_dkv_kernel(View q, View k, View v, View dout, const float* lse,
   for (int qi = ki; qi < nq; ++qi) {
     const int q0 = qi * kTile;
     __syncthreads();
-    load_tile<T, kD>(Qs, q, b, h, q0, n);
-    load_tile<T, kD>(dOs, dout, b, h, q0, n);
+    load_tile<T, kD>(Qs, q, b, h, q0, n.T, n.D);
+    load_tile<T, kD>(dOs, dout, b, h, q0, n.T, n.D);
     if (threadIdx.x < kTile) {
       const int r = q0 + threadIdx.x;
       lse_s[threadIdx.x] = r < n.T ? lse[bh + r] : 0.f;
@@ -411,8 +272,8 @@ flash_causal_dkv_kernel(View q, View k, View v, View dout, const float* lse,
   }
 
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_tile<T, kD>(dk, b, h, k0, dk_acc, one, n);
-  store_tile<T, kD>(dv, b, h, k0, dv_acc, one, n);
+  store_tile<T, kD>(dk, b, h, k0, dk_acc, one, n.T, n.D);
+  store_tile<T, kD>(dv, b, h, k0, dv_acc, one, n.T, n.D);
 }
 
 // ---------------------------------------------------------------- launch
@@ -423,21 +284,6 @@ constexpr size_t dq_smem() { return (4 * kTile * (kD + 4) + kTile * kLP) * sizeo
 template <int kD>
 constexpr size_t dkv_smem() {
   return (4 * kTile * (kD + 4) + 2 * kTile * kLP + 2 * kTile) * sizeof(float);
-}
-
-View view(const void* p, const long long* s) {
-  View w;
-  w.ptr = const_cast<void*>(p);
-  w.sb = s[0];
-  w.st = s[1];
-  w.sh = s[2];
-  return w;
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
 }
 
 template <typename T, int kD>

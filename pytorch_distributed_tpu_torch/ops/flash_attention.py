@@ -1,4 +1,4 @@
-"""Flash attention over ``[B, T, H, D]``: the CUDA causal kernels + plain ops.
+"""Flash attention over ``[B, T, H, D]``: the CUDA kernels + plain ops.
 
 Port of ``pytorch_distributed_tpu/ops/flash_attention.py``. The public API
 keeps the JAX package's dispatch rules:
@@ -14,9 +14,12 @@ keeps the JAX package's dispatch rules:
 * explicit ``q_pos``/``kv_pos`` always mask (keep = q_pos >= kv_pos), with
   or without ``causal``; ``causal=False`` without positions is unmasked.
 
-The last two are the position-masked route (B4-B6 in the JAX package). Its
-plain version runs here for CPU tensors; a CUDA tensor raises
-``NotImplementedError`` until those kernels are ported (ROADMAP B4-B6).
+The last two are the position-masked route: forward B4, backward B5 (dq)
+and B6 (dk/dv), hand-written in ``csrc/flash_attention_masked.cu``.
+``_FlashMasked`` is its ``autograd.Function``, built as ``_FlashCausal``.
+Its kernels are also the local op of context parallelism's ring
+(``parallel.context_parallel``), which calls them once per hop with the
+hop's global positions and, in the forward, fp32 partial outputs.
 
 Every kernel has a plain PyTorch version beside it (``*_reference``): the
 same blocked online-softmax arithmetic in torch ops. A wrapper takes it only
@@ -43,16 +46,24 @@ __all__ = [
     "flash_causal_dq_reference",
     "flash_causal_dkv",
     "flash_causal_dkv_reference",
+    "flash_masked_fwd",
+    "flash_masked_fwd_reference",
+    "flash_masked_dq",
+    "flash_masked_dq_reference",
+    "flash_masked_dkv",
+    "flash_masked_dkv_reference",
 ]
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_HEAD_SIZE = 128  # the kernels stage D in shared memory as 64 or 128
 _LIB = "flash_attention_causal"
+_MASKED_LIB = "flash_attention_masked"
 
 # Kernel launches (not plain-version calls) since the counts were last set
-# to 0, per kernel: shows that a run went through the CUDA kernels.
-launches = {"fwd": 0, "dq": 0, "dkv": 0}
+# to 0, per kernel: shows that a run went through the CUDA kernels. B1-B3
+# count under fwd/dq/dkv, B4-B6 under mfwd/mdq/mdkv.
+launches = {"fwd": 0, "dq": 0, "dkv": 0, "mfwd": 0, "mdq": 0, "mdkv": 0}
 
 
 def _scale(D: int) -> float:
@@ -76,7 +87,6 @@ def flash_causal_fwd_reference(q, k, v, block_q: int = 64, block_k: int = 64
     for q0 in range(0, T, block_q):
         q1 = min(q0 + block_q, T)
         qb = qt[:, :, q0:q1].float()
-        rows = torch.arange(q0, q1, device=q.device)
         acc = torch.zeros(B, H, q1 - q0, D, dtype=torch.float32, device=q.device)
         m = torch.full((B, H, q1 - q0), _NEG_INF, dtype=torch.float32,
                        device=q.device)
@@ -85,8 +95,7 @@ def flash_causal_fwd_reference(q, k, v, block_q: int = 64, block_k: int = 64
             k1 = min(k0 + block_k, T)
             kb = kt[:, :, k0:k1].float()
             vb = vt[:, :, k0:k1]
-            cols = torch.arange(k0, k1, device=q.device)
-            keep = rows[:, None] >= cols[None, :]
+            keep = _causal_keep(q0, q1, k0, k1, q.device)
             s = torch.einsum("bhqd,bhkd->bhqk", qb, kb) * scale
             s = torch.where(keep, s, _NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
@@ -102,13 +111,19 @@ def flash_causal_fwd_reference(q, k, v, block_q: int = 64, block_k: int = 64
     return out.transpose(1, 2), lse
 
 
-def _probs(qb, kb, lse_b, rows, cols, scale):
-    """p recomputed from the saved lse, masked, with the dead-row guard."""
-    keep = rows[:, None] >= cols[None, :]
+def _probs(qb, kb, lse_b, keep, scale):
+    """p recomputed from the saved lse, masked by ``keep`` (None: not
+    masked), with the dead-row guard."""
     s = torch.einsum("bhqd,bhkd->bhqk", qb, kb) * scale
-    s = torch.where(keep, s, _NEG_INF)
-    p = torch.where(keep, torch.exp(s - lse_b[..., None]), 0.0)
+    p = torch.exp(s - lse_b[..., None])
+    if keep is not None:
+        p = torch.where(keep, p, 0.0)
     return torch.where(lse_b[..., None] <= _NEG_INF / 2, 0.0, p)
+
+
+def _causal_keep(q0, q1, k0, k1, device):
+    rows = torch.arange(q0, q1, device=device)
+    return rows[:, None] >= torch.arange(k0, k1, device=device)[None, :]
 
 
 def flash_causal_dq_reference(q, k, v, do, lse, delta, block_q: int = 64,
@@ -123,12 +138,11 @@ def flash_causal_dq_reference(q, k, v, do, lse, delta, block_q: int = 64,
         q1 = min(q0 + block_q, T)
         qb, dob = qt[:, :, q0:q1].float(), dot[:, :, q0:q1].float()
         lse_b, delta_b = lse[:, :, q0:q1], delta[:, :, q0:q1]
-        rows = torch.arange(q0, q1, device=q.device)
         acc = torch.zeros(B, H, q1 - q0, D, dtype=torch.float32, device=q.device)
         for k0 in range(0, q1, block_k):
             k1 = min(k0 + block_k, T)
             kb, vb = kt[:, :, k0:k1].float(), vt[:, :, k0:k1].float()
-            p = _probs(qb, kb, lse_b, rows, torch.arange(k0, k1, device=q.device),
+            p = _probs(qb, kb, lse_b, _causal_keep(q0, q1, k0, k1, q.device),
                        scale)
             dp = torch.einsum("bhqd,bhkd->bhqk", dob, vb)
             ds = p * (dp - delta_b[..., None]) * scale
@@ -150,7 +164,6 @@ def flash_causal_dkv_reference(q, k, v, do, lse, delta, block_q: int = 64,
     for k0 in range(0, T, block_k):
         k1 = min(k0 + block_k, T)
         kb, vb = kt[:, :, k0:k1].float(), vt[:, :, k0:k1].float()
-        cols = torch.arange(k0, k1, device=q.device)
         dk_acc = torch.zeros(B, H, k1 - k0, D, dtype=torch.float32,
                              device=q.device)
         dv_acc = torch.zeros_like(dk_acc)
@@ -158,8 +171,8 @@ def flash_causal_dkv_reference(q, k, v, do, lse, delta, block_q: int = 64,
             q1 = min(q0 + block_q, T)
             qb, dob = qt[:, :, q0:q1].float(), dot[:, :, q0:q1].float()
             lse_b, delta_b = lse[:, :, q0:q1], delta[:, :, q0:q1]
-            p = _probs(qb, kb, lse_b, torch.arange(q0, q1, device=q.device),
-                       cols, scale)
+            p = _probs(qb, kb, lse_b, _causal_keep(q0, q1, k0, k1, q.device),
+                       scale)
             dv_acc = dv_acc + torch.einsum("bhqk,bhqd->bhkd", p, dob)
             dp = torch.einsum("bhqd,bhkd->bhqk", dob, vb)
             ds = p * (dp - delta_b[..., None]) * scale
@@ -170,63 +183,84 @@ def flash_causal_dkv_reference(q, k, v, do, lse, delta, block_q: int = 64,
 
 
 # -------------------------------------------------------------------------
-# kernel wrappers: CPU tensors -> plain version, CUDA tensors -> B1/B2/B3
+# kernel wrappers: CPU tensors -> plain version, CUDA tensors -> the kernel
 # -------------------------------------------------------------------------
 def _on_cpu(*tensors) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
+    return all(t.device.type == "cpu" for t in tensors if t is not None)
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    lib = _build.load(_LIB)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    strides = ctypes.POINTER(ctypes.c_longlong)
-    for name, n_ptrs in (("flash_causal_fwd_launch", 5),
-                         ("flash_causal_dq_launch", 7),
-                         ("flash_causal_dkv_launch", 8)):
+def _bind(lib: ctypes.CDLL, signatures) -> ctypes.CDLL:
+    for name, args in signatures:
         fn = getattr(lib, name)
         if fn.argtypes is None:
-            fn.argtypes = [p] * n_ptrs + [strides, i, i, i, i, f, i, p]
+            fn.argtypes = args
             fn.restype = ctypes.c_int
     return lib
 
 
-def _check(name: str, q, k, v, *rest_bthd, stats=()):
-    """Shape, dtype, device and layout checks for a kernel launch."""
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    tail = [_STRIDES, _I, _I, _I, _I, _F, _I, _P]   # B, T, H, D, scale, dtype, stream
+    return _bind(_build.load(_LIB), (
+        ("flash_causal_fwd_launch", [_P] * 5 + tail),
+        ("flash_causal_dq_launch", [_P] * 7 + tail),
+        ("flash_causal_dkv_launch", [_P] * 8 + tail)))
+
+
+def _masked_lib() -> ctypes.CDLL:
+    dims = [_STRIDES, _I, _I, _I, _I, _I, _F, _I]   # B, Tq, Tk, H, D, scale, dtype
+    return _bind(_build.load(_MASKED_LIB), (
+        ("flash_masked_fwd_launch", [_P] * 7 + dims + [_I, _P]),  # out_fp32
+        ("flash_masked_dq_launch", [_P] * 9 + dims + [_P]),
+        ("flash_masked_dkv_launch", [_P] * 10 + dims + [_P])))
+
+
+def _check(name: str, q_side, kv_side, stats=(), same_t: bool = False):
+    """Shape, dtype, device and layout checks for a kernel launch:
+    ``q_side`` tensors are ``[B, Tq, H, D]`` (q, do), ``kv_side`` ones
+    ``[B, Tk, H, D]`` (k, v), ``stats`` fp32 ``[B, H, Tq]`` (lse, delta).
+    Returns ``(B, Tq, Tk, H, D)``."""
+    q = q_side[0]
     dev = q.device
-    tensors = (q, k, v, *rest_bthd, *stats)
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+    operands = (*q_side, *kv_side)
+    if dev.type != "cuda" or any(t.device != dev for t in operands + tuple(stats)):
         raise ValueError(
             f"{name}: all tensors must be on one CUDA device (or all on the "
             "CPU for the plain version)"
         )
-    if q.dim() != 4:
-        raise ValueError(f"{name}: q must be [B, T, H, D], got {tuple(q.shape)}")
-    B, T, H, D = q.shape
-    for t in (k, v, *rest_bthd):
-        if tuple(t.shape) != (B, T, H, D):
-            raise ValueError(
-                f"{name}: every operand must be [B, T, H, D] = "
-                f"{(B, T, H, D)} (causal self-attention, Tq == Tk), got "
-                f"{tuple(t.shape)}"
-            )
-    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype
-                                          for t in (k, v, *rest_bthd)):
+    if q.dim() != 4 or kv_side[0].dim() != 4:
+        raise ValueError(f"{name}: operands must be [B, T, H, D], got "
+                         f"{tuple(q.shape)} and {tuple(kv_side[0].shape)}")
+    B, Tq, H, D = q.shape
+    Tk = kv_side[0].shape[1]
+    if same_t and Tq != Tk:
+        raise ValueError(f"{name}: causal self-attention needs Tq == Tk, got "
+                         f"{Tq} and {Tk}")
+    for t, want in [(t, (B, Tq, H, D)) for t in q_side] + \
+            [(t, (B, Tk, H, D)) for t in kv_side]:
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: operand of shape {tuple(t.shape)}, "
+                             f"expected {want}")
+    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in operands):
         raise TypeError(
             f"{name}: q, k, v (and do) must share one of "
-            f"{list(_DTYPE_CODES)}, got {[t.dtype for t in (q, k, v, *rest_bthd)]}"
+            f"{list(_DTYPE_CODES)}, got {[t.dtype for t in operands]}"
         )
     if D > _MAX_HEAD_SIZE:
         raise ValueError(f"{name}: head size {D} > {_MAX_HEAD_SIZE}")
-    if any(t.stride(-1) != 1 for t in (q, k, v, *rest_bthd)):
+    if any(t.stride(-1) != 1 for t in operands):
         raise ValueError(f"{name}: operands must be contiguous along D")
     for t in stats:
-        if t.dtype != torch.float32 or tuple(t.shape) != (B, H, T) or \
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, H, Tq) or \
                 not t.is_contiguous():
             raise ValueError(
-                f"{name}: lse/delta must be contiguous fp32 [B, H, T] = "
-                f"{(B, H, T)}, got {t.dtype} {tuple(t.shape)}"
+                f"{name}: lse/delta must be contiguous fp32 [B, H, Tq] = "
+                f"{(B, H, Tq)}, got {t.dtype} {tuple(t.shape)}"
             )
-    return B, T, H, D
+    return B, Tq, Tk, H, D
 
 
 def _strides(*tensors):
@@ -236,7 +270,7 @@ def _strides(*tensors):
 
 def _finish(name: str, rc: int) -> None:
     if rc != 0:
-        raise RuntimeError(f"flash_causal_{name} kernel launch failed: "
+        raise RuntimeError(f"flash attention kernel {name!r} launch failed: "
                            f"cudaError {rc}")
     launches[name] += 1
 
@@ -246,7 +280,7 @@ def flash_causal_fwd(q, k, v, block_q: int = 64, block_k: int = 64
     """B1: ``(out [B, T, H, D] in q's dtype, lse [B, H, T] fp32)``."""
     if _on_cpu(q, k, v):
         return flash_causal_fwd_reference(q, k, v, block_q, block_k)
-    B, T, H, D = _check("flash_causal_fwd", q, k, v)
+    B, T, _, H, D = _check("flash_causal_fwd", (q,), (k, v), same_t=True)
     out = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     rc = _kernel_lib().flash_causal_fwd_launch(
@@ -263,7 +297,8 @@ def flash_causal_dq(q, k, v, do, lse, delta, block_q: int = 64,
     if _on_cpu(q, k, v, do, lse, delta):
         return flash_causal_dq_reference(q, k, v, do, lse, delta, block_q,
                                          block_k)
-    B, T, H, D = _check("flash_causal_dq", q, k, v, do, stats=(lse, delta))
+    B, T, _, H, D = _check("flash_causal_dq", (q, do), (k, v), (lse, delta),
+                           same_t=True)
     dq = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
     rc = _kernel_lib().flash_causal_dq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -280,7 +315,8 @@ def flash_causal_dkv(q, k, v, do, lse, delta, block_q: int = 64,
     if _on_cpu(q, k, v, do, lse, delta):
         return flash_causal_dkv_reference(q, k, v, do, lse, delta, block_q,
                                           block_k)
-    B, T, H, D = _check("flash_causal_dkv", q, k, v, do, stats=(lse, delta))
+    B, T, _, H, D = _check("flash_causal_dkv", (q, do), (k, v), (lse, delta),
+                           same_t=True)
     dk = torch.empty(B, T, H, D, dtype=k.dtype, device=q.device)
     dv = torch.empty(B, T, H, D, dtype=v.dtype, device=q.device)
     rc = _kernel_lib().flash_causal_dkv_launch(
@@ -308,47 +344,263 @@ class _FlashCausal(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if do.stride(-1) != 1:
             do = do.contiguous()
-        delta = torch.einsum("bthd,bthd->bht", do.float(),
-                             out.float()).contiguous()
+        delta = attention_delta(do, out)
         dq = flash_causal_dq(q, k, v, do, lse, delta, *ctx.blocks)
         dk, dv = flash_causal_dkv(q, k, v, do, lse, delta, *ctx.blocks)
         return dq, dk, dv, None, None
 
 
 # -------------------------------------------------------------------------
-# the position-masked route (B4-B6 in the JAX package): plain version only
+# plain versions of B4-B6: every tile pair, keep = q_pos >= kv_pos (no
+# positions: unmasked), a pair skipped whole when max(q_pos of the Q tile)
+# < min(kv_pos of the K tile), as the kernels skip it
 # -------------------------------------------------------------------------
-def _masked_attention(q, k, v, q_pos, kv_pos):
-    """Dense plain version of the position-masked flash kernels:
-    ``(out, lse)``; keep = q_pos >= kv_pos when positions are given, else
-    unmasked. Fully masked rows give out = 0 and lse = -1e30, as there.
-    Differentiable through autograd."""
-    tensors = (q, k, v) + tuple(t for t in (q_pos, kv_pos) if t is not None)
-    if not _on_cpu(*tensors):
-        raise NotImplementedError(
-            "position-masked flash attention (explicit q_pos/kv_pos, "
-            "rectangular causal, or causal=False) has no CUDA kernel yet: "
-            "ROADMAP B4-B6"
-        )
-    D = q.shape[-1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(D)
-    keep = None
-    if q_pos is not None:
-        keep = q_pos.reshape(-1)[:, None] >= kv_pos.reshape(-1)[None, :]
-        s = torch.where(keep, s, _NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    if keep is not None:
-        p = torch.where(keep, p, 0.0)
-    l = p.sum(dim=-1)
-    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
-    safe = torch.clamp(l, min=1e-30)
-    out = (acc / safe.transpose(1, 2)[..., None]).to(q.dtype)
-    lse = torch.where(l > 0, m[..., 0] + torch.log(safe), _NEG_INF)
+def _tile_keep(q_pos, kv_pos, q0, q1, k0, k1):
+    """``(skip, keep)`` for one tile pair; ``keep`` is None unmasked."""
+    if q_pos is None:
+        return False, None
+    qp, kp = q_pos[q0:q1], kv_pos[k0:k1]
+    if bool(qp.max() < kp.min()):
+        return True, None
+    return False, qp[:, None] >= kp[None, :]
+
+
+def _flat_positions(q_pos, kv_pos, Tq: int, Tk: int):
+    if (q_pos is None) != (kv_pos is None):
+        raise ValueError("q_pos and kv_pos go together: give both or neither")
+    if q_pos is None:
+        return None, None
+    q_pos, kv_pos = q_pos.reshape(-1), kv_pos.reshape(-1)
+    if q_pos.numel() != Tq or kv_pos.numel() != Tk:
+        raise ValueError(f"positions of length {q_pos.numel()} and "
+                         f"{kv_pos.numel()} for Tq={Tq}, Tk={Tk}")
+    return q_pos, kv_pos
+
+
+def flash_masked_fwd_reference(q, k, v, q_pos=None, kv_pos=None,
+                               block_q: int = 64, block_k: int = 64,
+                               out_dtype: Optional[torch.dtype] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B4's arithmetic: Q tiles of ``block_q`` rows, each with an online
+    softmax over every K/V tile it does not skip, fp32 m/l/acc, p rounded to
+    v's dtype before the PV product. Returns ``(out [B, Tq, H, D] in
+    out_dtype or q's, lse [B, H, Tq] fp32)``; a row that sees no key gets
+    out = 0 and lse = -1e30."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    q_pos, kv_pos = _flat_positions(q_pos, kv_pos, Tq, Tk)
+    scale = _scale(D)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    out = torch.empty(B, H, Tq, D, dtype=out_dtype or q.dtype, device=q.device)
+    lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
+    for q0 in range(0, Tq, block_q):
+        q1 = min(q0 + block_q, Tq)
+        qb = qt[:, :, q0:q1].float()
+        acc = torch.zeros(B, H, q1 - q0, D, dtype=torch.float32, device=q.device)
+        m = torch.full((B, H, q1 - q0), _NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        for k0 in range(0, Tk, block_k):
+            k1 = min(k0 + block_k, Tk)
+            skip, keep = _tile_keep(q_pos, kv_pos, q0, q1, k0, k1)
+            if skip:
+                continue
+            s = torch.einsum("bhqd,bhkd->bhqk", qb, kt[:, :, k0:k1].float()) * scale
+            if keep is not None:
+                s = torch.where(keep, s, _NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            if keep is not None:
+                p = torch.where(keep, p, 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(v.dtype).float(),
+                vt[:, :, k0:k1].float())
+            m = m_new
+        safe = torch.clamp(l, min=1e-30)
+        out[:, :, q0:q1] = (acc / safe[..., None]).to(out.dtype)
+        lse[:, :, q0:q1] = torch.where(l > 0, m + torch.log(safe), _NEG_INF)
+    return out.transpose(1, 2), lse
+
+
+def flash_masked_dq_reference(q, k, v, do, lse, delta, q_pos=None,
+                              kv_pos=None, block_q: int = 64,
+                              block_k: int = 64) -> torch.Tensor:
+    """B5's arithmetic: dq = sum_k ds k with ds = p (dp - delta) scale over
+    the tile pairs not skipped, q-major, all products in fp32."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    q_pos, kv_pos = _flat_positions(q_pos, kv_pos, Tq, Tk)
+    scale = _scale(D)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    dq = torch.empty(B, H, Tq, D, dtype=q.dtype, device=q.device)
+    for q0 in range(0, Tq, block_q):
+        q1 = min(q0 + block_q, Tq)
+        qb, dob = qt[:, :, q0:q1].float(), dot[:, :, q0:q1].float()
+        lse_b, delta_b = lse[:, :, q0:q1], delta[:, :, q0:q1]
+        acc = torch.zeros(B, H, q1 - q0, D, dtype=torch.float32, device=q.device)
+        for k0 in range(0, Tk, block_k):
+            k1 = min(k0 + block_k, Tk)
+            skip, keep = _tile_keep(q_pos, kv_pos, q0, q1, k0, k1)
+            if skip:
+                continue
+            kb, vb = kt[:, :, k0:k1].float(), vt[:, :, k0:k1].float()
+            p = _probs(qb, kb, lse_b, keep, scale)
+            dp = torch.einsum("bhqd,bhkd->bhqk", dob, vb)
+            ds = p * (dp - delta_b[..., None]) * scale
+            acc = acc + torch.einsum("bhqk,bhkd->bhqd", ds, kb)
+        dq[:, :, q0:q1] = acc.to(q.dtype)
+    return dq.transpose(1, 2)
+
+
+def flash_masked_dkv_reference(q, k, v, do, lse, delta, q_pos=None,
+                               kv_pos=None, block_q: int = 64,
+                               block_k: int = 64
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B6's arithmetic: dv = sum_q p^T do, dk = sum_q ds^T q, K-major over
+    the tile pairs not skipped, all in fp32."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    q_pos, kv_pos = _flat_positions(q_pos, kv_pos, Tq, Tk)
+    scale = _scale(D)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    dk = torch.empty(B, H, Tk, D, dtype=k.dtype, device=q.device)
+    dv = torch.empty(B, H, Tk, D, dtype=v.dtype, device=q.device)
+    for k0 in range(0, Tk, block_k):
+        k1 = min(k0 + block_k, Tk)
+        kb, vb = kt[:, :, k0:k1].float(), vt[:, :, k0:k1].float()
+        dk_acc = torch.zeros(B, H, k1 - k0, D, dtype=torch.float32,
+                             device=q.device)
+        dv_acc = torch.zeros_like(dk_acc)
+        for q0 in range(0, Tq, block_q):
+            q1 = min(q0 + block_q, Tq)
+            skip, keep = _tile_keep(q_pos, kv_pos, q0, q1, k0, k1)
+            if skip:
+                continue
+            qb, dob = qt[:, :, q0:q1].float(), dot[:, :, q0:q1].float()
+            lse_b, delta_b = lse[:, :, q0:q1], delta[:, :, q0:q1]
+            p = _probs(qb, kb, lse_b, keep, scale)
+            dv_acc = dv_acc + torch.einsum("bhqk,bhqd->bhkd", p, dob)
+            dp = torch.einsum("bhqd,bhkd->bhqk", dob, vb)
+            ds = p * (dp - delta_b[..., None]) * scale
+            dk_acc = dk_acc + torch.einsum("bhqk,bhqd->bhkd", ds, qb)
+        dk[:, :, k0:k1] = dk_acc.to(k.dtype)
+        dv[:, :, k0:k1] = dv_acc.to(v.dtype)
+    return dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+# -------------------------------------------------------------------------
+# B4-B6 wrappers: CPU tensors -> plain version, CUDA tensors -> the kernel
+# -------------------------------------------------------------------------
+def _device_positions(q_pos, kv_pos, Tq: int, Tk: int, device):
+    """int32 contiguous positions on ``device`` (or two Nones)."""
+    q_pos, kv_pos = _flat_positions(q_pos, kv_pos, Tq, Tk)
+    if q_pos is None:
+        return None, None
+    return tuple(p.to(device=device, dtype=torch.int32).contiguous()
+                 for p in (q_pos, kv_pos))
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def flash_masked_fwd(q, k, v, q_pos=None, kv_pos=None, block_q: int = 64,
+                     block_k: int = 64, out_dtype: Optional[torch.dtype] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B4: ``(out [B, Tq, H, D] in out_dtype or q's dtype, lse [B, H, Tq]
+    fp32)``; ``out_dtype`` may be q's dtype or float32."""
+    if out_dtype not in (None, q.dtype, torch.float32):
+        raise TypeError(f"out_dtype {out_dtype}: q's dtype or float32 only")
+    if _on_cpu(q, k, v, q_pos, kv_pos):
+        return flash_masked_fwd_reference(q, k, v, q_pos, kv_pos, block_q,
+                                          block_k, out_dtype)
+    B, Tq, Tk, H, D = _check("flash_masked_fwd", (q,), (k, v))
+    qp, kp = _device_positions(q_pos, kv_pos, Tq, Tk, q.device)
+    out = torch.empty(B, Tq, H, D, dtype=out_dtype or q.dtype, device=q.device)
+    lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
+    rc = _masked_lib().flash_masked_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(qp), _ptr(kp),
+        out.data_ptr(), lse.data_ptr(), _strides(q, k, v, out), B, Tq, Tk, H,
+        D, _scale(D), _DTYPE_CODES[q.dtype], int(out.dtype != q.dtype),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _finish("mfwd", rc)
     return out, lse
 
 
+def flash_masked_dq(q, k, v, do, lse, delta, q_pos=None, kv_pos=None,
+                    block_q: int = 64, block_k: int = 64) -> torch.Tensor:
+    """B5: ``dq [B, Tq, H, D]`` in q's dtype."""
+    if _on_cpu(q, k, v, do, lse, delta, q_pos, kv_pos):
+        return flash_masked_dq_reference(q, k, v, do, lse, delta, q_pos,
+                                         kv_pos, block_q, block_k)
+    B, Tq, Tk, H, D = _check("flash_masked_dq", (q, do), (k, v), (lse, delta))
+    qp, kp = _device_positions(q_pos, kv_pos, Tq, Tk, q.device)
+    dq = torch.empty(B, Tq, H, D, dtype=q.dtype, device=q.device)
+    rc = _masked_lib().flash_masked_dq_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), _ptr(qp),
+        _ptr(kp), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        _strides(q, k, v, do, dq), B, Tq, Tk, H, D, _scale(D),
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    _finish("mdq", rc)
+    return dq
+
+
+def flash_masked_dkv(q, k, v, do, lse, delta, q_pos=None, kv_pos=None,
+                     block_q: int = 64, block_k: int = 64
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B6: ``(dk, dv)``, each ``[B, Tk, H, D]`` in k's and v's dtype."""
+    if _on_cpu(q, k, v, do, lse, delta, q_pos, kv_pos):
+        return flash_masked_dkv_reference(q, k, v, do, lse, delta, q_pos,
+                                          kv_pos, block_q, block_k)
+    B, Tq, Tk, H, D = _check("flash_masked_dkv", (q, do), (k, v), (lse, delta))
+    qp, kp = _device_positions(q_pos, kv_pos, Tq, Tk, q.device)
+    dk = torch.empty(B, Tk, H, D, dtype=k.dtype, device=q.device)
+    dv = torch.empty(B, Tk, H, D, dtype=v.dtype, device=q.device)
+    rc = _masked_lib().flash_masked_dkv_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), _ptr(qp),
+        _ptr(kp), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), _strides(q, k, v, do, dk, dv), B, Tq, Tk, H, D,
+        _scale(D), _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _finish("mdkv", rc)
+    return dk, dv
+
+
+def attention_delta(do, out) -> torch.Tensor:
+    """``delta = rowsum(do * out)`` in fp32, ``[B, H, T]`` contiguous: the
+    backward's plain op outside the kernels (``_bwd`` in the JAX package)."""
+    return torch.einsum("bthd,bthd->bht", do.float(), out.float()).contiguous()
+
+
+class _FlashMasked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, block_q, block_k):
+        out, lse = flash_masked_fwd(q, k, v, q_pos, kv_pos, block_q, block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.positions = (q_pos, kv_pos)
+        ctx.blocks = (block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        delta = attention_delta(do, out)
+        args = (q, k, v, do, lse, delta, *ctx.positions, *ctx.blocks)
+        dq = flash_masked_dq(*args)
+        dk, dv = flash_masked_dkv(*args)
+        return dq, dk, dv, None, None, None, None
+
+
+# -------------------------------------------------------------------------
+# public API
+# -------------------------------------------------------------------------
 def _positions(q, k, causal, q_pos, kv_pos):
+    """Rectangular causal becomes ``arange`` positions; explicit positions
+    pass through (they mask with or without ``causal``)."""
     if causal and q_pos is None:
         q_pos = torch.arange(q.shape[1], device=q.device)
         kv_pos = torch.arange(k.shape[1], device=k.device)
@@ -373,7 +625,7 @@ def flash_attention(
     if causal and q_pos is None and q.shape[1] == k.shape[1]:
         return _FlashCausal.apply(q, k, v, block_q, block_k)
     q_pos, kv_pos = _positions(q, k, causal, q_pos, kv_pos)
-    return _masked_attention(q, k, v, q_pos, kv_pos)[0]
+    return _FlashMasked.apply(q, k, v, q_pos, kv_pos, block_q, block_k)
 
 
 def flash_attention_with_lse(
@@ -389,5 +641,4 @@ def flash_attention_with_lse(
     if causal and q_pos is None and q.shape[1] == k.shape[1]:
         return flash_causal_fwd(q, k, v, block_q, block_k)
     q_pos, kv_pos = _positions(q, k, causal, q_pos, kv_pos)
-    return _masked_attention(q, k, v, q_pos, kv_pos)
-
+    return flash_masked_fwd(q, k, v, q_pos, kv_pos, block_q, block_k)

@@ -1,22 +1,33 @@
 """Placement strategies.
 
-Port of ``pytorch_distributed_tpu/parallel/strategies.py``, ``NoShard``
-only: the whole model, its gradients and its optimizer state sit on one
-device (the "mesh" is that one card), and the batch is not split. The
-strategies that shard (DataParallel, FSDP, ZeRO1, hybrid) come with
-ROADMAP A.4 and A.11.
+Port of ``pytorch_distributed_tpu/parallel/strategies.py``:
+
+* ``NoShard``: the whole model, its gradients and its optimizer state on
+  one device, the batch not split;
+* ``DataParallel(mesh, dp_axis)``: one replica per rank of ``dp_axis``;
+  each rank takes its slice of the global batch, and after the backward
+  the gradients are averaged over the axis's process group (one all-reduce
+  of one flat buffer), so the trainer steps on the global mean gradient,
+  as the JAX step does;
+* ``CPStrategy(mesh, cp_axis)``: ``DataParallel`` over the context-parallel
+  axis with the batch replicated: the sequence is split inside the
+  attention (``parallel.context_parallel``), not here.
+
+The strategies that shard parameters (FSDP, ZeRO1, hybrid) are ROADMAP
+A.11; gradient communication hooks are A.14.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pytorch_distributed_tpu_torch._device import resolve_device
 
-__all__ = ["ShardingStrategy", "NoShard"]
+__all__ = ["ShardingStrategy", "NoShard", "DataParallel", "CPStrategy"]
 
 
 def _to_device(x, device: torch.device):
@@ -46,7 +57,86 @@ class ShardingStrategy:
         strategy's device."""
         return _to_device(batch, self.device)
 
+    def sync_params(self, model: torch.nn.Module) -> None:
+        """Make every replica hold the same parameters (one replica: no-op)."""
+
+    def reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The gradients the optimizer steps on (one replica: as they are)."""
+        return grads
+
 
 class NoShard(ShardingStrategy):
     """Single-device, fully replicated strategy (torch
     ``ShardingStrategy.NO_SHARD``)."""
+
+
+class DataParallel(ShardingStrategy):
+    """DDP semantics over ``mesh``'s ``dp_axis``: replicated parameters,
+    the batch split along dim 0 by the rank's coordinate on the axis, and
+    the gradients averaged over the axis's group after the backward."""
+
+    def __init__(self, mesh, dp_axis: str = "dp"):
+        if dp_axis not in mesh.axis_names:
+            raise ValueError(f"axis {dp_axis!r} not in mesh {mesh.axis_names}")
+        super().__init__(mesh.device)
+        self.mesh = mesh
+        self.dp_axis = dp_axis
+        self.batch_axes = dp_axis
+        self.group = mesh.get_group(dp_axis)
+
+    @property
+    def data_shard_count(self) -> int:
+        """Number of data shards (the 'world size' for the sampler)."""
+        return 1 if self.batch_axes is None else self.mesh.size(self.batch_axes)
+
+    def place_batch(self, batch):
+        """This rank's slice of the global batch: dim 0 of every array cut
+        into ``data_shard_count`` equal parts."""
+        batch = super().place_batch(batch)
+        n = self.data_shard_count
+        if n == 1:
+            return batch
+        i = self.mesh.get_local_rank(self.batch_axes)
+
+        def shard(x):
+            if isinstance(x, (tuple, list)):
+                return type(x)(shard(t) for t in x)
+            if x.shape[0] % n:
+                raise ValueError(f"global batch of {x.shape[0]} does not split "
+                                 f"into {n} equal shards")
+            return x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
+
+        return shard(batch)
+
+    @torch.no_grad()
+    def sync_params(self, model: torch.nn.Module) -> None:
+        """Every replica takes the parameters of the axis's first rank (one
+        broadcast of one flat buffer)."""
+        params = list(model.parameters())
+        flat = torch.cat([p.reshape(-1) for p in params])
+        dist.broadcast(flat, dist.get_global_rank(self.group, 0),
+                       group=self.group)
+        for p, new in zip(params, flat.split([p.numel() for p in params])):
+            p.copy_(new.view_as(p))
+
+    @torch.no_grad()
+    def reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The mean of every rank's gradients over the axis's group: one
+        fp32 buffer, one all-reduce (sum), divided by the group size."""
+        n = dist.get_world_size(self.group)
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        dist.all_reduce(flat, group=self.group)
+        flat /= n
+        return [new.view_as(g).to(g.dtype)
+                for g, new in zip(grads, flat.split([g.numel() for g in grads]))]
+
+
+class CPStrategy(DataParallel):
+    """Context parallelism's placement (the JAX recipe's ``CPStrategy``):
+    ``DataParallel`` over ``cp_axis`` with the batch replicated, since the
+    attention splits the sequence over the axis itself. The gradients come
+    out the same on every rank; the mean keeps them so."""
+
+    def __init__(self, mesh, cp_axis: str = "cp"):
+        super().__init__(mesh, cp_axis)
+        self.batch_axes = None

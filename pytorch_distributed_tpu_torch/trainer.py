@@ -1,13 +1,17 @@
 """Trainer: the training step of the port.
 
-Port of ``pytorch_distributed_tpu/trainer.py`` for one device (``NoShard``).
-The JAX step is one jitted program over an immutable state; here the model
-holds the parameters and the optimizer its state, and ``step`` updates both
-in place. The step keeps the JAX step's order:
+Port of ``pytorch_distributed_tpu/trainer.py`` for replicated strategies
+(``NoShard`` on one device; ``DataParallel`` and ``CPStrategy``, one
+process per rank). The JAX step is one jitted program over an immutable
+state; here the model holds the parameters and the optimizer its state, and
+``step`` updates both in place. The step keeps the JAX step's order:
 
-  1. the policy casts the batch's floating tensors to the compute dtype;
+  1. the strategy places the batch (its rank's slice under a dp split) and
+     the policy casts its floating tensors to the compute dtype;
   2. microbatch accumulation: the grads of ``grad_accum_steps`` equal
      slices of the batch are summed and divided by their count (the mean);
+     then ``strategy.reduce_grads`` averages them over the replicas (the
+     JAX step's gradient all-reduce; ``NoShard`` leaves them as they are);
   3. with a loss scaler: unscale, and an all-finite check over every grad;
   4. global-norm clipping, ``grads * min(1, clip / (norm + 1e-6))``;
   5. the optimizer step (``torch.optim.AdamW``: the same update as
@@ -18,7 +22,9 @@ in place. The step keeps the JAX step's order:
 
 Metrics are 0-d tensors on the device: ``loss``, ``grad_norm``,
 ``all_finite``, the loss function's own (``perplexity`` for the LM losses)
-and, with a scaler, ``loss_scale``.
+and, with a scaler, ``loss_scale``. ``grad_norm`` is that of the averaged
+gradients; ``loss`` and the loss function's metrics are the rank's own
+(under a dp split, those of its slice of the batch).
 
 A loss function is ``loss_fn(model, batch, train) -> (loss, metrics)``.
 
@@ -170,7 +176,8 @@ class Trainer:
     Args:
       model: ``torch.nn.Module``, its parameters on the strategy's device.
       optimizer: a ``torch.optim`` optimizer over ``model``'s parameters.
-      strategy: placement (``NoShard``: the single card).
+      strategy: placement (``NoShard``: the single card; ``DataParallel``
+        or ``CPStrategy``: replicas over a mesh axis).
       loss_fn: ``(model, batch, train) -> (loss, metrics)``; see
         ``classification_loss`` / ``lm_loss`` / ``make_chunked_lm_loss``.
       policy: 'fp32' | 'bf16' | 'fp16' | Policy -- batch cast and scaler
@@ -217,7 +224,8 @@ class Trainer:
 
     # -- init --------------------------------------------------------------
     def init(self) -> TrainState:
-        """The train state at step 0; creates the optimizer state."""
+        """The train state at step 0: every replica takes the first rank's
+        parameters, and the optimizer state is created."""
         dev = self.strategy.device
         for name, p in self.model.named_parameters():
             if p.device != dev:
@@ -230,6 +238,7 @@ class Trainer:
             # must live on the card beside the all-finite flag
             for group in self.optimizer.param_groups:
                 group["capturable"] = True
+        self.strategy.sync_params(self.model)
         _init_adam_state(self.optimizer)
         return TrainState(
             step=0,
@@ -259,6 +268,7 @@ class Trainer:
         accum = len(losses)
         if accum > 1:
             grads = [g / accum for g in grads]
+        grads = self.strategy.reduce_grads(grads)
         loss = torch.stack(losses).mean()
         metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
                    for k in per_mb[0]}

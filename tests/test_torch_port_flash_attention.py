@@ -157,19 +157,22 @@ def test_non_causal_is_unmasked():
 
 
 def test_off_cpu_tensors_never_take_a_plain_version():
-    """A tensor off the CPU launches a kernel or raises: the masked route
-    (B4-B6, not ported) raises NotImplementedError naming the ROADMAP, and
-    the causal kernels refuse a non-CUDA device."""
+    """A tensor off the CPU launches a kernel or raises: on a device that is
+    neither the CPU nor CUDA, every route (the pruned causal one, and the
+    position-masked one for non-causal, rectangular causal and explicit
+    positions) refuses it instead of taking a plain version."""
     q = torch.empty(1, 8, 2, 16, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP B4-B6"):
-        fa.flash_attention(q, q, q, causal=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP B4-B6"):
-        fa.flash_attention_with_lse(q, q[:, :4], q[:, :4], causal=True)
     pos = torch.arange(8, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP B4-B6"):
-        fa.flash_attention(q, q, q, causal=True, q_pos=pos, kv_pos=pos)
-    with pytest.raises(ValueError, match="CUDA"):
-        fa.flash_attention(q, q, q, causal=True)
+    before = dict(fa.launches)
+    for call in (lambda: fa.flash_attention(q, q, q, causal=False),
+                 lambda: fa.flash_attention_with_lse(q, q[:, :4], q[:, :4],
+                                                     causal=True),
+                 lambda: fa.flash_attention(q, q, q, causal=True, q_pos=pos,
+                                            kv_pos=pos),
+                 lambda: fa.flash_attention(q, q, q, causal=True)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert fa.launches == before
 
 
 @pytest.mark.parametrize("dtype", [np.float32])
