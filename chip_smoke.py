@@ -11,15 +11,18 @@ serving, training and context-parallel training, printing one JSON line
 per phase:
 
   device        the card (``nvidia-smi`` name and power limit), library
-                versions and the kernel build time;
+                versions, the kernel build time, and the registers, stack
+                and HGMMA (tensor-core) instructions of the Hopper-route
+                kernels read from the built library with ``cuobjdump``;
   kernels       each CUDA kernel against its plain PyTorch version at its
                 main path's shapes, in fp32 and bf16, with its time, the
                 plain version's time, the least time the card could take
                 (bound) and one PyTorch library call's time for comparison
                 (B7 paged decode; B1-B3 causal flash forward, dq, dk/dv,
-                with a ragged T checked too; B4-B6 position-masked flash
-                forward, dq, dk/dv on every position pattern a ring hop
-                gives them);
+                with a ragged T, fp16 and D=128 checked too, and SDPA timed
+                under each backend that takes the call; B4-B6
+                position-masked flash forward, dq, dk/dv on every position
+                pattern a ring hop gives them);
   cp_hops       the ring's own hop functions for 4 ranks emulated on the
                 card (plain and zigzag ring, T=4096): merged outputs and
                 gradients against B1-B3 on the whole sequence;
@@ -40,7 +43,11 @@ per phase:
                 flash attention), 3 warm-up and 20 timed steps; then 10 steps
                 on one fixed batch, whose loss must fall;
   train_profile torch.profiler over 3 training steps: device busy share, top
-                kernels, and B1-B3's share of the busy time;
+                kernels, and B1-B3's share of the busy time; the Hopper
+                B1 and B3 kernels launch n_layer times a step;
+  train_bf16_parity  bf16 GPT-2 125M, 5 steps on one fixed batch from the
+                same weights: flash attention against dense attention,
+                losses within 1% at every step;
   train_cp_parity  the same model, batches and limits as train_parity, with
                 ring flash attention (B4-B6) under ``CPStrategy`` on a
                 one-rank NCCL group (one card: cp = 1) against
@@ -60,16 +67,19 @@ from __future__ import annotations
 
 import importlib
 import json
+import re
 import socket
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
+from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.profiler import ProfilerActivity, profile
 
 from pytorch_distributed_tpu_torch import distributed as pdist
@@ -136,7 +146,10 @@ LIBRARIES = ("paged_decode_attention", "flash_attention_causal",
 # kernel vs plain version, |a - b| <= tol * (1 + |b|): fp32 sums in another
 # order; bf16 outputs rounded once from fp32 (one bf16 ulp is 2**-8 of the
 # value) and p rounded to bf16 before PV in both
-FLASH_TOLERANCE = {"float32": 2e-4, "bfloat16": 2e-2}
+FLASH_TOLERANCE = {"float32": 2e-4, "bfloat16": 2e-2, "float16": 2e-2}
+# the Hopper route (bf16/fp16) of B1 and B3: kernel names in the profiles
+SM90_KERNELS = ("flash_causal_fwd_kernel_sm90", "flash_causal_dkv_kernel_sm90")
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 
 
 def peaks():
@@ -431,42 +444,99 @@ def _flash_check(q, k, v, do, tol):
     return errs, ref_lse, delta
 
 
+def _device_ms(fn, reps: int, match: str) -> float:
+    """Device time of one call of the kernels whose name holds ``match``,
+    from torch.profiler over ``reps`` calls (no host work included)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in _device_kernels(prof)
+               if match in e.key) / 1e3 / reps
+
+
+def _sdpa_times(q, k, v, do, flush):
+    """SDPA(is_causal=True) forward and autograd backward (dq, dk and dv
+    together) under each backend of SDPA_BACKENDS, on [B, H, T, D] copies
+    made beforehand (the transposes excluded): CUDA-event times as for the
+    kernels, and the device time of all the kernels a call launches
+    (``*_device``); None where the backend refuses the call."""
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    times = {}
+    for name in SDPA_BACKENDS:
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                         is_causal=True)
+
+                def lib_fwd():
+                    with torch.no_grad():
+                        F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True)
+
+                def lib_bwd():
+                    torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                        retain_graph=True)
+
+                times[name] = {"fwd": time_ms(lib_fwd, 50, flush),
+                               "bwd": time_ms(lib_bwd, 50, flush),
+                               "fwd_device": _device_ms(lib_fwd, 10, ""),
+                               "bwd_device": _device_ms(lib_bwd, 10, "")}
+                del lib_out
+        except RuntimeError:
+            times[name] = None
+    return times
+
+
+def _fastest(times, key):
+    """(device ms, backend) of the fastest backend for ``key`` (fwd or
+    bwd). Device time, because the CUDA-event window of the autograd
+    backward also holds its host work, which can outlast the L2 flush."""
+    ms, name = min((t[f"{key}_device"], n) for n, t in times.items()
+                   if t is not None)
+    return ms, name
+
+
 def flash_kernel_phase():
     """B1-B3 at the training path's shape (B=8, T=1024, H=12, D=64) in fp32
-    and bf16, and a ragged T=1000 checked in both. Times are CUDA-event
-    medians with the L2 flushed before each call."""
+    (the CUDA-core route) and bf16 (B1 and B3 on the Hopper route), each
+    checked against its plain version and timed; then checks alone: a
+    ragged T=1000 in fp32, bf16 and fp16 (B=2), and D=128 in bf16 (B=1,
+    T=256). Times are CUDA-event medians with the L2 flushed before each
+    call by a 512 MB write, long enough that the wrapper's host work is
+    enqueued before the card reaches the kernel; ``device_ms`` is the
+    kernel's own time from torch.profiler. The library call is SDPA under
+    each backend that takes it; the fastest by device time is the
+    yardstick."""
     B, T, H, D = 8, 1024, 12, 64
     g = torch.Generator().manual_seed(4)
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    flush = torch.empty(128 * 2**20, dtype=torch.int32, device="cuda")
     bf16_peak, fp32_peak, hbm = peaks()
     n_vis = B * H * T * (T + 1) // 2   # visible (query, key) pairs
-    results, ragged = {}, {}
+    checks = {  # name: (B, T, H, D, dtype)
+        "float32_T1000": (2, 1000, H, D, torch.float32),
+        "bfloat16_T1000": (2, 1000, H, D, torch.bfloat16),
+        "float16_T1000": (2, 1000, H, D, torch.float16),
+        "bfloat16_D128_T256": (1, 256, H, 128, torch.bfloat16),
+    }
+    check_errs = {}
+    for cname, (Bc, Tc, Hc, Dc, dtype) in checks.items():
+        tol = FLASH_TOLERANCE[str(dtype).removeprefix("torch.")]
+        check_errs[cname] = _flash_check(
+            *_flash_inputs(Bc, Tc, Hc, Dc, dtype, g), tol)[0]
+    results, sdpa = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         tol = FLASH_TOLERANCE[name]
-        ragged[name] = _flash_check(*_flash_inputs(2, 1000, H, D, dtype, g),
-                                    tol)[0]
         q, k, v, do = _flash_inputs(B, T, H, D, dtype, g)
         errs, lse, delta = _flash_check(q, k, v, do, tol)
         args = (q, k, v, do, lse, delta)
-
-        # library yardstick: SDPA(is_causal=True) on [B, H, T, D] copies made
-        # beforehand (the transposes excluded); its autograd backward
-        # computes dq, dk and dv together
-        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                      for x in (q, k, v))
-        dot = do.transpose(1, 2).contiguous()
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-
-        def lib_fwd():
-            with torch.no_grad():
-                F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-
-        def lib_bwd():
-            torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
-
-        library = {"fwd": time_ms(lib_fwd, 50, flush),
-                   "bwd": time_ms(lib_bwd, 50, flush)}
+        sdpa[name] = _sdpa_times(q, k, v, do, flush)
+        library = {key: _fastest(sdpa[name], key) for key in ("fwd", "bwd")}
         elt, n = q.element_size(), B * T * H * D
         stats = B * H * T * 4                 # one fp32 [B, H, T] vector
         work = {  # bytes (inputs read once, outputs written once), flops
@@ -488,27 +558,41 @@ def flash_kernel_phase():
             n_bytes, n_flops = work[key]
             t_bytes = n_bytes / hbm * 1e3
             t_ops = n_flops / peak * 1e3
+            ms = time_ms(kernel, 20, flush)
+            lib_ms, lib_backend = library["fwd" if key == "fwd" else "bwd"]
             per[key] = {
                 "max_abs_err": errs[key],
                 "tolerance": tol,
-                "ms": time_ms(kernel, 20, flush),
+                "ms": ms,
+                "device_ms": _device_ms(kernel, 10,
+                                        f"flash_causal_{key}_kernel"),
                 "plain_ms": time_ms(plain, 3, flush),
-                "library_ms": library["fwd" if key == "fwd" else "bwd"],
+                "library_ms": lib_ms,
+                "library_backend": lib_backend,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": n_bytes,
                 "flops": n_flops,
+                "tflops": n_flops / ms / 1e9,
+                "ms_over_bound": ms / max(t_bytes, t_ops),
             }
+        per["dq_plus_dkv_ms"] = per["dq"]["ms"] + per["dkv"]["ms"]
         results[name] = per
-        del qt, kt, vt, lib_out
     emit({"phase": "kernels", "kernel": "flash_causal (B1 fwd, B2 dq, B3 dkv)",
           "shape": {"B": B, "T": T, "H": H, "D": D,
                     "layout": "q/k/v strided views of a fused [B, T, 3*H*D]"},
-          "ragged": {"B": 2, "T": 1000, "max_abs_err": ragged},
+          "route": {"float32": "CUDA cores (B1-B3)",
+                    "bfloat16": "B1, B3 wgmma + TMA (sm90); B2 CUDA cores"},
+          "checks": {k_: {"shape": list(v_[:4]),
+                          "dtype": str(v_[4]).removeprefix("torch."),
+                          "max_abs_err": check_errs[k_]}
+                     for k_, v_ in checks.items()},
           "tolerance": "|kernel - plain| <= tol * (1 + |plain|)",
           "library_call": "F.scaled_dot_product_attention(is_causal=True) "
                           "forward for B1; its autograd backward (dq, dk "
-                          "and dv together) for B2 and B3",
+                          "and dv together) for B2 and B3; the fastest of "
+                          "the backends below by device time",
+          "sdpa_ms_by_backend": sdpa,
           "peak_flops": {"bfloat16": bf16_peak, "float32": fp32_peak},
           "results": results})
     return results
@@ -563,7 +647,7 @@ def masked_kernel_phase():
     two runs) and, in bf16, fp32 partial outputs. Times are taken on the
     diagonal hop (the one train_cp runs): CUDA-event medians with the L2
     flushed; the library call is ``F.scaled_dot_product_attention`` with the
-    boolean mask built from the positions."""
+    boolean mask built from the positions, timed by its device time."""
     B, T, H, D = 8, 1024, 12, 64
     g = torch.Generator().manual_seed(9)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
@@ -626,8 +710,10 @@ def masked_kernel_phase():
                 torch.autograd.grad(lib_out, (qt, kt, vt), dot,
                                     retain_graph=True)
 
-            library = {"fwd": time_ms(lib_fwd, 50, flush),
-                       "bwd": time_ms(lib_bwd, 50, flush)}
+            # device time: the autograd backward's host work can outlast
+            # the flush and would sit in a CUDA-event window
+            library = {"fwd": _device_ms(lib_fwd, 10, ""),
+                       "bwd": _device_ms(lib_bwd, 10, "")}
             n_vis = Bp * H * int(mask.sum())   # visible (query, key) pairs
             elt, n = q.element_size(), Bp * T * H * D
             stats, n_pos = Bp * H * T * 4, 2 * T * 4
@@ -981,11 +1067,45 @@ def train_fixed_batch_phase():
     return trainer, state, batch
 
 
+def train_bf16_parity_phase():
+    """bf16 GPT-2 125M (B=8, T=1024, the train phase's policy), 5 steps on
+    one fixed batch from the same weights: the trainer with the flash
+    kernels (B1 and B3 on the Hopper route, rounding p and ds to bf16
+    before their products) against the same trainer with dense attention.
+    Both loss lists are printed; they must agree within 1% at every step."""
+    steps = 5
+    batch = _lm_batches(1, 8, 1024, seed=11)[0]
+    runs = {}
+    for name, extra in (("flash", {"attn_impl": fa.flash_attention}),
+                        ("dense", {})):
+        trainer, state = _trainer(seed=3, dtype=torch.bfloat16, **extra)
+        _reset_flash_counts()
+        losses = []
+        for _ in range(steps):
+            state, m = trainer.step(state, batch)
+            losses.append(float(m["loss"]))
+        runs[name] = (losses, dict(fa.launches))
+        del trainer, state
+        torch.cuda.empty_cache()
+    (flash, launches), (dense, _) = runs["flash"], runs["dense"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(flash, dense)]
+    n_layer = GPT2Config().n_layer
+    emit({"phase": "train_bf16_parity", "dtype": "bfloat16", "B": 8,
+          "T": 1024, "steps": steps, "loss_flash": flash,
+          "loss_dense": dense, "loss_rel_err": rel, "limit": 0.01,
+          "launches_flash": launches})
+    check(all(np.isfinite(flash + dense)) and max(rel) <= 0.01,
+          f"bf16 flash vs dense losses {flash} vs {dense}")
+    check(all(launches[k] == n_layer * steps for k in CAUSAL_KEYS),
+          f"flash launches {launches} != n_layer x steps {n_layer * steps}")
+
+
 def train_profile_phase(trainer, state, batch, phase="train_profile",
-                        kernels=FLASH_KERNELS):
+                        kernels=FLASH_KERNELS, expect_calls=()):
     """Where a training step's time goes: torch.profiler over 3 bf16 steps
     (B=8, T=1024): host wall time against device busy time, top kernels,
-    and the flash kernels' (``kernels``) share of the busy time."""
+    and the flash kernels' (``kernels``) share of the busy time. Each
+    kernel name in ``expect_calls`` must launch n_layer times a step."""
     state, _ = trainer.step(state, batch)
     torch.cuda.synchronize()
     steps = 3
@@ -1002,12 +1122,15 @@ def train_profile_phase(trainer, state, batch, phase="train_profile",
                          if f"{name}_kernel" in e.key) / 1e3
                 for name, key, _ in kernels}
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+    calls = {name: sum(e.count for e in device if name in e.key) / steps
+             for name in expect_calls}
     emit({"phase": phase, "steps": steps,
           "wall_ms_per_step": wall_ms / steps,
           "device_busy_ms_per_step": busy_ms / steps,
           "device_busy_share": busy_ms / wall_ms,
           "flash_ms_per_step": {k: v / steps for k, v in flash_ms.items()},
           "flash_share_of_busy": sum(flash_ms.values()) / busy_ms,
+          "calls_per_step": calls,
           "nccl_ms_per_step": sum(e.self_device_time_total for e in device
                                   if "nccl" in e.key.lower()) / 1e3 / steps,
           "device_kernels_per_step": sum(e.count for e in device) / steps,
@@ -1015,6 +1138,43 @@ def train_profile_phase(trainer, state, batch, phase="train_profile",
                            "ms_per_step": e.self_device_time_total / 1e3 / steps,
                            "calls_per_step": e.count / steps} for e in top]})
     check(busy_ms > 0, "the profiler saw no device time")
+    n_layer = GPT2Config().n_layer
+    check(all(c == n_layer for c in calls.values()),
+          f"{phase}: calls per step {calls}, expected {n_layer} each")
+    return {k: v / steps for k, v in flash_ms.items()}
+
+
+def kernel_resources():
+    """Registers, stack bytes and HGMMA (wgmma) instructions of each
+    Hopper-route kernel, read from the built B1-B3 library with
+    ``cuobjdump -res-usage`` and ``cuobjdump -sass``; each must run on
+    the tensor cores (HGMMA > 0)."""
+    lib = str(_build._target("flash_attention_causal")[1])
+    tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    usage = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                           text=True, check=True).stdout
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    hgmma = {}   # function: (HGMMA count, the first one as disassembled)
+    for part in sass.split("Function : ")[1:]:
+        first = re.search(r"HGMMA\.[^;]*;", part)
+        hgmma[part.split(None, 1)[0]] = (part.count("HGMMA."),
+                                         first.group(0) if first else None)
+    out = {}
+    for fn, reg, stack in re.findall(
+            r"Function ([^\s:]+):\s*REG:(\d+) STACK:(\d+)", usage):
+        if not any(k in fn for k in SM90_KERNELS):
+            continue
+        kind = "fwd" if "fwd" in fn else "dkv"
+        dtype = "bf16" if "bfloat16" in fn else "f16"
+        d = re.search(r"Li(\d+)E", fn).group(1)
+        count, first = hgmma.get(fn, (0, None))
+        out[f"{kind}_sm90<{dtype},{d}>"] = {
+            "registers": int(reg), "stack_bytes": int(stack),
+            "hgmma": count, "first_hgmma": first}
+    check(len(out) == 8 and all(r["hgmma"] > 0 for r in out.values()),
+          f"Hopper-route kernels without HGMMA: {out}")
+    return out
 
 
 def main() -> int:
@@ -1033,7 +1193,8 @@ def main() -> int:
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda,
-          "build_s": time.perf_counter() - t0})
+          "build_s": time.perf_counter() - t0,
+          "sm90_kernels": kernel_resources()})
 
     kres = kernel_phase()
     fres = flash_kernel_phase()
@@ -1047,8 +1208,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     parity_batches, dense = train_parity_phase()
     train_launches = train_phase()
-    train_profile_phase(*train_fixed_batch_phase())
+    train_split = train_profile_phase(*train_fixed_batch_phase(),
+                                      expect_calls=SM90_KERNELS)
     torch.cuda.empty_cache()
+    train_bf16_parity_phase()
 
     # context parallelism over a one-rank NCCL group: one card, cp = 1
     with socket.socket() as sock:
@@ -1080,6 +1243,7 @@ def main() -> int:
         "library_call": "F.scaled_dot_product_attention on a dense view "
                         "gathered beforehand",
     }]
+    n_layer = GPT2Config().n_layer
     for name, key, replaces in FLASH_KERNELS:
         r = fres["bfloat16"][key]  # the train phase runs in bf16
         summary.append({
@@ -1096,7 +1260,11 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "library_call": "F.scaled_dot_product_attention(is_causal=True) "
                             + ("forward" if key == "fwd" else
-                               "autograd backward (dq, dk, dv together)"),
+                               "autograd backward (dq, dk, dv together)")
+                            + f", {r['library_backend']} backend",
+            "device_ms": r["device_ms"],
+            "train_profile_ms_per_launch": train_split[key] / n_layer,
+            "tflops": r["tflops"],
         })
     for name, key, replaces in MASKED_KERNELS:
         r = mres["bfloat16"][key]  # the train_cp phase runs in bf16

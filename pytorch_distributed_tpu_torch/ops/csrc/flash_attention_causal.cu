@@ -10,11 +10,20 @@
 // copies or transposes an operand; D must be contiguous. lse and delta are
 // [B, H, T] fp32, the outputs [B, T, H, D] with the strides given.
 //
-// What bounds them on this card: operations. At GPT-2's shapes (T = 1024,
-// D = 64) each K/V element is reused by up to 16 Q tiles, far above the
-// card's bytes-per-operation ratio. This first version computes in fp32 on
-// the CUDA cores (tensor cores, TMA and warp specialisation are later
-// work), so its ceiling is the fp32 rate, not the bf16 tensor rate.
+// Two routes, by dtype:
+//   fp32: the CUDA-core kernels below, for all three passes (exact fp32
+//         products: wgmma has no fp32 B operand read transposed).
+//   bf16/fp16: B1 and B3 are Hopper kernels on the tensor cores
+//         (flash_causal_fwd_kernel_sm90, flash_causal_dkv_kernel_sm90,
+//         after the CUDA-core ones); B2 stays on the CUDA-core kernel.
+//         They need D % 8 == 0 and 16-byte aligned bases and strides (TMA);
+//         a call that breaks the rule fails, it never falls back.
+//
+// CUDA-core kernels. What bounds them on this card: operations. At
+// GPT-2's shapes (T = 1024, D = 64) each K/V element is reused by up to 16
+// Q tiles, far above the card's bytes-per-operation ratio. They compute in
+// fp32 on the CUDA cores, so their ceiling is the fp32 rate, not the bf16
+// tensor rate.
 //
 // Design. Tiles are 64 query rows by 64 key rows. Blocks run in no order,
 // so where the TPU grid carried the online softmax (or dq, or dk/dv) in
@@ -37,6 +46,9 @@
 // accumulator are fp32, scale = 1/sqrt(D) in fp32, p is rounded to the
 // input dtype before the PV product in the forward, and rows whose lse is
 // <= -1e30/2 get p = 0 in the backward.
+#include <type_traits>
+
+#include "flash_sm90.cuh"
 #include "flash_tiles.cuh"
 
 namespace {
@@ -276,6 +288,461 @@ flash_causal_dkv_kernel(View q, View k, View v, View dout, const float* lse,
   store_tile<T, kD>(dv, b, h, k0, dv_acc, one, n.T, n.D);
 }
 
+// ============================================================ Hopper route
+// B1 and B3 in bf16/fp16 (pieces in flash_sm90.cuh). A CTA is two
+// consumer warpgroups and one producer warp. The producer's lane 0 issues
+// TMA loads into a ring of kStages shared-memory stages, each guarded by a
+// "full" and an "empty" mbarrier; each consumer warpgroup runs its
+// products as wgmma on the tensor cores, fp32 accumulators in registers,
+// and releases a stage once its products have read it. D = 64 and 128
+// are instantiated (a head below 128 wide is zero-filled by TMA up to the
+// tile); no operand is copied or transposed: the transposed products
+// read the same swizzled tiles through MN-major descriptors.
+
+constexpr int kSm90Threads = 288;  // warpgroups 0 and 1 consume, warp 8 produces
+constexpr int kProducerWarp = 8;
+
+// The first 1024-byte boundary of dynamic shared memory (128B swizzle).
+__device__ __forceinline__ char* align_1024(char* raw) {
+  const uint32_t off = sm90::smem_addr(raw);
+  return raw + ((1024 - off % 1024) % 1024);
+}
+
+template <int kD>
+struct Sm90Layout {
+  static constexpr int kBoxes = kD / 64;                      // tiles across D
+  static constexpr int kStages = kD == 64 ? 3 : 2;
+  static constexpr int kRows64 = kBoxes * sm90::kTileBytes;   // 64 rows, all of D
+  // B3 at D = 128 adds warps 9-11, which only give their registers to the
+  // consumers (setmaxnreg moves registers within a CTA, one warpgroup to
+  // another); at D = 64 the registers do not bind, and the split is slower
+  static constexpr int kDkvThreads = kD == 128 ? 384 : kSm90Threads;
+};
+
+// ---------------------------------------------------------------- B1
+// flash_causal_fwd_kernel_sm90: replaces _fwd_kernel_pruned
+// (pytorch_distributed_tpu/ops/flash_attention.py:179), out and lse.
+//
+// Bound on this card: bytes. At B=8, T=1024, H=12, D=64 the call must move
+// q, k, v once and write out and lse once, 0.0151 ms at 3.35 TB/s; its
+// 12.9 GFLOP (4 D per visible pair) take 0.013 ms at 989 TFLOP/s bf16.
+// The design reads each operand tile into shared memory once per CTA by
+// TMA and keeps both products on the tensor cores, with the score tile in
+// registers from one product to the next:
+//   - one CTA: 128 query rows of one (b, h), rows 64 g .. 64 g + 63 for
+//     consumer warpgroup g; the Q tiles arrive once; K/V tiles of 64 rows
+//     0 .. last_ki stream through the ring (the pruning: tiles above the
+//     diagonal are never loaded); the longest rows run first;
+//   - per K/V tile: S = Q K^T by wgmma (both operands K-major in shared
+//     memory); the online softmax on the accumulator registers in the log2
+//     domain (a row's max reduces over the 4 threads that hold it, its
+//     sum once at the end);
+//     the causal mask only on tiles that cross the diagonal or the ragged
+//     tail (TMA's zero rows past T would score 0, so they are masked);
+//     P rounded to the input dtype in registers (the TPU kernel's
+//     p.astype(v.dtype)) is the register A operand of O += P V, V read
+//     through an MN-major descriptor;
+//   - out and lse written once at the end, as the TPU kernel: fp32 m, l and
+//     O, lse = -1e30 where l = 0.
+template <typename T, int kD>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+flash_causal_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
+                             const __grid_constant__ CUtensorMap mk,
+                             const __grid_constant__ CUtensorMap mv, View out, float* lse,
+                             Dims n) {
+  using L = Sm90Layout<kD>;
+  constexpr int kStages = L::kStages;
+  constexpr int kStageBytes = 2 * L::kRows64;  // K tile, then V tile
+  extern __shared__ char smem_raw[];
+  __shared__ uint64_t full[kStages], empty[kStages], q_full;
+  char* Qs = align_1024(smem_raw);  // [warpgroup][box][64 rows x 128 B]
+  char* ring = Qs + 2 * L::kRows64;
+
+  const int nqt = (n.T + 127) / 128;
+  const int qt = nqt - 1 - static_cast<int>(blockIdx.x);  // longest rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = qt * 128;
+  const int last_ki = min(2 * qt + 1, (n.T - 1) / 64);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 2);
+    }
+    sm90::mbar_init(&q_full, 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kProducerWarp) {
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(&q_full, 2 * L::kRows64);
+      for (int g = 0; g < 2; ++g)
+        for (int e = 0; e < L::kBoxes; ++e)
+          sm90::tma_load(Qs + g * L::kRows64 + e * sm90::kTileBytes, &mq, &q_full, 64 * e, h,
+                         q0 + 64 * g, b);
+      for (int ki = 0; ki <= last_ki; ++ki) {
+        const int s = ki % kStages;
+        sm90::mbar_wait(&empty[s], ((ki / kStages) & 1) ^ 1);
+        char* Ks = ring + s * kStageBytes;
+        sm90::mbar_arrive_expect_tx(&full[s], kStageBytes);
+        for (int e = 0; e < L::kBoxes; ++e) {
+          sm90::tma_load(Ks + e * sm90::kTileBytes, &mk, &full[s], 64 * e, h, 64 * ki, b);
+          sm90::tma_load(Ks + L::kRows64 + e * sm90::kTileBytes, &mv, &full[s], 64 * e, h,
+                         64 * ki, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int g = warp / 4;
+  const int row0 = q0 + 64 * g;                      // this warpgroup's first row
+  const int rA = row0 + 16 * (warp % 4) + lane / 4;  // the thread's rows: rA, rA + 8
+  const int c0 = 2 * (lane % 4);
+  const char* Qg = Qs + g * L::kRows64;
+  const float scale_log2 = n.scale * sm90::kLog2e;
+
+  float o[L::kBoxes][32];
+#pragma unroll
+  for (int e = 0; e < L::kBoxes; ++e)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[e][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // row max of scale * s, log2 units
+  float l[2] = {0.f, 0.f};          // this thread's part of the row sum
+
+  sm90::mbar_wait(&q_full, 0);
+  for (int ki = 0; ki <= last_ki; ++ki) {
+    const int s = ki % kStages;
+    sm90::mbar_wait(&full[s], (ki / kStages) & 1);
+    const int k0 = 64 * ki;
+    const char* Ks = ring + s * kStageBytes;
+    const char* Vs = Ks + L::kRows64;
+    if (k0 <= row0 + 63) {  // this warpgroup's rows see part of the tile
+      float sc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+      sm90::fence_acc(sc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const int box = (kk / 4) * sm90::kTileBytes;
+        sm90::wgmma_ss<T, 0>(sc, sm90::desc_kmajor(Qg + box, kk % 4),
+                             sm90::desc_kmajor(Ks + box, kk % 4), kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(sc);
+
+      // masked scores become -inf (branch-free: the mask is a select), so
+      // their p is exactly 0; m starts at -1e30, so alpha is never NaN
+      if ((k0 + 63 > row0) || (k0 + 64 > n.T)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int c = k0 + 8 * (i / 4) + c0 + i % 2;
+          const bool keep = (c <= rA + 8 * ((i / 2) % 2)) & (c < n.T);
+          sc[i] = keep ? sc[i] : -INFINITY;
+        }
+      }
+      // raw scores here; scale * log2(e) folds into the exponent's FFMA
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+      float alpha[2], neg_m[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        const float m_new = fmaxf(m[hh], mx[hh] * scale_log2);
+        alpha[hh] = sm90::exp2_ftz(m[hh] - m_new);
+        m[hh] = m_new;
+        neg_m[hh] = -m_new;
+        l[hh] *= alpha[hh];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i / 2) % 2;
+        const float p = sm90::exp2_ftz(fmaf(sc[i], scale_log2, neg_m[hh]));
+        l[hh] += p;
+        sc[i] = p;
+      }
+      uint32_t pa[4][4];
+      sm90::to_fragments<T>(sc, pa);
+#pragma unroll
+      for (int e = 0; e < L::kBoxes; ++e) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[e][i] *= alpha[(i / 2) % 2];
+        sm90::fence_acc(o[e]);
+      }
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < L::kBoxes; ++e)
+          sm90::wgmma_rs<T, 1>(o[e], pa[kk],
+                               sm90::desc_mnmajor(Vs + e * sm90::kTileBytes, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < L::kBoxes; ++e) sm90::fence_acc(o[e]);
+    }
+    if (threadIdx.x % 128 == 0) sm90::mbar_arrive(&empty[s]);
+  }
+
+  T* base = static_cast<T*>(out.ptr) + b * out.sb + h * out.sh;
+  float* lse_bh = lse + (static_cast<int64_t>(b) * n.H + h) * n.T;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float sum = l[hh];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int r = rA + 8 * hh;
+    if (r >= n.T) continue;
+    const float safe = fmaxf(sum, 1e-30f);
+#pragma unroll
+    for (int e = 0; e < L::kBoxes; ++e)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int d = 64 * e + 8 * jj + c0;
+        if (d < n.D)
+          *reinterpret_cast<uint32_t*>(base + r * out.st + d) = sm90::pack2<T>(
+              o[e][4 * jj + 2 * hh] / safe, o[e][4 * jj + 2 * hh + 1] / safe);
+      }
+    if (lane % 4 == 0) lse_bh[r] = sum > 0.f ? m[hh] * sm90::kLn2 + logf(safe) : kNegInf;
+  }
+}
+
+// ---------------------------------------------------------------- B3
+// flash_causal_dkv_kernel_sm90: replaces _dkv_kernel_pruned
+// (pytorch_distributed_tpu/ops/flash_attention.py:334), dk and dv.
+//
+// Bound on this card: operations. At B=8, T=1024, H=12, D=64 its 25.8
+// GFLOP (8 D per visible pair: four products) take 0.0261 ms at 989
+// TFLOP/s bf16, above the 0.0190 ms its bytes take. The design puts all
+// four products on the tensor cores and keeps every tile where the next
+// product reads it:
+//   - one CTA: 128 keys of one (b, h), keys 64 g .. 64 g + 63 for consumer
+//     warpgroup g; K and V arrive once by TMA and stay; Q and dO tiles of
+//     64 rows from qi_first = k0 / 64 to the last stream through the ring,
+//     with their rows' lse and delta (fp32) staged beside them by the
+//     producer warp's lanes; the CTAs with the most Q tiles run first;
+//   - the transposed products, so no tile is ever transposed in shared
+//     memory: S^T = K Q^T and dP^T = V dO^T (K-major operands),
+//     P^T = exp(scale S^T - lse[col]) with the causal mask on tiles that
+//     cross the diagonal or the ragged tail and p = 0 where
+//     lse <= -1e30 / 2, dS^T = P^T (dP^T - delta[col]) scale, then
+//     dV += P^T dO and dK += dS^T Q with P^T and dS^T as register A
+//     operands and dO, Q read through MN-major descriptors;
+//   - dK and dV accumulate in fp32 registers and are written once; no
+//     atomics (the JAX two-pass split: dq is B2's); at D = 128 they hold
+//     128 registers a thread, so a third warpgroup (the producer warp and
+//     three idle ones) gives its registers to the consumers (setmaxnreg)
+//     and nothing spills.
+// The one deliberate numeric change from the TPU kernel: P^T and dS^T are
+// rounded to the input dtype before their tensor-core products (the TPU
+// kernel multiplies fp32 p and ds by fp32-widened do and q), as
+// FlashAttention-2/3 and SDPA round them.
+template <typename T, int kD>
+__global__ void __launch_bounds__(Sm90Layout<kD>::kDkvThreads, 1)
+flash_causal_dkv_kernel_sm90(const __grid_constant__ CUtensorMap mq,
+                             const __grid_constant__ CUtensorMap mk,
+                             const __grid_constant__ CUtensorMap mv,
+                             const __grid_constant__ CUtensorMap mdo, const float* lse,
+                             const float* delta, View dk, View dv, Dims n) {
+  using L = Sm90Layout<kD>;
+  constexpr int kStages = L::kStages;
+  constexpr int kStageBytes = 2 * L::kRows64;  // Q tile, then dO tile
+  extern __shared__ char smem_raw[];
+  __shared__ uint64_t full[kStages], empty[kStages], kv_full;
+  __shared__ float stats[kStages][2][64];  // lse and delta of the stage's Q rows
+  char* Ks = align_1024(smem_raw);  // [warpgroup][box][64 rows x 128 B]
+  char* Vs = Ks + 2 * L::kRows64;
+  char* ring = Vs + 2 * L::kRows64;
+
+  const int nq = (n.T + 63) / 64;
+  const int k0 = 128 * static_cast<int>(blockIdx.x);  // the first CTAs have the most Q tiles
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int qi_first = k0 / 64;
+  const int64_t bh = (static_cast<int64_t>(b) * n.H + h) * n.T;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 32);  // the producer's lanes; lane 0 brings the TMA bytes
+      sm90::mbar_init(&empty[s], 2);
+    }
+    sm90::mbar_init(&kv_full, 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kProducerWarp) {
+    // at D = 128 warpgroup 2 gives 128 registers a thread to the consumers
+    // (dK and dV alone hold 128 a thread); warp 8 then produces
+    if constexpr (kD == 128) sm90::regs_dec<40>();
+    if (warp != kProducerWarp) return;
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(&kv_full, 4 * L::kRows64);
+      for (int g = 0; g < 2; ++g)
+        for (int e = 0; e < L::kBoxes; ++e) {
+          const int off = g * L::kRows64 + e * sm90::kTileBytes;
+          sm90::tma_load(Ks + off, &mk, &kv_full, 64 * e, h, k0 + 64 * g, b);
+          sm90::tma_load(Vs + off, &mv, &kv_full, 64 * e, h, k0 + 64 * g, b);
+        }
+    }
+    for (int qi = qi_first; qi < nq; ++qi) {
+      const int it = qi - qi_first;
+      const int s = it % kStages;
+      sm90::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      const int q0 = 64 * qi;
+#pragma unroll
+      for (int j = lane; j < 64; j += 32) {
+        const bool in = q0 + j < n.T;
+        stats[s][0][j] = in ? lse[bh + q0 + j] : 0.f;
+        stats[s][1][j] = in ? delta[bh + q0 + j] : 0.f;
+      }
+      if (lane == 0) {
+        char* Qt = ring + s * kStageBytes;
+        sm90::mbar_arrive_expect_tx(&full[s], kStageBytes);
+        for (int e = 0; e < L::kBoxes; ++e) {
+          sm90::tma_load(Qt + e * sm90::kTileBytes, &mq, &full[s], 64 * e, h, q0, b);
+          sm90::tma_load(Qt + L::kRows64 + e * sm90::kTileBytes, &mdo, &full[s], 64 * e, h,
+                         q0, b);
+        }
+      } else {
+        sm90::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  if constexpr (kD == 128) sm90::regs_inc<232>();
+  const int g = warp / 4;
+  const int kg = k0 + 64 * g;                      // this warpgroup's first key
+  const int cA = kg + 16 * (warp % 4) + lane / 4;  // the thread's keys: cA, cA + 8
+  const int c0 = 2 * (lane % 4);
+  const char* Kg = Ks + g * L::kRows64;
+  const char* Vg = Vs + g * L::kRows64;
+  const float scale_log2 = n.scale * sm90::kLog2e;
+
+  float dk_acc[L::kBoxes][32], dv_acc[L::kBoxes][32];
+#pragma unroll
+  for (int e = 0; e < L::kBoxes; ++e)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[e][i] = dv_acc[e][i] = 0.f;
+
+  sm90::mbar_wait(&kv_full, 0);
+  for (int qi = qi_first; qi < nq; ++qi) {
+    const int it = qi - qi_first;
+    const int s = it % kStages;
+    sm90::mbar_wait(&full[s], (it / kStages) & 1);
+    const int q0 = 64 * qi;
+    const char* Qt = ring + s * kStageBytes;
+    const char* dOt = Qt + L::kRows64;
+    if (q0 + 63 >= kg && kg < n.T) {  // some query of the tile sees one of these keys
+      float st[32], dpt[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+      sm90::fence_acc(st);
+      sm90::fence_acc(dpt);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const int box = (kk / 4) * sm90::kTileBytes;
+        sm90::wgmma_ss<T, 0>(st, sm90::desc_kmajor(Kg + box, kk % 4),
+                             sm90::desc_kmajor(Qt + box, kk % 4), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const int box = (kk / 4) * sm90::kTileBytes;
+        sm90::wgmma_ss<T, 0>(dpt, sm90::desc_kmajor(Vg + box, kk % 4),
+                             sm90::desc_kmajor(dOt + box, kk % 4), kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(st);
+      sm90::fence_acc(dpt);
+
+      // cell i: key cA + 8 ((i / 2) % 2), query q0 + 8 (i / 4) + c0 + i % 2
+      const bool edge = (kg + 63 > q0) || (q0 + 64 > n.T);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int j = 8 * jj + c0 + cc;
+          const int r = q0 + j;
+          const float lse_v = stats[s][0][j];
+          const float delta_v = stats[s][1][j];
+          const bool dead = lse_v <= kNegInf / 2;
+          const float neg_lse2 = -lse_v * sm90::kLog2e;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int i = 4 * jj + 2 * hh + cc;
+            const bool keep = !dead & (!edge | ((cA + 8 * hh <= r) & (r < n.T)));
+            const float e = exp2f(fmaf(st[i], scale_log2, neg_lse2));
+            const float p = keep ? e : 0.f;
+            dpt[i] = p * (dpt[i] - delta_v) * n.scale;
+            st[i] = p;
+          }
+        }
+      uint32_t pa[4][4], dsa[4][4];
+      sm90::to_fragments<T>(st, pa);
+      sm90::to_fragments<T>(dpt, dsa);
+#pragma unroll
+      for (int e = 0; e < L::kBoxes; ++e) {
+        sm90::fence_acc(dv_acc[e]);
+        sm90::fence_acc(dk_acc[e]);
+      }
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < L::kBoxes; ++e)
+          sm90::wgmma_rs<T, 1>(dv_acc[e], pa[kk],
+                               sm90::desc_mnmajor(dOt + e * sm90::kTileBytes, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < L::kBoxes; ++e)
+          sm90::wgmma_rs<T, 1>(dk_acc[e], dsa[kk],
+                               sm90::desc_mnmajor(Qt + e * sm90::kTileBytes, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < L::kBoxes; ++e) {
+        sm90::fence_acc(dv_acc[e]);
+        sm90::fence_acc(dk_acc[e]);
+      }
+    }
+    if (threadIdx.x % 128 == 0) sm90::mbar_arrive(&empty[s]);
+  }
+
+  T* dk_base = static_cast<T*>(dk.ptr) + b * dk.sb + h * dk.sh;
+  T* dv_base = static_cast<T*>(dv.ptr) + b * dv.sb + h * dv.sh;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int c = cA + 8 * hh;
+    if (c >= n.T) continue;
+#pragma unroll
+    for (int e = 0; e < L::kBoxes; ++e)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int d = 64 * e + 8 * jj + c0;
+        if (d >= n.D) continue;
+        const int i = 4 * jj + 2 * hh;
+        *reinterpret_cast<uint32_t*>(dk_base + c * dk.st + d) =
+            sm90::pack2<T>(dk_acc[e][i], dk_acc[e][i + 1]);
+        *reinterpret_cast<uint32_t*>(dv_base + c * dv.st + d) =
+            sm90::pack2<T>(dv_acc[e][i], dv_acc[e][i + 1]);
+      }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 template <int kD>
 constexpr size_t fwd_smem() { return (3 * kTile * (kD + 4) + kTile * kLP) * sizeof(float); }
@@ -327,15 +794,80 @@ cudaError_t dkv(const void* const* p, const long long* s, int B, const Dims& n,
   return cudaGetLastError();
 }
 
+// TMA maps of the first `count` [B, T, H, D] operands of p (strides s).
+template <typename T>
+cudaError_t make_maps(CUtensorMap* maps, int count, const void* const* p, const long long* s,
+                      int B, const Dims& n) {
+  for (int i = 0; i < count; ++i) {
+    if (!sm90::tma_layout_ok(p[i], s + 3 * i, B, n.T, n.H, n.D, sizeof(T)))
+      return cudaErrorInvalidValue;
+    const cudaError_t e =
+        sm90::make_map(&maps[i], p[i], s + 3 * i, B, n.T, n.H, n.D, sm90::map_type<T>());
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+template <int kD>
+constexpr size_t fwd_sm90_smem() {  // alignment slack, Q, ring of K/V
+  return 1024 + (2 + 2 * Sm90Layout<kD>::kStages) * Sm90Layout<kD>::kRows64;
+}
+template <int kD>
+constexpr size_t dkv_sm90_smem() {  // alignment slack, K, V, ring of Q/dO
+  return 1024 + (4 + 2 * Sm90Layout<kD>::kStages) * Sm90Layout<kD>::kRows64;
+}
+
+template <typename T, int kD>
+cudaError_t fwd_sm90(const void* const* p, const long long* s, int B, const Dims& n,
+                     cudaStream_t stream) {
+  CUtensorMap maps[3];
+  cudaError_t e = make_maps<T>(maps, 3, p, s, B, n);
+  if (e != cudaSuccess) return e;
+  const size_t smem = fwd_sm90_smem<kD>();
+  e = allow_smem(flash_causal_fwd_kernel_sm90<T, kD>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n.T + 127) / 128, n.H, B);
+  flash_causal_fwd_kernel_sm90<T, kD><<<grid, kSm90Threads, smem, stream>>>(
+      maps[0], maps[1], maps[2], view(p[3], s + 9),
+      static_cast<float*>(const_cast<void*>(p[4])), n);
+  return cudaGetLastError();
+}
+
+template <typename T, int kD>
+cudaError_t dkv_sm90(const void* const* p, const long long* s, int B, const Dims& n,
+                     cudaStream_t stream) {
+  CUtensorMap maps[4];
+  cudaError_t e = make_maps<T>(maps, 4, p, s, B, n);
+  if (e != cudaSuccess) return e;
+  const size_t smem = dkv_sm90_smem<kD>();
+  e = allow_smem(flash_causal_dkv_kernel_sm90<T, kD>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n.T + 127) / 128, n.H, B);
+  flash_causal_dkv_kernel_sm90<T, kD><<<grid, Sm90Layout<kD>::kDkvThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(p[4]),
+      static_cast<const float*>(p[5]), view(p[6], s + 12), view(p[7], s + 15), n);
+  return cudaGetLastError();
+}
+
 enum Pass { kFwd, kDq, kDkv };
 
+// fp32: the CUDA-core kernels. bf16/fp16: B1 and B3 on the Hopper route,
+// B2 on the CUDA-core kernel.
 template <typename T, int kD>
 cudaError_t run(Pass pass, const void* const* p, const long long* s, int B,
                 const Dims& n, cudaStream_t stream) {
-  switch (pass) {
-    case kFwd: return fwd<T, kD>(p, s, B, n, stream);
-    case kDq: return dq<T, kD>(p, s, B, n, stream);
-    default: return dkv<T, kD>(p, s, B, n, stream);
+  if constexpr (std::is_same<T, float>::value) {
+    switch (pass) {
+      case kFwd: return fwd<T, kD>(p, s, B, n, stream);
+      case kDq: return dq<T, kD>(p, s, B, n, stream);
+      default: return dkv<T, kD>(p, s, B, n, stream);
+    }
+  } else {
+    switch (pass) {
+      case kFwd: return fwd_sm90<T, kD>(p, s, B, n, stream);
+      case kDq: return dq<T, kD>(p, s, B, n, stream);
+      default: return dkv_sm90<T, kD>(p, s, B, n, stream);
+    }
   }
 }
 

@@ -21,11 +21,19 @@ Its kernels are also the local op of context parallelism's ring
 (``parallel.context_parallel``), which calls them once per hop with the
 hop's global positions and, in the forward, fp32 partial outputs.
 
+In bf16/fp16, B1 and B3 run on the Hopper route (``wgmma`` tiles fed by
+TMA, ``csrc/flash_sm90.cuh``): their q, k, v and do need D % 8 == 0 and
+16-byte aligned bases and strides (``tma_layout_error``), and a call that
+breaks the rule raises ``ValueError``; fp32 and B2 keep the CUDA-core
+kernels. B3's Hopper kernel rounds p and ds to the input dtype before its
+tensor-core products (the TPU kernel and the plain version keep them
+fp32).
+
 Every kernel has a plain PyTorch version beside it (``*_reference``): the
 same blocked online-softmax arithmetic in torch ops. A wrapper takes it only
 for tensors on the CPU; a CUDA tensor launches the kernel or raises.
 ``block_q``/``block_k`` tile the plain versions; the CUDA kernels' tiles
-are fixed at 64 x 64.
+are fixed (64 x 64; 128 rows by 64 on the Hopper route).
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ __all__ = [
     "flash_masked_dq_reference",
     "flash_masked_dkv",
     "flash_masked_dkv_reference",
+    "tma_layout_error",
 ]
 
 _NEG_INF = -1e30
@@ -202,12 +211,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 
 
+_TAIL = [_STRIDES, _I, _I, _I, _I, _F, _I, _P]   # B, T, H, D, scale, dtype, stream
+# the extern "C" entry points of csrc/flash_attention_causal.cu
+CAUSAL_SIGNATURES = (
+    ("flash_causal_fwd_launch", [_P] * 5 + _TAIL),
+    ("flash_causal_dq_launch", [_P] * 7 + _TAIL),
+    ("flash_causal_dkv_launch", [_P] * 8 + _TAIL),
+)
+
+
 def _kernel_lib() -> ctypes.CDLL:
-    tail = [_STRIDES, _I, _I, _I, _I, _F, _I, _P]   # B, T, H, D, scale, dtype, stream
-    return _bind(_build.load(_LIB), (
-        ("flash_causal_fwd_launch", [_P] * 5 + tail),
-        ("flash_causal_dq_launch", [_P] * 7 + tail),
-        ("flash_causal_dkv_launch", [_P] * 8 + tail)))
+    return _bind(_build.load(_LIB), CAUSAL_SIGNATURES)
 
 
 def _masked_lib() -> ctypes.CDLL:
@@ -263,6 +277,42 @@ def _check(name: str, q_side, kv_side, stats=(), same_t: bool = False):
     return B, Tq, Tk, H, D
 
 
+def tma_layout_error(shape, strides, elt: int, ptr: int) -> Optional[str]:
+    """The rule that the Hopper route's TMA loads (B1 and B3 in bf16/fp16)
+    put on a ``[B, T, H, D]`` operand, as a pure function of its shape, its
+    strides in elements, its element size in bytes and its address: D a
+    multiple of 8, a 16-byte aligned base, and the batch, time and head
+    strides of every dimension longer than 1 a multiple of 16 bytes.
+    Returns the rule broken, or None."""
+    D = shape[-1]
+    if D % 8:
+        return f"head size D={D} must be a multiple of 8"
+    if ptr % 16:
+        return f"base address {ptr:#x} must be 16-byte aligned"
+    for dim, size, stride in zip("BTH", shape[:3], strides[:3]):
+        if size > 1 and (stride * elt) % 16:
+            return (f"the {dim} stride of {stride} elements ({stride * elt} "
+                    "bytes) must be a multiple of 16 bytes")
+    return None
+
+
+def _tma_error(t) -> Optional[str]:
+    return tma_layout_error(tuple(t.shape), t.stride(), t.element_size(),
+                            t.data_ptr())
+
+
+def _check_tma(name: str, *tensors) -> None:
+    """bf16/fp16 B1 and B3 read their operands by TMA: ValueError naming
+    the rule that an operand breaks."""
+    if tensors[0].dtype == torch.float32:
+        return
+    for t in tensors:
+        err = _tma_error(t)
+        if err is not None:
+            raise ValueError(f"{name}: {t.dtype} operands are read by TMA: "
+                             f"{err}")
+
+
 def _strides(*tensors):
     flat = [s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2))]
     return (ctypes.c_longlong * len(flat))(*flat)
@@ -281,6 +331,7 @@ def flash_causal_fwd(q, k, v, block_q: int = 64, block_k: int = 64
     if _on_cpu(q, k, v):
         return flash_causal_fwd_reference(q, k, v, block_q, block_k)
     B, T, _, H, D = _check("flash_causal_fwd", (q,), (k, v), same_t=True)
+    _check_tma("flash_causal_fwd", q, k, v)
     out = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     rc = _kernel_lib().flash_causal_fwd_launch(
@@ -317,6 +368,7 @@ def flash_causal_dkv(q, k, v, do, lse, delta, block_q: int = 64,
                                           block_k)
     B, T, _, H, D = _check("flash_causal_dkv", (q, do), (k, v), (lse, delta),
                            same_t=True)
+    _check_tma("flash_causal_dkv", q, k, v, do)
     dk = torch.empty(B, T, H, D, dtype=k.dtype, device=q.device)
     dv = torch.empty(B, T, H, D, dtype=v.dtype, device=q.device)
     rc = _kernel_lib().flash_causal_dkv_launch(
@@ -342,7 +394,8 @@ class _FlashCausal(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
+        if do.stride(-1) != 1 or (do.dtype != torch.float32
+                                  and _tma_error(do) is not None):
             do = do.contiguous()
         delta = attention_delta(do, out)
         dq = flash_causal_dq(q, k, v, do, lse, delta, *ctx.blocks)

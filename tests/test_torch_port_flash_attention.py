@@ -208,7 +208,8 @@ def test_chunked_cross_entropy_matches_jax(dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-2)])
 def test_cuda_kernels_match_plain_versions(dtype, tol):
     """B1-B3 on the card against their plain versions, on the strided
     q/k/v views of a fused qkv projection and a ragged T."""
