@@ -13,16 +13,17 @@ per phase:
   device        the card (``nvidia-smi`` name and power limit), library
                 versions, the kernel build time, and the registers, stack
                 and HGMMA (tensor-core) instructions of the Hopper-route
-                kernels read from the built library with ``cuobjdump``;
+                kernels (B1-B4 in bf16/fp16) read from the built libraries
+                with ``cuobjdump``;
   kernels       each CUDA kernel against its plain PyTorch version at its
                 main path's shapes, in fp32 and bf16, with its time, the
                 plain version's time, the least time the card could take
-                (bound) and one PyTorch library call's time for comparison
-                (B7 paged decode; B1-B3 causal flash forward, dq, dk/dv,
-                with a ragged T, fp16 and D=128 checked too, and SDPA timed
-                under each backend that takes the call; B4-B6
-                position-masked flash forward, dq, dk/dv on every position
-                pattern a ring hop gives them);
+                (bound) and one PyTorch library call's time for comparison,
+                SDPA timed under each backend that takes the call (B7 paged
+                decode; B1-B3 causal flash forward, dq, dk/dv, with a
+                ragged T, fp16 and D=128 checked too; B4-B6 position-masked
+                flash forward, dq, dk/dv on every position pattern a ring
+                hop gives them, with a ragged fp16 and a D=128 pattern);
   cp_hops       the ring's own hop functions for 4 ranks emulated on the
                 card (plain and zigzag ring, T=4096): merged outputs and
                 gradients against B1-B3 on the whole sequence;
@@ -44,9 +45,11 @@ per phase:
                 on one fixed batch, whose loss must fall;
   train_profile torch.profiler over 3 training steps: device busy share, top
                 kernels, and B1-B3's share of the busy time; the Hopper
-                B1 and B3 kernels launch n_layer times a step;
+                B1, B2 and B3 kernels launch n_layer times a step;
   train_bf16_parity  bf16 GPT-2 125M, 5 steps on one fixed batch from the
-                same weights: flash attention against dense attention,
+                same weights: flash attention (B1-B3), and ring flash
+                attention (B4-B6) under ``CPStrategy`` on a one-rank NCCL
+                group (one card: cp = 1), each against dense attention,
                 losses within 1% at every step;
   train_cp_parity  the same model, batches and limits as train_parity, with
                 ring flash attention (B4-B6) under ``CPStrategy`` on a
@@ -56,7 +59,8 @@ per phase:
                 B=8, T=1024, ring flash attention under ``CPStrategy``, 3
                 warm-up and 20 timed steps; then 10 steps on one fixed batch,
                 whose loss must fall;
-  train_cp_profile  as train_profile, for train_cp's steps and B4-B6.
+  train_cp_profile  as train_profile, for train_cp's steps and B4-B6; the
+                Hopper B4 kernel launches n_layer times a step.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -80,7 +84,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.nn.attention import SDPBackend, sdpa_kernel
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 
 from pytorch_distributed_tpu_torch import distributed as pdist
 from pytorch_distributed_tpu_torch.examples import train_gpt2
@@ -147,9 +151,25 @@ LIBRARIES = ("paged_decode_attention", "flash_attention_causal",
 # order; bf16 outputs rounded once from fp32 (one bf16 ulp is 2**-8 of the
 # value) and p rounded to bf16 before PV in both
 FLASH_TOLERANCE = {"float32": 2e-4, "bfloat16": 2e-2, "float16": 2e-2}
-# the Hopper route (bf16/fp16) of B1 and B3: kernel names in the profiles
-SM90_KERNELS = ("flash_causal_fwd_kernel_sm90", "flash_causal_dkv_kernel_sm90")
+# the Hopper route (bf16/fp16) of B1-B3 and of B4: kernel names in the
+# profiles and in the built libraries
+SM90_KERNELS = ("flash_causal_fwd_kernel_sm90", "flash_causal_dq_kernel_sm90",
+                "flash_causal_dkv_kernel_sm90")
+MASKED_SM90_KERNELS = ("flash_masked_fwd_kernel_sm90",)
+# counter keys of the kernels with a Hopper route (bf16/fp16)
+SM90_KEYS = ("fwd", "dq", "dkv", "mfwd")
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+# Every profiled window runs one warm-up under the profiler, then calls
+# prof.step(): the warm-up enables the device tracing and only what follows
+# is recorded. A trace started cold lost its first device records on the
+# card (47 kernels, two layers' forward, in one training-step profile).
+WARM_SCHEDULE = schedule(wait=0, warmup=1, active=1, repeat=1)
+
+
+def path(key: str) -> str:
+    """The route of a kernel inside its CUDA C++ source, by dtype."""
+    return ("bf16/fp16: wgmma + TMA (sm90); fp32: CUDA cores"
+            if key in SM90_KEYS else "CUDA cores")
 
 
 def peaks():
@@ -381,9 +401,12 @@ def profile_phase(engine):
                              max_new_tokens=16))
     sched.step()  # admissions and the first decode stay outside the window
     torch.cuda.synchronize()
-    steps0 = sched.decode_steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=WARM_SCHEDULE) as prof:
+        sched.step()  # warm-up, not recorded
+        torch.cuda.synchronize()
+        prof.step()
+        steps0 = sched.decode_steps
         t0 = time.perf_counter()
         for _ in range(10):
             sched.step()
@@ -446,10 +469,14 @@ def _flash_check(q, k, v, do, tol):
 
 def _device_ms(fn, reps: int, match: str) -> float:
     """Device time of one call of the kernels whose name holds ``match``,
-    from torch.profiler over ``reps`` calls (no host work included)."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    from torch.profiler over ``reps`` calls (no host work included; the
+    host activity is recorded so that ``_device_kernels`` can drop the
+    device-side ranges of host annotations)."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=WARM_SCHEDULE) as prof:
+        fn()  # warm-up, not recorded
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -457,12 +484,13 @@ def _device_ms(fn, reps: int, match: str) -> float:
                if match in e.key) / 1e3 / reps
 
 
-def _sdpa_times(q, k, v, do, flush):
-    """SDPA(is_causal=True) forward and autograd backward (dq, dk and dv
-    together) under each backend of SDPA_BACKENDS, on [B, H, T, D] copies
-    made beforehand (the transposes excluded): CUDA-event times as for the
-    kernels, and the device time of all the kernels a call launches
-    (``*_device``); None where the backend refuses the call."""
+def _sdpa_times(q, k, v, do, flush, **sdpa_kw):
+    """SDPA forward and autograd backward (dq, dk and dv together) with
+    ``sdpa_kw`` (``is_causal=True``, or a boolean ``attn_mask``) under each
+    backend of SDPA_BACKENDS, on [B, H, T, D] copies made beforehand (the
+    transposes excluded): CUDA-event times as for the kernels, and the
+    device time of all the kernels a call launches (``*_device``); None
+    where the backend refuses the call."""
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
@@ -470,13 +498,11 @@ def _sdpa_times(q, k, v, do, flush):
     for name in SDPA_BACKENDS:
         try:
             with sdpa_kernel(getattr(SDPBackend, name)):
-                lib_out = F.scaled_dot_product_attention(qt, kt, vt,
-                                                         is_causal=True)
+                lib_out = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
 
                 def lib_fwd():
                     with torch.no_grad():
-                        F.scaled_dot_product_attention(qt, kt, vt,
-                                                       is_causal=True)
+                        F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
 
                 def lib_bwd():
                     torch.autograd.grad(lib_out, (qt, kt, vt), dot,
@@ -503,7 +529,7 @@ def _fastest(times, key):
 
 def flash_kernel_phase():
     """B1-B3 at the training path's shape (B=8, T=1024, H=12, D=64) in fp32
-    (the CUDA-core route) and bf16 (B1 and B3 on the Hopper route), each
+    (the CUDA-core route) and bf16 (the Hopper route), each
     checked against its plain version and timed; then checks alone: a
     ragged T=1000 in fp32, bf16 and fp16 (B=2), and D=128 in bf16 (B=1,
     T=256). Times are CUDA-event medians with the L2 flushed before each
@@ -535,7 +561,7 @@ def flash_kernel_phase():
         q, k, v, do = _flash_inputs(B, T, H, D, dtype, g)
         errs, lse, delta = _flash_check(q, k, v, do, tol)
         args = (q, k, v, do, lse, delta)
-        sdpa[name] = _sdpa_times(q, k, v, do, flush)
+        sdpa[name] = _sdpa_times(q, k, v, do, flush, is_causal=True)
         library = {key: _fastest(sdpa[name], key) for key in ("fwd", "bwd")}
         elt, n = q.element_size(), B * T * H * D
         stats = B * H * T * 4                 # one fp32 [B, H, T] vector
@@ -582,7 +608,7 @@ def flash_kernel_phase():
           "shape": {"B": B, "T": T, "H": H, "D": D,
                     "layout": "q/k/v strided views of a fused [B, T, 3*H*D]"},
           "route": {"float32": "CUDA cores (B1-B3)",
-                    "bfloat16": "B1, B3 wgmma + TMA (sm90); B2 CUDA cores"},
+                    "bfloat16": "wgmma + TMA (sm90; B1-B3)"},
           "checks": {k_: {"shape": list(v_[:4]),
                           "dtype": str(v_[4]).removeprefix("torch."),
                           "max_abs_err": check_errs[k_]}
@@ -637,6 +663,19 @@ def _masked_check(q, k, v, do, q_pos, kv_pos, tol, out_dtype=None):
     return errs, (out, lse, dq, dk, dv)
 
 
+def _masked_inputs(Bp, Tq, Tk, H, D, dtype, g):
+    """q, k, v as strided views of fused projections (k and v of their own
+    when Tk != Tq), and a contiguous upstream grad."""
+    qkv = torch.randn(Bp, Tq, 3 * H * D, generator=g).to(dtype).cuda()
+    q = qkv[..., :H * D].view(Bp, Tq, H, D)
+    kv = (qkv if Tk == Tq else torch.randn(
+        Bp, Tk, 3 * H * D, generator=g).to(dtype).cuda())
+    k, v = (kv[..., i * H * D:(i + 1) * H * D].view(Bp, Tk, H, D)
+            for i in (1, 2))
+    do = torch.randn(Bp, Tq, H, D, generator=g).to(dtype).cuda()
+    return q, k, v, do
+
+
 def masked_kernel_phase():
     """B4-B6 on every position pattern a ring hop gives them, in fp32 and
     bf16, on strided q/k/v views of a fused projection (B=8, T=1024, H=12,
@@ -644,13 +683,18 @@ def masked_kernel_phase():
     (exact zeros, lse -1e30), hop 1 of rank 1 of a 4-rank zigzag ring, no
     positions, a rectangular hop (Tq=256, Tk=1024), a ragged T=1000 with
     zigzag positions (B=2; each tile pair straddling the jump between the
-    two runs) and, in bf16, fp32 partial outputs. Times are taken on the
+    two runs) and, in bf16, fp32 partial outputs; then checks alone of the
+    Hopper B4's other instantiations: a ragged fp16 zigzag (B=2, T=1000)
+    and a bf16 zigzag at D=128 (B=1, T=256). Times are taken on the
     diagonal hop (the one train_cp runs): CUDA-event medians with the L2
-    flushed; the library call is ``F.scaled_dot_product_attention`` with the
-    boolean mask built from the positions, timed by its device time."""
+    flushed by a 512 MB write, and ``device_ms``, the kernel's own time
+    from torch.profiler. The library call is
+    ``F.scaled_dot_product_attention`` with the boolean mask built from the
+    positions under each backend of SDPA_BACKENDS that takes it; the
+    fastest by device time is the yardstick."""
     B, T, H, D = 8, 1024, 12, 64
     g = torch.Generator().manual_seed(9)
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    flush = torch.empty(128 * 2**20, dtype=torch.int32, device="cuda")
     bf16_peak, fp32_peak, hbm = peaks()
     ar = torch.arange(T)
     patterns = {  # name: (Tq, Tk, B, q_pos, kv_pos, out_dtype)
@@ -665,7 +709,21 @@ def masked_kernel_phase():
                                 _zigzag_positions(1, 4, 1000), None),
         "fp32_out": (T, T, B, ar, ar, torch.float32),
     }
-    results, pattern_errs = {}, {}
+    checks = {  # name: (Tq, B, D, q_pos, kv_pos, dtype)
+        "float16_ragged_T1000_zigzag": (
+            1000, 2, D, _zigzag_positions(1, 4, 1000),
+            _zigzag_positions(0, 4, 1000), torch.float16),
+        "bfloat16_D128_T256_zigzag": (
+            256, 1, 128, _zigzag_positions(1, 4, 256),
+            _zigzag_positions(0, 4, 256), torch.bfloat16),
+    }
+    check_errs = {}
+    for cname, (Tc, Bc, Dc, qp, kp, dtype) in checks.items():
+        tol = FLASH_TOLERANCE[str(dtype).removeprefix("torch.")]
+        pos = [p.cuda() for p in (qp, kp)]
+        check_errs[cname] = _masked_check(
+            *_masked_inputs(Bc, Tc, Tc, H, Dc, dtype, g), *pos, tol)[0]
+    results, pattern_errs, sdpa = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
         tol = FLASH_TOLERANCE[name]
@@ -673,13 +731,7 @@ def masked_kernel_phase():
         for pname, (Tq, Tk, Bp, qp, kp, od) in patterns.items():
             if od is not None and dtype == torch.float32:
                 continue   # fp32 out from fp32 inputs is the plain case
-            qkv = torch.randn(Bp, Tq, 3 * H * D, generator=g).to(dtype).cuda()
-            q = qkv[..., :H * D].view(Bp, Tq, H, D)
-            kv = (qkv if Tk == Tq else torch.randn(
-                Bp, Tk, 3 * H * D, generator=g).to(dtype).cuda())
-            k, v = (kv[..., i * H * D:(i + 1) * H * D].view(Bp, Tk, H, D)
-                    for i in (1, 2))
-            do = torch.randn(Bp, Tq, H, D, generator=g).to(dtype).cuda()
+            q, k, v, do = _masked_inputs(Bp, Tq, Tk, H, D, dtype, g)
             pos = [None if p is None else p.cuda() for p in (qp, kp)]
             errs, got = _masked_check(q, k, v, do, *pos, tol, od)
             pattern_errs[name][pname] = errs
@@ -693,27 +745,11 @@ def masked_kernel_phase():
             ref_lse = fa.flash_masked_fwd_reference(q, k, v, *pos)[1]
             delta = fa.attention_delta(do, got[0])
             args = (q, k, v, do, ref_lse, delta, *pos)
-            # library yardstick: SDPA with the boolean mask of the positions
-            # on [B, H, T, D] copies made beforehand; its autograd backward
-            # computes dq, dk and dv together
+            # library yardstick: SDPA with the boolean mask of the positions;
+            # its autograd backward computes dq, dk and dv together
             mask = pos[0][:, None] >= pos[1][None, :]
-            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                          for x in (q, k, v))
-            dot = do.transpose(1, 2).contiguous()
-            lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-
-            def lib_fwd():
-                with torch.no_grad():
-                    F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-
-            def lib_bwd():
-                torch.autograd.grad(lib_out, (qt, kt, vt), dot,
-                                    retain_graph=True)
-
-            # device time: the autograd backward's host work can outlast
-            # the flush and would sit in a CUDA-event window
-            library = {"fwd": _device_ms(lib_fwd, 10, ""),
-                       "bwd": _device_ms(lib_bwd, 10, "")}
+            sdpa[name] = _sdpa_times(q, k, v, do, flush, attn_mask=mask)
+            library = {key: _fastest(sdpa[name], key) for key in ("fwd", "bwd")}
             n_vis = Bp * H * int(mask.sum())   # visible (query, key) pairs
             elt, n = q.element_size(), Bp * T * H * D
             stats, n_pos = Bp * H * T * 4, 2 * T * 4
@@ -732,33 +768,47 @@ def masked_kernel_phase():
             }
             peak = bf16_peak if dtype == torch.bfloat16 else fp32_peak
             per = {}
-            for key, (kernel, plain) in calls.items():
+            for kname, key, _ in MASKED_KERNELS:
+                kernel, plain = calls[key]
                 n_bytes, n_flops = work[key]
                 t_bytes = n_bytes / hbm * 1e3
                 t_ops = n_flops / peak * 1e3
+                ms = time_ms(kernel, 20, flush)
+                lib_ms, lib_backend = library["fwd" if key == "mfwd" else "bwd"]
                 per[key] = {
                     "max_abs_err": errs[key],
                     "tolerance": tol,
-                    "ms": time_ms(kernel, 20, flush),
+                    "ms": ms,
+                    "device_ms": _device_ms(kernel, 10, f"{kname}_kernel"),
                     "plain_ms": time_ms(plain, 3, flush),
-                    "library_ms": library["fwd" if key == "mfwd" else "bwd"],
+                    "library_ms": lib_ms,
+                    "library_backend": lib_backend,
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "bytes": n_bytes,
                     "flops": n_flops,
+                    "tflops": n_flops / ms / 1e9,
+                    "ms_over_bound": ms / max(t_bytes, t_ops),
                 }
             results[name] = per
-            del qt, kt, vt, lib_out
     emit({"phase": "kernels",
           "kernel": "flash_masked (B4 fwd, B5 dq, B6 dkv)",
           "shape": {"B": B, "T": T, "H": H, "D": D,
                     "layout": "q/k/v strided views of a fused [B, T, 3*H*D]"},
+          "route": {"float32": "CUDA cores (B4-B6)",
+                    "bfloat16": "B4 wgmma + TMA (sm90); B5, B6 CUDA cores"},
           "timed_pattern": "diagonal",
           "max_abs_err_by_pattern": pattern_errs,
+          "checks": {k_: {"T": v_[0], "B": v_[1], "D": v_[2],
+                          "dtype": str(v_[5]).removeprefix("torch."),
+                          "max_abs_err": check_errs[k_]}
+                     for k_, v_ in checks.items()},
           "tolerance": "|kernel - plain| <= tol * (1 + |plain|)",
           "library_call": "F.scaled_dot_product_attention(attn_mask=q_pos >= "
                           "kv_pos) forward for B4; its autograd backward (dq, "
-                          "dk and dv together) for B5 and B6",
+                          "dk and dv together) for B5 and B6; the fastest of "
+                          "the backends below by device time",
+          "sdpa_ms_by_backend": sdpa,
           "peak_flops": {"bfloat16": bf16_peak, "float32": fp32_peak},
           "results": results})
     return results
@@ -917,11 +967,12 @@ def train_cp_phase(mesh):
           and not any(launches[k] for k in CAUSAL_KEYS),
           f"ring launches {launches} != n_layer x steps {expected} of B4-B6 "
           "and none of B1-B3")
-    train_profile_phase(trainer, state, fixed, phase="train_cp_profile",
-                        kernels=MASKED_KERNELS)
+    split = train_profile_phase(trainer, state, fixed, phase="train_cp_profile",
+                                kernels=MASKED_KERNELS,
+                                expect_calls=MASKED_SM90_KERNELS)
     del trainer, state
     torch.cuda.empty_cache()
-    return launches
+    return launches, split
 
 
 def _reset_flash_counts() -> None:
@@ -1067,17 +1118,23 @@ def train_fixed_batch_phase():
     return trainer, state, batch
 
 
-def train_bf16_parity_phase():
+def train_bf16_parity_phase(mesh):
     """bf16 GPT-2 125M (B=8, T=1024, the train phase's policy), 5 steps on
     one fixed batch from the same weights: the trainer with the flash
-    kernels (B1 and B3 on the Hopper route, rounding p and ds to bf16
-    before their products) against the same trainer with dense attention.
-    Both loss lists are printed; they must agree within 1% at every step."""
+    kernels (B1-B3 on the Hopper route, rounding ds, and B3 p, to bf16
+    before their products), and with ring flash attention under
+    ``CPStrategy`` on ``mesh``'s one-rank NCCL group (the cp = 1 ring runs
+    the diagonal hop through B4 on the Hopper route and B5-B6), each
+    against the same trainer with dense attention. The loss lists are
+    printed; each must agree with dense within 1% at every step."""
     steps = 5
     batch = _lm_batches(1, 8, 1024, seed=11)[0]
     runs = {}
-    for name, extra in (("flash", {"attn_impl": fa.flash_attention}),
-                        ("dense", {})):
+    for name, extra in (
+            ("flash", {"attn_impl": fa.flash_attention}),
+            ("ring", {"attn_impl": make_ring_attention(mesh, "cp"),
+                      "strategy": CPStrategy(mesh)}),
+            ("dense", {})):
         trainer, state = _trainer(seed=3, dtype=torch.bfloat16, **extra)
         _reset_flash_counts()
         losses = []
@@ -1087,17 +1144,24 @@ def train_bf16_parity_phase():
         runs[name] = (losses, dict(fa.launches))
         del trainer, state
         torch.cuda.empty_cache()
-    (flash, launches), (dense, _) = runs["flash"], runs["dense"]
-    rel = [abs(a - b) / abs(b) for a, b in zip(flash, dense)]
+    dense = runs["dense"][0]
+    rel = {name: [abs(a - b) / abs(b) for a, b in zip(runs[name][0], dense)]
+           for name in ("flash", "ring")}
     n_layer = GPT2Config().n_layer
     emit({"phase": "train_bf16_parity", "dtype": "bfloat16", "B": 8,
-          "T": 1024, "steps": steps, "loss_flash": flash,
+          "T": 1024, "steps": steps, "cp": mesh.size("cp"),
+          "loss_flash": runs["flash"][0], "loss_ring": runs["ring"][0],
           "loss_dense": dense, "loss_rel_err": rel, "limit": 0.01,
-          "launches_flash": launches})
-    check(all(np.isfinite(flash + dense)) and max(rel) <= 0.01,
-          f"bf16 flash vs dense losses {flash} vs {dense}")
-    check(all(launches[k] == n_layer * steps for k in CAUSAL_KEYS),
-          f"flash launches {launches} != n_layer x steps {n_layer * steps}")
+          "launches_flash": runs["flash"][1],
+          "launches_ring": runs["ring"][1]})
+    for name, keys in (("flash", CAUSAL_KEYS), ("ring", MASKED_KEYS)):
+        losses, launches = runs[name]
+        check(all(np.isfinite(losses + dense)) and max(rel[name]) <= 0.01,
+              f"bf16 {name} vs dense losses {losses} vs {dense}")
+        check(all(launches[k] == n_layer * steps for k in keys)
+              and not any(launches[k] for k in fa.launches if k not in keys),
+              f"{name} launches {launches} != n_layer x steps "
+              f"{n_layer * steps} of {keys} and none of the others")
 
 
 def train_profile_phase(trainer, state, batch, phase="train_profile",
@@ -1106,11 +1170,12 @@ def train_profile_phase(trainer, state, batch, phase="train_profile",
     (B=8, T=1024): host wall time against device busy time, top kernels,
     and the flash kernels' (``kernels``) share of the busy time. Each
     kernel name in ``expect_calls`` must launch n_layer times a step."""
-    state, _ = trainer.step(state, batch)
-    torch.cuda.synchronize()
     steps = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=WARM_SCHEDULE) as prof:
+        state, _ = trainer.step(state, batch)  # warm-up, not recorded
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         for _ in range(steps):
             state, _ = trainer.step(state, batch)
@@ -1146,34 +1211,45 @@ def train_profile_phase(trainer, state, batch, phase="train_profile",
 
 def kernel_resources():
     """Registers, stack bytes and HGMMA (wgmma) instructions of each
-    Hopper-route kernel, read from the built B1-B3 library with
-    ``cuobjdump -res-usage`` and ``cuobjdump -sass``; each must run on
-    the tensor cores (HGMMA > 0)."""
-    lib = str(_build._target("flash_attention_causal")[1])
+    Hopper-route kernel, read from the built B1-B3 and B4-B6 libraries with
+    ``cuobjdump -res-usage`` and ``cuobjdump -sass``, keyed by kernel name,
+    dtype, D and (B4) output type; each must run on the tensor cores
+    (HGMMA > 0). Expected: B1-B3 in bf16/fp16 at D = 64 and 128 (12), B4
+    in bf16/fp16 at D = 64 and 128 with its output in the input dtype or
+    fp32 (8)."""
     tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
-    usage = subprocess.run([tool, "-res-usage", lib], capture_output=True,
-                           text=True, check=True).stdout
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True, check=True).stdout
-    hgmma = {}   # function: (HGMMA count, the first one as disassembled)
-    for part in sass.split("Function : ")[1:]:
-        first = re.search(r"HGMMA\.[^;]*;", part)
-        hgmma[part.split(None, 1)[0]] = (part.count("HGMMA."),
-                                         first.group(0) if first else None)
     out = {}
-    for fn, reg, stack in re.findall(
-            r"Function ([^\s:]+):\s*REG:(\d+) STACK:(\d+)", usage):
-        if not any(k in fn for k in SM90_KERNELS):
-            continue
-        kind = "fwd" if "fwd" in fn else "dkv"
-        dtype = "bf16" if "bfloat16" in fn else "f16"
-        d = re.search(r"Li(\d+)E", fn).group(1)
-        count, first = hgmma.get(fn, (0, None))
-        out[f"{kind}_sm90<{dtype},{d}>"] = {
-            "registers": int(reg), "stack_bytes": int(stack),
-            "hgmma": count, "first_hgmma": first}
-    check(len(out) == 8 and all(r["hgmma"] > 0 for r in out.values()),
-          f"Hopper-route kernels without HGMMA: {out}")
+    for lib_name in ("flash_attention_causal", "flash_attention_masked"):
+        lib = str(_build._target(lib_name)[1])
+        usage = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                               text=True, check=True).stdout
+        sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                              text=True, check=True).stdout
+        hgmma = {}   # function: (HGMMA count, the first one as disassembled)
+        for part in sass.split("Function : ")[1:]:
+            first = re.search(r"HGMMA\.[^;]*;", part)
+            hgmma[part.split(None, 1)[0]] = (part.count("HGMMA."),
+                                             first.group(0) if first else None)
+        for fn, reg, stack in re.findall(
+                r"Function ([^\s:]+):\s*REG:(\d+) STACK:(\d+)", usage):
+            kernel = next((k for k in SM90_KERNELS + MASKED_SM90_KERNELS
+                           if k in fn), None)
+            if kernel is None:
+                continue
+            # template arguments: <T, D> or <T, OutT, D>; OutT = T mangles
+            # as a back-reference, float as "f"
+            targs, d = re.search(rf"{kernel}I(.*?)Li(\d+)E", fn).groups()
+            dtype = "bf16" if "bfloat16" in targs else "f16"
+            if kernel in MASKED_SM90_KERNELS:
+                dtype += ",f32" if targs.endswith("f") else f",{dtype}"
+            count, first = hgmma.get(fn, (0, None))
+            out[f"{kernel}<{dtype},{d}>"] = {
+                "registers": int(reg), "stack_bytes": int(stack),
+                "hgmma": count, "first_hgmma": first}
+    n_causal = sum(k.startswith("flash_causal") for k in out)
+    check(n_causal == 12 and len(out) == 20
+          and all(r["hgmma"] > 0 for r in out.values()),
+          f"Hopper-route kernels missing or without HGMMA: {out}")
     return out
 
 
@@ -1211,7 +1287,6 @@ def main() -> int:
     train_split = train_profile_phase(*train_fixed_batch_phase(),
                                       expect_calls=SM90_KERNELS)
     torch.cuda.empty_cache()
-    train_bf16_parity_phase()
 
     # context parallelism over a one-rank NCCL group: one card, cp = 1
     with socket.socket() as sock:
@@ -1223,7 +1298,8 @@ def main() -> int:
         mesh = init_device_mesh((1,), ("cp",))
         train_cp_parity_phase(mesh, parity_batches, dense)
         del dense
-        cp_launches = train_cp_phase(mesh)
+        train_bf16_parity_phase(mesh)
+        cp_launches, cp_split = train_cp_phase(mesh)
     finally:
         pdist.destroy_process_group()
 
@@ -1262,6 +1338,7 @@ def main() -> int:
                             + ("forward" if key == "fwd" else
                                "autograd backward (dq, dk, dv together)")
                             + f", {r['library_backend']} backend",
+            "path": path(key),
             "device_ms": r["device_ms"],
             "train_profile_ms_per_launch": train_split[key] / n_layer,
             "tflops": r["tflops"],
@@ -1283,7 +1360,12 @@ def main() -> int:
             "library_call": "F.scaled_dot_product_attention(attn_mask=q_pos "
                             ">= kv_pos) " + ("forward" if key == "mfwd" else
                                              "autograd backward (dq, dk, dv "
-                                             "together)"),
+                                             "together)")
+                            + f", {r['library_backend']} backend",
+            "path": path(key),
+            "device_ms": r["device_ms"],
+            "train_cp_profile_ms_per_launch": cp_split[key] / n_layer,
+            "tflops": r["tflops"],
         })
     emit({"kernels": summary})
     print(smi, flush=True)

@@ -4,6 +4,7 @@
 //   B1 _fwd_kernel_pruned  -> flash_causal_fwd_kernel   (out, lse)
 //   B2 _dq_kernel_pruned   -> flash_causal_dq_kernel    (dq)
 //   B3 _dkv_kernel_pruned  -> flash_causal_dkv_kernel   (dk, dv)
+// (each with an _sm90 kernel for bf16/fp16)
 // Causal self-attention with Tq == Tk: query row r sees key rows c <= r.
 // q, k, v, do are read by stride in the model's [B, T, H, D] layout (the
 // non-contiguous q/k/v views of GPT-2's c_attn split included), so no call
@@ -13,11 +14,11 @@
 // Two routes, by dtype:
 //   fp32: the CUDA-core kernels below, for all three passes (exact fp32
 //         products: wgmma has no fp32 B operand read transposed).
-//   bf16/fp16: B1 and B3 are Hopper kernels on the tensor cores
-//         (flash_causal_fwd_kernel_sm90, flash_causal_dkv_kernel_sm90,
-//         after the CUDA-core ones); B2 stays on the CUDA-core kernel.
-//         They need D % 8 == 0 and 16-byte aligned bases and strides (TMA);
-//         a call that breaks the rule fails, it never falls back.
+//   bf16/fp16: all three are Hopper kernels on the tensor cores
+//         (flash_causal_{fwd,dq,dkv}_kernel_sm90, after the CUDA-core
+//         ones). They need D % 8 == 0 and 16-byte aligned bases and
+//         strides (TMA); a call that breaks the rule fails, it never falls
+//         back.
 //
 // CUDA-core kernels. What bounds them on this card: operations. At
 // GPT-2's shapes (T = 1024, D = 64) each K/V element is reused by up to 16
@@ -289,35 +290,20 @@ flash_causal_dkv_kernel(View q, View k, View v, View dout, const float* lse,
 }
 
 // ============================================================ Hopper route
-// B1 and B3 in bf16/fp16 (pieces in flash_sm90.cuh). A CTA is two
-// consumer warpgroups and one producer warp. The producer's lane 0 issues
-// TMA loads into a ring of kStages shared-memory stages, each guarded by a
-// "full" and an "empty" mbarrier; each consumer warpgroup runs its
-// products as wgmma on the tensor cores, fp32 accumulators in registers,
-// and releases a stage once its products have read it. D = 64 and 128
-// are instantiated (a head below 128 wide is zero-filled by TMA up to the
-// tile); no operand is copied or transposed: the transposed products
-// read the same swizzled tiles through MN-major descriptors.
+// B1-B3 in bf16/fp16 (pieces in flash_sm90.cuh). A CTA is two consumer
+// warpgroups and one producer warp. The producer's lane 0 starts TMA loads
+// into a ring of kStages shared-memory stages, each guarded by a "full"
+// and an "empty" mbarrier; each consumer warpgroup runs its products as
+// wgmma on the tensor cores, fp32 accumulators in registers, and releases
+// a stage once its products have read it. D = 64 and 128 are instantiated
+// (a head below 128 wide is zero-filled by TMA up to the tile); no operand
+// is copied or transposed: the transposed products read the same swizzled
+// tiles through MN-major descriptors.
 
-constexpr int kSm90Threads = 288;  // warpgroups 0 and 1 consume, warp 8 produces
-constexpr int kProducerWarp = 8;
-
-// The first 1024-byte boundary of dynamic shared memory (128B swizzle).
-__device__ __forceinline__ char* align_1024(char* raw) {
-  const uint32_t off = sm90::smem_addr(raw);
-  return raw + ((1024 - off % 1024) % 1024);
-}
-
-template <int kD>
-struct Sm90Layout {
-  static constexpr int kBoxes = kD / 64;                      // tiles across D
-  static constexpr int kStages = kD == 64 ? 3 : 2;
-  static constexpr int kRows64 = kBoxes * sm90::kTileBytes;   // 64 rows, all of D
-  // B3 at D = 128 adds warps 9-11, which only give their registers to the
-  // consumers (setmaxnreg moves registers within a CTA, one warpgroup to
-  // another); at D = 64 the registers do not bind, and the split is slower
-  static constexpr int kDkvThreads = kD == 128 ? 384 : kSm90Threads;
-};
+using sm90::align_1024;
+using sm90::kProducerWarp;
+using sm90::kSm90Threads;
+using sm90::Sm90Layout;
 
 // ---------------------------------------------------------------- B1
 // flash_causal_fwd_kernel_sm90: replaces _fwd_kernel_pruned
@@ -387,13 +373,8 @@ flash_causal_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
       for (int ki = 0; ki <= last_ki; ++ki) {
         const int s = ki % kStages;
         sm90::mbar_wait(&empty[s], ((ki / kStages) & 1) ^ 1);
-        char* Ks = ring + s * kStageBytes;
         sm90::mbar_arrive_expect_tx(&full[s], kStageBytes);
-        for (int e = 0; e < L::kBoxes; ++e) {
-          sm90::tma_load(Ks + e * sm90::kTileBytes, &mk, &full[s], 64 * e, h, 64 * ki, b);
-          sm90::tma_load(Ks + L::kRows64 + e * sm90::kTileBytes, &mv, &full[s], 64 * e, h,
-                         64 * ki, b);
-        }
+        sm90::tma_load_kv<L::kBoxes>(ring + s * kStageBytes, &mk, &mv, &full[s], h, 64 * ki, b);
       }
     }
     return;
@@ -427,18 +408,12 @@ flash_causal_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
       for (int i = 0; i < 32; ++i) sc[i] = 0.f;
       sm90::fence_acc(sc);
       sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        const int box = (kk / 4) * sm90::kTileBytes;
-        sm90::wgmma_ss<T, 0>(sc, sm90::desc_kmajor(Qg + box, kk % 4),
-                             sm90::desc_kmajor(Ks + box, kk % 4), kk > 0);
-      }
+      sm90::wgmma_abt<T, kD>(sc, Qg, Ks);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_acc(sc);
 
-      // masked scores become -inf (branch-free: the mask is a select), so
-      // their p is exactly 0; m starts at -1e30, so alpha is never NaN
+      // masked scores become -inf (branch-free: the mask is a select)
       if ((k0 + 63 > row0) || (k0 + 64 > n.T)) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
@@ -447,47 +422,7 @@ flash_causal_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
           sc[i] = keep ? sc[i] : -INFINITY;
         }
       }
-      // raw scores here; scale * log2(e) folds into the exponent's FFMA
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int i = 0; i < 32; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
-      float alpha[2], neg_m[2];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-        const float m_new = fmaxf(m[hh], mx[hh] * scale_log2);
-        alpha[hh] = sm90::exp2_ftz(m[hh] - m_new);
-        m[hh] = m_new;
-        neg_m[hh] = -m_new;
-        l[hh] *= alpha[hh];
-      }
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int hh = (i / 2) % 2;
-        const float p = sm90::exp2_ftz(fmaf(sc[i], scale_log2, neg_m[hh]));
-        l[hh] += p;
-        sc[i] = p;
-      }
-      uint32_t pa[4][4];
-      sm90::to_fragments<T>(sc, pa);
-#pragma unroll
-      for (int e = 0; e < L::kBoxes; ++e) {
-#pragma unroll
-        for (int i = 0; i < 32; ++i) o[e][i] *= alpha[(i / 2) % 2];
-        sm90::fence_acc(o[e]);
-      }
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int e = 0; e < L::kBoxes; ++e)
-          sm90::wgmma_rs<T, 1>(o[e], pa[kk],
-                               sm90::desc_mnmajor(Vs + e * sm90::kTileBytes, kk), 1);
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<0>();
-#pragma unroll
-      for (int e = 0; e < L::kBoxes; ++e) sm90::fence_acc(o[e]);
+      sm90::softmax_pv<T, L::kBoxes>(sc, m, l, o, Vs, scale_log2);
     }
     if (threadIdx.x % 128 == 0) sm90::mbar_arrive(&empty[s]);
   }
@@ -512,6 +447,182 @@ flash_causal_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
               o[e][4 * jj + 2 * hh] / safe, o[e][4 * jj + 2 * hh + 1] / safe);
       }
     if (lane % 4 == 0) lse_bh[r] = sum > 0.f ? m[hh] * sm90::kLn2 + logf(safe) : kNegInf;
+  }
+}
+
+// ---------------------------------------------------------------- B2
+// flash_causal_dq_kernel_sm90: replaces _dq_kernel_pruned
+// (pytorch_distributed_tpu/ops/flash_attention.py:293), dq.
+//
+// Bound on this card: operations. At B=8, T=1024, H=12, D=64 its 19.4
+// GFLOP (6 D per visible pair: three products) take 0.0196 ms at 989
+// TFLOP/s bf16, above the 0.0190 ms its bytes take. The design is B1's
+// with one more product, every tile kept where the next product reads it:
+//   - one CTA: 128 query rows of one (b, h), rows 64 g .. 64 g + 63 for
+//     consumer warpgroup g; Q and dO arrive once by TMA and stay, and each
+//     thread keeps lse and delta of its two rows in registers; K/V tiles
+//     of 64 rows 0 .. last_ki stream through the ring (the pruning: tiles
+//     above the diagonal are never loaded); the longest rows run first;
+//   - per K/V tile: S = Q K^T and dP = dO V^T by wgmma (K-major operands);
+//     P = exp2(S scale log2(e) - lse log2(e)) with the causal mask (a
+//     select) on tiles that cross the diagonal or the ragged tail, and
+//     p = 0 where lse <= -1e30 / 2; dS = P (dP - delta) scale in
+//     registers; then dQ += dS K with dS as the register A operand and K
+//     read through an MN-major descriptor, as V is in B1's O += P V;
+//   - dQ accumulates in fp32 registers and is written once; no atomics
+//     (the JAX two-pass split: dk and dv are B3's).
+// The one deliberate numeric change from the TPU kernel: dS is rounded to
+// the input dtype before dQ += dS K (the TPU kernel multiplies fp32 ds by
+// fp32-widened k), as B3's Hopper kernel and SDPA round it. S and dP are
+// 16-bit products summed in fp32, exact per term: only the order differs.
+template <typename T, int kD>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+flash_causal_dq_kernel_sm90(const __grid_constant__ CUtensorMap mq,
+                            const __grid_constant__ CUtensorMap mk,
+                            const __grid_constant__ CUtensorMap mv,
+                            const __grid_constant__ CUtensorMap mdo, const float* lse,
+                            const float* delta, View dq, Dims n) {
+  using L = Sm90Layout<kD>;
+  constexpr int kStages = L::kStages;
+  constexpr int kStageBytes = 2 * L::kRows64;  // K tile, then V tile
+  extern __shared__ char smem_raw[];
+  __shared__ uint64_t full[kStages], empty[kStages], q_full;
+  char* Qs = align_1024(smem_raw);  // [warpgroup][box][64 rows x 128 B]
+  char* dOs = Qs + 2 * L::kRows64;  // the same for dO
+  char* ring = dOs + 2 * L::kRows64;
+
+  const int nqt = (n.T + 127) / 128;
+  const int qt = nqt - 1 - static_cast<int>(blockIdx.x);  // longest rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = qt * 128;
+  const int last_ki = min(2 * qt + 1, (n.T - 1) / 64);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 2);
+    }
+    sm90::mbar_init(&q_full, 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kProducerWarp) {
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(&q_full, 4 * L::kRows64);
+      for (int g = 0; g < 2; ++g)
+        for (int e = 0; e < L::kBoxes; ++e) {
+          const int off = g * L::kRows64 + e * sm90::kTileBytes;
+          sm90::tma_load(Qs + off, &mq, &q_full, 64 * e, h, q0 + 64 * g, b);
+          sm90::tma_load(dOs + off, &mdo, &q_full, 64 * e, h, q0 + 64 * g, b);
+        }
+      for (int ki = 0; ki <= last_ki; ++ki) {
+        const int s = ki % kStages;
+        sm90::mbar_wait(&empty[s], ((ki / kStages) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[s], kStageBytes);
+        sm90::tma_load_kv<L::kBoxes>(ring + s * kStageBytes, &mk, &mv, &full[s], h, 64 * ki, b);
+      }
+    }
+    return;
+  }
+
+  const int g = warp / 4;
+  const int row0 = q0 + 64 * g;                      // this warpgroup's first row
+  const int rA = row0 + 16 * (warp % 4) + lane / 4;  // the thread's rows: rA, rA + 8
+  const int c0 = 2 * (lane % 4);
+  const char* Qg = Qs + g * L::kRows64;
+  const char* dOg = dOs + g * L::kRows64;
+  const float scale_log2 = n.scale * sm90::kLog2e;
+  const int64_t bh = (static_cast<int64_t>(b) * n.H + h) * n.T;
+
+  // p = exp2(s scale log2(e) + neg_lse2): -inf for a dead row (lse <=
+  // -1e30 / 2) and for rows past T, so that their p is exactly 0
+  float neg_lse2[2], delta_r[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = rA + 8 * hh;
+    const float lse_v = r < n.T ? lse[bh + r] : kNegInf;
+    neg_lse2[hh] = lse_v <= kNegInf / 2 ? -INFINITY : -lse_v * sm90::kLog2e;
+    delta_r[hh] = r < n.T ? delta[bh + r] : 0.f;
+  }
+  float acc[L::kBoxes][32];
+#pragma unroll
+  for (int e = 0; e < L::kBoxes; ++e)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[e][i] = 0.f;
+
+  sm90::mbar_wait(&q_full, 0);
+  for (int ki = 0; ki <= last_ki; ++ki) {
+    const int s = ki % kStages;
+    sm90::mbar_wait(&full[s], (ki / kStages) & 1);
+    const int k0 = 64 * ki;
+    const char* Ks = ring + s * kStageBytes;
+    const char* Vs = Ks + L::kRows64;
+    if (k0 <= row0 + 63) {  // this warpgroup's rows see part of the tile
+      float sc[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+      sm90::fence_acc(sc);
+      sm90::fence_acc(dp);
+      sm90::wgmma_fence();
+      sm90::wgmma_abt<T, kD>(sc, Qg, Ks);
+      sm90::wgmma_abt<T, kD>(dp, dOg, Vs);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(sc);
+      sm90::fence_acc(dp);
+
+      // masked scores become -inf (a select), so their p is exactly 0
+      if ((k0 + 63 > row0) || (k0 + 64 > n.T)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int c = k0 + 8 * (i / 4) + c0 + i % 2;
+          const bool keep = (c <= rA + 8 * ((i / 2) % 2)) & (c < n.T);
+          sc[i] = keep ? sc[i] : -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i / 2) % 2;
+        const float p = exp2f(fmaf(sc[i], scale_log2, neg_lse2[hh]));
+        dp[i] = p * (dp[i] - delta_r[hh]) * n.scale;  // dS
+      }
+      uint32_t dsa[4][4];
+      sm90::to_fragments<T>(dp, dsa);
+#pragma unroll
+      for (int e = 0; e < L::kBoxes; ++e) sm90::fence_acc(acc[e]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < L::kBoxes; ++e)
+          sm90::wgmma_rs<T, 1>(acc[e], dsa[kk],
+                               sm90::desc_mnmajor(Ks + e * sm90::kTileBytes, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < L::kBoxes; ++e) sm90::fence_acc(acc[e]);
+    }
+    if (threadIdx.x % 128 == 0) sm90::mbar_arrive(&empty[s]);
+  }
+
+  T* base = static_cast<T*>(dq.ptr) + b * dq.sb + h * dq.sh;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = rA + 8 * hh;
+    if (r >= n.T) continue;
+#pragma unroll
+    for (int e = 0; e < L::kBoxes; ++e)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int d = 64 * e + 8 * jj + c0;
+        if (d < n.D)
+          *reinterpret_cast<uint32_t*>(base + r * dq.st + d) =
+              sm90::pack2<T>(acc[e][4 * jj + 2 * hh], acc[e][4 * jj + 2 * hh + 1]);
+      }
   }
 }
 
@@ -651,18 +762,8 @@ flash_causal_dkv_kernel_sm90(const __grid_constant__ CUtensorMap mq,
       sm90::fence_acc(st);
       sm90::fence_acc(dpt);
       sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        const int box = (kk / 4) * sm90::kTileBytes;
-        sm90::wgmma_ss<T, 0>(st, sm90::desc_kmajor(Kg + box, kk % 4),
-                             sm90::desc_kmajor(Qt + box, kk % 4), kk > 0);
-      }
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        const int box = (kk / 4) * sm90::kTileBytes;
-        sm90::wgmma_ss<T, 0>(dpt, sm90::desc_kmajor(Vg + box, kk % 4),
-                             sm90::desc_kmajor(dOt + box, kk % 4), kk > 0);
-      }
+      sm90::wgmma_abt<T, kD>(st, Kg, Qt);
+      sm90::wgmma_abt<T, kD>(dpt, Vg, dOt);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_acc(st);
@@ -794,27 +895,12 @@ cudaError_t dkv(const void* const* p, const long long* s, int B, const Dims& n,
   return cudaGetLastError();
 }
 
-// TMA maps of the first `count` [B, T, H, D] operands of p (strides s).
+// TMA maps of q, k, v (and do): every operand has T rows.
 template <typename T>
 cudaError_t make_maps(CUtensorMap* maps, int count, const void* const* p, const long long* s,
                       int B, const Dims& n) {
-  for (int i = 0; i < count; ++i) {
-    if (!sm90::tma_layout_ok(p[i], s + 3 * i, B, n.T, n.H, n.D, sizeof(T)))
-      return cudaErrorInvalidValue;
-    const cudaError_t e =
-        sm90::make_map(&maps[i], p[i], s + 3 * i, B, n.T, n.H, n.D, sm90::map_type<T>());
-    if (e != cudaSuccess) return e;
-  }
-  return cudaSuccess;
-}
-
-template <int kD>
-constexpr size_t fwd_sm90_smem() {  // alignment slack, Q, ring of K/V
-  return 1024 + (2 + 2 * Sm90Layout<kD>::kStages) * Sm90Layout<kD>::kRows64;
-}
-template <int kD>
-constexpr size_t dkv_sm90_smem() {  // alignment slack, K, V, ring of Q/dO
-  return 1024 + (4 + 2 * Sm90Layout<kD>::kStages) * Sm90Layout<kD>::kRows64;
+  const int Ts[4] = {n.T, n.T, n.T, n.T};
+  return sm90::make_maps<T>(maps, count, p, s, B, Ts, n.H, n.D);
 }
 
 template <typename T, int kD>
@@ -823,7 +909,7 @@ cudaError_t fwd_sm90(const void* const* p, const long long* s, int B, const Dims
   CUtensorMap maps[3];
   cudaError_t e = make_maps<T>(maps, 3, p, s, B, n);
   if (e != cudaSuccess) return e;
-  const size_t smem = fwd_sm90_smem<kD>();
+  const size_t smem = Sm90Layout<kD>::smem_bytes(2);  // Q stays
   e = allow_smem(flash_causal_fwd_kernel_sm90<T, kD>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((n.T + 127) / 128, n.H, B);
@@ -834,12 +920,28 @@ cudaError_t fwd_sm90(const void* const* p, const long long* s, int B, const Dims
 }
 
 template <typename T, int kD>
+cudaError_t dq_sm90(const void* const* p, const long long* s, int B, const Dims& n,
+                    cudaStream_t stream) {
+  CUtensorMap maps[4];
+  cudaError_t e = make_maps<T>(maps, 4, p, s, B, n);
+  if (e != cudaSuccess) return e;
+  const size_t smem = Sm90Layout<kD>::smem_bytes(4);  // Q and dO stay
+  e = allow_smem(flash_causal_dq_kernel_sm90<T, kD>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n.T + 127) / 128, n.H, B);
+  flash_causal_dq_kernel_sm90<T, kD><<<grid, kSm90Threads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(p[4]),
+      static_cast<const float*>(p[5]), view(p[6], s + 12), n);
+  return cudaGetLastError();
+}
+
+template <typename T, int kD>
 cudaError_t dkv_sm90(const void* const* p, const long long* s, int B, const Dims& n,
                      cudaStream_t stream) {
   CUtensorMap maps[4];
   cudaError_t e = make_maps<T>(maps, 4, p, s, B, n);
   if (e != cudaSuccess) return e;
-  const size_t smem = dkv_sm90_smem<kD>();
+  const size_t smem = Sm90Layout<kD>::smem_bytes(4);  // K and V stay
   e = allow_smem(flash_causal_dkv_kernel_sm90<T, kD>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((n.T + 127) / 128, n.H, B);
@@ -851,8 +953,7 @@ cudaError_t dkv_sm90(const void* const* p, const long long* s, int B, const Dims
 
 enum Pass { kFwd, kDq, kDkv };
 
-// fp32: the CUDA-core kernels. bf16/fp16: B1 and B3 on the Hopper route,
-// B2 on the CUDA-core kernel.
+// fp32: the CUDA-core kernels. bf16/fp16: the Hopper route.
 template <typename T, int kD>
 cudaError_t run(Pass pass, const void* const* p, const long long* s, int B,
                 const Dims& n, cudaStream_t stream) {
@@ -865,7 +966,7 @@ cudaError_t run(Pass pass, const void* const* p, const long long* s, int B,
   } else {
     switch (pass) {
       case kFwd: return fwd_sm90<T, kD>(p, s, B, n, stream);
-      case kDq: return dq<T, kD>(p, s, B, n, stream);
+      case kDq: return dq_sm90<T, kD>(p, s, B, n, stream);
       default: return dkv_sm90<T, kD>(p, s, B, n, stream);
     }
   }

@@ -1,7 +1,7 @@
 // Position-masked flash attention, forward and backward, for Hopper (sm_90a).
 //
 // Replaces three TPU kernels of pytorch_distributed_tpu/ops/flash_attention.py:
-//   B4 _fwd_kernel  -> flash_masked_fwd_kernel   (out, lse)
+//   B4 _fwd_kernel  -> flash_masked_fwd_kernel   (out, lse; _sm90 in bf16/fp16)
 //   B5 _dq_kernel   -> flash_masked_dq_kernel    (dq)
 //   B6 _dkv_kernel  -> flash_masked_dkv_kernel   (dk, dv)
 // Query row r sees key row c iff q_pos[r] >= kv_pos[c], with int32 global
@@ -15,12 +15,21 @@
 // outputs [B, T, H, D] with the strides given. The forward writes out in
 // the input dtype or in fp32 (a ring merges fp32 partials).
 //
-// What bounds them on this card: operations, as for B1-B3 (GPT-2's
-// T = 1024, D = 64 reuse each K/V element up to 16 times). This first
-// version computes in fp32 on the CUDA cores, so its ceiling is the fp32
-// rate; tensor cores, TMA and warp specialisation are later work.
+// Two routes, by dtype:
+//   fp32: the CUDA-core kernels below, for all three passes.
+//   bf16/fp16: B4 is a Hopper kernel on the tensor cores
+//         (flash_masked_fwd_kernel_sm90, after the CUDA-core ones, built
+//         on flash_sm90.cuh as the causal B1); B5 and B6 stay on the CUDA
+//         cores. B4 there needs D % 8 == 0 and 16-byte aligned bases and
+//         strides (TMA); a call that breaks the rule fails, it never falls
+//         back.
 //
-// Design. The same 64 x 64 tiles and thread layout as B1-B3
+// CUDA-core kernels. What bounds them on this card: operations, as for
+// B1-B3 (GPT-2's T = 1024, D = 64 reuse each K/V element up to 16 times).
+// They compute in fp32 on the CUDA cores, so their ceiling is the fp32
+// rate, not the bf16 tensor rate.
+//
+// Design. The same 64 x 64 tiles and thread layout as the CUDA-core B1-B3
 // (flash_tiles.cuh); one CTA owns one output tile and loops over its
 // partners, since blocks run in no order:
 //   B4, B5: one CTA per (Q tile, head, batch), looping over every K/V tile;
@@ -44,6 +53,9 @@
 // product in the forward.
 #include <limits.h>
 
+#include <type_traits>
+
+#include "flash_sm90.cuh"
 #include "flash_tiles.cuh"
 
 namespace {
@@ -61,6 +73,18 @@ struct Pos {
   const int* kv;
 };
 
+__device__ __forceinline__ int warp_min(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ int warp_max(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
 // Warp 0 stages the positions of rows t0 .. t0+63 in dst (rows >= T get
 // `fill`, which no valid position beats) and writes their max (kMax) or
 // min to *red. The caller synchronises before reading either.
@@ -74,17 +98,12 @@ __device__ __forceinline__ void stage_positions(int* dst, int* red, const int* p
   const int y = a + 32 < T_ ? pos[a + 32] : fill;
   dst[threadIdx.x] = x;
   dst[threadIdx.x + 32] = y;
-  int r = kMax ? max(x, y) : min(x, y);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const int other = __shfl_xor_sync(0xffffffffu, r, o);
-    r = kMax ? max(r, other) : min(r, other);
-  }
+  const int r = kMax ? warp_max(max(x, y)) : warp_min(min(x, y));
   if (threadIdx.x == 0) *red = r;
 }
 
 // ---------------------------------------------------------------- B4
-template <typename T, typename OutT, int kD>
+template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads)
 flash_masked_fwd_kernel(View q, View k, View v, View out, float* lse, Pos pos,
                         Dims n) {
@@ -165,7 +184,7 @@ flash_masked_fwd_kernel(View q, View k, View v, View out, float* lse, Pos pos,
   float safe[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) safe[i] = fmaxf(l[i], 1e-30f);
-  store_tile<OutT, kD>(out, b, h, q0, acc, safe, n.Tq, n.D);
+  store_tile<T, kD>(out, b, h, q0, acc, safe, n.Tq, n.D);
   if (tx == 0) {
     float* lse_bh = lse + (static_cast<int64_t>(b) * n.H + h) * n.Tq;
 #pragma unroll
@@ -335,6 +354,228 @@ flash_masked_dkv_kernel(View q, View k, View v, View dout, const float* lse,
   store_tile<T, kD>(dv, b, h, k0, dv_acc, one, n.Tk, n.D);
 }
 
+// ============================================================ Hopper route
+// ---------------------------------------------------------------- B4
+// flash_masked_fwd_kernel_sm90: replaces _fwd_kernel
+// (pytorch_distributed_tpu/ops/flash_attention.py:73) in bf16/fp16, out
+// (in T, or fp32 partials) and lse.
+//
+// Bound on this card: bytes. On the diagonal hop at B=8, T=1024, H=12,
+// D=64 the call must move q, k, v and the positions once and write out and
+// lse once: 0.0151 ms at 3.35 TB/s with out in bf16, 0.019 ms with the
+// fp32 partials a ring merges; its 12.9 GFLOP take 0.013 ms at 989
+// TFLOP/s. The design is the causal B1's (flash_attention_causal.cu): 128
+// query rows a CTA, two consumer warpgroups of 64 rows and one producer
+// warp, Q loaded once by TMA, K/V tiles of 64 rows through the mbarrier
+// ring, S = Q K^T and O += P V by wgmma with the online softmax on the
+// accumulator registers (sm90::softmax_pv), and position masks in place of
+// the static causal one:
+//   - with each K/V tile the producer warp stages the tile's 64 kv
+//     positions in shared memory beside the stage (INT_MAX past Tk), with
+//     their min and max over the keys < Tk reduced by shuffles, all 32
+//     lanes counted on the stage's full barrier; each consumer thread keeps
+//     the positions of its two rows in registers, and each warpgroup the
+//     max and min over its rows < Tq, reduced once at the start;
+//   - per tile and warpgroup: skipped (no products; exact, since every p
+//     would be 0) when max q_pos < min kv_pos; unmasked when min q_pos >=
+//     max kv_pos and the tile lies inside Tk (below the diagonal: most of
+//     the work on the diagonal hop); else keep = q_pos >= kv_pos as a
+//     select (positions are not sorted: a zigzag tile can straddle the jump
+//     between its two runs). When no row of the CTA needs a tile, the
+//     producer loads nothing for it. Every warp releases the stage itself,
+//     after its last read of the staged positions;
+//   - without positions every row's position counts as 0 and every key's
+//     as INT_MIN: no tile is skipped, and only the ragged Tk tail is masked;
+//   - query tiles run highest first, as B1's: on every hop pattern of the
+//     ring (diagonal, past, zigzag) a later row of a chunk sees no fewer
+//     keys than an earlier one;
+//   - a row that sees no key keeps l = 0 (masked scores are -inf) and gets
+//     out = 0 and lse = -1e30 exactly.
+// Numerics as the TPU kernel's: fp32 scores, m, l and O, P rounded to the
+// input dtype before O += P V.
+template <typename T, typename OutT, int kD>
+__global__ void __launch_bounds__(sm90::kSm90Threads, 1)
+flash_masked_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
+                             const __grid_constant__ CUtensorMap mk,
+                             const __grid_constant__ CUtensorMap mv, View out, float* lse,
+                             Pos pos, Dims n) {
+  using L = sm90::Sm90Layout<kD>;
+  constexpr int kStages = L::kStages;
+  constexpr int kStageBytes = 2 * L::kRows64;  // K tile, then V tile
+  extern __shared__ char smem_raw[];
+  __shared__ uint64_t full[kStages], empty[kStages], q_full;
+  __shared__ __align__(16) int kv_pos[kStages][64];  // the stage's key positions
+  __shared__ int kv_range[kStages][2];                // their min and max below Tk
+  char* Qs = sm90::align_1024(smem_raw);  // [warpgroup][box][64 rows x 128 B]
+  char* ring = Qs + 2 * L::kRows64;
+
+  const int nqt = (n.Tq + 127) / 128;
+  const int qt = nqt - 1 - static_cast<int>(blockIdx.x);  // highest rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = qt * 128;
+  const int nk = (n.Tk + 63) / 64;
+  const bool masked = pos.q != nullptr;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 32);  // the producer's lanes; lane 0 brings the TMA bytes
+      sm90::mbar_init(&empty[s], 8);  // every consumer warp
+    }
+    sm90::mbar_init(&q_full, 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == sm90::kProducerWarp) {
+    int q_max = INT_MIN;  // over the CTA's rows < Tq
+    for (int j = lane; j < 128; j += 32)
+      if (q0 + j < n.Tq) q_max = max(q_max, masked ? pos.q[q0 + j] : 0);
+    q_max = warp_max(q_max);
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(&q_full, 2 * L::kRows64);
+      for (int g = 0; g < 2; ++g)
+        for (int e = 0; e < L::kBoxes; ++e)
+          sm90::tma_load(Qs + g * L::kRows64 + e * sm90::kTileBytes, &mq, &q_full, 64 * e, h,
+                         q0 + 64 * g, b);
+    }
+    for (int ki = 0; ki < nk; ++ki) {
+      const int s = ki % kStages;
+      const int k0 = 64 * ki;
+      sm90::mbar_wait(&empty[s], ((ki / kStages) & 1) ^ 1);
+      int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = lane + 32 * jj;
+        const bool in = k0 + j < n.Tk;
+        const int p = !in ? INT_MAX : masked ? pos.kv[k0 + j] : INT_MIN;
+        kv_pos[s][j] = p;
+        if (in) {
+          lo = min(lo, p);
+          hi = max(hi, p);
+        }
+      }
+      lo = warp_min(lo);
+      hi = warp_max(hi);
+      if (lane == 0) {
+        kv_range[s][0] = lo;
+        kv_range[s][1] = hi;
+        if (q_max >= lo) {  // some row of the CTA sees a key of the tile
+          sm90::mbar_arrive_expect_tx(&full[s], kStageBytes);
+          sm90::tma_load_kv<L::kBoxes>(ring + s * kStageBytes, &mk, &mv, &full[s], h, k0, b);
+        } else {
+          sm90::mbar_arrive(&full[s]);
+        }
+      } else {
+        sm90::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  const int g = warp / 4;
+  const int row0 = q0 + 64 * g;                      // this warpgroup's first row
+  const int rA = row0 + 16 * (warp % 4) + lane / 4;  // the thread's rows: rA, rA + 8
+  const int c0 = 2 * (lane % 4);
+  const char* Qg = Qs + g * L::kRows64;
+  const float scale_log2 = n.scale * sm90::kLog2e;
+
+  // the positions of the thread's rows (INT_MIN past Tq: no key is seen),
+  // and the warpgroup's max and min over its rows < Tq (every warp reduces
+  // all 64, so the four warps decide alike)
+  int qp[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = rA + 8 * hh;
+    qp[hh] = r >= n.Tq ? INT_MIN : masked ? pos.q[r] : 0;
+  }
+  int wg_max = INT_MIN, wg_min = INT_MAX;
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    const int r = row0 + lane + 32 * jj;
+    if (r < n.Tq) {
+      const int p = masked ? pos.q[r] : 0;
+      wg_max = max(wg_max, p);
+      wg_min = min(wg_min, p);
+    }
+  }
+  wg_max = warp_max(wg_max);
+  wg_min = warp_min(wg_min);
+
+  float o[L::kBoxes][32];
+#pragma unroll
+  for (int e = 0; e < L::kBoxes; ++e)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[e][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};  // row max of scale * s, log2 units
+  float l[2] = {0.f, 0.f};          // this thread's part of the row sum
+
+  sm90::mbar_wait(&q_full, 0);
+  for (int ki = 0; ki < nk; ++ki) {
+    const int s = ki % kStages;
+    sm90::mbar_wait(&full[s], (ki / kStages) & 1);
+    const int k0 = 64 * ki;
+    const char* Ks = ring + s * kStageBytes;
+    const char* Vs = Ks + L::kRows64;
+    if (wg_max >= kv_range[s][0]) {  // else every key is in these rows' future
+      float sc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+      sm90::fence_acc(sc);
+      sm90::wgmma_fence();
+      sm90::wgmma_abt<T, kD>(sc, Qg, Ks);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(sc);
+
+      // masked scores become -inf (a select), so their p is exactly 0
+      if (!((wg_min >= kv_range[s][1]) & (k0 + 64 <= n.Tk))) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int2 kp = *reinterpret_cast<const int2*>(&kv_pos[s][8 * jj + c0]);
+#pragma unroll
+          for (int i = 4 * jj; i < 4 * jj + 4; ++i) {
+            const int c = k0 + 8 * jj + c0 + i % 2;
+            const bool keep = (qp[(i / 2) % 2] >= (i % 2 ? kp.y : kp.x)) & (c < n.Tk);
+            sc[i] = keep ? sc[i] : -INFINITY;
+          }
+        }
+      }
+      sm90::softmax_pv<T, L::kBoxes>(sc, m, l, o, Vs, scale_log2);
+    }
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+  }
+
+  OutT* base = static_cast<OutT*>(out.ptr) + b * out.sb + h * out.sh;
+  float* lse_bh = lse + (static_cast<int64_t>(b) * n.H + h) * n.Tq;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float sum = l[hh];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int r = rA + 8 * hh;
+    if (r >= n.Tq) continue;
+    const float safe = fmaxf(sum, 1e-30f);
+#pragma unroll
+    for (int e = 0; e < L::kBoxes; ++e)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int d = 64 * e + 8 * jj + c0;
+        if (d >= n.D) continue;
+        const float x = o[e][4 * jj + 2 * hh] / safe;
+        const float y = o[e][4 * jj + 2 * hh + 1] / safe;
+        OutT* dst = base + r * out.st + d;
+        if constexpr (std::is_same<OutT, float>::value)
+          *reinterpret_cast<float2*>(dst) = make_float2(x, y);
+        else
+          *reinterpret_cast<uint32_t*>(dst) = sm90::pack2<T>(x, y);
+      }
+    if (lane % 4 == 0) lse_bh[r] = sum > 0.f ? m[hh] * sm90::kLn2 + logf(safe) : kNegInf;
+  }
+}
+
 // ---------------------------------------------------------------- launch
 constexpr size_t kPosBytes = (2 * kTile + 2) * sizeof(int);
 template <int kD>
@@ -351,14 +592,14 @@ constexpr size_t dkv_smem() {
          kPosBytes;
 }
 
-template <typename T, typename OutT, int kD>
+template <typename T, int kD>
 cudaError_t fwd(const void* const* p, const long long* s, int B, const Dims& n,
                 Pos pos, cudaStream_t stream) {
   const size_t smem = fwd_smem<kD>();
-  cudaError_t e = allow_smem(flash_masked_fwd_kernel<T, OutT, kD>, smem);
+  cudaError_t e = allow_smem(flash_masked_fwd_kernel<T, kD>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((n.Tq + kTile - 1) / kTile, n.H, B);
-  flash_masked_fwd_kernel<T, OutT, kD><<<grid, kThreads, smem, stream>>>(
+  flash_masked_fwd_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
       view(p[0], s), view(p[1], s + 3), view(p[2], s + 6), view(p[3], s + 9),
       static_cast<float*>(const_cast<void*>(p[4])), pos, n);
   return cudaGetLastError();
@@ -392,15 +633,41 @@ cudaError_t dkv(const void* const* p, const long long* s, int B, const Dims& n,
   return cudaGetLastError();
 }
 
+template <typename T, typename OutT, int kD>
+cudaError_t fwd_sm90(const void* const* p, const long long* s, int B, const Dims& n,
+                     Pos pos, cudaStream_t stream) {
+  // q has Tq rows, k and v Tk; at Tk = 0 no K/V tile is loaded, and the q
+  // map stands in for theirs
+  const int Ts[3] = {n.Tq, n.Tk, n.Tk};
+  CUtensorMap maps[3];
+  cudaError_t e = sm90::make_maps<T>(maps, n.Tk > 0 ? 3 : 1, p, s, B, Ts, n.H, n.D);
+  if (e != cudaSuccess) return e;
+  if (n.Tk == 0) maps[1] = maps[2] = maps[0];
+  const size_t smem = sm90::Sm90Layout<kD>::smem_bytes(2);  // Q stays
+  e = allow_smem(flash_masked_fwd_kernel_sm90<T, OutT, kD>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n.Tq + 127) / 128, n.H, B);
+  flash_masked_fwd_kernel_sm90<T, OutT, kD><<<grid, sm90::kSm90Threads, smem, stream>>>(
+      maps[0], maps[1], maps[2], view(p[3], s + 9),
+      static_cast<float*>(const_cast<void*>(p[4])), pos, n);
+  return cudaGetLastError();
+}
+
 enum Pass { kFwd, kDq, kDkv };
 
+// fp32: the CUDA-core kernels. bf16/fp16: B4 on the Hopper route, with out
+// in T or fp32; B5 and B6 on the CUDA-core kernels.
 template <typename T, int kD>
 cudaError_t run(Pass pass, const void* const* p, const long long* s, int B,
                 const Dims& n, Pos pos, bool out_fp32, cudaStream_t stream) {
   switch (pass) {
     case kFwd:
-      return out_fp32 ? fwd<T, float, kD>(p, s, B, n, pos, stream)
-                      : fwd<T, T, kD>(p, s, B, n, pos, stream);
+      if constexpr (std::is_same<T, float>::value) {
+        return fwd<T, kD>(p, s, B, n, pos, stream);  // fp32 out either way
+      } else {
+        return out_fp32 ? fwd_sm90<T, float, kD>(p, s, B, n, pos, stream)
+                        : fwd_sm90<T, T, kD>(p, s, B, n, pos, stream);
+      }
     case kDq: return dq<T, kD>(p, s, B, n, pos, stream);
     default: return dkv<T, kD>(p, s, B, n, pos, stream);
   }

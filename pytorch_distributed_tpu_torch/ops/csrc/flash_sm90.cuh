@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks for the flash attention kernels: TMA
-// tensor maps of [B, T, H, D] views, the mbarrier ring, wgmma descriptors
-// of 128B-swizzled 16-bit tiles, and m64n64k16 wgmma with A from shared
-// memory or from registers.
+// Hopper (sm_90a) building blocks for the flash attention kernels of the
+// causal (B1-B3) and the position-masked (B4) sources: TMA tensor maps of
+// [B, T, H, D] views, the CTA and shared-memory layout, the mbarrier ring,
+// wgmma descriptors of 128B-swizzled 16-bit tiles, m64n64k16 wgmma with A
+// from shared memory or from registers, and the forward's online-softmax
+// step.
 //
 // A tile here is 64 rows of one (batch, head) by 64 columns of D, 16-bit:
 // one TMA box, 64 rows of 128 bytes, 8 KB, stored with the 128B swizzle
@@ -116,10 +118,54 @@ constexpr CUtensorMapDataType map_type() {
                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
+// TMA maps of the first `count` [B, T, H, D] operands of p (strides s,
+// three per operand), operand i with Ts[i] rows (a rectangular hop has
+// Tq != Tk). Fails where an operand's layout breaks TMA's rule.
+template <typename T>
+cudaError_t make_maps(CUtensorMap* maps, int count, const void* const* p, const long long* s,
+                      int B, const int* Ts, int H, int D) {
+  for (int i = 0; i < count; ++i) {
+    if (!tma_layout_ok(p[i], s + 3 * i, B, Ts[i], H, D, sizeof(T)))
+      return cudaErrorInvalidValue;
+    const cudaError_t e = make_map(&maps[i], p[i], s + 3 * i, B, Ts[i], H, D, map_type<T>());
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// ------------------------------------------------------------ CTA layout
+// A CTA of the Hopper kernels is two consumer warpgroups (warps 0-7, 64
+// rows each) and one producer warp (warp 8) that starts the TMA loads.
+constexpr int kSm90Threads = 288;
+constexpr int kProducerWarp = 8;
+
+template <int kD>
+struct Sm90Layout {
+  static constexpr int kBoxes = kD / 64;                // tiles across D
+  static constexpr int kStages = kD == 64 ? 3 : 2;
+  static constexpr int kRows64 = kBoxes * kTileBytes;   // 64 rows, all of D
+  // B3 at D = 128 adds warps 9-11, which only give their registers to the
+  // consumers (setmaxnreg moves registers within a CTA, one warpgroup to
+  // another); at D = 64 the registers do not bind, and the split is slower
+  static constexpr int kDkvThreads = kD == 128 ? 384 : kSm90Threads;
+  // dynamic shared memory: 1024 bytes of alignment slack, `resident`
+  // 64-row tiles that stay for the whole CTA (two per operand, one per
+  // warpgroup), and the ring's stages of two tiles each
+  static constexpr size_t smem_bytes(int resident) {
+    return 1024 + static_cast<size_t>(resident + 2 * kStages) * kRows64;
+  }
+};
+
 // ---------------------------------------------------------------- device
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-byte boundary of dynamic shared memory (128B swizzle).
+__device__ __forceinline__ char* align_1024(char* raw) {
+  const uint32_t off = smem_addr(raw);
+  return raw + ((1024 - off % 1024) % 1024);
 }
 
 // mbarrier ring. A stage's "full" barrier completes when its TMA bytes
@@ -170,6 +216,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(d0), "r"(h), "r"(t0),
       "r"(b)
       : "memory");
+}
+
+// Rows t0 .. t0+63 of (b, h) of K and of V, all kBoxes boxes of D, into a
+// ring stage (the K tile, then the V tile), completing on `bar`.
+template <int kBoxes>
+__device__ __forceinline__ void tma_load_kv(char* stage, const CUtensorMap* mk,
+                                            const CUtensorMap* mv, uint64_t* bar, int h,
+                                            int t0, int b) {
+  for (int e = 0; e < kBoxes; ++e) {
+    tma_load(stage + e * kTileBytes, mk, bar, 64 * e, h, t0, b);
+    tma_load(stage + (kBoxes + e) * kTileBytes, mv, bar, 64 * e, h, t0, b);
+  }
 }
 
 // wgmma matrix descriptor of a 128B-swizzled tile: start address, leading
@@ -285,6 +343,18 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 #undef SM90_D32_ARGS
 #undef SM90_D32
 
+// d = A B^T over all of D for two 64-row tiles of kD / 64 boxes each, both
+// read K-major (S = Q K^T, dP = dO V^T and their transposes); started, not
+// committed.
+template <typename T, int kD>
+__device__ __forceinline__ void wgmma_abt(float (&d)[32], const char* a, const char* b) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const int box = (kk / 4) * kTileBytes;
+    wgmma_ss<T, 0>(d, desc_kmajor(a + box, kk % 4), desc_kmajor(b + box, kk % 4), kk > 0);
+  }
+}
+
 // Two fp32 values rounded to T and packed, lo in the low half.
 template <typename T>
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
@@ -305,6 +375,59 @@ __device__ __forceinline__ void to_fragments(const float (&d)[32], uint32_t (&a)
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int j = 0; j < 4; ++j) a[kk][j] = pack2<T>(d[8 * kk + 2 * j], d[8 * kk + 2 * j + 1]);
+}
+
+// One K/V tile of the forward (B1, B4) for a consumer thread's two rows:
+// the online softmax in the log2 domain on the raw scores `sc` (masked
+// ones -inf, so their p is exactly 0; m starts at -1e30, so alpha is never
+// NaN), then o += P V with P rounded to T (the TPU kernels'
+// p.astype(v.dtype)) as the register A operand and the tile's V (64 keys,
+// kBoxes boxes of D) read through MN-major descriptors. m is the row max
+// of scale * s in log2 units, l this thread's part of the row sum; the
+// scale folds into the exponent's FFMA.
+template <typename T, int kBoxes>
+__device__ __forceinline__ void softmax_pv(float (&sc)[32], float (&m)[2], float (&l)[2],
+                                           float (&o)[kBoxes][32], const char* Vs,
+                                           float scale_log2) {
+  float mx[2] = {-1e30f, -1e30f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+  float alpha[2], neg_m[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {  // a row's max over the 4 threads that hold it
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+    const float m_new = fmaxf(m[hh], mx[hh] * scale_log2);
+    alpha[hh] = exp2_ftz(m[hh] - m_new);
+    m[hh] = m_new;
+    neg_m[hh] = -m_new;
+    l[hh] *= alpha[hh];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int hh = (i / 2) % 2;
+    const float p = exp2_ftz(fmaf(sc[i], scale_log2, neg_m[hh]));
+    l[hh] += p;
+    sc[i] = p;
+  }
+  uint32_t pa[4][4];
+  to_fragments<T>(sc, pa);
+#pragma unroll
+  for (int e = 0; e < kBoxes; ++e) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[e][i] *= alpha[(i / 2) % 2];
+    fence_acc(o[e]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < kBoxes; ++e)
+      wgmma_rs<T, 1>(o[e], pa[kk], desc_mnmajor(Vs + e * kTileBytes, kk), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int e = 0; e < kBoxes; ++e) fence_acc(o[e]);
 }
 
 }  // namespace sm90

@@ -21,13 +21,13 @@ Its kernels are also the local op of context parallelism's ring
 (``parallel.context_parallel``), which calls them once per hop with the
 hop's global positions and, in the forward, fp32 partial outputs.
 
-In bf16/fp16, B1 and B3 run on the Hopper route (``wgmma`` tiles fed by
-TMA, ``csrc/flash_sm90.cuh``): their q, k, v and do need D % 8 == 0 and
+In bf16/fp16, B1-B4 run on the Hopper route (``wgmma`` tiles fed by TMA,
+``csrc/flash_sm90.cuh``): their q, k, v (and do) need D % 8 == 0 and
 16-byte aligned bases and strides (``tma_layout_error``), and a call that
-breaks the rule raises ``ValueError``; fp32 and B2 keep the CUDA-core
-kernels. B3's Hopper kernel rounds p and ds to the input dtype before its
-tensor-core products (the TPU kernel and the plain version keep them
-fp32).
+breaks the rule raises ``ValueError``; fp32, B5 and B6 keep the CUDA-core
+kernels. The Hopper B2 and B3 round ds (and B3 p) to the input dtype
+before their tensor-core products (the TPU kernels and the plain versions
+keep them fp32).
 
 Every kernel has a plain PyTorch version beside it (``*_reference``): the
 same blocked online-softmax arithmetic in torch ops. A wrapper takes it only
@@ -220,16 +220,21 @@ CAUSAL_SIGNATURES = (
 )
 
 
+_MASKED_DIMS = [_STRIDES, _I, _I, _I, _I, _I, _F, _I]  # B, Tq, Tk, H, D, scale, dtype
+# the extern "C" entry points of csrc/flash_attention_masked.cu
+MASKED_SIGNATURES = (
+    ("flash_masked_fwd_launch", [_P] * 7 + _MASKED_DIMS + [_I, _P]),  # out_fp32
+    ("flash_masked_dq_launch", [_P] * 9 + _MASKED_DIMS + [_P]),
+    ("flash_masked_dkv_launch", [_P] * 10 + _MASKED_DIMS + [_P]),
+)
+
+
 def _kernel_lib() -> ctypes.CDLL:
     return _bind(_build.load(_LIB), CAUSAL_SIGNATURES)
 
 
 def _masked_lib() -> ctypes.CDLL:
-    dims = [_STRIDES, _I, _I, _I, _I, _I, _F, _I]   # B, Tq, Tk, H, D, scale, dtype
-    return _bind(_build.load(_MASKED_LIB), (
-        ("flash_masked_fwd_launch", [_P] * 7 + dims + [_I, _P]),  # out_fp32
-        ("flash_masked_dq_launch", [_P] * 9 + dims + [_P]),
-        ("flash_masked_dkv_launch", [_P] * 10 + dims + [_P])))
+    return _bind(_build.load(_MASKED_LIB), MASKED_SIGNATURES)
 
 
 def _check(name: str, q_side, kv_side, stats=(), same_t: bool = False):
@@ -278,7 +283,7 @@ def _check(name: str, q_side, kv_side, stats=(), same_t: bool = False):
 
 
 def tma_layout_error(shape, strides, elt: int, ptr: int) -> Optional[str]:
-    """The rule that the Hopper route's TMA loads (B1 and B3 in bf16/fp16)
+    """The rule that the Hopper route's TMA loads (B1-B4 in bf16/fp16)
     put on a ``[B, T, H, D]`` operand, as a pure function of its shape, its
     strides in elements, its element size in bytes and its address: D a
     multiple of 8, a 16-byte aligned base, and the batch, time and head
@@ -302,8 +307,8 @@ def _tma_error(t) -> Optional[str]:
 
 
 def _check_tma(name: str, *tensors) -> None:
-    """bf16/fp16 B1 and B3 read their operands by TMA: ValueError naming
-    the rule that an operand breaks."""
+    """bf16/fp16 B1-B4 read their operands by TMA: ValueError naming the
+    rule that an operand breaks."""
     if tensors[0].dtype == torch.float32:
         return
     for t in tensors:
@@ -350,6 +355,7 @@ def flash_causal_dq(q, k, v, do, lse, delta, block_q: int = 64,
                                          block_k)
     B, T, _, H, D = _check("flash_causal_dq", (q, do), (k, v), (lse, delta),
                            same_t=True)
+    _check_tma("flash_causal_dq", q, k, v, do)
     dq = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
     rc = _kernel_lib().flash_causal_dq_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -570,6 +576,7 @@ def flash_masked_fwd(q, k, v, q_pos=None, kv_pos=None, block_q: int = 64,
         return flash_masked_fwd_reference(q, k, v, q_pos, kv_pos, block_q,
                                           block_k, out_dtype)
     B, Tq, Tk, H, D = _check("flash_masked_fwd", (q,), (k, v))
+    _check_tma("flash_masked_fwd", q, k, v)
     qp, kp = _device_positions(q_pos, kv_pos, Tq, Tk, q.device)
     out = torch.empty(B, Tq, H, D, dtype=out_dtype or q.dtype, device=q.device)
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
