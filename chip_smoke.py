@@ -13,17 +13,19 @@ per phase:
   device        the card (``nvidia-smi`` name and power limit), library
                 versions, the kernel build time, and the registers, stack
                 and HGMMA (tensor-core) instructions of the Hopper-route
-                kernels (B1-B4 in bf16/fp16) read from the built libraries
-                with ``cuobjdump``;
+                kernels (B1-B4 and B6 in bf16/fp16) read from the built
+                libraries with ``cuobjdump``;
   kernels       each CUDA kernel against its plain PyTorch version at its
                 main path's shapes, in fp32 and bf16, with its time, the
                 plain version's time, the least time the card could take
                 (bound) and one PyTorch library call's time for comparison,
                 SDPA timed under each backend that takes the call (B7 paged
-                decode; B1-B3 causal flash forward, dq, dk/dv, with a
-                ragged T, fp16 and D=128 checked too; B4-B6 position-masked
-                flash forward, dq, dk/dv on every position pattern a ring
-                hop gives them, with a ragged fp16 and a D=128 pattern);
+                decode on three length sets: ragged, around its split
+                boundaries, and the serve phase's lengths; B1-B3 causal
+                flash forward, dq, dk/dv, with a ragged T, fp16 and D=128
+                checked too; B4-B6 position-masked flash forward, dq, dk/dv
+                on every position pattern a ring hop gives them, with a
+                ragged fp16 and a D=128 pattern);
   cp_hops       the ring's own hop functions for 4 ranks emulated on the
                 card (plain and zigzag ring, T=4096): merged outputs and
                 gradients against B1-B3 on the whole sequence;
@@ -46,6 +48,13 @@ per phase:
   train_profile torch.profiler over 3 training steps: device busy share, top
                 kernels, and B1-B3's share of the busy time; the Hopper
                 B1, B2 and B3 kernels launch n_layer times a step;
+  head          the 16-bit LM head (``head_in_fp32=False``, one tensor-core
+                GEMM with fp32 accumulation, ``aten::mm.dtype``) and the
+                chunked loss in bf16 at B=8, T=1024: logits, per-token
+                losses and gradients against the same functions on widened
+                fp32 operands (a bf16-output GEMM must fail the logits
+                check), the head's forward + backward timed in both modes,
+                and 10 timed training steps with the 16-bit head;
   train_bf16_parity  bf16 GPT-2 125M, 5 steps on one fixed batch from the
                 same weights: flash attention (B1-B3), and ring flash
                 attention (B4-B6) under ``CPStrategy`` on a one-rank NCCL
@@ -60,7 +69,7 @@ per phase:
                 warm-up and 20 timed steps; then 10 steps on one fixed batch,
                 whose loss must fall;
   train_cp_profile  as train_profile, for train_cp's steps and B4-B6; the
-                Hopper B4 kernel launches n_layer times a step.
+                Hopper B4 and B6 kernels launch n_layer times a step.
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -69,6 +78,7 @@ that line; without a CUDA device it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import re
@@ -78,6 +88,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -91,6 +102,7 @@ from pytorch_distributed_tpu_torch.examples import train_gpt2
 from pytorch_distributed_tpu_torch.mesh import init_device_mesh
 from pytorch_distributed_tpu_torch.models import GPT2Config, gpt2_125m
 from pytorch_distributed_tpu_torch.ops import _build
+from pytorch_distributed_tpu_torch.ops import chunked_xent
 from pytorch_distributed_tpu_torch.ops import paged_attention as pa
 from pytorch_distributed_tpu_torch.parallel import (
     CPStrategy,
@@ -108,6 +120,7 @@ from pytorch_distributed_tpu_torch.trainer import Trainer, lm_loss
 
 # the modules (the package attributes of the same names are functions)
 fa = importlib.import_module("pytorch_distributed_tpu_torch.ops.flash_attention")
+gpt2_module = importlib.import_module("pytorch_distributed_tpu_torch.models.gpt2")
 cp = importlib.import_module(
     "pytorch_distributed_tpu_torch.parallel.context_parallel")
 
@@ -151,13 +164,14 @@ LIBRARIES = ("paged_decode_attention", "flash_attention_causal",
 # order; bf16 outputs rounded once from fp32 (one bf16 ulp is 2**-8 of the
 # value) and p rounded to bf16 before PV in both
 FLASH_TOLERANCE = {"float32": 2e-4, "bfloat16": 2e-2, "float16": 2e-2}
-# the Hopper route (bf16/fp16) of B1-B3 and of B4: kernel names in the
-# profiles and in the built libraries
+# the Hopper route (bf16/fp16) of B1-B3 and of B4 and B6: kernel names in
+# the profiles and in the built libraries
 SM90_KERNELS = ("flash_causal_fwd_kernel_sm90", "flash_causal_dq_kernel_sm90",
                 "flash_causal_dkv_kernel_sm90")
-MASKED_SM90_KERNELS = ("flash_masked_fwd_kernel_sm90",)
+MASKED_SM90_KERNELS = ("flash_masked_fwd_kernel_sm90",
+                       "flash_masked_dkv_kernel_sm90")
 # counter keys of the kernels with a Hopper route (bf16/fp16)
-SM90_KEYS = ("fwd", "dq", "dkv", "mfwd")
+SM90_KEYS = ("fwd", "dq", "dkv", "mfwd", "mdkv")
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 # Every profiled window runs one warm-up under the profiler, then calls
 # prof.step(): the warm-up enables the device tracing and only what follows
@@ -207,79 +221,139 @@ def time_ms(fn, reps: int, flush) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def kernel_phase():
-    """B7 at GPT-2 125M geometry (H=12, D=64, page 16, 8 sequences, 64 table
-    entries): ragged lengths, an all-zero (trash) row, shuffled page ids."""
-    B, H, D, page, M = 8, 12, 64, 16, 64
-    S = M * page
-    P = B * M + 1
-    g = torch.Generator().manual_seed(0)
-    lengths = torch.tensor([0, 1, 15, 16, 17, 300, 1023, 0], dtype=torch.int32)
-    trash_row = 7  # inactive slot: all-zero table row, length 0
+def _decode_tables(lengths, trash_row, B, M, page, P, g):
+    """Block tables of B chains: each live row holds the pages its length
+    reaches (shuffled page ids), ``trash_row`` (if any) stays all zero."""
     perm = torch.randperm(P - 1, generator=g) + 1
     tables = torch.zeros(B, M, dtype=torch.int32)
     for b in range(B):
         if b != trash_row:
-            n = int(lengths[b]) // page + 1
+            n = min(int(lengths[b]) // page + 1, M)
             tables[b, :n] = perm[b * M: b * M + n].int()
-    last = torch.clamp(lengths.long(), max=S - 1)
-    n_visible = int((last + 1).sum())              # K/V rows the query reads
-    n_entries = int((last // page + 1).sum())      # table entries it reads
+    return tables
+
+
+def kernel_phase():
+    """B7 at GPT-2 125M geometry (H=12, D=64, page 16, 8 sequences, 64 table
+    entries) on three length sets: ``ragged`` (this phase's first set: an
+    all-zero trash row, lengths 0 to 1023); ``split_boundaries`` (one split
+    of the kernel minus one position, exactly one, one plus one, two, a
+    live row of length 0, a chain that fills every table entry, and the
+    trash row); ``serve`` (the serve phase's decode lengths: prompts of
+    40-96 tokens plus 0-64 generated). Each is checked against the plain
+    version in fp32 and bf16 and timed in bf16 (and fp32 on ``ragged``):
+    CUDA-event medians with the L2 flushed, and ``device_ms``, the split
+    and merge kernels' own time from torch.profiler (each also alone).
+    Then checks alone of the other head sizes (B=4, H=2, 16 table
+    entries): D=60 (element loads: D is no multiple of 8), D=128 and D=256
+    (a split takes 2 and 4 groups of row passes, merged online)."""
+    B, H, D, page, M = 8, 12, 64, 16, 64
+    S = M * page
+    P = B * M + 1
+    g = torch.Generator().manual_seed(0)
+    span = pa.pages_per_split(page) * page   # positions of one split
+    rng = np.random.default_rng(13)
+    length_sets = {  # name: (lengths, trash row)
+        "ragged": ([0, 1, 15, 16, 17, 300, 1023, 0], 7),
+        "split_boundaries": ([span - 1, span, span + 1, 2 * span, 0, S - 1,
+                              2 * span - 1, 0], 7),
+        "serve": ([int(rng.integers(40, 97)) + int(rng.integers(0, 65))
+                   for _ in range(B)], None),
+    }
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    _, fp32_peak, hbm = peaks()
     results = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).removeprefix("torch.")
-        q = torch.randn(B, 1, H, D, generator=g).to(dtype).cuda()
-        kp = torch.randn(P, page, H, D, generator=g).to(dtype).cuda()
-        vp = torch.randn(P, page, H, D, generator=g).to(dtype).cuda()
-        tbl, lens = tables.cuda(), lengths.cuda()
-        args = (q, kp, vp, tbl, lens)
-        out = pa.paged_decode_attention(*args)
-        ref = pa.paged_decode_attention_reference(*args)
-        torch.cuda.synchronize()
-        tol = TOLERANCE[name]
-        err = (out.float() - ref.float()).abs().max().item()
-        check(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol),
-              f"kernel vs plain version in {name}: max_abs_err {err}")
+    for set_name, (lens_list, trash_row) in length_sets.items():
+        lengths = torch.tensor(lens_list, dtype=torch.int32)
+        tables = _decode_tables(lengths, trash_row, B, M, page, P, g)
+        last = torch.clamp(lengths.long(), max=S - 1)
+        n_visible = int((last + 1).sum())              # K/V rows the query reads
+        n_entries = int((last // page + 1).sum())      # table entries it reads
+        per_set = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).removeprefix("torch.")
+            q = torch.randn(B, 1, H, D, generator=g).to(dtype).cuda()
+            kp = torch.randn(P, page, H, D, generator=g).to(dtype).cuda()
+            vp = torch.randn(P, page, H, D, generator=g).to(dtype).cuda()
+            tbl, lens = tables.cuda(), lengths.cuda()
+            args = (q, kp, vp, tbl, lens)
+            out = pa.paged_decode_attention(*args)
+            ref = pa.paged_decode_attention_reference(*args)
+            torch.cuda.synchronize()
+            tol = TOLERANCE[name]
+            err = (out.float() - ref.float()).abs().max().item()
+            check(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol),
+                  f"kernel vs plain version in {name}, {set_name} lengths: "
+                  f"max_abs_err {err}")
+            per_set[name] = {"max_abs_err": err, "tolerance": tol}
+            if dtype == torch.float32 and set_name != "ragged":
+                continue
 
-        # library yardstick: SDPA over a dense view gathered beforehand (the
-        # gather is excluded from its time), masked to positions <= length
-        kd = kp[tbl.long()].reshape(B, S, H, D).transpose(1, 2).contiguous()
-        vd = vp[tbl.long()].reshape(B, S, H, D).transpose(1, 2).contiguous()
-        qd = q.transpose(1, 2).contiguous()
-        mask = (torch.arange(S, device="cuda")[None, :] <= lens.long()[:, None])
-        mask = mask[:, None, None, :]
-        lib_out = F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
-        lib_err = (lib_out.transpose(1, 2).float() - ref.float()).abs().max().item()
+            # library yardstick: SDPA over a dense view gathered beforehand
+            # (the gather is excluded from its time), masked to positions <=
+            # length
+            kd = kp[tbl.long()].reshape(B, S, H, D).transpose(1, 2).contiguous()
+            vd = vp[tbl.long()].reshape(B, S, H, D).transpose(1, 2).contiguous()
+            qd = q.transpose(1, 2).contiguous()
+            mask = (torch.arange(S, device="cuda")[None, :]
+                    <= lens.long()[:, None])
+            mask = mask[:, None, None, :]
+            lib_out = F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
+            lib_err = (lib_out.transpose(1, 2).float()
+                       - ref.float()).abs().max().item()
 
-        elt = q.element_size()
-        n_bytes = (2 * n_visible * H * D * elt + 2 * B * H * D * elt
-                   + 4 * n_entries + 4 * B)
-        n_flops = 4 * n_visible * H * D
-        _, fp32_peak, hbm = peaks()
-        t_bytes = n_bytes / hbm * 1e3
-        t_ops = n_flops / fp32_peak * 1e3
-        results[name] = {
-            "max_abs_err": err,
-            "tolerance": tol,
-            "ms": time_ms(lambda: pa.paged_decode_attention(*args),
-                          200, flush),
-            "plain_ms": time_ms(
-                lambda: pa.paged_decode_attention_reference(*args),
-                20, flush),
-            "library_ms": time_ms(
-                lambda: F.scaled_dot_product_attention(
-                    qd, kd, vd, attn_mask=mask), 200, flush),
-            "library_max_abs_err": lib_err,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": n_bytes,
-            "flops": n_flops,
-        }
+            elt = q.element_size()
+            n_bytes = (2 * n_visible * H * D * elt + 2 * B * H * D * elt
+                       + 4 * n_entries + 4 * B)
+            n_flops = 4 * n_visible * H * D
+            t_bytes = n_bytes / hbm * 1e3
+            t_ops = n_flops / fp32_peak * 1e3
+            per_set[name].update({
+                "ms": time_ms(lambda: pa.paged_decode_attention(*args),
+                              200, flush),
+                **{f"{part}_device_ms": _device_ms(
+                    lambda: pa.paged_decode_attention(*args), 20,
+                    f"paged_decode_{part}") for part in ("split", "merge")},
+                "plain_ms": time_ms(
+                    lambda: pa.paged_decode_attention_reference(*args),
+                    20, flush),
+                "library_ms": time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qd, kd, vd, attn_mask=mask), 200, flush),
+                "library_max_abs_err": lib_err,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": n_bytes,
+                "flops": n_flops,
+            })
+            per_set[name]["device_ms"] = (per_set[name]["split_device_ms"]
+                                          + per_set[name]["merge_device_ms"])
+        results[set_name] = {"lengths": lens_list, "trash_row": trash_row,
+                             "visible_positions": n_visible, **per_set}
+    checks = {}
+    for cname, (Dc, dtype) in {"float32_D60": (60, torch.float32),
+                               "bfloat16_D60": (60, torch.bfloat16),
+                               "bfloat16_D128": (128, torch.bfloat16),
+                               "float32_D256": (256, torch.float32)}.items():
+        lengths = torch.tensor([span - 1, span + 1, 16 * page - 1, 0],
+                               dtype=torch.int32)
+        tables = _decode_tables(lengths, 3, 4, 16, page, 4 * 16 + 1, g)
+        q = torch.randn(4, 1, 2, Dc, generator=g).to(dtype).cuda()
+        kp, vp = (torch.randn(4 * 16 + 1, page, 2, Dc, generator=g).to(dtype)
+                  .cuda() for _ in range(2))
+        args = (q, kp, vp, tables.cuda(), lengths.cuda())
+        out = pa.paged_decode_attention(*args).float()
+        ref = pa.paged_decode_attention_reference(*args).float()
+        tol = TOLERANCE[str(dtype).removeprefix("torch.")]
+        checks[cname] = (out - ref).abs().max().item()
+        check(torch.allclose(out, ref, atol=tol, rtol=tol),
+              f"kernel vs plain version, {cname}: max_abs_err {checks[cname]}")
     emit({"phase": "kernels", "kernel": "paged_decode_attention",
+          "checks": checks,
           "shape": {"B": B, "H": H, "D": D, "page_size": page,
                     "max_pages": M, "n_pages": P,
-                    "lengths": lengths.tolist(), "trash_row": trash_row},
+                    "pages_per_split": pa.pages_per_split(page),
+                    "splits": -(-M // pa.pages_per_split(page))},
           "library_call": "F.scaled_dot_product_attention on a dense view "
                           "gathered beforehand (gather excluded)",
           "results": results})
@@ -684,8 +758,8 @@ def masked_kernel_phase():
     positions, a rectangular hop (Tq=256, Tk=1024), a ragged T=1000 with
     zigzag positions (B=2; each tile pair straddling the jump between the
     two runs) and, in bf16, fp32 partial outputs; then checks alone of the
-    Hopper B4's other instantiations: a ragged fp16 zigzag (B=2, T=1000)
-    and a bf16 zigzag at D=128 (B=1, T=256). Times are taken on the
+    Hopper B4's and B6's other instantiations: a ragged fp16 zigzag (B=2,
+    T=1000) and a bf16 zigzag at D=128 (B=1, T=256). Times are taken on the
     diagonal hop (the one train_cp runs): CUDA-event medians with the L2
     flushed by a 512 MB write, and ``device_ms``, the kernel's own time
     from torch.profiler. The library call is
@@ -796,7 +870,7 @@ def masked_kernel_phase():
           "shape": {"B": B, "T": T, "H": H, "D": D,
                     "layout": "q/k/v strided views of a fused [B, T, 3*H*D]"},
           "route": {"float32": "CUDA cores (B4-B6)",
-                    "bfloat16": "B4 wgmma + TMA (sm90); B5, B6 CUDA cores"},
+                    "bfloat16": "B4, B6 wgmma + TMA (sm90); B5 CUDA cores"},
           "timed_pattern": "diagonal",
           "max_abs_err_by_pattern": pattern_errs,
           "checks": {k_: {"T": v_[0], "B": v_[1], "D": v_[2],
@@ -1082,12 +1156,14 @@ def train_phase():
     q = statistics.quantiles(step_s, n=100, method="inclusive")
     n_layer = GPT2Config().n_layer
     expected = n_layer * (warm + timed)
+    result = {"step_p50_s": statistics.median(step_s),
+              "tokens_per_s": tokens_per_s,
+              "mfu": 6 * out["n_params"] * tokens_per_s / bf16_peak}
     emit({"phase": "train", "model": "gpt2-125m", "dtype": out["dtype"],
           "attn": out["attn"], "global_batch": 8, "seq_len": 1024,
           "n_params": out["n_params"], "warmup_steps": warm,
-          "timed_steps": timed, "step_p50_s": statistics.median(step_s),
-          "step_p99_s": q[98], "tokens_per_s": tokens_per_s,
-          "mfu": 6 * out["n_params"] * tokens_per_s / bf16_peak,
+          "timed_steps": timed, **result,
+          "step_p99_s": q[98],
           "mfu_peak_flops": bf16_peak,
           "max_memory_allocated_bytes": peak_mem,
           "loss_first": out["losses"][0], "loss_last": out["losses"][-1],
@@ -1099,7 +1175,217 @@ def train_phase():
           and not any(launches[k] for k in MASKED_KEYS),
           f"flash launches {launches} != n_layer x steps {expected} of B1-B3 "
           "and none of B4-B6")
-    return launches
+    return launches, result
+
+
+@contextlib.contextmanager
+def _products(product, shared_logits=False):
+    """Routes the head's and the chunked loss's products (``matmul_f32``)
+    through ``product``; ``shared_logits`` keeps the chunked loss's logits
+    (``_logits``) on the unpatched product."""
+    unpatched = chunked_xent.matmul_f32
+    with contextlib.ExitStack() as stack:
+        for module in (gpt2_module, chunked_xent):
+            stack.enter_context(mock.patch.object(module, "matmul_f32", product))
+        if shared_logits:
+            stack.enter_context(mock.patch.object(
+                chunked_xent, "_logits",
+                lambda x, W, v0, v1: unpatched(x, W[v0:v1].t())))
+        yield
+
+
+def _widened(a, b):
+    """The reference product: widened fp32 operands (``matmul_f32``'s CPU
+    route), TF32 off."""
+    return torch.mm(a.float(), b.float())
+
+
+def _bf16_output(a, b):
+    """The control: a bf16 GEMM whose output is rounded to bf16."""
+    return torch.mm(a.to(torch.bfloat16), b.to(torch.bfloat16)).float()
+
+
+def _head_logits(model, x):
+    """The fp32 logits [N, V] of ``GPT2._head`` and of the chunked loss's
+    product (its ``_logits`` over the whole vocabulary)."""
+    x2d = x.reshape(-1, x.shape[-1])
+    with torch.no_grad():
+        return {"head": model._head(x).reshape(x2d.shape[0], -1),
+                "chunked": chunked_xent._logits(
+                    x2d, model.wte.to(x.dtype), 0, model.cfg.vocab_size)}
+
+
+def _head_losses(model, x, targets):
+    """Per-token cross-entropy [N] through ``GPT2._head`` and through the
+    chunked loss (8 chunks, the tied head in the compute dtype), and the
+    gradients of their means against x and wte."""
+    out = {}
+    for name in ("head", "chunked"):
+        xg = x.detach().requires_grad_()
+        model.wte.grad = None
+        if name == "head":
+            logits = model._head(xg)
+            loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                   targets.reshape(-1), reduction="none")
+        else:
+            w = model.wte.to(xg.dtype)
+            loss = chunked_xent.chunked_cross_entropy(
+                xg.reshape(-1, xg.shape[-1]), w, targets.reshape(-1), 8)
+        loss.mean().backward()
+        out[name] = {"loss": loss.detach(), "dx": xg.grad,
+                     "dwte": model.wte.grad}
+    model.wte.grad = None
+    return out
+
+
+def _bf16_step(t):
+    """One bf16 step (ulp) at each element of t: 2^(e - 8) for
+    |t| in [2^(e-1), 2^e), 0 at 0."""
+    _, e = torch.frexp(t)
+    return torch.where(t == 0, 0.0, torch.ldexp(torch.ones_like(t), e - 8))
+
+
+def _head_err(got, want, rounded):
+    """max |got - want| over its limit, 1e-4 x max |want|; for a gradient
+    that both sides round to bf16 (``rounded``) the limit adds one bf16
+    step of the larger side at each element, since unrounded values a hair
+    apart can round to neighbours."""
+    a, b = got.float(), want.float()
+    err = (a - b).abs()
+    limit = 1e-4 * b.abs().max()
+    if rounded:
+        limit = limit + _bf16_step(torch.maximum(a.abs(), b.abs()))
+    ok = bool((err <= limit).all()) and bool(torch.isfinite(a).all())
+    return ok, {"max_abs_err": err.max().item(),
+                "ref_max_abs": b.abs().max().item(),
+                "over_1e-4_of_max": int((err > 1e-4 * b.abs().max()).sum())}
+
+
+def head_phase(train_result):
+    """The 16-bit LM head (``head_in_fp32=False``) on the tensor cores
+    (``aten::mm.dtype``): bf16, B=8, T=1024, vocab 50257, TF32 off. Against
+    the same functions with their products on widened fp32 operands on the
+    card, each within 1e-4 x the reference's largest element:
+      * the fp32 logits of ``GPT2._head`` and of ``chunked_cross_entropy``'s
+        product, and the per-token losses of both (8 chunks). A control
+        routes the products through a bf16-output GEMM: its logits must
+        fail the same limit, so the check sees an fp32 output;
+      * the gradients (x, wte), which both sides round to bf16: within that
+        limit plus one bf16 step of the element. The head's backward takes
+        g from the logits; the chunked loss's reference keeps the logits
+        under test (only its two backward products are widened), because
+        that loss rounds p g to bf16 before them, as the reference does, and
+        logits a few ulp apart flip some of those roundings.
+    Then forward + backward of the head timed in both modes (and its top
+    kernels from torch.profiler), and 3 warm-up and 10 timed training steps
+    (the train phase's recipe, dense LM loss) with the 16-bit head."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, T = 8, 1024
+    model = gpt2_125m(device="cuda", seed=12, dtype=torch.bfloat16,
+                      head_in_fp32=False, n_layer=1)
+    cfg = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(B, T, cfg.n_embd, generator=g, device="cuda").to(
+        torch.bfloat16)
+    targets = torch.randint(0, cfg.vocab_size, (B, T), generator=g,
+                            device="cuda")
+    errs, control = {}, {}
+
+    def held(name, key, got, want, rounded=False):
+        ok, err = _head_err(got, want, rounded)
+        errs.setdefault(name, {})[key] = err
+        check(ok, f"16-bit head ({name}) {key} vs widened fp32 products: "
+                  f"{errs[name][key]}")
+
+    got = _head_logits(model, x)
+    with _products(_widened):
+        want = _head_logits(model, x)
+    for name in got:
+        held(name, "logits", got[name], want[name])
+    del got
+    with _products(_bf16_output):
+        rounded = _head_logits(model, x)
+    for name in want:
+        ok, control[name] = _head_err(rounded[name], want[name], False)
+        check(not ok, f"control: bf16-output logits ({name}) pass the fp32 "
+                      f"check: {control[name]}")
+    del want, rounded
+    torch.cuda.empty_cache()
+
+    got = _head_losses(model, x, targets)
+    with _products(_widened):
+        want = _head_losses(model, x, targets)
+    with _products(_widened, shared_logits=True):
+        shared = _head_losses(model, x, targets)["chunked"]
+    want["chunked"].update(dx=shared["dx"], dwte=shared["dwte"])
+    for name in got:
+        held(name, "loss", got[name]["loss"], want[name]["loss"])
+        for key in ("dx", "dwte"):
+            held(name, key, got[name][key], want[name][key], rounded=True)
+    del shared
+
+    flush = torch.empty(128 * 2**20, dtype=torch.int32, device="cuda")
+    times, kernels = {}, {}
+    for mode, in_fp32 in (("fp32", True), ("bf16", False)):
+        m = gpt2_125m(device="cuda", seed=12, dtype=torch.bfloat16,
+                      head_in_fp32=in_fp32, n_layer=1)
+        xg = x.detach().requires_grad_()
+
+        def fwd_bwd():
+            logits = m._head(xg)
+            F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                            targets.reshape(-1)).backward()
+        times[mode] = time_ms(fwd_bwd, 5, flush)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=WARM_SCHEDULE) as prof:
+            fwd_bwd()  # warm-up, not recorded
+            torch.cuda.synchronize()
+            prof.step()
+            fwd_bwd()
+            torch.cuda.synchronize()
+        top = sorted(_device_kernels(prof),
+                     key=lambda e: -e.self_device_time_total)[:4]
+        kernels[mode] = [{"name": e.key[:90],
+                          "ms": e.self_device_time_total / 1e3} for e in top]
+        del m
+    del model, got, want
+    torch.cuda.empty_cache()
+
+    warm, timed = 3, 10
+    bf16_peak, _, _ = peaks()
+    trainer, state = _trainer(seed=1, dtype=torch.bfloat16,
+                              attn_impl=fa.flash_attention,
+                              head_in_fp32=False)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    losses, step_s = [], []
+    for batch in _lm_batches(warm + timed, B, T, seed=14):
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    del trainer, state
+    torch.cuda.empty_cache()
+    step_s = step_s[warm:]
+    tokens_per_s = B * T * len(step_s) / sum(step_s)
+    emit({"phase": "head", "dtype": "bfloat16", "B": B, "T": T,
+          "vocab": cfg.vocab_size, "tf32": False,
+          "product": "torch.mm(out_dtype=torch.float32) (aten::mm.dtype)",
+          "reference": "the same functions on widened fp32 operands",
+          "errors": errs,
+          "control_bf16_output_logits": control,
+          "head_fwd_bwd_ms": times,
+          "head_fwd_bwd_top_kernels": kernels,
+          "train_head_bf16": {
+              "warmup_steps": warm, "timed_steps": timed,
+              "step_p50_s": statistics.median(step_s),
+              "tokens_per_s": tokens_per_s,
+              "mfu": 6 * n_params * tokens_per_s / bf16_peak,
+              "loss_first": losses[0], "loss_last": losses[-1]},
+          "train_head_fp32": {k: train_result[k] for k in
+                              ("step_p50_s", "tokens_per_s", "mfu")}})
+    check(all(np.isfinite(losses)), "a 16-bit head training loss is not finite")
 
 
 def train_fixed_batch_phase():
@@ -1124,7 +1410,7 @@ def train_bf16_parity_phase(mesh):
     kernels (B1-B3 on the Hopper route, rounding ds, and B3 p, to bf16
     before their products), and with ring flash attention under
     ``CPStrategy`` on ``mesh``'s one-rank NCCL group (the cp = 1 ring runs
-    the diagonal hop through B4 on the Hopper route and B5-B6), each
+    the diagonal hop through B4 and B6 on the Hopper route and B5), each
     against the same trainer with dense attention. The loss lists are
     printed; each must agree with dense within 1% at every step."""
     steps = 5
@@ -1214,9 +1500,9 @@ def kernel_resources():
     Hopper-route kernel, read from the built B1-B3 and B4-B6 libraries with
     ``cuobjdump -res-usage`` and ``cuobjdump -sass``, keyed by kernel name,
     dtype, D and (B4) output type; each must run on the tensor cores
-    (HGMMA > 0). Expected: B1-B3 in bf16/fp16 at D = 64 and 128 (12), B4
-    in bf16/fp16 at D = 64 and 128 with its output in the input dtype or
-    fp32 (8)."""
+    (HGMMA > 0) with no stack. Expected: B1-B3 in bf16/fp16 at D = 64 and
+    128 (12), B4 in bf16/fp16 at D = 64 and 128 with its output in the
+    input dtype or fp32 (8), B6 in bf16/fp16 at D = 64 and 128 (4)."""
     tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
     out = {}
     for lib_name in ("flash_attention_causal", "flash_attention_masked"):
@@ -1236,20 +1522,22 @@ def kernel_resources():
                            if k in fn), None)
             if kernel is None:
                 continue
-            # template arguments: <T, D> or <T, OutT, D>; OutT = T mangles
-            # as a back-reference, float as "f"
+            # template arguments: <T, D>, or B4's <T, OutT, D>; OutT = T
+            # mangles as a back-reference, float as "f"
             targs, d = re.search(rf"{kernel}I(.*?)Li(\d+)E", fn).groups()
             dtype = "bf16" if "bfloat16" in targs else "f16"
-            if kernel in MASKED_SM90_KERNELS:
+            if kernel == "flash_masked_fwd_kernel_sm90":
                 dtype += ",f32" if targs.endswith("f") else f",{dtype}"
             count, first = hgmma.get(fn, (0, None))
             out[f"{kernel}<{dtype},{d}>"] = {
                 "registers": int(reg), "stack_bytes": int(stack),
                 "hgmma": count, "first_hgmma": first}
     n_causal = sum(k.startswith("flash_causal") for k in out)
-    check(n_causal == 12 and len(out) == 20
-          and all(r["hgmma"] > 0 for r in out.values()),
-          f"Hopper-route kernels missing or without HGMMA: {out}")
+    check(n_causal == 12 and len(out) == 24
+          and all(r["hgmma"] > 0 and r["stack_bytes"] == 0
+                  for r in out.values()),
+          f"Hopper-route kernels missing, without HGMMA or with a stack: "
+          f"{out}")
     return out
 
 
@@ -1283,10 +1571,11 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
     parity_batches, dense = train_parity_phase()
-    train_launches = train_phase()
+    train_launches, train_result = train_phase()
     train_split = train_profile_phase(*train_fixed_batch_phase(),
                                       expect_calls=SM90_KERNELS)
     torch.cuda.empty_cache()
+    head_phase(train_result)
 
     # context parallelism over a one-rank NCCL group: one card, cp = 1
     with socket.socket() as sock:
@@ -1303,7 +1592,8 @@ def main() -> int:
     finally:
         pdist.destroy_process_group()
 
-    main_dtype = kres["bfloat16"]  # the serve phase runs in bf16
+    main_dtype = kres["ragged"]["bfloat16"]  # the serve phase runs in bf16
+    serve_set = kres["serve"]["bfloat16"]
     summary = [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -1318,6 +1608,12 @@ def main() -> int:
         "library_ms": main_dtype["library_ms"],
         "library_call": "F.scaled_dot_product_attention on a dense view "
                         "gathered beforehand",
+        "path": "CUDA cores: split across CTAs, merged by lse",
+        "device_ms": main_dtype["device_ms"],
+        "serve_lengths_ms": serve_set["ms"],
+        "serve_lengths_device_ms": serve_set["device_ms"],
+        "serve_lengths_bound_ms": serve_set["bound_ms"],
+        "serve_lengths_library_ms": serve_set["library_ms"],
     }]
     n_layer = GPT2Config().n_layer
     for name, key, replaces in FLASH_KERNELS:

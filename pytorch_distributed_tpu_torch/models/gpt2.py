@@ -35,6 +35,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from pytorch_distributed_tpu_torch._device import resolve_device
+from pytorch_distributed_tpu_torch.ops.chunked_xent import matmul_f32
 from pytorch_distributed_tpu_torch.ops.decode_attention import cached_attention
 from pytorch_distributed_tpu_torch.ops.paged_attention import (
     _scatter_new,
@@ -180,6 +181,27 @@ class Block(nn.Module):
         return x + self.mlp(_layer_norm(x, self.ln_2, self.cfg))
 
 
+class HeadMatmul(torch.autograd.Function):
+    """``logits [N, V] = x [N, C] @ w [V, C]^T`` in fp32 from operands in the
+    compute dtype: the reference's ``head_in_fp32=False`` einsum with
+    ``preferred_element_type=float32``. ``aten::mm.dtype`` has no autograd
+    formula, so the backward is JAX's transpose of that einsum: the fp32
+    cotangent g against the widened operands, dx = g w rounded to x's dtype
+    and dw = g^T x rounded to w's."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return matmul_f32(x, w.t())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.float()
+        return (torch.mm(g, w.float()).to(x.dtype),
+                torch.mm(g.t(), x.float()).to(w.dtype))
+
+
 class GPT2(nn.Module):
     """GPT-2 LM. ``forward(tokens [B, T]) -> logits [B, T, V]`` (fp32).
 
@@ -237,8 +259,12 @@ class GPT2(nn.Module):
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         # weight-tied LM head; logits in fp32 for a stable softmax
-        w = self.wte if self.cfg.head_in_fp32 else self.wte.to(self.cfg.dtype)
-        return torch.matmul(x.float(), w.float().t())
+        if self.cfg.head_in_fp32:
+            return torch.matmul(x.float(), self.wte.float().t())
+        # the compute-dtype operands, fp32 out (``matmul_f32``)
+        w = self.wte.to(self.cfg.dtype)
+        logits = HeadMatmul.apply(x.reshape(-1, x.shape[-1]), w)
+        return logits.reshape(*x.shape[:-1], w.shape[0])
 
     def forward(self, tokens, *, return_hidden: bool = False, kv_cache=None,
                 position_offset=None, n_layers=None):

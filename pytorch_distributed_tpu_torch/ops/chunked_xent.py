@@ -15,14 +15,31 @@ there, not a Pallas kernel, so plain torch ops are a faithful port).
 
 Products take the inputs' values (bf16 in a bf16 model) and accumulate in
 fp32, as the JAX op's ``preferred_element_type=float32`` does; p * g is
-rounded to x's dtype before the backward products, as there.
+rounded to x's dtype before the backward products, as there. All three
+products go through ``matmul_f32``.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["chunked_cross_entropy"]
+__all__ = ["chunked_cross_entropy", "matmul_f32"]
+
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [M, K] @ b [K, N]`` in the operands' promoted dtype, accumulated
+    and returned in fp32: JAX's ``dot_general(...,
+    preferred_element_type=float32)``. 16-bit operands on CUDA take one
+    tensor-core GEMM (``aten::mm.dtype``); on the CPU, whose build lacks
+    that overload, the operands are widened to fp32, which gives the same
+    values up to the summation order. Not differentiable: callers wrap it
+    in an ``autograd.Function``."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    if a.is_cuda and dtype in _HALF:
+        return torch.mm(a.to(dtype), b.to(dtype), out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
 
 
 def _chunks(V: int, n_chunks: int):
@@ -32,7 +49,7 @@ def _chunks(V: int, n_chunks: int):
 
 
 def _logits(x, W, v0, v1):
-    return torch.matmul(x.float(), W[v0:v1].float().t())
+    return matmul_f32(x, W[v0:v1].t())
 
 
 def _forward(x, W, targets, n_chunks):
@@ -66,9 +83,9 @@ class _ChunkedCrossEntropy(torch.autograd.Function):
         dW = torch.empty(W.shape, dtype=torch.float32, device=x.device)
         for v0, v1 in _chunks(W.shape[0], ctx.n_chunks):
             p = torch.exp(_logits(x, W, v0, v1) - lse[:, None])
-            pg = (p * g[:, None]).to(x.dtype).float()
-            dx = dx + torch.matmul(pg, W[v0:v1].float())
-            dW[v0:v1] = torch.matmul(pg.t(), x32)
+            pg = (p * g[:, None]).to(x.dtype)
+            dx = dx + matmul_f32(pg, W[v0:v1])
+            dW[v0:v1] = matmul_f32(pg.t(), x)
         # target terms: dx -= g W[y];  dW[y] -= g x (scatter-add)
         dx = dx - g[:, None] * W[targets].float()
         dW.index_add_(0, targets, -g[:, None] * x32)

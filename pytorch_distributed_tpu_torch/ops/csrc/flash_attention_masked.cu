@@ -3,7 +3,7 @@
 // Replaces three TPU kernels of pytorch_distributed_tpu/ops/flash_attention.py:
 //   B4 _fwd_kernel  -> flash_masked_fwd_kernel   (out, lse; _sm90 in bf16/fp16)
 //   B5 _dq_kernel   -> flash_masked_dq_kernel    (dq)
-//   B6 _dkv_kernel  -> flash_masked_dkv_kernel   (dk, dv)
+//   B6 _dkv_kernel  -> flash_masked_dkv_kernel   (dk, dv; _sm90 in bf16/fp16)
 // Query row r sees key row c iff q_pos[r] >= kv_pos[c], with int32 global
 // positions shared by the batch (q_pos [Tq], kv_pos [Tk]); without
 // positions every key row is seen (unmasked). Tq and Tk may differ. These
@@ -17,12 +17,12 @@
 //
 // Two routes, by dtype:
 //   fp32: the CUDA-core kernels below, for all three passes.
-//   bf16/fp16: B4 is a Hopper kernel on the tensor cores
-//         (flash_masked_fwd_kernel_sm90, after the CUDA-core ones, built
-//         on flash_sm90.cuh as the causal B1); B5 and B6 stay on the CUDA
-//         cores. B4 there needs D % 8 == 0 and 16-byte aligned bases and
-//         strides (TMA); a call that breaks the rule fails, it never falls
-//         back.
+//   bf16/fp16: B4 and B6 are Hopper kernels on the tensor cores
+//         (flash_masked_fwd_kernel_sm90 and flash_masked_dkv_kernel_sm90,
+//         after the CUDA-core ones, built on flash_sm90.cuh as the causal
+//         B1 and B3); B5 stays on the CUDA cores. B4 and B6 there need
+//         D % 8 == 0 and 16-byte aligned bases and strides (TMA); a call
+//         that breaks the rule fails, it never falls back.
 //
 // CUDA-core kernels. What bounds them on this card: operations, as for
 // B1-B3 (GPT-2's T = 1024, D = 64 reuse each K/V element up to 16 times).
@@ -576,6 +576,284 @@ flash_masked_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
   }
 }
 
+// ---------------------------------------------------------------- B6
+// flash_masked_dkv_kernel_sm90: replaces _dkv_kernel
+// (pytorch_distributed_tpu/ops/flash_attention.py:575) in bf16/fp16, dk
+// and dv.
+//
+// Bound on this card: operations. On the diagonal hop at B=8, T=1024,
+// H=12, D=64 its 25.8 GFLOP (8 D per visible pair: four products) take
+// 0.0261 ms at 989 TFLOP/s bf16, above the 0.019 ms its bytes take. The
+// design is the causal B3's (flash_attention_causal.cu): all four products
+// on the tensor cores, every tile kept where the next product reads it,
+// with B4's position machinery in place of the static causal mask:
+//   - one CTA: 128 keys of one (b, h), keys 64 g .. 64 g + 63 for consumer
+//     warpgroup g; K and V arrive once by TMA (maps of Tk rows) and stay;
+//     Q and dO tiles of 64 rows (maps of Tq rows) stream through the ring.
+//     A ring hop's Q rows are not a causal range, so the CTA visits every
+//     Q tile, not B3's qi_first onward;
+//   - with each Q tile the producer warp's lanes stage the tile's lse and
+//     delta (lse -1e30 past Tq: those rows are dead) and its 64 q
+//     positions (INT_MIN past Tq), with their min and max over the rows
+//     < Tq reduced by shuffles, all 32 lanes counted on the stage's full
+//     barrier; the producer loads no Q tile that no key of the CTA sees;
+//     each consumer thread keeps the positions of its two keys in
+//     registers (INT_MAX past Tk), and each warpgroup the min and max over
+//     its keys < Tk;
+//   - per tile and warpgroup: skipped (no products; exact, since every p
+//     would be 0) when max q_pos < min kv_pos; unmasked when min q_pos >=
+//     max kv_pos and the tile lies inside Tq and Tk; else keep = q_pos >=
+//     kv_pos as a select. Without positions every row's position counts as
+//     0 and every key's as INT_MIN: no tile is skipped;
+//   - S^T = K Q^T and dP^T = V dO^T (K-major operands), P^T = exp(scale
+//     S^T - lse[col]) with p = 0 where lse <= -1e30 / 2 (rows past Tq, and
+//     every row of a hop that holds only future keys, which so gets exact
+//     zero dk and dv), dS^T = P^T (dP^T - delta[col]) scale, then dV += P^T
+//     dO and dK += dS^T Q with P^T and dS^T as register A operands;
+//   - every consumer warp releases a stage itself, after its last read of
+//     the staged positions, as in B4: had one warp released it for its
+//     warpgroup, a lagging warp could read the next round's positions and
+//     issue a warpgroup product alone;
+//   - dK and dV accumulate in fp32 registers and are written once, no
+//     atomics; at D = 128 a third, donating warpgroup gives the consumers
+//     its registers (setmaxnreg), as in B3.
+// The one deliberate numeric change from the TPU kernel: P^T and dS^T are
+// rounded to the input dtype before their tensor-core products, as B3
+// rounds them.
+template <typename T, int kD>
+__global__ void __launch_bounds__(sm90::Sm90Layout<kD>::kDkvThreads, 1)
+flash_masked_dkv_kernel_sm90(const __grid_constant__ CUtensorMap mq,
+                             const __grid_constant__ CUtensorMap mk,
+                             const __grid_constant__ CUtensorMap mv,
+                             const __grid_constant__ CUtensorMap mdo, const float* lse,
+                             const float* delta, View dk, View dv, Pos pos, Dims n) {
+  using L = sm90::Sm90Layout<kD>;
+  constexpr int kStages = L::kStages;
+  constexpr int kStageBytes = 2 * L::kRows64;  // Q tile, then dO tile
+  extern __shared__ char smem_raw[];
+  __shared__ uint64_t full[kStages], empty[kStages], kv_full;
+  __shared__ float stats[kStages][2][64];            // lse and delta of the stage's Q rows
+  __shared__ __align__(16) int q_pos[kStages][64];   // the stage's query positions
+  __shared__ int q_range[kStages][2];                // their min and max below Tq
+  char* Ks = sm90::align_1024(smem_raw);  // [warpgroup][box][64 rows x 128 B]
+  char* Vs = Ks + 2 * L::kRows64;
+  char* ring = Vs + 2 * L::kRows64;
+
+  const int nq = (n.Tq + 63) / 64;
+  const int k0 = 128 * static_cast<int>(blockIdx.x);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int64_t bh = (static_cast<int64_t>(b) * n.H + h) * n.Tq;
+  const bool masked = pos.q != nullptr;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 32);  // the producer's lanes; lane 0 brings the TMA bytes
+      sm90::mbar_init(&empty[s], 8);  // every consumer warp
+    }
+    sm90::mbar_init(&kv_full, 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= sm90::kProducerWarp) {
+    // at D = 128 warpgroup 2 gives 128 registers a thread to the consumers
+    // (dK and dV alone hold 128 a thread); warp 8 then produces
+    if constexpr (kD == 128) sm90::regs_dec<40>();
+    if (warp != sm90::kProducerWarp) return;
+    int kv_min = INT_MAX;  // over the CTA's keys < Tk
+    for (int j = lane; j < 128; j += 32)
+      if (k0 + j < n.Tk) kv_min = min(kv_min, masked ? pos.kv[k0 + j] : INT_MIN);
+    kv_min = warp_min(kv_min);
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(&kv_full, 4 * L::kRows64);
+      for (int g = 0; g < 2; ++g)
+        for (int e = 0; e < L::kBoxes; ++e) {
+          const int off = g * L::kRows64 + e * sm90::kTileBytes;
+          sm90::tma_load(Ks + off, &mk, &kv_full, 64 * e, h, k0 + 64 * g, b);
+          sm90::tma_load(Vs + off, &mv, &kv_full, 64 * e, h, k0 + 64 * g, b);
+        }
+    }
+    for (int qi = 0; qi < nq; ++qi) {
+      const int s = qi % kStages;
+      sm90::mbar_wait(&empty[s], ((qi / kStages) & 1) ^ 1);
+      const int q0 = 64 * qi;
+      int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = lane + 32 * jj;
+        const bool in = q0 + j < n.Tq;
+        const int p = !in ? INT_MIN : masked ? pos.q[q0 + j] : 0;
+        q_pos[s][j] = p;
+        stats[s][0][j] = in ? lse[bh + q0 + j] : kNegInf;
+        stats[s][1][j] = in ? delta[bh + q0 + j] : 0.f;
+        if (in) {
+          lo = min(lo, p);
+          hi = max(hi, p);
+        }
+      }
+      lo = warp_min(lo);
+      hi = warp_max(hi);
+      if (lane == 0) {
+        q_range[s][0] = lo;
+        q_range[s][1] = hi;
+        if (hi >= kv_min) {  // some key of the CTA is seen by a row of the tile
+          char* Qt = ring + s * kStageBytes;
+          sm90::mbar_arrive_expect_tx(&full[s], kStageBytes);
+          for (int e = 0; e < L::kBoxes; ++e) {
+            sm90::tma_load(Qt + e * sm90::kTileBytes, &mq, &full[s], 64 * e, h, q0, b);
+            sm90::tma_load(Qt + L::kRows64 + e * sm90::kTileBytes, &mdo, &full[s], 64 * e, h,
+                           q0, b);
+          }
+        } else {
+          sm90::mbar_arrive(&full[s]);
+        }
+      } else {
+        sm90::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  if constexpr (kD == 128) sm90::regs_inc<232>();
+  const int g = warp / 4;
+  const int kg = k0 + 64 * g;                      // this warpgroup's first key
+  const int cA = kg + 16 * (warp % 4) + lane / 4;  // the thread's keys: cA, cA + 8
+  const int c0 = 2 * (lane % 4);
+  const char* Kg = Ks + g * L::kRows64;
+  const char* Vg = Vs + g * L::kRows64;
+  const float scale_log2 = n.scale * sm90::kLog2e;
+
+  // the positions of the thread's keys (INT_MAX past Tk: no row sees it),
+  // and the warpgroup's min and max over its keys < Tk (every warp reduces
+  // all 64, so the four warps decide alike)
+  int kp[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int c = cA + 8 * hh;
+    kp[hh] = c >= n.Tk ? INT_MAX : masked ? pos.kv[c] : INT_MIN;
+  }
+  int wg_min = INT_MAX, wg_max = INT_MIN;
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    const int c = kg + lane + 32 * jj;
+    if (c < n.Tk) {
+      const int p = masked ? pos.kv[c] : INT_MIN;
+      wg_min = min(wg_min, p);
+      wg_max = max(wg_max, p);
+    }
+  }
+  wg_min = warp_min(wg_min);
+  wg_max = warp_max(wg_max);
+  const bool keys_inside = kg + 64 <= n.Tk;
+
+  float dk_acc[L::kBoxes][32], dv_acc[L::kBoxes][32];
+#pragma unroll
+  for (int e = 0; e < L::kBoxes; ++e)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[e][i] = dv_acc[e][i] = 0.f;
+
+  sm90::mbar_wait(&kv_full, 0);
+  for (int qi = 0; qi < nq; ++qi) {
+    const int s = qi % kStages;
+    sm90::mbar_wait(&full[s], (qi / kStages) & 1);
+    const int q0 = 64 * qi;
+    const char* Qt = ring + s * kStageBytes;
+    const char* dOt = Qt + L::kRows64;
+    if (q_range[s][1] >= wg_min) {  // else every key is in these rows' future
+      float st[32], dpt[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+      sm90::fence_acc(st);
+      sm90::fence_acc(dpt);
+      sm90::wgmma_fence();
+      sm90::wgmma_abt<T, kD>(st, Kg, Qt);
+      sm90::wgmma_abt<T, kD>(dpt, Vg, dOt);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(st);
+      sm90::fence_acc(dpt);
+
+      // cell i: key cA + 8 ((i / 2) % 2), query q0 + 8 (i / 4) + c0 + i % 2;
+      // the mask is a select, and only on tiles that need it
+      const bool edge = !((q_range[s][0] >= wg_max) & (q0 + 64 <= n.Tq) & keys_inside);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int2 qp = *reinterpret_cast<const int2*>(&q_pos[s][8 * jj + c0]);
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int j = 8 * jj + c0 + cc;
+          const float lse_v = stats[s][0][j];
+          const float delta_v = stats[s][1][j];
+          const bool dead = lse_v <= kNegInf / 2;
+          const float neg_lse2 = -lse_v * sm90::kLog2e;
+          const int qpj = cc ? qp.y : qp.x;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int i = 4 * jj + 2 * hh + cc;
+            const bool keep = !dead & (!edge | (qpj >= kp[hh]));
+            const float e = exp2f(fmaf(st[i], scale_log2, neg_lse2));
+            const float p = keep ? e : 0.f;
+            dpt[i] = p * (dpt[i] - delta_v) * n.scale;
+            st[i] = p;
+          }
+        }
+      }
+      uint32_t pa[4][4], dsa[4][4];
+      sm90::to_fragments<T>(st, pa);
+      sm90::to_fragments<T>(dpt, dsa);
+#pragma unroll
+      for (int e = 0; e < L::kBoxes; ++e) {
+        sm90::fence_acc(dv_acc[e]);
+        sm90::fence_acc(dk_acc[e]);
+      }
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < L::kBoxes; ++e)
+          sm90::wgmma_rs<T, 1>(dv_acc[e], pa[kk],
+                               sm90::desc_mnmajor(dOt + e * sm90::kTileBytes, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < L::kBoxes; ++e)
+          sm90::wgmma_rs<T, 1>(dk_acc[e], dsa[kk],
+                               sm90::desc_mnmajor(Qt + e * sm90::kTileBytes, kk), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < L::kBoxes; ++e) {
+        sm90::fence_acc(dv_acc[e]);
+        sm90::fence_acc(dk_acc[e]);
+      }
+    }
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+  }
+
+  T* dk_base = static_cast<T*>(dk.ptr) + b * dk.sb + h * dk.sh;
+  T* dv_base = static_cast<T*>(dv.ptr) + b * dv.sb + h * dv.sh;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int c = cA + 8 * hh;
+    if (c >= n.Tk) continue;
+#pragma unroll
+    for (int e = 0; e < L::kBoxes; ++e)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int d = 64 * e + 8 * jj + c0;
+        if (d >= n.D) continue;
+        const int i = 4 * jj + 2 * hh;
+        *reinterpret_cast<uint32_t*>(dk_base + c * dk.st + d) =
+            sm90::pack2<T>(dk_acc[e][i], dk_acc[e][i + 1]);
+        *reinterpret_cast<uint32_t*>(dv_base + c * dv.st + d) =
+            sm90::pack2<T>(dv_acc[e][i], dv_acc[e][i + 1]);
+      }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 constexpr size_t kPosBytes = (2 * kTile + 2) * sizeof(int);
 template <int kD>
@@ -653,23 +931,55 @@ cudaError_t fwd_sm90(const void* const* p, const long long* s, int B, const Dims
   return cudaGetLastError();
 }
 
+template <typename T, int kD>
+cudaError_t dkv_sm90(const void* const* p, const long long* s, int B, const Dims& n,
+                     Pos pos, cudaStream_t stream) {
+  // q and do have Tq rows, k and v Tk; at Tq = 0 no Q tile is loaded, and
+  // the k map stands in for theirs
+  const int Ts[4] = {n.Tq, n.Tk, n.Tk, n.Tq};
+  CUtensorMap maps[4];
+  cudaError_t e;
+  if (n.Tq > 0) {
+    e = sm90::make_maps<T>(maps, 4, p, s, B, Ts, n.H, n.D);
+  } else {
+    e = sm90::make_maps<T>(maps + 1, 2, p + 1, s + 3, B, Ts + 1, n.H, n.D);
+    maps[0] = maps[3] = maps[1];
+  }
+  if (e != cudaSuccess) return e;
+  using L = sm90::Sm90Layout<kD>;
+  const size_t smem = L::smem_bytes(4);  // K and V stay
+  e = allow_smem(flash_masked_dkv_kernel_sm90<T, kD>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n.Tk + 127) / 128, n.H, B);
+  flash_masked_dkv_kernel_sm90<T, kD><<<grid, L::kDkvThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(p[4]),
+      static_cast<const float*>(p[5]), view(p[6], s + 12), view(p[7], s + 15), pos, n);
+  return cudaGetLastError();
+}
+
 enum Pass { kFwd, kDq, kDkv };
 
-// fp32: the CUDA-core kernels. bf16/fp16: B4 on the Hopper route, with out
-// in T or fp32; B5 and B6 on the CUDA-core kernels.
+// fp32: the CUDA-core kernels. bf16/fp16: B4 (out in T or fp32) and B6 on
+// the Hopper route; B5 on the CUDA-core kernel.
 template <typename T, int kD>
 cudaError_t run(Pass pass, const void* const* p, const long long* s, int B,
                 const Dims& n, Pos pos, bool out_fp32, cudaStream_t stream) {
+  constexpr bool kFp32 = std::is_same<T, float>::value;
   switch (pass) {
     case kFwd:
-      if constexpr (std::is_same<T, float>::value) {
+      if constexpr (kFp32) {
         return fwd<T, kD>(p, s, B, n, pos, stream);  // fp32 out either way
       } else {
         return out_fp32 ? fwd_sm90<T, float, kD>(p, s, B, n, pos, stream)
                         : fwd_sm90<T, T, kD>(p, s, B, n, pos, stream);
       }
     case kDq: return dq<T, kD>(p, s, B, n, pos, stream);
-    default: return dkv<T, kD>(p, s, B, n, pos, stream);
+    default:
+      if constexpr (kFp32) {
+        return dkv<T, kD>(p, s, B, n, pos, stream);
+      } else {
+        return dkv_sm90<T, kD>(p, s, B, n, pos, stream);
+      }
   }
 }
 

@@ -11,11 +11,13 @@ positions ``m*page_size .. (m+1)*page_size - 1``).
   view and runs the slotted op's einsum/mask/softmax. It serves prefill
   (T > 1).
 * ``paged_decode_attention`` -- the T = 1 decode step. A CUDA tensor goes
-  to the hand-written kernel in ``csrc/paged_decode_attention.cu``, which
-  reads the pages through the table in place; a CPU tensor goes to its plain
-  version ``paged_decode_attention_reference``, which repeats the TPU
-  kernel's arithmetic (fp32, ``-1e30`` mask, exact-zero weights on masked
-  lanes, ``acc / l``).
+  to the hand-written kernels in ``csrc/paged_decode_attention.cu``, which
+  read the pages through the table in place: each chain is split across
+  CTAs of ``pages_per_split(...)`` pages, and the splits' partial softmax
+  states are merged by lse in fp32 scratch the wrapper allocates. A CPU
+  tensor goes to its plain version ``paged_decode_attention_reference``,
+  which repeats the TPU kernel's arithmetic (fp32, ``-1e30`` mask,
+  exact-zero weights on masked lanes, ``acc / l``).
 
 Trash-page invariant: page 0 is never allocated. Inactive slots have an
 all-zero table row, so their discarded writes land in page 0 and their
@@ -38,11 +40,14 @@ __all__ = [
     "paged_cached_attention",
     "paged_decode_attention",
     "paged_decode_attention_reference",
+    "pages_per_split",
 ]
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_MAX_HEAD_SIZE = 256  # the kernel keeps D / 32 values per lane in registers
+_MAX_HEAD_SIZE = 256  # a row of D is read by at most 32 lanes, 8 values each
+# cached positions one CTA of the decode kernel reads (whole pages)
+SPLIT_POSITIONS = 64
 
 # Kernel launches (not plain-version calls) since the counter was last set
 # to 0: shows that a run went through the CUDA kernel.
@@ -186,12 +191,24 @@ def paged_decode_attention(
     return _launch_kernel(*tensors)
 
 
+def pages_per_split(page_size: int) -> int:
+    """Table entries one CTA of the decode kernel reads: whole pages of
+    about ``SPLIT_POSITIONS`` positions (at least one page)."""
+    return max(1, SPLIT_POSITIONS // page_size)
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# paged_decode_attention_launch of csrc/paged_decode_attention.cu: q, k, v,
+# tables, lengths, out, workspace; B, H, D, page_size, max_pages,
+# pages_per_split; the q and pool strides; scale, dtype, stream
+LAUNCH_ARGTYPES = [_P] * 7 + [_I] * 6 + [_LL] * 8 + [ctypes.c_float, _I, _P]
+
+
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("paged_decode_attention")
     fn = lib.paged_decode_attention_launch
     if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 6 + [i] * 5 + [ll] * 8 + [ctypes.c_float, i, p]
+        fn.argtypes = LAUNCH_ARGTYPES
         fn.restype = ctypes.c_int
     return lib
 
@@ -235,11 +252,17 @@ def _launch_kernel(q, k_pages, v_pages, block_tables, lengths):
         raise ValueError("block_tables and lengths must be contiguous")
     if q.stride(-1) != 1 or k_pages.stride(-1) != 1 or v_pages.stride(-1) != 1:
         raise ValueError("q and the pools must be contiguous along D")
+    page_size, max_pages = k_pages.shape[1], block_tables.shape[1]
+    per_split = pages_per_split(page_size)
+    splits = -(-max_pages // per_split)  # from shapes: lengths stay on the card
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=dev)
+    # each split's partial: acc [D], m, l
+    workspace = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
+                            device=dev)
     rc = _kernel_lib().paged_decode_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, H, D, k_pages.shape[1], block_tables.shape[1],
+        workspace.data_ptr(), B, H, D, page_size, max_pages, per_split,
         q.stride(0), q.stride(2),
         k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
         v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),

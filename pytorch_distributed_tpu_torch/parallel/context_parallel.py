@@ -42,6 +42,7 @@ from pytorch_distributed_tpu_torch.ops.flash_attention import (
     flash_masked_dkv,
     flash_masked_dq,
     flash_masked_fwd,
+    tma_ready,
 )
 
 __all__ = [
@@ -308,8 +309,7 @@ class _RingFlash(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         group = ctx.group
         n, idx = dist.get_world_size(group), dist.get_rank(group)
-        if do.stride(-1) != 1:
-            do = do.contiguous()
+        do = tma_ready(do)
         delta = attention_delta(do, out)
         dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)

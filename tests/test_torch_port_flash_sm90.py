@@ -1,16 +1,18 @@
-"""The Hopper route of B1-B4 (bf16/fp16: wgmma tiles fed by TMA), as far
-as the CPU can hold it: the C entry points of
+"""The Hopper route of B1-B4 and B6 (bf16/fp16: wgmma tiles fed by TMA),
+as far as the CPU can hold it: the C entry points of
 ``csrc/flash_attention_causal.cu`` and ``csrc/flash_attention_masked.cu``
 against the ctypes bindings, the build's tracking of the shared header,
 the kernel names the profiles match, the TMA layout rule that the wrappers
-enforce before a launch, and the one rounding the Hopper B2 adds (ds to
-the input dtype before dq += ds k) held against the JAX kernel. The
-kernels themselves run only on the card (the ``gpu``-marked tests and
-``chip_smoke.py``)."""
+enforce before a launch, and the roundings the Hopper B2 and B6 add (ds,
+and B6's p, to the input dtype before their products) held against the
+JAX kernels. The kernels themselves run only on the card (the
+``gpu``-marked tests and ``chip_smoke.py``)."""
 
+import ast
 import importlib
 import inspect
 import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,13 +20,17 @@ import pytest
 import torch
 
 from pytorch_distributed_tpu.ops.flash_attention import (
+    _bwd as jax_bwd,
     _bwd_pruned as jax_bwd_pruned,
+    _fwd as jax_fwd,
     _fwd_pruned as jax_fwd_pruned,
 )
 from pytorch_distributed_tpu_torch.ops import _build
 
 # the module (the package attribute of the same name is the function)
 fa = importlib.import_module("pytorch_distributed_tpu_torch.ops.flash_attention")
+
+torch.set_num_threads(2)
 
 CAUSAL = _build._SRC_DIR / "flash_attention_causal.cu"
 MASKED = _build._SRC_DIR / "flash_attention_masked.cu"
@@ -72,11 +78,12 @@ def test_sm90_kernel_names_match_the_profile_names():
 
 
 @pytest.mark.parametrize("src,name", [(CAUSAL, "flash_causal_dq"),
-                                      (MASKED, "flash_masked_fwd")],
-                         ids=["B2", "B4"])
+                                      (MASKED, "flash_masked_fwd"),
+                                      (MASKED, "flash_masked_dkv")],
+                         ids=["B2", "B4", "B6"])
 def test_b2_b4_sm90_kernels_match_the_profile_names(src, name):
-    """The Hopper B2 and B4 are defined in their sources under names that
-    hold ``<wrapper>_kernel``, which the profiles match."""
+    """The Hopper B2, B4 and B6 are defined in their sources under names
+    that hold ``<wrapper>_kernel``, which the profiles match."""
     kernels = set(re.findall(r"^(flash_\w+)\(", src.read_text(),
                              re.MULTILINE))
     sm90 = [k for k in kernels if k.endswith("_sm90")]
@@ -116,9 +123,10 @@ def test_wrapper_raises_naming_the_rule():
     fa._check_tma("flash_causal_fwd", odd.float())
 
 
-@pytest.mark.parametrize("name", ["flash_causal_dq", "flash_masked_fwd"])
+@pytest.mark.parametrize("name", ["flash_causal_dq", "flash_masked_fwd",
+                                  "flash_masked_dkv"])
 def test_b2_b4_wrappers_check_the_tma_rule(name):
-    """The wrappers of the Hopper B2 and B4 check their operands under
+    """The wrappers of the Hopper B2, B4 and B6 check their operands under
     their own names: bf16 at D=60 raises naming the rule, fp32 passes."""
     odd = torch.zeros(2, 16, 3, 60, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match=f"^{name}: .*multiple of 8"):
@@ -180,3 +188,108 @@ def test_b2_ds_rounding_stays_within_the_card_limit():
     err = np.abs(got - want)
     assert np.all(err <= 2e-2 * (1 + np.abs(want))), err.max()
     assert np.abs(want).max() > 0.1  # the gradients are not vacuous
+
+
+def _chip_smoke_constant(name: str):
+    """A module-level tuple of ``chip_smoke.py``, read without importing
+    the script."""
+    tree = ast.parse((Path(__file__).parents[1] / "chip_smoke.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == name for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise KeyError(name)
+
+
+def test_b6_sm90_kernel_is_profiled_and_counted():
+    """``flash_masked_dkv_kernel_sm90``, the source's Hopper B6, is among
+    the kernels that ``chip_smoke.py``'s train_cp profile expects n_layer
+    times a step and whose registers and HGMMA ``kernel_resources`` reads,
+    and the profile's ``<wrapper>_kernel`` key of B6 matches it."""
+    kernels = set(re.findall(r"^(flash_masked_\w+)\(", MASKED.read_text(),
+                             re.MULTILINE))
+    assert "flash_masked_dkv_kernel_sm90" in kernels
+    masked_sm90 = _chip_smoke_constant("MASKED_SM90_KERNELS")
+    assert masked_sm90 == ("flash_masked_fwd_kernel_sm90",
+                           "flash_masked_dkv_kernel_sm90")
+    assert all(k in kernels for k in masked_sm90)
+    (b6,) = [name for name, key, _ in _chip_smoke_constant("MASKED_KERNELS")
+             if key == "mdkv"]
+    assert f"{b6}_kernel" in "flash_masked_dkv_kernel_sm90"
+
+
+def _zigzag(owner, n, T):
+    half = T // 2
+    return np.concatenate([owner * half + np.arange(half),
+                           (2 * n - 1 - owner) * half + np.arange(half)])
+
+
+def _masked_dkv_rounded(q, k, v, do, lse, delta, q_pos, kv_pos,
+                        block: int = 64):
+    """A copy of the plain masked dk/dv loop (``flash_masked_dkv_reference``)
+    with p^T and ds^T rounded to the inputs' dtype before dv += p^T do and
+    dk += ds^T q, as the Hopper B6 rounds them; keep = q_pos >= kv_pos and
+    p = 0 on dead rows (lse <= -1e30 / 2)."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    scale = 1.0 / D ** 0.5
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    dk = torch.empty(B, H, Tk, D, dtype=k.dtype)
+    dv = torch.empty(B, H, Tk, D, dtype=v.dtype)
+    for k0 in range(0, Tk, block):
+        k1 = min(k0 + block, Tk)
+        kb, vb = kt[:, :, k0:k1].float(), vt[:, :, k0:k1].float()
+        dk_acc = torch.zeros(B, H, k1 - k0, D)
+        dv_acc = torch.zeros_like(dk_acc)
+        for q0 in range(0, Tq, block):
+            q1 = min(q0 + block, Tq)
+            qb, dob = qt[:, :, q0:q1].float(), dot[:, :, q0:q1].float()
+            lse_b, delta_b = lse[:, :, q0:q1], delta[:, :, q0:q1]
+            keep = q_pos[q0:q1, None] >= kv_pos[None, k0:k1]
+            s = torch.einsum("bhqd,bhkd->bhqk", qb, kb) * scale
+            p = torch.where(keep, torch.exp(s - lse_b[..., None]), 0.0)
+            p = torch.where(lse_b[..., None] <= -1e30 / 2, 0.0, p)
+            dv_acc = dv_acc + torch.einsum("bhqk,bhqd->bhkd",
+                                           p.to(q.dtype).float(), dob)
+            dp = torch.einsum("bhqd,bhkd->bhqk", dob, vb)
+            ds = p * (dp - delta_b[..., None]) * scale
+            dk_acc = dk_acc + torch.einsum("bhqk,bhqd->bhkd",
+                                           ds.to(q.dtype).float(), qb)
+        dk[:, :, k0:k1] = dk_acc.to(k.dtype)
+        dv[:, :, k0:k1] = dv_acc.to(v.dtype)
+    return dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+@pytest.mark.parametrize("hop", ["diagonal", "zigzag_rank1_hop1"])
+def test_b6_rounding_stays_within_the_card_limit(hop):
+    """The Hopper B6's one numeric change, rounding p^T and ds^T to bf16
+    before dv += p^T do and dk += ds^T q, held against the JAX
+    ``_dkv_kernel`` (interpret mode, fp32 p and ds) on bf16 inputs at
+    T=128, one head, D=64, on the diagonal hop and on hop 1 of rank 1 of a
+    4-rank zigzag ring: within chip_smoke's bf16 limit, |x - jax| <= 2e-2
+    (1 + |jax|). Both sides take the JAX forward's out and lse."""
+    rng = np.random.default_rng(8)
+    B, T, H, D = 2, 128, 1, 64
+    if hop == "diagonal":
+        q_pos = kv_pos = np.arange(T)
+    else:
+        q_pos, kv_pos = _zigzag(1, 4, T), _zigzag(0, 4, T)
+    x32 = [rng.standard_normal((B, T, H, D)).astype(np.float32)
+           for _ in range(4)]
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in x32)
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(jnp.bfloat16) for x in x32)
+    jp = [jnp.asarray(p, jnp.int32) for p in (q_pos, kv_pos)]
+    kw = dict(block_q=64, block_k=64, interpret=True)
+    jout, jlse = jax_fwd(jq, jk, jv, *jp, **kw)
+    _, jdk, jdv = jax_bwd(jq, jk, jv, *jp, jout, jlse, jdo, **kw)
+    out = torch.tensor(np.asarray(jout.astype(jnp.float32))).to(torch.bfloat16)
+    lse = torch.tensor(np.asarray(jlse))
+    delta = fa.attention_delta(do, out)
+    got = _masked_dkv_rounded(q, k, v, do, lse, delta,
+                              torch.from_numpy(q_pos), torch.from_numpy(kv_pos))
+    for a, want in zip(got, (jdk, jdv)):
+        a = a.float().numpy()
+        want = np.asarray(want.astype(jnp.float32))
+        err = np.abs(a - want)
+        assert np.all(err <= 2e-2 * (1 + np.abs(want))), err.max()
+        assert np.abs(want).max() > 0.1  # the gradients are not vacuous

@@ -4,10 +4,16 @@ The port's plain decode version (``paged_decode_attention_reference``, what
 its CUDA kernel is held against on the card) must match the JAX Pallas
 kernel (interpret mode here, as tests/test_paging.py runs it) and the JAX
 plain op; the port's plain prefill ops must write bit-identical pools and
-attend to the same outputs. Inputs come from numpy seeds and pass to both
-frameworks as numpy arrays. Tolerance 2e-5: fp32 sums taken in another
-order.
+attend to the same outputs. The CUDA kernel's own arithmetic (each chain
+split across CTAs, one softmax pass per split, the partials merged by lse)
+is copied here as a plain helper and held against the JAX kernel too, at
+lengths around the split boundaries. Inputs come from numpy seeds and pass
+to both frameworks as numpy arrays. Tolerance 2e-5: fp32 sums taken in
+another order.
 """
+
+import ctypes
+import re
 
 import numpy as np
 import pytest
@@ -20,6 +26,7 @@ from pytorch_distributed_tpu.ops import (
     paged_cached_attention as jax_paged_cached_attention,
     paged_decode_attention as jax_paged_decode_attention,
 )
+from pytorch_distributed_tpu_torch.ops import _build
 from pytorch_distributed_tpu_torch.ops import decode_attention as da
 from pytorch_distributed_tpu_torch.ops import paged_attention as pa
 
@@ -52,6 +59,110 @@ def _decode_case(page_size: int, seed: int):
 
 def _t(a):
     return torch.from_numpy(np.array(a))
+
+
+def _chain_case(page_size: int, n_entries: int, lengths, seed: int,
+                trash_row=None):
+    """q, pools and block tables for ``lengths`` (each query's position):
+    every live row's chain holds the pages its length reaches, with page
+    ids shuffled; ``trash_row`` is an inactive slot (all-zero table row,
+    length 0)."""
+    rng = np.random.default_rng(seed)
+    n_b = len(lengths)
+    n_pages = n_b * n_entries + 1
+    lengths = np.asarray(lengths, np.int32)
+    perm = rng.permutation(np.arange(1, n_pages))
+    tables = np.zeros((n_b, n_entries), np.int32)
+    for b in range(n_b):
+        if b != trash_row:
+            n = min(int(lengths[b]) // page_size + 1, n_entries)
+            tables[b, :n] = perm[b * n_entries: b * n_entries + n]
+    kp, vp = (rng.standard_normal((n_pages, page_size, H, D))
+              .astype(np.float32) for _ in range(2))
+    q = rng.standard_normal((n_b, 1, H, D)).astype(np.float32)
+    return q, kp, vp, tables, lengths
+
+
+def _split_merge(q, k_pages, v_pages, tables, lengths, per_split):
+    """A plain copy of the CUDA kernel's arithmetic: each chain cut into
+    splits of ``per_split`` table entries; per split one softmax pass (its
+    max once, one exp per score); then the live partials (the splits that
+    start at or before the query) merged by lse, each weighted by
+    exp(m_i - M). An empty split (it starts past the query) writes nothing
+    in the kernel; here it gets m = -1e30 and weight 0. fp32 throughout."""
+    n_b, _, n_h, d = q.shape
+    page = k_pages.shape[1]
+    n_entries = tables.shape[1]
+    span = per_split * page
+    last = lengths.long().clamp(max=n_entries * page - 1)
+    q32 = q[:, 0].float()
+    parts = []
+    for s0 in range(0, n_entries * page, span):
+        pos = s0 + torch.arange(span)
+        keep = (pos[None, :] <= last[:, None]) & (pos < n_entries * page)
+        entry = (pos // page).clamp(max=n_entries - 1)
+        pages = tables.long()[:, entry]                           # [B, span]
+        k = k_pages[pages, pos % page].float()                    # [B, span, H, D]
+        v = v_pages[pages, pos % page].float()
+        sc = torch.einsum("bhd,bshd->bhs", q32, k) / d ** 0.5
+        sc = torch.where(keep[:, None], sc, -torch.inf)
+        live = (s0 <= last)[:, None]                              # [B, 1]
+        m = torch.where(live, sc.amax(-1), -1e30)
+        p = torch.exp(sc - m[..., None])
+        parts.append((live, m, p.sum(-1),
+                      torch.einsum("bhs,bshd->bhd", p, v)))
+    m_all = torch.stack([m for _, m, _, _ in parts]).amax(0)
+    out = torch.zeros(n_b, n_h, d)
+    total = torch.zeros(n_b, n_h)
+    for live, m, l, acc in parts:
+        w = torch.where(live, torch.exp(m - m_all), 0.0)
+        total = total + l * w
+        out = out + acc * w[..., None]
+    return (out / total[..., None])[:, None]
+
+
+# (page size, table entries, pages per split, lengths): one split minus one
+# position, exactly one split, one split plus one, two splits, length 0 of
+# a live row, a chain that fills every table entry, and the trash row last
+SPLIT_CASES = {
+    "page4_split2": (4, 6, 2, [7, 8, 9, 16, 0, 23, 15, 0]),
+    "page4_split1": (4, 6, 1, [3, 4, 5, 8, 0, 23, 11, 0]),
+    "page16_default": (16, 12, pa.pages_per_split(16),
+                       [63, 64, 65, 128, 0, 191, 127, 0]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_and_merge_match_jax_kernel(case):
+    """The CUDA kernel's split-and-merge arithmetic against the JAX Pallas
+    decode kernel (interpret mode), fp32, within 2e-5."""
+    page, n_entries, per_split, lengths = SPLIT_CASES[case]
+    trash = len(lengths) - 1
+    q, kp, vp, tables, lens = _chain_case(page, n_entries, lengths,
+                                          seed=page + per_split,
+                                          trash_row=trash)
+    assert not tables[trash].any() and n_entries > per_split
+    want = jax_paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tables),
+        jnp.asarray(lens), interpret=True)
+    got = _split_merge(*[_t(a) for a in (q, kp, vp, tables, lens)], per_split)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_launch_argtypes_match_the_c_entry_point():
+    """The ctypes binding against the source's C signature, argument by
+    argument: pointers as c_void_p, ints, 64-bit strides, scale."""
+    src = (_build._SRC_DIR / "paged_decode_attention.cu").read_text()
+    args = re.search(r'extern "C" int paged_decode_attention_launch\(([^)]*)\)',
+                     src).group(1)
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "long long": ctypes.c_longlong, "float": ctypes.c_float}
+    want = []
+    for arg in args.split(","):
+        decl = " ".join(arg.replace("const ", "").split()[:-1])
+        decl = decl.replace(" *", "*")
+        want.append(kinds[decl])
+    assert pa.LAUNCH_ARGTYPES == want
 
 
 @pytest.mark.parametrize("page_size", [4, 16])
@@ -137,15 +248,27 @@ def test_prefill_ops_match_jax_pools_bit_exact():
         jax_state[2:] = [jkc, jvc]
 
 
+# GPT-2 125M's serve lengths: prompts of 40-96 tokens plus up to 64 new
+SERVE_LENGTHS = [40, 75, 103, 159, 96, 131, 52, 0]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("lengths", ["ragged", "split_boundaries", "serve"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 1.6e-2)])
-def test_cuda_kernel_matches_plain_version(dtype, tol):
+def test_cuda_kernel_matches_plain_version(dtype, tol, lengths):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    (kp, vp), tables, lengths, (q, _, _) = _decode_case(16, 3)
+    if lengths == "ragged":
+        (kp, vp), tables, lens, (q, _, _) = _decode_case(16, 3)
+    else:
+        page, n_entries, _, lens = SPLIT_CASES["page16_default"]
+        if lengths == "serve":
+            n_entries, lens = 64, SERVE_LENGTHS
+        q, kp, vp, tables, lens = _chain_case(page, n_entries, lens, seed=5,
+                                              trash_row=len(lens) - 1)
     args = [_t(q).to(dtype).cuda(), _t(kp).to(dtype).cuda(),
-            _t(vp).to(dtype).cuda(), _t(tables).cuda(), _t(lengths).cuda()]
+            _t(vp).to(dtype).cuda(), _t(tables).cuda(), _t(lens).cuda()]
     before = pa.launches
     got = pa.paged_decode_attention(*args)
     torch.cuda.synchronize()
