@@ -590,40 +590,13 @@ flash_causal_dq_kernel_sm90(const __grid_constant__ CUtensorMap mq,
         const float p = exp2f(fmaf(sc[i], scale_log2, neg_lse2[hh]));
         dp[i] = p * (dp[i] - delta_r[hh]) * n.scale;  // dS
       }
-      uint32_t dsa[4][4];
-      sm90::to_fragments<T>(dp, dsa);
-#pragma unroll
-      for (int e = 0; e < L::kBoxes; ++e) sm90::fence_acc(acc[e]);
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int e = 0; e < L::kBoxes; ++e)
-          sm90::wgmma_rs<T, 1>(acc[e], dsa[kk],
-                               sm90::desc_mnmajor(Ks + e * sm90::kTileBytes, kk), 1);
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<0>();
-#pragma unroll
-      for (int e = 0; e < L::kBoxes; ++e) sm90::fence_acc(acc[e]);
+      sm90::mma_rs<T, L::kBoxes>(acc, dp, Ks);
     }
     if (threadIdx.x % 128 == 0) sm90::mbar_arrive(&empty[s]);
   }
 
-  T* base = static_cast<T*>(dq.ptr) + b * dq.sb + h * dq.sh;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = rA + 8 * hh;
-    if (r >= n.T) continue;
-#pragma unroll
-    for (int e = 0; e < L::kBoxes; ++e)
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int d = 64 * e + 8 * jj + c0;
-        if (d < n.D)
-          *reinterpret_cast<uint32_t*>(base + r * dq.st + d) =
-              sm90::pack2<T>(acc[e][4 * jj + 2 * hh], acc[e][4 * jj + 2 * hh + 1]);
-      }
-  }
+  sm90::store_rows<T, L::kBoxes>(static_cast<T*>(dq.ptr) + b * dq.sb + h * dq.sh, dq.st, rA,
+                                 n.T, n.D, acc);
 }
 
 // ---------------------------------------------------------------- B3
@@ -823,25 +796,10 @@ flash_causal_dkv_kernel_sm90(const __grid_constant__ CUtensorMap mq,
     if (threadIdx.x % 128 == 0) sm90::mbar_arrive(&empty[s]);
   }
 
-  T* dk_base = static_cast<T*>(dk.ptr) + b * dk.sb + h * dk.sh;
-  T* dv_base = static_cast<T*>(dv.ptr) + b * dv.sb + h * dv.sh;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int c = cA + 8 * hh;
-    if (c >= n.T) continue;
-#pragma unroll
-    for (int e = 0; e < L::kBoxes; ++e)
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int d = 64 * e + 8 * jj + c0;
-        if (d >= n.D) continue;
-        const int i = 4 * jj + 2 * hh;
-        *reinterpret_cast<uint32_t*>(dk_base + c * dk.st + d) =
-            sm90::pack2<T>(dk_acc[e][i], dk_acc[e][i + 1]);
-        *reinterpret_cast<uint32_t*>(dv_base + c * dv.st + d) =
-            sm90::pack2<T>(dv_acc[e][i], dv_acc[e][i + 1]);
-      }
-  }
+  sm90::store_rows<T, L::kBoxes>(static_cast<T*>(dk.ptr) + b * dk.sb + h * dk.sh, dk.st, cA,
+                                 n.T, n.D, dk_acc);
+  sm90::store_rows<T, L::kBoxes>(static_cast<T*>(dv.ptr) + b * dv.sb + h * dv.sh, dv.st, cA,
+                                 n.T, n.D, dv_acc);
 }
 
 // ---------------------------------------------------------------- launch

@@ -2,7 +2,7 @@
 //
 // Replaces three TPU kernels of pytorch_distributed_tpu/ops/flash_attention.py:
 //   B4 _fwd_kernel  -> flash_masked_fwd_kernel   (out, lse; _sm90 in bf16/fp16)
-//   B5 _dq_kernel   -> flash_masked_dq_kernel    (dq)
+//   B5 _dq_kernel   -> flash_masked_dq_kernel    (dq; _sm90 in bf16/fp16)
 //   B6 _dkv_kernel  -> flash_masked_dkv_kernel   (dk, dv; _sm90 in bf16/fp16)
 // Query row r sees key row c iff q_pos[r] >= kv_pos[c], with int32 global
 // positions shared by the batch (q_pos [Tq], kv_pos [Tk]); without
@@ -17,12 +17,11 @@
 //
 // Two routes, by dtype:
 //   fp32: the CUDA-core kernels below, for all three passes.
-//   bf16/fp16: B4 and B6 are Hopper kernels on the tensor cores
-//         (flash_masked_fwd_kernel_sm90 and flash_masked_dkv_kernel_sm90,
-//         after the CUDA-core ones, built on flash_sm90.cuh as the causal
-//         B1 and B3); B5 stays on the CUDA cores. B4 and B6 there need
-//         D % 8 == 0 and 16-byte aligned bases and strides (TMA); a call
-//         that breaks the rule fails, it never falls back.
+//   bf16/fp16: Hopper kernels on the tensor cores for all three
+//         (flash_masked_{fwd,dq,dkv}_kernel_sm90, after the CUDA-core ones,
+//         built on flash_sm90.cuh as the causal B1-B3). They need D % 8 ==
+//         0 and 16-byte aligned bases and strides (TMA); a call that breaks
+//         the rule fails, it never falls back.
 //
 // CUDA-core kernels. What bounds them on this card: operations, as for
 // B1-B3 (GPT-2's T = 1024, D = 64 reuse each K/V element up to 16 times).
@@ -355,6 +354,106 @@ flash_masked_dkv_kernel(View q, View k, View v, View dout, const float* lse,
 }
 
 // ============================================================ Hopper route
+// Pieces of B4 and B5, whose CTAs own 128 query rows and stream every K/V
+// tile of 64 rows through the ring.
+
+// The producer warp's K/V stream: for each tile, once every consumer warp
+// released its stage, the warp stages the tile's 64 kv positions (INT_MAX
+// past Tk; INT_MIN for every key without positions) and their min and max
+// over the keys < Tk, reduced by shuffles, and loads the K and V tiles by
+// TMA unless no row of the CTA (rows q0 .. q0 + 127 below Tq) sees a key
+// of the tile. All 32 lanes arrive on the stage's full barrier; lane 0
+// brings the TMA bytes.
+template <int kBoxes, int kStages>
+__device__ __forceinline__ void produce_kv(uint64_t* full, uint64_t* empty,
+                                           int (*kv_pos)[64], int (*kv_range)[2], char* ring,
+                                           const CUtensorMap* mk, const CUtensorMap* mv,
+                                           Pos pos, Dims n, int q0, int h, int b,
+                                           int lane) {
+  constexpr int kStageBytes = 2 * kBoxes * sm90::kTileBytes;  // K tile, then V tile
+  const bool masked = pos.q != nullptr;
+  int q_max = INT_MIN;  // over the CTA's rows < Tq
+  for (int j = lane; j < 128; j += 32)
+    if (q0 + j < n.Tq) q_max = max(q_max, masked ? pos.q[q0 + j] : 0);
+  q_max = warp_max(q_max);
+  const int nk = (n.Tk + 63) / 64;
+  for (int ki = 0; ki < nk; ++ki) {
+    const int s = ki % kStages;
+    const int k0 = 64 * ki;
+    sm90::mbar_wait(&empty[s], ((ki / kStages) & 1) ^ 1);
+    int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int j = lane + 32 * jj;
+      const bool in = k0 + j < n.Tk;
+      const int p = !in ? INT_MAX : masked ? pos.kv[k0 + j] : INT_MIN;
+      kv_pos[s][j] = p;
+      if (in) {
+        lo = min(lo, p);
+        hi = max(hi, p);
+      }
+    }
+    lo = warp_min(lo);
+    hi = warp_max(hi);
+    if (lane == 0) {
+      kv_range[s][0] = lo;
+      kv_range[s][1] = hi;
+      if (q_max >= lo) {  // some row of the CTA sees a key of the tile
+        sm90::mbar_arrive_expect_tx(&full[s], kStageBytes);
+        sm90::tma_load_kv<kBoxes>(ring + s * kStageBytes, mk, mv, &full[s], h, k0, b);
+      } else {
+        sm90::mbar_arrive(&full[s]);
+      }
+    } else {
+      sm90::mbar_arrive(&full[s]);
+    }
+  }
+}
+
+// A consumer thread's row positions: qp of its rows rA and rA + 8 (INT_MIN
+// past Tq: no key is seen; 0 without positions), and the max and min over
+// its warpgroup's rows row0 .. row0 + 63 below Tq (every warp reduces all
+// 64, so the four warps decide alike).
+__device__ __forceinline__ void row_positions(int (&qp)[2], int& wg_max, int& wg_min, Pos pos,
+                                              int Tq, int row0, int rA, int lane) {
+  const bool masked = pos.q != nullptr;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = rA + 8 * hh;
+    qp[hh] = r >= Tq ? INT_MIN : masked ? pos.q[r] : 0;
+  }
+  wg_max = INT_MIN;
+  wg_min = INT_MAX;
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    const int r = row0 + lane + 32 * jj;
+    if (r < Tq) {
+      const int p = masked ? pos.q[r] : 0;
+      wg_max = max(wg_max, p);
+      wg_min = min(wg_min, p);
+    }
+  }
+  wg_max = warp_max(wg_max);
+  wg_min = warp_min(wg_min);
+}
+
+// Scores of the keys a thread's rows do not see (kv_pos > q_pos, or column
+// k0 + c at or past Tk) become -inf by a select, so their p is exactly 0;
+// kv_pos is the stage's 64 positions, c0 the thread's first column.
+__device__ __forceinline__ void mask_scores(float (&sc)[32], const int* kv_pos,
+                                            const int (&qp)[2], int k0, int c0, int Tk) {
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int2 kp = *reinterpret_cast<const int2*>(&kv_pos[8 * jj + c0]);
+#pragma unroll
+    for (int i = 4 * jj; i < 4 * jj + 4; ++i) {
+      const int c = k0 + 8 * jj + c0 + i % 2;
+      const bool keep = (qp[(i / 2) % 2] >= (i % 2 ? kp.y : kp.x)) & (c < Tk);
+      sc[i] = keep ? sc[i] : -INFINITY;
+    }
+  }
+}
+
 // ---------------------------------------------------------------- B4
 // flash_masked_fwd_kernel_sm90: replaces _fwd_kernel
 // (pytorch_distributed_tpu/ops/flash_attention.py:73) in bf16/fp16, out
@@ -415,7 +514,6 @@ flash_masked_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
   const int b = blockIdx.z;
   const int q0 = qt * 128;
   const int nk = (n.Tk + 63) / 64;
-  const bool masked = pos.q != nullptr;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -430,10 +528,6 @@ flash_masked_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
   __syncthreads();
 
   if (warp == sm90::kProducerWarp) {
-    int q_max = INT_MIN;  // over the CTA's rows < Tq
-    for (int j = lane; j < 128; j += 32)
-      if (q0 + j < n.Tq) q_max = max(q_max, masked ? pos.q[q0 + j] : 0);
-    q_max = warp_max(q_max);
     if (lane == 0) {
       sm90::mbar_arrive_expect_tx(&q_full, 2 * L::kRows64);
       for (int g = 0; g < 2; ++g)
@@ -441,37 +535,8 @@ flash_masked_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
           sm90::tma_load(Qs + g * L::kRows64 + e * sm90::kTileBytes, &mq, &q_full, 64 * e, h,
                          q0 + 64 * g, b);
     }
-    for (int ki = 0; ki < nk; ++ki) {
-      const int s = ki % kStages;
-      const int k0 = 64 * ki;
-      sm90::mbar_wait(&empty[s], ((ki / kStages) & 1) ^ 1);
-      int lo = INT_MAX, hi = INT_MIN;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = lane + 32 * jj;
-        const bool in = k0 + j < n.Tk;
-        const int p = !in ? INT_MAX : masked ? pos.kv[k0 + j] : INT_MIN;
-        kv_pos[s][j] = p;
-        if (in) {
-          lo = min(lo, p);
-          hi = max(hi, p);
-        }
-      }
-      lo = warp_min(lo);
-      hi = warp_max(hi);
-      if (lane == 0) {
-        kv_range[s][0] = lo;
-        kv_range[s][1] = hi;
-        if (q_max >= lo) {  // some row of the CTA sees a key of the tile
-          sm90::mbar_arrive_expect_tx(&full[s], kStageBytes);
-          sm90::tma_load_kv<L::kBoxes>(ring + s * kStageBytes, &mk, &mv, &full[s], h, k0, b);
-        } else {
-          sm90::mbar_arrive(&full[s]);
-        }
-      } else {
-        sm90::mbar_arrive(&full[s]);
-      }
-    }
+    produce_kv<L::kBoxes, kStages>(full, empty, kv_pos, kv_range, ring, &mk, &mv, pos, n, q0,
+                                   h, b, lane);
     return;
   }
 
@@ -481,28 +546,8 @@ flash_masked_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
   const int c0 = 2 * (lane % 4);
   const char* Qg = Qs + g * L::kRows64;
   const float scale_log2 = n.scale * sm90::kLog2e;
-
-  // the positions of the thread's rows (INT_MIN past Tq: no key is seen),
-  // and the warpgroup's max and min over its rows < Tq (every warp reduces
-  // all 64, so the four warps decide alike)
-  int qp[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = rA + 8 * hh;
-    qp[hh] = r >= n.Tq ? INT_MIN : masked ? pos.q[r] : 0;
-  }
-  int wg_max = INT_MIN, wg_min = INT_MAX;
-#pragma unroll
-  for (int jj = 0; jj < 2; ++jj) {
-    const int r = row0 + lane + 32 * jj;
-    if (r < n.Tq) {
-      const int p = masked ? pos.q[r] : 0;
-      wg_max = max(wg_max, p);
-      wg_min = min(wg_min, p);
-    }
-  }
-  wg_max = warp_max(wg_max);
-  wg_min = warp_min(wg_min);
+  int qp[2], wg_max, wg_min;
+  row_positions(qp, wg_max, wg_min, pos, n.Tq, row0, rA, lane);
 
   float o[L::kBoxes][32];
 #pragma unroll
@@ -530,19 +575,8 @@ flash_masked_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
       sm90::wgmma_wait<0>();
       sm90::fence_acc(sc);
 
-      // masked scores become -inf (a select), so their p is exactly 0
-      if (!((wg_min >= kv_range[s][1]) & (k0 + 64 <= n.Tk))) {
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          const int2 kp = *reinterpret_cast<const int2*>(&kv_pos[s][8 * jj + c0]);
-#pragma unroll
-          for (int i = 4 * jj; i < 4 * jj + 4; ++i) {
-            const int c = k0 + 8 * jj + c0 + i % 2;
-            const bool keep = (qp[(i / 2) % 2] >= (i % 2 ? kp.y : kp.x)) & (c < n.Tk);
-            sc[i] = keep ? sc[i] : -INFINITY;
-          }
-        }
-      }
+      if (!((wg_min >= kv_range[s][1]) & (k0 + 64 <= n.Tk)))
+        mask_scores(sc, kv_pos[s], qp, k0, c0, n.Tk);
       sm90::softmax_pv<T, L::kBoxes>(sc, m, l, o, Vs, scale_log2);
     }
     if (lane == 0) sm90::mbar_arrive(&empty[s]);
@@ -574,6 +608,159 @@ flash_masked_fwd_kernel_sm90(const __grid_constant__ CUtensorMap mq,
       }
     if (lane % 4 == 0) lse_bh[r] = sum > 0.f ? m[hh] * sm90::kLn2 + logf(safe) : kNegInf;
   }
+}
+
+// ---------------------------------------------------------------- B5
+// flash_masked_dq_kernel_sm90: replaces _dq_kernel
+// (pytorch_distributed_tpu/ops/flash_attention.py:525) in bf16/fp16, dq.
+//
+// Bound on this card: operations. On the diagonal hop at B=8, T=1024,
+// H=12, D=64 its 19.4 GFLOP (6 D per visible pair: three products) take
+// 0.0196 ms at 989 TFLOP/s bf16, above the 0.019 ms its bytes take. The
+// design is the causal B2's arithmetic (flash_attention_causal.cu) in B4's
+// skeleton:
+//   - one CTA: 128 query rows of one (b, h), rows 64 g .. 64 g + 63 for
+//     consumer warpgroup g; Q and dO arrive once by TMA and stay, and each
+//     thread keeps lse and delta of its two rows in registers (lse as
+//     -lse log2(e), -inf for a dead row or one past Tq, so its p is exactly
+//     0); query tiles run highest first, as B4's;
+//   - every K/V tile of 64 rows streams through the ring, and with it the
+//     producer warp stages the tile's kv positions (INT_MAX past Tk) and
+//     their min and max, loading no tile that no row of the CTA sees
+//     (produce_kv, B4's producer: a ring hop's keys are not a causal
+//     range, and a zigzag tile can straddle the jump between its runs);
+//   - per tile and warpgroup: skipped (no products; exact) when max q_pos
+//     < min kv_pos; else S = Q K^T and dP = dO V^T by wgmma (K-major
+//     operands, one commit), keep = q_pos >= kv_pos as a select unless min
+//     q_pos >= max kv_pos and the tile lies inside Tk; P = exp2(S scale
+//     log2(e) - lse log2(e)), dS = P (dP - delta) scale in registers; then
+//     dQ += dS K with dS as the register A operand and K read through an
+//     MN-major descriptor (sm90::mma_rs), as in B2;
+//   - every consumer warp releases a stage itself, after its last read of
+//     the staged positions (B4, B6);
+//   - dQ accumulates in fp32 registers and is written once; no atomics
+//     (the JAX two-pass split: dk and dv are B6's).
+// The one deliberate numeric change from the TPU kernel: dS is rounded to
+// the input dtype before dQ += dS K (the TPU kernel multiplies fp32 ds by
+// fp32-widened k), as B2, B3, B6 and SDPA round it. S and dP are 16-bit
+// products summed in fp32, exact per term: only the order differs.
+template <typename T, int kD>
+__global__ void __launch_bounds__(sm90::kSm90Threads, 1)
+flash_masked_dq_kernel_sm90(const __grid_constant__ CUtensorMap mq,
+                            const __grid_constant__ CUtensorMap mk,
+                            const __grid_constant__ CUtensorMap mv,
+                            const __grid_constant__ CUtensorMap mdo, const float* lse,
+                            const float* delta, View dq, Pos pos, Dims n) {
+  using L = sm90::Sm90Layout<kD>;
+  constexpr int kStages = L::kStages;
+  constexpr int kStageBytes = 2 * L::kRows64;  // K tile, then V tile
+  extern __shared__ char smem_raw[];
+  __shared__ uint64_t full[kStages], empty[kStages], q_full;
+  __shared__ __align__(16) int kv_pos[kStages][64];  // the stage's key positions
+  __shared__ int kv_range[kStages][2];                // their min and max below Tk
+  char* Qs = sm90::align_1024(smem_raw);  // [warpgroup][box][64 rows x 128 B]
+  char* dOs = Qs + 2 * L::kRows64;        // the same for dO
+  char* ring = dOs + 2 * L::kRows64;
+
+  const int nqt = (n.Tq + 127) / 128;
+  const int qt = nqt - 1 - static_cast<int>(blockIdx.x);  // highest rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = qt * 128;
+  const int nk = (n.Tk + 63) / 64;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 32);  // the producer's lanes; lane 0 brings the TMA bytes
+      sm90::mbar_init(&empty[s], 8);  // every consumer warp
+    }
+    sm90::mbar_init(&q_full, 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == sm90::kProducerWarp) {
+    if (lane == 0) {
+      sm90::mbar_arrive_expect_tx(&q_full, 4 * L::kRows64);
+      for (int g = 0; g < 2; ++g)
+        for (int e = 0; e < L::kBoxes; ++e) {
+          const int off = g * L::kRows64 + e * sm90::kTileBytes;
+          sm90::tma_load(Qs + off, &mq, &q_full, 64 * e, h, q0 + 64 * g, b);
+          sm90::tma_load(dOs + off, &mdo, &q_full, 64 * e, h, q0 + 64 * g, b);
+        }
+    }
+    produce_kv<L::kBoxes, kStages>(full, empty, kv_pos, kv_range, ring, &mk, &mv, pos, n, q0,
+                                   h, b, lane);
+    return;
+  }
+
+  const int g = warp / 4;
+  const int row0 = q0 + 64 * g;                      // this warpgroup's first row
+  const int rA = row0 + 16 * (warp % 4) + lane / 4;  // the thread's rows: rA, rA + 8
+  const int c0 = 2 * (lane % 4);
+  const char* Qg = Qs + g * L::kRows64;
+  const char* dOg = dOs + g * L::kRows64;
+  const float scale_log2 = n.scale * sm90::kLog2e;
+  const int64_t bh = (static_cast<int64_t>(b) * n.H + h) * n.Tq;
+
+  int qp[2], wg_max, wg_min;
+  row_positions(qp, wg_max, wg_min, pos, n.Tq, row0, rA, lane);
+
+  // p = exp2(s scale log2(e) + neg_lse2): -inf for a dead row (lse <=
+  // -1e30 / 2) and for rows past Tq, so that their p is exactly 0
+  float neg_lse2[2], delta_r[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = rA + 8 * hh;
+    const float lse_v = r < n.Tq ? lse[bh + r] : kNegInf;
+    neg_lse2[hh] = lse_v <= kNegInf / 2 ? -INFINITY : -lse_v * sm90::kLog2e;
+    delta_r[hh] = r < n.Tq ? delta[bh + r] : 0.f;
+  }
+
+  float acc[L::kBoxes][32];
+#pragma unroll
+  for (int e = 0; e < L::kBoxes; ++e)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[e][i] = 0.f;
+
+  sm90::mbar_wait(&q_full, 0);
+  for (int ki = 0; ki < nk; ++ki) {
+    const int s = ki % kStages;
+    sm90::mbar_wait(&full[s], (ki / kStages) & 1);
+    const int k0 = 64 * ki;
+    const char* Ks = ring + s * kStageBytes;
+    const char* Vs = Ks + L::kRows64;
+    if (wg_max >= kv_range[s][0]) {  // else every key is in these rows' future
+      float sc[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+      sm90::fence_acc(sc);
+      sm90::fence_acc(dp);
+      sm90::wgmma_fence();
+      sm90::wgmma_abt<T, kD>(sc, Qg, Ks);
+      sm90::wgmma_abt<T, kD>(dp, dOg, Vs);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(sc);
+      sm90::fence_acc(dp);
+
+      if (!((wg_min >= kv_range[s][1]) & (k0 + 64 <= n.Tk)))
+        mask_scores(sc, kv_pos[s], qp, k0, c0, n.Tk);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i / 2) % 2;
+        const float p = exp2f(fmaf(sc[i], scale_log2, neg_lse2[hh]));
+        dp[i] = p * (dp[i] - delta_r[hh]) * n.scale;  // dS
+      }
+      sm90::mma_rs<T, L::kBoxes>(acc, dp, Ks);
+    }
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+  }
+
+  sm90::store_rows<T, L::kBoxes>(static_cast<T*>(dq.ptr) + b * dq.sb + h * dq.sh, dq.st, rA,
+                                 n.Tq, n.D, acc);
 }
 
 // ---------------------------------------------------------------- B6
@@ -833,25 +1020,10 @@ flash_masked_dkv_kernel_sm90(const __grid_constant__ CUtensorMap mq,
     if (lane == 0) sm90::mbar_arrive(&empty[s]);
   }
 
-  T* dk_base = static_cast<T*>(dk.ptr) + b * dk.sb + h * dk.sh;
-  T* dv_base = static_cast<T*>(dv.ptr) + b * dv.sb + h * dv.sh;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int c = cA + 8 * hh;
-    if (c >= n.Tk) continue;
-#pragma unroll
-    for (int e = 0; e < L::kBoxes; ++e)
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int d = 64 * e + 8 * jj + c0;
-        if (d >= n.D) continue;
-        const int i = 4 * jj + 2 * hh;
-        *reinterpret_cast<uint32_t*>(dk_base + c * dk.st + d) =
-            sm90::pack2<T>(dk_acc[e][i], dk_acc[e][i + 1]);
-        *reinterpret_cast<uint32_t*>(dv_base + c * dv.st + d) =
-            sm90::pack2<T>(dv_acc[e][i], dv_acc[e][i + 1]);
-      }
-  }
+  sm90::store_rows<T, L::kBoxes>(static_cast<T*>(dk.ptr) + b * dk.sb + h * dk.sh, dk.st, cA,
+                                 n.Tk, n.D, dk_acc);
+  sm90::store_rows<T, L::kBoxes>(static_cast<T*>(dv.ptr) + b * dv.sb + h * dv.sh, dv.st, cA,
+                                 n.Tk, n.D, dv_acc);
 }
 
 // ---------------------------------------------------------------- launch
@@ -932,6 +1104,32 @@ cudaError_t fwd_sm90(const void* const* p, const long long* s, int B, const Dims
 }
 
 template <typename T, int kD>
+cudaError_t dq_sm90(const void* const* p, const long long* s, int B, const Dims& n,
+                    Pos pos, cudaStream_t stream) {
+  // q and do have Tq rows, k and v Tk; at Tk = 0 no K/V tile is loaded,
+  // and the q map stands in for theirs
+  const int Ts[4] = {n.Tq, n.Tk, n.Tk, n.Tq};
+  CUtensorMap maps[4];
+  cudaError_t e;
+  if (n.Tk > 0) {
+    e = sm90::make_maps<T>(maps, 4, p, s, B, Ts, n.H, n.D);
+  } else {
+    e = sm90::make_maps<T>(maps, 1, p, s, B, Ts, n.H, n.D);
+    if (e == cudaSuccess) e = sm90::make_maps<T>(maps + 3, 1, p + 3, s + 9, B, Ts + 3, n.H, n.D);
+    maps[1] = maps[2] = maps[0];
+  }
+  if (e != cudaSuccess) return e;
+  const size_t smem = sm90::Sm90Layout<kD>::smem_bytes(4);  // Q and dO stay
+  e = allow_smem(flash_masked_dq_kernel_sm90<T, kD>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n.Tq + 127) / 128, n.H, B);
+  flash_masked_dq_kernel_sm90<T, kD><<<grid, sm90::kSm90Threads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(p[4]),
+      static_cast<const float*>(p[5]), view(p[6], s + 12), pos, n);
+  return cudaGetLastError();
+}
+
+template <typename T, int kD>
 cudaError_t dkv_sm90(const void* const* p, const long long* s, int B, const Dims& n,
                      Pos pos, cudaStream_t stream) {
   // q and do have Tq rows, k and v Tk; at Tq = 0 no Q tile is loaded, and
@@ -959,27 +1157,25 @@ cudaError_t dkv_sm90(const void* const* p, const long long* s, int B, const Dims
 
 enum Pass { kFwd, kDq, kDkv };
 
-// fp32: the CUDA-core kernels. bf16/fp16: B4 (out in T or fp32) and B6 on
-// the Hopper route; B5 on the CUDA-core kernel.
+// fp32: the CUDA-core kernels. bf16/fp16: the Hopper route (B4's out in T
+// or fp32).
 template <typename T, int kD>
 cudaError_t run(Pass pass, const void* const* p, const long long* s, int B,
                 const Dims& n, Pos pos, bool out_fp32, cudaStream_t stream) {
-  constexpr bool kFp32 = std::is_same<T, float>::value;
-  switch (pass) {
-    case kFwd:
-      if constexpr (kFp32) {
-        return fwd<T, kD>(p, s, B, n, pos, stream);  // fp32 out either way
-      } else {
+  if constexpr (std::is_same<T, float>::value) {
+    switch (pass) {
+      case kFwd: return fwd<T, kD>(p, s, B, n, pos, stream);  // fp32 out either way
+      case kDq: return dq<T, kD>(p, s, B, n, pos, stream);
+      default: return dkv<T, kD>(p, s, B, n, pos, stream);
+    }
+  } else {
+    switch (pass) {
+      case kFwd:
         return out_fp32 ? fwd_sm90<T, float, kD>(p, s, B, n, pos, stream)
                         : fwd_sm90<T, T, kD>(p, s, B, n, pos, stream);
-      }
-    case kDq: return dq<T, kD>(p, s, B, n, pos, stream);
-    default:
-      if constexpr (kFp32) {
-        return dkv<T, kD>(p, s, B, n, pos, stream);
-      } else {
-        return dkv_sm90<T, kD>(p, s, B, n, pos, stream);
-      }
+      case kDq: return dq_sm90<T, kD>(p, s, B, n, pos, stream);
+      default: return dkv_sm90<T, kD>(p, s, B, n, pos, stream);
+    }
   }
 }
 

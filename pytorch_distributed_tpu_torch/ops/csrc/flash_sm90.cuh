@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks for the flash attention kernels of the
-// causal (B1-B3) and the position-masked (B4) sources: TMA tensor maps of
-// [B, T, H, D] views, the CTA and shared-memory layout, the mbarrier ring,
-// wgmma descriptors of 128B-swizzled 16-bit tiles, m64n64k16 wgmma with A
-// from shared memory or from registers, and the forward's online-softmax
-// step.
+// causal (B1-B3) and the position-masked (B4-B6) sources: TMA tensor maps
+// of [B, T, H, D] views, the CTA and shared-memory layout, the mbarrier
+// ring, wgmma descriptors of 128B-swizzled 16-bit tiles, m64n64k16 wgmma
+// with A from shared memory or from registers, the product of a score
+// tile in registers with a K or V tile (O += P V, dQ += dS K), and the
+// forward's online-softmax step.
 //
 // A tile here is 64 rows of one (batch, head) by 64 columns of D, 16-bit:
 // one TMA box, 64 rows of 128 bytes, 8 KB, stored with the 128B swizzle
@@ -377,6 +378,53 @@ __device__ __forceinline__ void to_fragments(const float (&d)[32], uint32_t (&a)
     for (int j = 0; j < 4; ++j) a[kk][j] = pack2<T>(d[8 * kk + 2 * j], d[8 * kk + 2 * j + 1]);
 }
 
+// acc += A B over the 64 columns of a score tile: A is `a` (an fp32
+// accumulator of the tile) rounded to T, the register A operand; B is a
+// 64-row tile of kBoxes boxes of D (V in O += P V, K in dQ += dS K) read
+// through MN-major descriptors. Started, committed and waited for.
+template <typename T, int kBoxes>
+__device__ __forceinline__ void mma_rs(float (&acc)[kBoxes][32], const float (&a)[32],
+                                       const char* b) {
+  uint32_t fa[4][4];
+  to_fragments<T>(a, fa);
+#pragma unroll
+  for (int e = 0; e < kBoxes; ++e) fence_acc(acc[e]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < kBoxes; ++e)
+      wgmma_rs<T, 1>(acc[e], fa[kk], desc_mnmajor(b + e * kTileBytes, kk), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int e = 0; e < kBoxes; ++e) fence_acc(acc[e]);
+}
+
+// Writes a consumer thread's part of an fp32 accumulator over kBoxes
+// boxes of D, rounded to T in pairs: rows r0 and r0 + 8 (those at or past
+// T_ are skipped), the columns below D, to base with a row stride of st
+// elements (dQ, dK, dV).
+template <typename T, int kBoxes>
+__device__ __forceinline__ void store_rows(T* base, int64_t st, int r0, int T_, int D,
+                                           const float (&acc)[kBoxes][32]) {
+  const int c0 = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + 8 * hh;
+    if (r >= T_) continue;
+#pragma unroll
+    for (int e = 0; e < kBoxes; ++e)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int d = 64 * e + 8 * jj + c0;
+        if (d < D)
+          *reinterpret_cast<uint32_t*>(base + r * st + d) =
+              pack2<T>(acc[e][4 * jj + 2 * hh], acc[e][4 * jj + 2 * hh + 1]);
+      }
+  }
+}
+
 // One K/V tile of the forward (B1, B4) for a consumer thread's two rows:
 // the online softmax in the log2 domain on the raw scores `sc` (masked
 // ones -inf, so their p is exactly 0; m starts at -1e30, so alpha is never
@@ -410,24 +458,11 @@ __device__ __forceinline__ void softmax_pv(float (&sc)[32], float (&m)[2], float
     l[hh] += p;
     sc[i] = p;
   }
-  uint32_t pa[4][4];
-  to_fragments<T>(sc, pa);
 #pragma unroll
-  for (int e = 0; e < kBoxes; ++e) {
+  for (int e = 0; e < kBoxes; ++e)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[e][i] *= alpha[(i / 2) % 2];
-    fence_acc(o[e]);
-  }
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int e = 0; e < kBoxes; ++e)
-      wgmma_rs<T, 1>(o[e], pa[kk], desc_mnmajor(Vs + e * kTileBytes, kk), 1);
-  wgmma_commit();
-  wgmma_wait<0>();
-#pragma unroll
-  for (int e = 0; e < kBoxes; ++e) fence_acc(o[e]);
+  mma_rs<T, kBoxes>(o, sc, Vs);
 }
 
 }  // namespace sm90

@@ -21,13 +21,13 @@ Its kernels are also the local op of context parallelism's ring
 (``parallel.context_parallel``), which calls them once per hop with the
 hop's global positions and, in the forward, fp32 partial outputs.
 
-In bf16/fp16, B1-B4 and B6 run on the Hopper route (``wgmma`` tiles fed
-by TMA, ``csrc/flash_sm90.cuh``): their q, k, v (and do) need D % 8 == 0
-and 16-byte aligned bases and strides (``tma_layout_error``), and a call
-that breaks the rule raises ``ValueError``; fp32 and B5 keep the CUDA-core
-kernels. The Hopper B2, B3 and B6 round ds (and B3 and B6 p) to the input
-dtype before their tensor-core products (the TPU kernels and the plain
-versions keep them fp32).
+In bf16/fp16, B1-B6 run on the Hopper route (``wgmma`` tiles fed by TMA,
+``csrc/flash_sm90.cuh``): their q, k, v (and do) need D % 8 == 0 and
+16-byte aligned bases and strides (``tma_layout_error``), and a call that
+breaks the rule raises ``ValueError``; fp32 keeps the CUDA-core kernels.
+The Hopper B2, B3, B5 and B6 round ds (and B3 and B6 p) to the input dtype
+before their tensor-core products (the TPU kernels and the plain versions
+keep them fp32).
 
 Every kernel has a plain PyTorch version beside it (``*_reference``): the
 same blocked online-softmax arithmetic in torch ops. A wrapper takes it only
@@ -283,7 +283,7 @@ def _check(name: str, q_side, kv_side, stats=(), same_t: bool = False):
 
 
 def tma_layout_error(shape, strides, elt: int, ptr: int) -> Optional[str]:
-    """The rule that the Hopper route's TMA loads (B1-B4, B6 in bf16/fp16)
+    """The rule that the Hopper route's TMA loads (B1-B6 in bf16/fp16)
     put on a ``[B, T, H, D]`` operand, as a pure function of its shape, its
     strides in elements, its element size in bytes and its address: D a
     multiple of 8, a 16-byte aligned base, and the batch, time and head
@@ -307,7 +307,7 @@ def _tma_error(t) -> Optional[str]:
 
 
 def _check_tma(name: str, *tensors) -> None:
-    """bf16/fp16 B1-B4 and B6 read their operands by TMA: ValueError naming
+    """bf16/fp16 B1-B6 read their operands by TMA: ValueError naming
     the rule that an operand breaks."""
     if tensors[0].dtype == torch.float32:
         return
@@ -604,6 +604,7 @@ def flash_masked_dq(q, k, v, do, lse, delta, q_pos=None, kv_pos=None,
         return flash_masked_dq_reference(q, k, v, do, lse, delta, q_pos,
                                          kv_pos, block_q, block_k)
     B, Tq, Tk, H, D = _check("flash_masked_dq", (q, do), (k, v), (lse, delta))
+    _check_tma("flash_masked_dq", q, k, v, do)
     qp, kp = _device_positions(q_pos, kv_pos, Tq, Tk, q.device)
     dq = torch.empty(B, Tq, H, D, dtype=q.dtype, device=q.device)
     rc = _masked_lib().flash_masked_dq_launch(

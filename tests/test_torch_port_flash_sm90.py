@@ -1,11 +1,11 @@
-"""The Hopper route of B1-B4 and B6 (bf16/fp16: wgmma tiles fed by TMA),
-as far as the CPU can hold it: the C entry points of
+"""The Hopper route of B1-B6 (bf16/fp16: wgmma tiles fed by TMA), as far
+as the CPU can hold it: the C entry points of
 ``csrc/flash_attention_causal.cu`` and ``csrc/flash_attention_masked.cu``
 against the ctypes bindings, the build's tracking of the shared header,
 the kernel names the profiles match, the TMA layout rule that the wrappers
-enforce before a launch, and the roundings the Hopper B2 and B6 add (ds,
-and B6's p, to the input dtype before their products) held against the
-JAX kernels. The kernels themselves run only on the card (the
+enforce before a launch, and the roundings the Hopper B2, B5 and B6 add
+(ds, and B6's p, to the input dtype before their products) held against
+the JAX kernels. The kernels themselves run only on the card (the
 ``gpu``-marked tests and ``chip_smoke.py``)."""
 
 import ast
@@ -79,10 +79,11 @@ def test_sm90_kernel_names_match_the_profile_names():
 
 @pytest.mark.parametrize("src,name", [(CAUSAL, "flash_causal_dq"),
                                       (MASKED, "flash_masked_fwd"),
+                                      (MASKED, "flash_masked_dq"),
                                       (MASKED, "flash_masked_dkv")],
-                         ids=["B2", "B4", "B6"])
+                         ids=["B2", "B4", "B5", "B6"])
 def test_b2_b4_sm90_kernels_match_the_profile_names(src, name):
-    """The Hopper B2, B4 and B6 are defined in their sources under names
+    """The Hopper B2, B4, B5 and B6 are defined in their sources under names
     that hold ``<wrapper>_kernel``, which the profiles match."""
     kernels = set(re.findall(r"^(flash_\w+)\(", src.read_text(),
                              re.MULTILINE))
@@ -124,9 +125,9 @@ def test_wrapper_raises_naming_the_rule():
 
 
 @pytest.mark.parametrize("name", ["flash_causal_dq", "flash_masked_fwd",
-                                  "flash_masked_dkv"])
+                                  "flash_masked_dq", "flash_masked_dkv"])
 def test_b2_b4_wrappers_check_the_tma_rule(name):
-    """The wrappers of the Hopper B2, B4 and B6 check their operands under
+    """The wrappers of the Hopper B2, B4, B5 and B6 check their operands under
     their own names: bf16 at D=60 raises naming the rule, fp32 passes."""
     odd = torch.zeros(2, 16, 3, 60, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match=f"^{name}: .*multiple of 8"):
@@ -136,24 +137,27 @@ def test_b2_b4_wrappers_check_the_tma_rule(name):
         getattr(fa, name))
 
 
-def _dq_with_ds_rounded(q, k, v, do, lse, delta, block: int = 64):
-    """A copy of the plain dq loop (``flash_causal_dq_reference``) with ds
-    rounded to the inputs' dtype before ``dq += ds k``, as the Hopper B2
-    rounds it."""
-    B, T, H, D = q.shape
+def _dq_with_ds_rounded(q, k, v, do, lse, delta, q_pos, kv_pos,
+                        block: int = 64):
+    """A copy of the plain masked dq loop (``flash_masked_dq_reference``)
+    with ds rounded to the inputs' dtype before ``dq += ds k``, as the
+    Hopper B2 and B5 round it; keep = q_pos >= kv_pos (B2's causal mask
+    with positions ``arange(T)``) and p = 0 on dead rows (lse <= -1e30 /
+    2)."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
     scale = 1.0 / D ** 0.5
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
-    dq = torch.empty(B, H, T, D, dtype=q.dtype)
-    for q0 in range(0, T, block):
-        q1 = min(q0 + block, T)
+    dq = torch.empty(B, H, Tq, D, dtype=q.dtype)
+    for q0 in range(0, Tq, block):
+        q1 = min(q0 + block, Tq)
         qb, dob = qt[:, :, q0:q1].float(), dot[:, :, q0:q1].float()
         lse_b, delta_b = lse[:, :, q0:q1], delta[:, :, q0:q1]
         acc = torch.zeros(B, H, q1 - q0, D)
-        for k0 in range(0, q1, block):
-            k1 = min(k0 + block, T)
+        for k0 in range(0, Tk, block):
+            k1 = min(k0 + block, Tk)
             kb, vb = kt[:, :, k0:k1].float(), vt[:, :, k0:k1].float()
-            keep = (torch.arange(q0, q1)[:, None]
-                    >= torch.arange(k0, k1)[None, :])
+            keep = q_pos[q0:q1, None] >= kv_pos[None, k0:k1]
             s = torch.einsum("bhqd,bhkd->bhqk", qb, kb) * scale
             p = torch.where(keep, torch.exp(s - lse_b[..., None]), 0.0)
             p = torch.where(lse_b[..., None] <= -1e30 / 2, 0.0, p)
@@ -183,7 +187,8 @@ def test_b2_ds_rounding_stays_within_the_card_limit():
     out = torch.tensor(np.asarray(jout.astype(jnp.float32))).to(torch.bfloat16)
     lse = torch.tensor(np.asarray(jlse))
     delta = fa.attention_delta(do, out)
-    got = _dq_with_ds_rounded(q, k, v, do, lse, delta).float().numpy()
+    got = _dq_with_ds_rounded(q, k, v, do, lse, delta, torch.arange(T),
+                              torch.arange(T)).float().numpy()
     want = np.asarray(jdq.astype(jnp.float32))
     err = np.abs(got - want)
     assert np.all(err <= 2e-2 * (1 + np.abs(want))), err.max()
@@ -211,6 +216,7 @@ def test_b6_sm90_kernel_is_profiled_and_counted():
     assert "flash_masked_dkv_kernel_sm90" in kernels
     masked_sm90 = _chip_smoke_constant("MASKED_SM90_KERNELS")
     assert masked_sm90 == ("flash_masked_fwd_kernel_sm90",
+                           "flash_masked_dq_kernel_sm90",
                            "flash_masked_dkv_kernel_sm90")
     assert all(k in kernels for k in masked_sm90)
     (b6,) = [name for name, key, _ in _chip_smoke_constant("MASKED_KERNELS")
@@ -293,3 +299,60 @@ def test_b6_rounding_stays_within_the_card_limit(hop):
         err = np.abs(a - want)
         assert np.all(err <= 2e-2 * (1 + np.abs(want))), err.max()
         assert np.abs(want).max() > 0.1  # the gradients are not vacuous
+
+
+def test_b5_sm90_kernel_is_profiled_and_counted():
+    """``flash_masked_dq_kernel_sm90``, the source's Hopper B5, is among
+    the kernels that ``chip_smoke.py``'s train_cp profile expects n_layer
+    times a step and whose registers and HGMMA ``kernel_resources`` reads;
+    its counter key ``mdq`` is among the keys with a Hopper route, and the
+    profile's ``<wrapper>_kernel`` key of B5 matches it."""
+    kernels = set(re.findall(r"^(flash_masked_\w+)\(", MASKED.read_text(),
+                             re.MULTILINE))
+    assert "flash_masked_dq_kernel_sm90" in kernels
+    assert "flash_masked_dq_kernel_sm90" in _chip_smoke_constant(
+        "MASKED_SM90_KERNELS")
+    assert "mdq" in _chip_smoke_constant("SM90_KEYS")
+    (b5,) = [name for name, key, _ in _chip_smoke_constant("MASKED_KERNELS")
+             if key == "mdq"]
+    assert f"{b5}_kernel" in "flash_masked_dq_kernel_sm90"
+
+
+@pytest.mark.parametrize("hop", ["diagonal", "zigzag_rank1_hop1", "future"])
+def test_b5_ds_rounding_stays_within_the_card_limit(hop):
+    """The Hopper B5's one numeric change, rounding ds to bf16 before
+    dq += ds k, held against the JAX masked backward's dq (``_bwd``:
+    ``_dq_kernel`` in interpret mode, fp32 ds) on bf16 inputs at T=128,
+    one head, D=64, on the diagonal hop, on hop 1 of rank 1 of a 4-rank
+    zigzag ring and on a hop that holds only future keys: within
+    chip_smoke's bf16 limit, |x - jax| <= 2e-2 (1 + |jax|); on the
+    all-future hop both sides are exactly 0. Both sides take the JAX
+    forward's out and lse."""
+    rng = np.random.default_rng(9)
+    B, T, H, D = 2, 128, 1, 64
+    q_pos, kv_pos = {
+        "diagonal": (np.arange(T), np.arange(T)),
+        "zigzag_rank1_hop1": (_zigzag(1, 4, T), _zigzag(0, 4, T)),
+        "future": (np.arange(T), T + np.arange(T)),
+    }[hop]
+    x32 = [rng.standard_normal((B, T, H, D)).astype(np.float32)
+           for _ in range(4)]
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in x32)
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(jnp.bfloat16) for x in x32)
+    jp = [jnp.asarray(p, jnp.int32) for p in (q_pos, kv_pos)]
+    kw = dict(block_q=64, block_k=64, interpret=True)
+    jout, jlse = jax_fwd(jq, jk, jv, *jp, **kw)
+    jdq = jax_bwd(jq, jk, jv, *jp, jout, jlse, jdo, **kw)[0]
+    out = torch.tensor(np.asarray(jout.astype(jnp.float32))).to(torch.bfloat16)
+    lse = torch.tensor(np.asarray(jlse))
+    delta = fa.attention_delta(do, out)
+    got = _dq_with_ds_rounded(q, k, v, do, lse, delta,
+                              torch.from_numpy(q_pos),
+                              torch.from_numpy(kv_pos)).float().numpy()
+    want = np.asarray(jdq.astype(jnp.float32))
+    if hop == "future":
+        assert not got.any() and not want.any()
+        return
+    err = np.abs(got - want)
+    assert np.all(err <= 2e-2 * (1 + np.abs(want))), err.max()
+    assert np.abs(want).max() > 0.1  # the gradients are not vacuous
