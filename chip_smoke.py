@@ -7,8 +7,8 @@ Run from the repository root on a machine with one NVIDIA H100::
 
 It builds the port's CUDA kernels from the sources in the checkout (one
 ``nvcc`` per source, all at once) and drives the main paths of the port,
-serving, training and context-parallel training, printing one JSON line
-per phase:
+serving, GPT-2 training, context-parallel training and ResNet training,
+printing one JSON line per phase:
 
   device        the card (``nvidia-smi`` name and power limit), library
                 versions, the kernel build time, and the registers, stack
@@ -70,7 +70,27 @@ per phase:
                 whose loss must fall;
   train_cp_profile  as train_profile, for train_cp's steps and B4-B6; the
                 Hopper B4-B6 kernels launch n_layer times a step, and no
-                CUDA-core flash kernel launches.
+                CUDA-core flash kernel launches;
+  resnet_parity ResNet-18 (CIFAR stem, B=16) and ResNet-50 (ImageNet stem
+                at 64 px, B=8), fp32 with TF32 off: the port on the card
+                against the port on the CPU (train and eval logits with
+                random BN state; losses, parameters and BN buffers after 3
+                SGD steps from the BN init with random running statistics);
+  resnet_amp_accum  the reference's config #3: ResNet-50 in fp16 with the
+                loss scaler and 2 accumulated microbatches, 10 steps on a
+                fixed batch; the loss falls, and the loss scale is printed;
+  resnet_example  ``examples/train_resnet_ddp.py``'s ``main`` at
+                ``--model resnet50 --dataset imagenet --global-batch 128
+                --steps-per-epoch 5``, with 6 loader workers;
+  resnet_train  the bench twin (``pytorch_distributed_tpu_torch/bench.py``)
+                at its ImageNet shapes: ResNet-50, batch 128 at 224 px,
+                bf16, SGD(0.1, 0.9): images/s, step p50/p90/p99, MFU, peak
+                memory, and whether cuDNN's algorithm search was on (the
+                bench switches it on, for this phase and the next);
+  resnet_profile  torch.profiler over 3 of the bench's steps: device busy
+                and idle share, kernels per step, and device time by kernel
+                family (conv forward / data grad / weight grad, BatchNorm,
+                elementwise, optimizer, GEMM, reductions).
 
 Then a ``{"kernels": [...]}`` summary line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -98,8 +118,9 @@ from torch.autograd import DeviceType
 from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.profiler import ProfilerActivity, profile, schedule
 
+from pytorch_distributed_tpu_torch import bench
 from pytorch_distributed_tpu_torch import distributed as pdist
-from pytorch_distributed_tpu_torch.examples import train_gpt2
+from pytorch_distributed_tpu_torch.examples import train_gpt2, train_resnet_ddp
 from pytorch_distributed_tpu_torch.mesh import init_device_mesh
 from pytorch_distributed_tpu_torch.models import GPT2Config, gpt2_125m
 from pytorch_distributed_tpu_torch.ops import _build
@@ -117,7 +138,11 @@ from pytorch_distributed_tpu_torch.serving import (
     Request,
     Scheduler,
 )
-from pytorch_distributed_tpu_torch.trainer import Trainer, lm_loss
+from pytorch_distributed_tpu_torch.trainer import (
+    Trainer,
+    classification_loss,
+    lm_loss,
+)
 
 # the modules (the package attributes of the same names are functions)
 fa = importlib.import_module("pytorch_distributed_tpu_torch.ops.flash_attention")
@@ -1533,6 +1558,255 @@ def train_profile_phase(trainer, state, batch, phase="train_profile",
     return {k: v / steps for k, v in flash_ms.items()}
 
 
+# -- ResNet training (no kernel of the port runs on this path: convolutions,
+# BatchNorm and GEMMs are cuDNN's and cuBLAS's, as XLA's were on the TPU) --
+
+# card against CPU, fp32 with TF32 off (sums and conv algorithms in
+# another order): logits and BN buffers within tol x the tensor's largest
+# element, losses within tol relative. Parameters after 3 SGD steps within
+# tol x the largest change any parameter made in those steps: a BN bias
+# starts at 0 and its gradient sums the upstream gradient over batch and
+# positions to a small residue, so against its own size it differed by
+# 3.6e-3 to 1.2e-2 over three card runs, while against the step it is
+# 4e-6 to 7e-6
+RESNET_LOGITS_TOL = 1e-4
+RESNET_LOSS_TOL = 1e-5
+RESNET_BUFFER_TOL = 1e-5
+RESNET_PARAM_TOL = 1e-4
+# kernel families of a ResNet training step, by substrings of kernel names
+# (cuDNN / cuBLAS / PyTorch); the first family that matches takes a kernel
+RESNET_FAMILIES = (
+    ("conv_dgrad", ("dgrad",)),
+    ("conv_wgrad", ("wgrad",)),
+    ("conv_fprop", ("fprop", "conv", "implicit_convolve", "xmma_fprop")),
+    ("batch_norm", ("bn_", "batch_norm", "batchnorm")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("copy_cast", ("copy",)),
+    ("pool", ("pool",)),
+    ("elementwise", ("elementwise", "threshold", "relu")),
+    ("gemm", ("gemm", "cutlass", "gemv")),
+    ("reduce", ("reduce",)),
+)
+
+
+def _resnet_models(ctor, kw, seed, scales):
+    """The same fp32 ResNet on the card and on the CPU, with every BN
+    running statistic, and with ``scales`` every BN scale and bias too,
+    drawn at random."""
+    cpu = ctor(10, device="cpu", seed=seed, **kw)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in cpu.batch_norms():
+            if scales:
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.normal_(0.0, 0.1, generator=g)
+            m.running_mean.normal_(0.0, 0.1, generator=g)
+            m.running_var.uniform_(0.5, 1.5, generator=g)
+    card = ctor(10, device="cuda", seed=seed, **kw)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def _rel(got, want) -> float:
+    got, want = got.detach().cpu().double(), want.detach().double()
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)
+            ).item()
+
+
+def resnet_parity_phase():
+    """ResNet-18 (CIFAR stem, B=16, 32 px) and ResNet-50 (ImageNet stem at
+    64 px, B=8), 10 classes, fp32 with TF32 off: the port on the card
+    against the port on the CPU (the path the tests hold against flax).
+    Train and eval logits with every BN scale, bias and running statistic
+    drawn at random; then the losses of 3 ``SGD(0.01, momentum=0.9)``
+    steps, and the parameters (against the largest change a parameter
+    made) and BN buffers after them, from flax's BN init with random
+    running statistics. (With random BN scales the fp32 steps are chaotic:
+    on the CPU alone, ResNet-50's fp32 loss is 7% off the fp64 one at the
+    second step; from the BN init it is 2e-7:
+    ``tests/_torch_port_resnet_precision.py``.)"""
+    from pytorch_distributed_tpu_torch.models import resnet18, resnet50
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for name, ctor, kw, shape in (
+                ("resnet18_cifar", resnet18, {"cifar_stem": True},
+                 (16, 32, 32, 3)),
+                ("resnet50_64px", resnet50, {}, (8, 64, 64, 3))):
+            cpu, card = _resnet_models(ctor, kw, seed=4, scales=True)
+            rng = np.random.default_rng(4)
+            x = torch.from_numpy(rng.standard_normal(shape, np.float32))
+            y = torch.from_numpy(rng.integers(0, 10, shape[0]))
+            errs = {}
+            for mode in ("eval", "train"):
+                for m in (cpu, card):
+                    m.train(mode == "train")
+                with torch.no_grad():
+                    errs[f"{mode}_logits"] = _rel(card(x.cuda()), cpu(x))
+            cpu, card = _resnet_models(ctor, kw, seed=4, scales=False)
+            init = {k: v.clone() for k, v in cpu.state_dict().items()}
+            runs = []
+            for m, dev in ((cpu, "cpu"), (card, "cuda")):
+                opt = torch.optim.SGD(m.parameters(), lr=0.01, momentum=0.9)
+                trainer = Trainer(m, opt, NoShard(dev),
+                                  loss_fn=classification_loss)
+                state = trainer.init()
+                losses = []
+                for _ in range(3):
+                    state, metrics = trainer.step(state, (x, y))
+                    losses.append(float(metrics["loss"]))
+                runs.append((losses, m.state_dict()))
+            (cpu_losses, cpu_sd), (card_losses, card_sd) = runs
+            errs["losses"] = [abs(a - b) / abs(b)
+                              for a, b in zip(card_losses, cpu_losses)]
+            params = {k for k, _ in cpu.named_parameters()}
+            step = max((cpu_sd[k] - init[k]).abs().max().item()
+                       for k in params)
+            param_errs = {k: (card_sd[k].cpu() - cpu_sd[k]).abs().max().item()
+                          / step for k in params}
+            buffer_errs = {k: _rel(card_sd[k], v) for k, v in cpu_sd.items()
+                           if k.endswith(("running_mean", "running_var"))}
+            worst_p = max(param_errs, key=param_errs.get)
+            worst_b = max(buffer_errs, key=buffer_errs.get)
+            out[name] = {"max_rel_err": errs, "loss_card": card_losses,
+                         "loss_cpu": cpu_losses, "largest_step": step,
+                         "param_worst_over_step": [worst_p,
+                                                   param_errs[worst_p]],
+                         "buffer_worst": [worst_b, buffer_errs[worst_b]]}
+            del cpu, card, runs, card_sd
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    emit({"phase": "resnet_parity", "dtype": "float32", "tf32": False,
+          "logits_tol": RESNET_LOGITS_TOL, "loss_tol": RESNET_LOSS_TOL,
+          "buffer_tol": RESNET_BUFFER_TOL, "param_tol": RESNET_PARAM_TOL,
+          **out})
+    for name, r in out.items():
+        errs = r["max_rel_err"]
+        check(max(errs["train_logits"], errs["eval_logits"])
+              <= RESNET_LOGITS_TOL, f"{name} card vs CPU logits {errs}")
+        check(all(np.isfinite(r["loss_card"]))
+              and max(errs["losses"]) <= RESNET_LOSS_TOL
+              and r["param_worst_over_step"][1] <= RESNET_PARAM_TOL
+              and r["buffer_worst"][1] <= RESNET_BUFFER_TOL,
+              f"{name} card vs CPU after 3 steps: {r}")
+
+
+def resnet_train_phase(smi):
+    """The bench twin (``pytorch_distributed_tpu_torch.bench``) at its
+    ImageNet shapes: ResNet-50, batch 128 at 224 px, bf16, SGD(0.1, 0.9),
+    3 warm-up, 50 timed and 15 synchronized steps; the loss must fall and
+    the MFU stay at most 1 (the bench refuses otherwise)."""
+    torch.cuda.empty_cache()
+    out = bench.run(torch.device("cuda"), **bench.IMAGENET)
+    emit({"phase": "resnet_train", "nvidia_smi": smi, **out})
+    check(out["platform"] == "gpu" and out["mfu"] is not None
+          and 0 < out["mfu"] <= 1.0, f"resnet_train: {out}")
+    check(out["metric"] == "resnet50_imagenet_images_per_sec_per_chip",
+          f"resnet_train ran {out['metric']}")
+    return out
+
+
+def resnet_amp_accum_phase():
+    """The reference's config #3: ResNet-50 computing in fp16 with the loss
+    scaler, ``grad_accum_steps=2`` (two microbatches of 64), batch 128 at
+    224 px, 10 steps on one fixed batch: every loss finite, the last below
+    the first."""
+    torch.cuda.empty_cache()
+    trainer, fixed = bench.build(torch.device("cuda"), batch=128, hw=224,
+                                 policy="fp16", grad_accum_steps=2)
+    state = trainer.init()
+    losses, finite, scales, step_s = [], [], [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, fixed)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        finite.append(bool(m["all_finite"]))
+        scales.append(float(m["loss_scale"]))
+    emit({"phase": "resnet_amp_accum", "model": "resnet50",
+          "dtype": str(trainer.model.dtype), "policy": "fp16",
+          "grad_accum_steps": 2, "batch": 128, "hw": 224, "losses": losses,
+          "all_finite": finite, "loss_scale": scales,
+          "step_p50_s": statistics.median(step_s[1:])})
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"fp16 accumulation: loss did not fall: {losses}")
+    del trainer, state, fixed
+
+
+def resnet_example_phase():
+    """The entry point ``examples.train_resnet_ddp`` (one process:
+    ``NoShard``) at ``--model resnet50 --dataset imagenet --global-batch
+    128 --steps-per-epoch 5``, synthetic ImageNet made by 6 loader workers
+    and copied ahead by ``prefetch_to_device``; every loss finite."""
+    torch.cuda.empty_cache()
+    out = train_resnet_ddp.main([
+        "--model", "resnet50", "--dataset", "imagenet", "--global-batch",
+        "128", "--steps-per-epoch", "5", "--dataset-size", "640",
+        "--num-workers", "6", "--log-every", "1"])
+    emit({"phase": "resnet_example", **out})
+    check(len(out["losses"]) == 5 and all(np.isfinite(out["losses"])),
+          f"resnet_example losses {out['losses']}")
+
+
+def _family(name: str) -> str:
+    low = name.lower()
+    return next((fam for fam, keys in RESNET_FAMILIES
+                 if any(k in low for k in keys)), "other")
+
+
+def resnet_profile_phase():
+    """Where a ResNet-50 training step's time goes (the bench's step:
+    batch 128 at 224 px, bf16): torch.profiler over 3 steps after a warm-up
+    inside the window; device busy time against host wall time, kernels per
+    step, and device time by kernel family."""
+    steps = 3
+    torch.cuda.empty_cache()
+    trainer, fixed = bench.build(torch.device("cuda"), batch=128, hw=224)
+    state = trainer.init()
+    state, _ = trainer.step(state, fixed)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=WARM_SCHEDULE) as prof:
+        state, _ = trainer.step(state, fixed)  # warm-up, not recorded
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = trainer.step(state, fixed)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = _device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    families = {}
+    for e in device:
+        fam = families.setdefault(_family(e.key), {"ms_per_step": 0.0,
+                                                   "calls_per_step": 0.0})
+        fam["ms_per_step"] += e.self_device_time_total / 1e3 / steps
+        fam["calls_per_step"] += e.count / steps
+    top = sorted(device, key=lambda e: -e.self_device_time_total)
+    other = [e for e in top if _family(e.key) == "other"][:5]
+    emit({"phase": "resnet_profile", "steps": steps,
+          "wall_ms_per_step": wall_ms / steps,
+          "device_busy_ms_per_step": busy_ms / steps,
+          "device_busy_share": busy_ms / wall_ms,
+          "device_idle_share": 1 - busy_ms / wall_ms,
+          "device_kernels_per_step": sum(e.count for e in device) / steps,
+          "families": families,
+          "top_kernels": [{"name": e.key[:100], "family": _family(e.key),
+                           "ms_per_step": e.self_device_time_total / 1e3 / steps,
+                           "calls_per_step": e.count / steps}
+                          for e in top[:10] + other]})
+    check(busy_ms > 0, "resnet_profile: the profiler saw no device time")
+    del trainer, state, fixed
+
+
+
 def kernel_resources():
     """Registers, stack bytes and HGMMA (wgmma) instructions of each
     Hopper-route kernel, read from the built B1-B3 and B4-B6 libraries with
@@ -1631,6 +1905,13 @@ def main() -> int:
         cp_launches, cp_split = train_cp_phase(mesh)
     finally:
         pdist.destroy_process_group()
+
+    torch.cuda.empty_cache()
+    resnet_parity_phase()
+    resnet_amp_accum_phase()
+    resnet_example_phase()
+    resnet_train_phase(smi)   # switches cuDNN's algorithm search on
+    resnet_profile_phase()
 
     main_dtype = kres["ragged"]["bfloat16"]  # the serve phase runs in bf16
     serve_set = kres["serve"]["bfloat16"]

@@ -1,21 +1,42 @@
-"""Data of the port: numpy datasets and the per-rank sampler.
+"""Data of the port: numpy datasets, the per-rank sampler, batch
+placement and the loader of the training entry points.
 
 Copies of ``pytorch_distributed_tpu/data/datasets.py`` and ``sampler.py``
 (both numpy-only; the port keeps its own copies rather than import the JAX
-package). Batching goes through ``torch.utils.data.DataLoader`` with this
-sampler; the JAX package's worker-pool loader is ROADMAP A.8.
+package), the counterpart of its ``sharding.py``, and of its loader the
+part the ResNet entry point needs: batching goes through
+``torch.utils.data.DataLoader`` with this sampler (``make_loader``), and
+``prefetch_to_device`` copies batches ahead on a side stream; the JAX
+package's worker-pool loader and the JPEG ImageFolder path are ROADMAP
+A.8.
 """
 
 from pytorch_distributed_tpu_torch.data.datasets import (
     ArrayDataset,
+    SyntheticCIFAR10,
+    SyntheticImageNet,
     SyntheticLMDataset,
     make_token_stream,
 )
+from pytorch_distributed_tpu_torch.data.loader import (
+    make_loader,
+    prefetch_to_device,
+)
 from pytorch_distributed_tpu_torch.data.sampler import DistributedSampler
+from pytorch_distributed_tpu_torch.data.sharding import (
+    LocalBatch,
+    shard_batch_for_mesh,
+)
 
 __all__ = [
     "ArrayDataset",
     "DistributedSampler",
+    "LocalBatch",
+    "SyntheticCIFAR10",
+    "SyntheticImageNet",
     "SyntheticLMDataset",
+    "make_loader",
     "make_token_stream",
+    "prefetch_to_device",
+    "shard_batch_for_mesh",
 ]

@@ -1,7 +1,8 @@
-"""Datasets shaped like the reference workloads (GPT-2 language modelling).
+"""Datasets shaped like the reference workloads (ResNet image
+classification, GPT-2 language modelling).
 
-Copy of the LM part of ``pytorch_distributed_tpu/data/datasets.py``:
-deterministic synthetic WikiText-103-shaped token windows, a generic
+Copy of ``pytorch_distributed_tpu/data/datasets.py``: deterministic
+synthetic CIFAR-10-, ImageNet- and WikiText-103-shaped examples, a generic
 ``ArrayDataset`` over numpy arrays, and ``make_token_stream`` to chunk a
 flat corpus. numpy only.
 """
@@ -14,6 +15,8 @@ import numpy as np
 
 __all__ = [
     "ArrayDataset",
+    "SyntheticCIFAR10",
+    "SyntheticImageNet",
     "SyntheticLMDataset",
     "make_token_stream",
 ]
@@ -51,6 +54,38 @@ class _Synthetic:
 
     def _rng(self, idx: int) -> np.random.Generator:
         return np.random.default_rng((self._seed, int(idx)))
+
+
+class SyntheticCIFAR10(_Synthetic):
+    """CIFAR-10-shaped: 32x32x3 float images (NHWC), 10 classes."""
+
+    num_classes = 10
+    image_shape = (32, 32, 3)
+
+    def __init__(self, size: int = 50_000, seed: int = 0):
+        super().__init__(size, seed)
+
+    def __getitem__(self, idx):
+        rng = self._rng(idx)
+        x = rng.standard_normal(self.image_shape, dtype=np.float32)
+        y = np.int32(idx % self.num_classes)
+        return x, y
+
+
+class SyntheticImageNet(_Synthetic):
+    """ImageNet-shaped: 224x224x3 float images (NHWC), 1000 classes."""
+
+    num_classes = 1000
+    image_shape = (224, 224, 3)
+
+    def __init__(self, size: int = 1_281_167, seed: int = 0):
+        super().__init__(size, seed)
+
+    def __getitem__(self, idx):
+        rng = self._rng(idx)
+        x = rng.standard_normal(self.image_shape, dtype=np.float32)
+        y = np.int32(idx % self.num_classes)
+        return x, y
 
 
 class SyntheticLMDataset(_Synthetic):

@@ -93,12 +93,11 @@ def main(argv=None) -> Dict:
     if missing:
         raise NotImplementedError(f"not ported yet: {missing}")
 
-    from torch.utils.data import DataLoader
-
     from pytorch_distributed_tpu_torch import resolve_device
     from pytorch_distributed_tpu_torch.data import (
         DistributedSampler,
         SyntheticLMDataset,
+        make_loader,
     )
     from pytorch_distributed_tpu_torch.models import GPT2, GPT2Config
     from pytorch_distributed_tpu_torch.ops.flash_attention import (
@@ -137,13 +136,10 @@ def main(argv=None) -> Dict:
     dataset.vocab_size = min(args.vocab, dataset.vocab_size)
     sampler = DistributedSampler(dataset, num_replicas=1, rank=0,
                                  shuffle=True, seed=args.seed)
-    workers = dict(num_workers=args.num_workers)
-    if args.num_workers:
-        workers.update(prefetch_factor=args.prefetch,
-                       multiprocessing_context=args.mp_context)
-    loader = DataLoader(dataset, batch_size=args.global_batch,
-                        sampler=sampler, drop_last=True,
-                        pin_memory=on_card, **workers)
+    loader = make_loader(dataset, args.global_batch, sampler, device=device,
+                         num_workers=args.num_workers,
+                         prefetch_factor=args.prefetch,
+                         mp_context=args.mp_context)
 
     state = trainer.init()
     n_params = sum(p.numel() for p in model.parameters())

@@ -1,4 +1,4 @@
-"""State conversion between the JAX package's flax GPT-2 and the port's.
+"""State conversion between the JAX package's flax models and the port's.
 
 Layout facts: a flax ``Dense`` kernel is ``[in, out]`` and a torch
 ``Linear`` weight ``[out, in]``; a flax ``LayerNorm`` has ``scale``/``bias``
@@ -8,6 +8,14 @@ Both directions are here: flax params -> ``GPT2.load_state_dict`` dict, the
 port's state dict -> a flax tree of numpy arrays (to compare trained
 parameters), and optax ``adamw`` state (``ScaleByAdamState`` count/mu/nu)
 -> ``torch.optim.AdamW`` state (``step``, ``exp_avg``, ``exp_avg_sq``).
+
+ResNet: the port's module names are the flax tree's paths (``conv_init``,
+``stage0_block1.Conv_0``, ...), so the mapping is leaf by leaf: a conv
+``kernel`` (HWIO) is a torch ``weight`` (OIHW), the ``fc`` kernel
+``[in, out]`` a ``weight`` ``[out, in]``, a BatchNorm's ``scale`` its
+``weight``, and its ``batch_stats`` ``mean``/``var`` the buffers
+``running_mean``/``running_var``. optax ``sgd`` momentum (``TraceState``
+``trace``, a tree like the params) is torch SGD's ``momentum_buffer``.
 """
 
 from __future__ import annotations
@@ -21,6 +29,9 @@ __all__ = [
     "gpt2_flax_from_state_dict",
     "gpt2_state_dict_from_flax",
     "load_adamw_state_from_optax",
+    "load_sgd_state_from_optax",
+    "resnet_flax_from_state_dict",
+    "resnet_state_dict_from_flax",
 ]
 
 
@@ -101,3 +112,82 @@ def load_adamw_state_from_optax(optimizer: torch.optim.Optimizer,
                 "exp_avg": mu_sd[name].to(p.device, p.dtype),
                 "exp_avg_sq": nu_sd[name].to(p.device, p.dtype),
             }
+
+
+# -- ResNet ----------------------------------------------------------------
+_PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
+
+
+def _leaves(tree, prefix=()):
+    for key, value in tree.items():
+        if hasattr(value, "items"):
+            yield from _leaves(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def _from_flax_kernel(a: np.ndarray) -> torch.Tensor:
+    if a.ndim == 4:                       # conv HWIO -> OIHW
+        return torch.tensor(np.ascontiguousarray(a.transpose(3, 2, 0, 1)))
+    return torch.tensor(np.ascontiguousarray(a.T))    # Dense [in, out]
+
+
+def resnet_state_dict_from_flax(params, batch_stats=None
+                                ) -> Dict[str, torch.Tensor]:
+    """The flax ResNet's ``params`` (and ``batch_stats``) trees, numpy or
+    jax leaves, as a ``ResNet.load_state_dict`` dict. Without
+    ``batch_stats`` only the parameters are mapped (also any tree shaped
+    like them, such as optax's momentum ``trace``)."""
+    sd = {}
+    for path, leaf in _leaves(params):
+        name = ".".join(path[:-1] + (_PARAM_LEAF[path[-1]],))
+        a = np.asarray(leaf)
+        sd[name] = _from_flax_kernel(a) if path[-1] == "kernel" else _t(a)
+    for path, leaf in _leaves(batch_stats or {}):
+        sd[".".join(path[:-1] + (_STAT_LEAF[path[-1]],))] = _t(leaf)
+    return sd
+
+
+def resnet_flax_from_state_dict(state_dict) -> Tuple[Dict, Dict]:
+    """The port's ``ResNet.state_dict()`` as the flax ``(params,
+    batch_stats)`` trees of numpy arrays (the inverse of
+    :func:`resnet_state_dict_from_flax`)."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for name, t in state_dict.items():
+        *path, leaf = name.split(".")
+        t = t.detach().cpu()
+        if t.dtype not in (torch.float32, torch.float64):
+            t = t.float()
+        a = t.numpy().copy()        # no view of the tensor
+        if leaf in ("running_mean", "running_var"):
+            tree, key = stats, leaf.removeprefix("running_")
+        elif leaf == "bias":
+            tree, key = params, "bias"
+        elif a.ndim == 1:
+            tree, key = params, "scale"
+        else:
+            tree, key = params, "kernel"
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[key] = np.ascontiguousarray(a)
+    return params, stats
+
+
+def load_sgd_state_from_optax(optimizer: torch.optim.Optimizer,
+                              model: torch.nn.Module, trace) -> None:
+    """Set ``optimizer``'s ``torch.optim.SGD`` momentum buffers for a
+    ResNet ``model`` from optax ``sgd`` state: the ``trace`` tree of
+    ``TraceState`` (numpy or jax leaves). optax's ``trace = g + m * trace``
+    is torch's ``buf = m * buf + g`` (dampening 0). Each buffer takes its
+    parameter's device, dtype and memory format."""
+    sd = resnet_state_dict_from_flax(trace)
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            buf = torch.empty_like(p)
+            buf.copy_(sd[name_of[id(p)]])
+            optimizer.state[p]["momentum_buffer"] = buf

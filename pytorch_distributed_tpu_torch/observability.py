@@ -1,7 +1,8 @@
-"""Serving metrics and events: latency percentiles, ratio counters, a
-process-wide metric table and a bounded structured-event log.
+"""Metrics and events: latency percentiles, ratio counters, a process-wide
+metric table, a bounded structured-event log and per-iteration training
+stats.
 
-Minimal copies of what the scheduler uses from
+Minimal copies of what the scheduler and the ResNet entry point use from
 ``pytorch_distributed_tpu/observability/logging_utils.py``.
 """
 
@@ -19,6 +20,7 @@ logger = logging.getLogger("pytorch_distributed_tpu_torch")
 
 __all__ = [
     "Event",
+    "IterationLogger",
     "LatencyTracker",
     "RatioTracker",
     "get_metrics",
@@ -120,3 +122,45 @@ class RatioTracker:
 
     def rate(self, default: float = 0.0) -> float:
         return self.num / self.den if self.den else default
+
+
+class IterationLogger:
+    """Per-iteration timing stats, one sample every ``sample_rate``
+    iterations (torch DDP's ``Logger``). A sample's ``step_time_s`` is the
+    host time from ``start_iteration`` to ``end_iteration``; it covers the
+    device work only if the caller waited for it (read a value of the step,
+    or synchronize) before ``end_iteration``."""
+
+    def __init__(self, sample_rate: int = 1):
+        self.sample_rate = max(1, sample_rate)
+        self.iterations = 0
+        self.samples: List[Dict[str, float]] = []
+        self._t_start: Optional[float] = None
+
+    def start_iteration(self) -> None:
+        self._t_start = time.perf_counter()
+
+    def end_iteration(self, **extra: float) -> None:
+        self.iterations += 1
+        if self._t_start is None:
+            return
+        if self.iterations % self.sample_rate == 0:
+            self.samples.append({
+                "iteration": self.iterations,
+                "step_time_s": time.perf_counter() - self._t_start,
+                **extra,
+            })
+            if len(self.samples) > 10_000:
+                del self.samples[:5_000]
+        self._t_start = None
+
+    def summary(self) -> Dict[str, float]:
+        if not self.samples:
+            return {"iterations": self.iterations}
+        times = [s["step_time_s"] for s in self.samples]
+        return {
+            "iterations": self.iterations,
+            "avg_step_time_s": sum(times) / len(times),
+            "max_step_time_s": max(times),
+            "min_step_time_s": min(times),
+        }

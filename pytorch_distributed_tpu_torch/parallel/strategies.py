@@ -5,10 +5,12 @@ Port of ``pytorch_distributed_tpu/parallel/strategies.py``:
 * ``NoShard``: the whole model, its gradients and its optimizer state on
   one device, the batch not split;
 * ``DataParallel(mesh, dp_axis)``: one replica per rank of ``dp_axis``;
-  each rank takes its slice of the global batch, and after the backward
-  the gradients are averaged over the axis's process group (one all-reduce
-  of one flat buffer), so the trainer steps on the global mean gradient,
-  as the JAX step does;
+  each rank takes its share of every microbatch of the global batch, its
+  BatchNorm layers take their statistics over the axis's process group
+  (the global batch, as the JAX package's global-view step has them), and
+  after the backward the gradients are averaged over the group (one
+  all-reduce of one flat buffer), so the trainer steps on the global mean
+  gradient, as the JAX step does;
 * ``CPStrategy(mesh, cp_axis)``: ``DataParallel`` over the context-parallel
   axis with the batch replicated: the sequence is split inside the
   attention (``parallel.context_parallel``), not here.
@@ -26,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from pytorch_distributed_tpu_torch._device import resolve_device
+from pytorch_distributed_tpu_torch.data.sharding import LocalBatch
 
 __all__ = ["ShardingStrategy", "NoShard", "DataParallel", "CPStrategy"]
 
@@ -52,9 +55,9 @@ class ShardingStrategy:
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
 
-    def place_batch(self, batch):
+    def place_batch(self, batch, accum: int = 1):
         """Host batch (numpy arrays or tensors, nested in tuples) on the
-        strategy's device."""
+        strategy's device; ``accum`` is the trainer's microbatch count."""
         return _to_device(batch, self.device)
 
     def sync_params(self, model: torch.nn.Module) -> None:
@@ -89,9 +92,17 @@ class DataParallel(ShardingStrategy):
         """Number of data shards (the 'world size' for the sampler)."""
         return 1 if self.batch_axes is None else self.mesh.size(self.batch_axes)
 
-    def place_batch(self, batch):
-        """This rank's slice of the global batch: dim 0 of every array cut
-        into ``data_shard_count`` equal parts."""
+    def place_batch(self, batch, accum: int = 1):
+        """This rank's rows of the global batch, in microbatch order: the
+        global batch splits into ``accum`` microbatches of consecutive rows
+        (the JAX step's reshape), each microbatch into ``data_shard_count``
+        equal shares, and the rank's shares are stacked, so that cutting
+        its rows into ``accum`` equal parts gives its share of each
+        microbatch. At ``accum = 1`` this is the ``rank``-th of
+        ``data_shard_count`` equal slices. A :class:`LocalBatch` (this
+        rank's own rows, from a per-process loader) is placed as it is."""
+        if isinstance(batch, LocalBatch):
+            return LocalBatch(super().place_batch(tuple(batch)))
         batch = super().place_batch(batch)
         n = self.data_shard_count
         if n == 1:
@@ -101,23 +112,35 @@ class DataParallel(ShardingStrategy):
         def shard(x):
             if isinstance(x, (tuple, list)):
                 return type(x)(shard(t) for t in x)
-            if x.shape[0] % n:
-                raise ValueError(f"global batch of {x.shape[0]} does not split "
-                                 f"into {n} equal shards")
-            return x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
+            B = x.shape[0]
+            if B % (n * accum):
+                raise ValueError(f"global batch of {B} does not split into "
+                                 f"{accum} microbatches of {n} equal shares")
+            rows = x.reshape(accum, n, B // (n * accum), *x.shape[1:])[:, i]
+            return rows.reshape(B // n, *x.shape[1:])
 
         return shard(batch)
 
     @torch.no_grad()
     def sync_params(self, model: torch.nn.Module) -> None:
-        """Every replica takes the parameters of the axis's first rank (one
-        broadcast of one flat buffer)."""
-        params = list(model.parameters())
-        flat = torch.cat([p.reshape(-1) for p in params])
-        dist.broadcast(flat, dist.get_global_rank(self.group, 0),
-                       group=self.group)
-        for p, new in zip(params, flat.split([p.numel() for p in params])):
-            p.copy_(new.view_as(p))
+        """Every replica takes the parameters and floating buffers (the
+        BatchNorm running statistics) of the axis's first rank (one
+        broadcast of one flat buffer per dtype), and each BatchNorm (a
+        module with a ``stats_group`` attribute) takes its statistics over
+        the axis's group when the batch is split over it."""
+        tensors = list(model.parameters()) + [
+            b for b in model.buffers() if b.is_floating_point()]
+        for dtype in dict.fromkeys(t.dtype for t in tensors):
+            same = [t for t in tensors if t.dtype == dtype]
+            flat = torch.cat([t.reshape(-1) for t in same])
+            dist.broadcast(flat, dist.get_global_rank(self.group, 0),
+                           group=self.group)
+            for t, new in zip(same, flat.split([t.numel() for t in same])):
+                t.copy_(new.view_as(t))
+        stats_group = self.group if self.batch_axes is not None else None
+        for m in model.modules():
+            if hasattr(m, "stats_group"):
+                m.stats_group = stats_group
 
     @torch.no_grad()
     def reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:

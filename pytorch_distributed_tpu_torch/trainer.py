@@ -6,19 +6,26 @@ process per rank). The JAX step is one jitted program over an immutable
 state; here the model holds the parameters and the optimizer its state, and
 ``step`` updates both in place. The step keeps the JAX step's order:
 
-  1. the strategy places the batch (its rank's slice under a dp split) and
-     the policy casts its floating tensors to the compute dtype;
+  1. the strategy places the batch (its rank's rows under a dp split, in
+     the order the microbatches need) and the policy casts its floating
+     tensors to the compute dtype;
   2. microbatch accumulation: the grads of ``grad_accum_steps`` equal
-     slices of the batch are summed and divided by their count (the mean);
-     then ``strategy.reduce_grads`` averages them over the replicas (the
-     JAX step's gradient all-reduce; ``NoShard`` leaves them as they are);
+     microbatches are summed and divided by their count (the mean); then
+     ``strategy.reduce_grads`` averages them over the replicas (the JAX
+     step's gradient all-reduce; ``NoShard`` leaves them as they are).
+     Microbatch ``i`` is rows ``[i B / accum, (i + 1) B / accum)`` of the
+     global batch, as the JAX step's reshape makes it; under a dp split
+     each rank holds its share of every microbatch;
   3. with a loss scaler: unscale, and an all-finite check over every grad;
   4. global-norm clipping, ``grads * min(1, clip / (norm + 1e-6))``;
   5. the optimizer step (``torch.optim.AdamW``: the same update as
-     ``optax.adamw``);
+     ``optax.adamw``; ``torch.optim.SGD`` with momentum and no dampening:
+     ``optax.sgd``);
   6. skip-on-inf: where the step was not finite, the old parameters and
      optimizer state are kept (a device-side ``torch.where``; nothing is
-     read back to the host inside the step).
+     read back to the host inside the step). The model's buffers (the
+     BatchNorm running statistics) keep what the forward wrote, as the
+     JAX step keeps the new model state on a skipped step.
 
 Metrics are 0-d tensors on the device: ``loss``, ``grad_norm``,
 ``all_finite``, the loss function's own (``perplexity`` for the LM losses)
@@ -158,6 +165,20 @@ def _init_adam_state(optimizer: torch.optim.Optimizer) -> None:
                 state["max_exp_avg_sq"] = torch.zeros_like(p)
 
 
+def _init_sgd_state(optimizer: torch.optim.Optimizer) -> None:
+    """Create SGD momentum buffers now, as zeros (optax's ``trace`` init):
+    torch's first step then gives ``buf = g``, as optax does, and the
+    skip-on-inf select has an old buffer to keep on step 1."""
+    if not isinstance(optimizer, torch.optim.SGD):
+        return
+    for group in optimizer.param_groups:
+        if not group["momentum"]:
+            continue
+        for p in group["params"]:
+            optimizer.state[p].setdefault("momentum_buffer",
+                                          torch.zeros_like(p))
+
+
 def _microbatches(batch, accum: int) -> List:
     if accum == 1:
         return [batch]
@@ -181,7 +202,7 @@ class Trainer:
       loss_fn: ``(model, batch, train) -> (loss, metrics)``; see
         ``classification_loss`` / ``lm_loss`` / ``make_chunked_lm_loss``.
       policy: 'fp32' | 'bf16' | 'fp16' | Policy -- batch cast and scaler
-        gating. (The model's compute dtype is its own ``cfg.dtype``.)
+        gating. (The model's compute dtype is its own ``dtype``.)
       grad_accum_steps: microbatch count; the batch must divide by it.
       scaler: GradScaler for fp16 (defaults to enabled iff policy is fp16).
       clip_norm: global-norm gradient clipping threshold.
@@ -233,13 +254,15 @@ class Trainer:
                     f"parameter {name} is on {p.device}, the strategy places "
                     f"on {dev}"
                 )
-        if self._scaling and dev.type == "cuda":
+        if (self._scaling and dev.type == "cuda" and isinstance(
+                self.optimizer, (torch.optim.Adam, torch.optim.AdamW))):
             # the skip-on-inf select covers Adam's step count too, so it
             # must live on the card beside the all-finite flag
             for group in self.optimizer.param_groups:
                 group["capturable"] = True
         self.strategy.sync_params(self.model)
         _init_adam_state(self.optimizer)
+        _init_sgd_state(self.optimizer)
         return TrainState(
             step=0,
             scaler=self.scaler.init(dev) if self.scaler else None,
@@ -251,13 +274,15 @@ class Trainer:
         tensors (placed on the strategy's device)."""
         model, params = self.model, self._params
         model.train(True)
-        batch = self.policy.cast_to_compute(self.strategy.place_batch(batch))
+        accum = self.grad_accum_steps
+        batch = self.policy.cast_to_compute(
+            self.strategy.place_batch(batch, accum))
         scaling = self._scaling
         for p in params:
             p.grad = None
 
         losses, per_mb = [], []
-        for mb in _microbatches(batch, self.grad_accum_steps):
+        for mb in _microbatches(batch, accum):
             loss, metrics = self.loss_fn(model, mb, True)
             (self.scaler.scale(loss, state.scaler) if scaling
              else loss).backward()
@@ -265,7 +290,6 @@ class Trainer:
             per_mb.append({k: v.detach() for k, v in metrics.items()})
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
-        accum = len(losses)
         if accum > 1:
             grads = [g / accum for g in grads]
         grads = self.strategy.reduce_grads(grads)
