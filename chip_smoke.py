@@ -20,8 +20,9 @@ printing one JSON line per phase:
                 plain version's time, the least time the card could take
                 (bound) and one PyTorch library call's time for comparison,
                 SDPA timed under each backend that takes the call (B7 paged
-                decode on three length sets: ragged, around its split
-                boundaries, and the serve phase's lengths; B1-B3 causal
+                decode on four length sets: ragged, around its split
+                boundaries, the serve phase's lengths, and the spec step's
+                verify window over them, 4 rows a chain; B1-B3 causal
                 flash forward, dq, dk/dv, with a ragged T, fp16 and D=128
                 checked too; B4-B6 position-masked flash forward, dq, dk/dv
                 on every position pattern a ring hop gives them, with a
@@ -32,11 +33,28 @@ printing one JSON line per phase:
   parity        GPT-2 125M at full width, fp32, paged cache: the engine's
                 greedy tokens equal the argmax of the port's own uncached
                 forward, and every decode step of every layer launched B7;
+  spec_parity   GPT-2 125M at full width, fp32, TF32 off, 8 requests on the
+                slotted and the paged cache: speculative greedy streams
+                (spec_k 3; a 6-layer self-draft, and a separate distilgpt2-
+                shaped draft holding the target's first six layers) equal
+                the plain scheduler's, with equal accept counts in every
+                round; a mid-stream swap of equal weights changes nothing
+                and keeps every data_ptr; B7 launches draft_layers x k +
+                n_layer times a paged self-draft round and n_layer times a
+                draft-model round;
   serve         serving's main path: GPT-2 125M at full width in bf16, 16
                 requests with a shared prefix through the continuous-batching
                 scheduler over the paged cache;
   profile       torch.profiler over 10 decode steps of that engine: host wall
                 time against device busy time per step, and the top kernels;
+  serve_spec    the serve phase with spec_k 3 and a 6-layer self-draft:
+                tokens/s, spec-round p50/p99, TTFT, accept rate, tokens per
+                target forward, the share of streams equal to serve's, and
+                B7's launches (the self-draft's one-token forwards and the
+                verify window), which must be 30 a round;
+  spec_profile  as profile, over 10 spec rounds of that engine;
+  serve_example ``examples/serve_gpt2.py``'s ``main`` at GPT-2 125M's shape,
+                paged, 16 requests with a shared prefix, ``--spec-k 3``;
   train_parity  GPT-2 125M at full width, fp32 with TF32 off, B=2, T=1024,
                 3 steps: the trainer with the flash kernels against the same
                 trainer with dense attention (losses, step-1 gradients), and
@@ -101,6 +119,7 @@ from __future__ import annotations
 
 import contextlib
 import importlib
+import io
 import json
 import re
 import socket
@@ -120,9 +139,13 @@ from torch.profiler import ProfilerActivity, profile, schedule
 
 from pytorch_distributed_tpu_torch import bench
 from pytorch_distributed_tpu_torch import distributed as pdist
-from pytorch_distributed_tpu_torch.examples import train_gpt2, train_resnet_ddp
+from pytorch_distributed_tpu_torch.examples import (
+    serve_gpt2,
+    train_gpt2,
+    train_resnet_ddp,
+)
 from pytorch_distributed_tpu_torch.mesh import init_device_mesh
-from pytorch_distributed_tpu_torch.models import GPT2Config, gpt2_125m
+from pytorch_distributed_tpu_torch.models import GPT2, GPT2Config, gpt2_125m
 from pytorch_distributed_tpu_torch.ops import _build
 from pytorch_distributed_tpu_torch.ops import chunked_xent
 from pytorch_distributed_tpu_torch.ops import paged_attention as pa
@@ -136,6 +159,7 @@ from pytorch_distributed_tpu_torch.parallel import (
 from pytorch_distributed_tpu_torch.serving import (
     InferenceEngine,
     Request,
+    SamplingParams,
     Scheduler,
 )
 from pytorch_distributed_tpu_torch.trainer import (
@@ -159,6 +183,14 @@ PEAKS = (
     ("H100 NVL", (835e12, 60e12, 3.9e12)),
     ("H100", (989e12, 67e12, 3.35e12)),
 )
+
+# speculative serving on the card: draft tokens a round proposes, and the
+# self-draft's layers (the first half of GPT-2 125M's 12)
+SPEC_K = 3
+DRAFT_LAYERS = 6
+SERVE_KW = dict(n_slots=8, max_len=1024, prefill_len=128, cache_kind="paged",
+                page_size=16)
+SERVE_NEW_TOKENS = 64
 
 KERNEL_SOURCE = "pytorch_distributed_tpu_torch/ops/csrc/paged_decode_attention.cu"
 KERNEL_REPLACES = "pytorch_distributed_tpu/ops/paged_attention.py:128"
@@ -262,13 +294,16 @@ def _decode_tables(lengths, trash_row, B, M, page, P, g):
 
 def kernel_phase():
     """B7 at GPT-2 125M geometry (H=12, D=64, page 16, 8 sequences, 64 table
-    entries) on three length sets: ``ragged`` (this phase's first set: an
+    entries) on four length sets: ``ragged`` (this phase's first set: an
     all-zero trash row, lengths 0 to 1023); ``split_boundaries`` (one split
     of the kernel minus one position, exactly one, one plus one, two, a
     live row of length 0, a chain that fills every table entry, and the
     trash row); ``serve`` (the serve phase's decode lengths: prompts of
-    40-96 tokens plus 0-64 generated). Each is checked against the plain
-    version in fp32 and bf16 and timed in bf16 (and fp32 on ``ragged``):
+    40-96 tokens plus 0-64 generated); ``verify`` (the spec step's verify
+    window at spec_k = 3 over the serve chains: 4 rows a chain at
+    positions base .. base + 3, the chain's table row repeated, 32 rows).
+    Each is checked against the plain version in fp32 and bf16 and timed
+    in bf16 (and fp32 on ``ragged`` and ``verify``):
     CUDA-event medians with the L2 flushed, and ``device_ms``, the split
     and merge kernels' own time from torch.profiler (each also alone).
     Then checks alone of the other head sizes (B=4, H=2, 16 table
@@ -280,26 +315,35 @@ def kernel_phase():
     g = torch.Generator().manual_seed(0)
     span = pa.pages_per_split(page) * page   # positions of one split
     rng = np.random.default_rng(13)
-    length_sets = {  # name: (lengths, trash row)
-        "ragged": ([0, 1, 15, 16, 17, 300, 1023, 0], 7),
+    serve_lengths = [int(rng.integers(40, 97)) + int(rng.integers(0, 65))
+                     for _ in range(B)]
+    length_sets = {  # name: (chain lengths, trash row, rows per chain)
+        "ragged": ([0, 1, 15, 16, 17, 300, 1023, 0], 7, 1),
         "split_boundaries": ([span - 1, span, span + 1, 2 * span, 0, S - 1,
-                              2 * span - 1, 0], 7),
-        "serve": ([int(rng.integers(40, 97)) + int(rng.integers(0, 65))
-                   for _ in range(B)], None),
+                              2 * span - 1, 0], 7, 1),
+        "serve": (serve_lengths, None, 1),
+        "verify": (serve_lengths, None, SPEC_K + 1),
     }
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     _, fp32_peak, hbm = peaks()
     results = {}
-    for set_name, (lens_list, trash_row) in length_sets.items():
-        lengths = torch.tensor(lens_list, dtype=torch.int32)
-        tables = _decode_tables(lengths, trash_row, B, M, page, P, g)
+    for set_name, (chain_lens, trash_row, n_rows) in length_sets.items():
+        # row r of chain b sits at position chain_lens[b] + r
+        chains = torch.tensor(chain_lens, dtype=torch.int32)
+        tables = _decode_tables(chains + n_rows - 1, trash_row, B, M, page,
+                                P, g).repeat_interleave(n_rows, dim=0)
+        lengths = (chains[:, None] + torch.arange(n_rows, dtype=torch.int32)
+                   ).reshape(-1)
+        nb = lengths.shape[0]
         last = torch.clamp(lengths.long(), max=S - 1)
-        n_visible = int((last + 1).sum())              # K/V rows the query reads
-        n_entries = int((last // page + 1).sum())      # table entries it reads
+        chain_last = torch.clamp(chains.long() + n_rows - 1, max=S - 1)
+        n_visible = int((last + 1).sum())              # K/V rows the rows read
+        n_unique = int((chain_last + 1).sum())         # K/V rows of the chains
+        n_entries = int((last // page + 1).sum())      # table entries read
         per_set = {}
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).removeprefix("torch.")
-            q = torch.randn(B, 1, H, D, generator=g).to(dtype).cuda()
+            q = torch.randn(nb, 1, H, D, generator=g).to(dtype).cuda()
             kp = torch.randn(P, page, H, D, generator=g).to(dtype).cuda()
             vp = torch.randn(P, page, H, D, generator=g).to(dtype).cuda()
             tbl, lens = tables.cuda(), lengths.cuda()
@@ -313,14 +357,15 @@ def kernel_phase():
                   f"kernel vs plain version in {name}, {set_name} lengths: "
                   f"max_abs_err {err}")
             per_set[name] = {"max_abs_err": err, "tolerance": tol}
-            if dtype == torch.float32 and set_name != "ragged":
+            if dtype == torch.float32 and set_name not in ("ragged",
+                                                           "verify"):
                 continue
 
             # library yardstick: SDPA over a dense view gathered beforehand
             # (the gather is excluded from its time), masked to positions <=
             # length
-            kd = kp[tbl.long()].reshape(B, S, H, D).transpose(1, 2).contiguous()
-            vd = vp[tbl.long()].reshape(B, S, H, D).transpose(1, 2).contiguous()
+            kd = kp[tbl.long()].reshape(nb, S, H, D).transpose(1, 2).contiguous()
+            vd = vp[tbl.long()].reshape(nb, S, H, D).transpose(1, 2).contiguous()
             qd = q.transpose(1, 2).contiguous()
             mask = (torch.arange(S, device="cuda")[None, :]
                     <= lens.long()[:, None])
@@ -329,9 +374,10 @@ def kernel_phase():
             lib_err = (lib_out.transpose(1, 2).float()
                        - ref.float()).abs().max().item()
 
+            # each K/V row of a chain read once, however many rows read it
             elt = q.element_size()
-            n_bytes = (2 * n_visible * H * D * elt + 2 * B * H * D * elt
-                       + 4 * n_entries + 4 * B)
+            n_bytes = (2 * n_unique * H * D * elt + 2 * nb * H * D * elt
+                       + 4 * n_entries + 4 * nb)
             n_flops = 4 * n_visible * H * D
             t_bytes = n_bytes / hbm * 1e3
             t_ops = n_flops / fp32_peak * 1e3
@@ -355,7 +401,8 @@ def kernel_phase():
             })
             per_set[name]["device_ms"] = (per_set[name]["split_device_ms"]
                                           + per_set[name]["merge_device_ms"])
-        results[set_name] = {"lengths": lens_list, "trash_row": trash_row,
+        results[set_name] = {"lengths": lengths.tolist(),
+                             "trash_row": trash_row, "rows": nb,
                              "visible_positions": n_visible, **per_set}
     checks = {}
     for cname, (Dc, dtype) in {"float32_D60": (60, torch.float32),
@@ -423,29 +470,33 @@ def parity_phase():
           f"kernel launches {launches} != n_layer x decode steps {expected}")
 
 
-def serve_phase():
-    """The main path: bf16 GPT-2 125M serving 16 shared-prefix requests."""
-    model = gpt2_125m(device="cuda", seed=1, dtype=torch.bfloat16)
-    cfg = model.cfg
-    kw = dict(n_slots=8, max_len=1024, prefill_len=128, cache_kind="paged",
-              page_size=16)
-    engine = InferenceEngine(model, **kw)
+def _serve_requests(vocab: int):
+    """The serve phases' requests (seed 2): a warm-up prompt of 40 tokens,
+    then 16 prompts of one 32-token shared prefix plus 8-64 random
+    tokens."""
     rng = np.random.default_rng(2)
-    # warm-up on a throwaway scheduler (its own cache and radix tree)
+    warm = rng.integers(0, vocab, 40)
+    shared = rng.integers(0, vocab, 32)
+    prompts = [np.concatenate([shared, rng.integers(0, vocab,
+                                                    int(rng.integers(8, 65)))])
+               for _ in range(16)]
+    return warm, shared, prompts
+
+
+def _serve_run(engine):
+    """Warm-up on a throwaway scheduler (its own cache and radix tree), then
+    the 16 requests on a fresh one, B7's count set to 0 just before and read
+    just after. Returns the scheduler, the finished requests, the wall
+    time, B7's launches, the shared prefix and the prompts."""
+    warm_prompt, shared, prompts = _serve_requests(engine.cfg.vocab_size)
     warm = Scheduler(engine, emit_events=False)
-    warm.submit(Request(prompt=rng.integers(0, cfg.vocab_size, 40),
-                        max_new_tokens=4))
+    warm.submit(Request(prompt=warm_prompt, max_new_tokens=4))
     warm.run()
     del warm
 
     sched = Scheduler(engine, emit_events=False)
-    shared = rng.integers(0, cfg.vocab_size, 32)
-    n_req, n_new = 16, 64
-    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size,
-                                                    int(rng.integers(8, 65)))])
-               for _ in range(n_req)]
     for p in prompts:
-        sched.submit(Request(prompt=p, max_new_tokens=n_new))
+        sched.submit(Request(prompt=p, max_new_tokens=SERVE_NEW_TOKENS))
     torch.cuda.synchronize()
     pa.launches = 0
     t0 = time.perf_counter()
@@ -453,13 +504,30 @@ def serve_phase():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = pa.launches
-    stats = sched.stats()
     sched.allocator.check()
+    check(len(finished) == len(prompts),
+          f"{len(finished)} of {len(prompts)} requests done")
+    check(all(len(f.tokens) == SERVE_NEW_TOKENS and f.reason == "length"
+              and all(0 <= t < engine.cfg.vocab_size for t in f.tokens)
+              for f in finished), "a request's tokens are short or out of vocab")
+    check(int(sched.allocator.reserved.sum()) == 0, "reservations not drained")
+    return sched, finished, wall, launches, shared, prompts
+
+
+def serve_phase():
+    """The main path: bf16 GPT-2 125M serving 16 shared-prefix requests."""
+    model = gpt2_125m(device="cuda", seed=1, dtype=torch.bfloat16)
+    cfg = model.cfg
+    engine = InferenceEngine(model, **SERVE_KW)
+    sched, finished, wall, launches, shared, prompts = _serve_run(engine)
+    stats = sched.stats()
     emit({"phase": "serve", "model": "gpt2-125m", "dtype": "bfloat16",
-          "n_slots": kw["n_slots"], "max_len": kw["max_len"],
-          "page_size": kw["page_size"], "prefill_len": kw["prefill_len"],
-          "requests": n_req, "shared_prefix": len(shared),
-          "prompt_lens": [len(p) for p in prompts], "new_tokens": n_new,
+          "n_slots": SERVE_KW["n_slots"], "max_len": SERVE_KW["max_len"],
+          "page_size": SERVE_KW["page_size"],
+          "prefill_len": SERVE_KW["prefill_len"],
+          "requests": len(prompts), "shared_prefix": len(shared),
+          "prompt_lens": [len(p) for p in prompts],
+          "new_tokens": SERVE_NEW_TOKENS,
           "finished": len(finished), "wall_s": wall,
           "tokens_per_s": stats["tokens_generated"] / wall,
           "decode_step_p50_s": stats["decode_step_p50_s"],
@@ -468,15 +536,212 @@ def serve_phase():
           "radix_hits": stats["radix_hits"],
           "prefill_tokens_cached": stats["prefill_tokens_cached"],
           "decode_steps": sched.decode_steps, "kernel_launches": launches})
-    check(len(finished) == n_req, f"{len(finished)} of {n_req} requests done")
-    check(all(len(f.tokens) == n_new and f.reason == "length"
-              and all(0 <= t < cfg.vocab_size for t in f.tokens)
-              for f in finished), "a request's tokens are short or out of vocab")
-    check(int(sched.allocator.reserved.sum()) == 0, "reservations not drained")
-    check(stats["radix_hits"] >= n_req - 1, "shared prefix missed the radix")
+    check(stats["radix_hits"] >= len(prompts) - 1,
+          "shared prefix missed the radix")
     check(launches == cfg.n_layer * sched.decode_steps > 0,
           f"kernel launches {launches} != n_layer x decode steps")
+    return launches, engine, {f.request_id: f.tokens for f in finished}
+
+
+def serve_spec_phase(model, serve_streams):
+    """Speculative serving's main path: the serve phase's model, requests
+    and warm-up with ``spec_k = 3`` and a 6-of-12-layer self-draft. Every
+    spec round launches B7 ``DRAFT_LAYERS * SPEC_K`` times for the draft's
+    one-token forwards and ``n_layer`` times for the verify window; prefill
+    launches none. In bf16 the verify window's logits come from another
+    arithmetic path than a one-token step's, so the share of streams equal
+    to the serve phase's is reported, with no limit."""
+    cfg = model.cfg
+    engine = InferenceEngine(model, spec_k=SPEC_K, draft_layers=DRAFT_LAYERS,
+                             **SERVE_KW)
+    sched, finished, wall, launches, shared, prompts = _serve_run(engine)
+    stats = sched.stats()
+    streams = {f.request_id: f.tokens for f in finished}
+    per_round = DRAFT_LAYERS * SPEC_K + cfg.n_layer
+    emit({"phase": "serve_spec", "model": "gpt2-125m", "dtype": "bfloat16",
+          "spec_k": SPEC_K, "draft_layers": DRAFT_LAYERS,
+          "requests": len(prompts), "new_tokens": SERVE_NEW_TOKENS,
+          "finished": len(finished), "wall_s": wall,
+          "tokens_per_s": stats["tokens_generated"] / wall,
+          "spec_round_p50_s": stats["decode_step_p50_s"],
+          "spec_round_p99_s": stats["decode_step_p99_s"],
+          "ttft_p50_s": stats["ttft_p50_s"],
+          "accept_rate": stats["accept_rate"],
+          "tokens_per_target_forward": stats["tokens_per_target_forward"],
+          "tokens_per_slot_round": 1 + stats["accept_rate"] * SPEC_K,
+          "spec_rounds": sched.decode_steps,
+          "kernel_launches": launches,
+          "expected_launches": per_round * sched.decode_steps,
+          "streams_equal_to_serve": sum(
+              streams[r] == serve_streams[r] for r in serve_streams)
+          / len(serve_streams)})
+    check(launches == per_round * sched.decode_steps > 0,
+          f"serve_spec: B7 launches {launches} != "
+          f"(draft_layers x k + n_layer) x rounds = "
+          f"{per_round * sched.decode_steps}")
     return launches, engine
+
+
+def _spec_parity_run(engine, prompts, n_new, swap_at=None):
+    """Serve ``prompts`` on ``engine`` (B7's count from 0), recording each
+    spec round's per-slot counts; at step ``swap_at`` swap in clones of the
+    current parameters (and the draft's) and check that every parameter
+    kept its ``data_ptr``."""
+    sched = Scheduler(engine, emit_events=False)
+    rounds = []
+    if engine.spec_k:
+        spec_decode = engine.spec_decode
+
+        def recorded(*args):
+            out = spec_decode(*args)
+            rounds.append(out[3].tolist())
+            return out
+        engine.spec_decode = recorded
+    for p in prompts:
+        sched.submit(Request(prompt=p, max_new_tokens=n_new))
+    models = [m for m in (engine.model, engine.draft_model) if m is not None]
+    swap = None
+    finished = []
+    torch.cuda.synchronize()
+    pa.launches = 0
+    while sched.has_work:
+        finished.extend(sched.step())
+        if sched.decode_steps == swap_at and swap is None:
+            ptrs = [p.data_ptr() for m in models for p in m.parameters()]
+            clones = [{n: t.clone() for n, t in m.state_dict().items()}
+                      for m in models]
+            cost = sched.swap_params(*clones[:1], draft_params=(
+                clones[1] if len(clones) > 1 else None))
+            swap = {"at_step": swap_at, "bytes_moved": cost.bytes_moved,
+                    "data_ptr_unchanged": ptrs == [
+                        p.data_ptr() for m in models for p in m.parameters()]}
+    torch.cuda.synchronize()
+    launches = pa.launches
+    return sched, {f.request_id: f.tokens for f in finished}, launches, \
+        rounds, swap
+
+
+def spec_parity_phase():
+    """GPT-2 125M at full width, fp32, TF32 off: 8 requests of 24-72
+    tokens, 32 new tokens each, on the slotted and the paged cache (page
+    16). With spec_k = 3, the self-draft (6 layers) and the separate draft
+    model (distilgpt2's shape, 6 x 768, its weights the target's first six
+    layers with wte, wpe and ln_f) give the plain scheduler's greedy
+    streams token for token, and the same accept counts in every round. On
+    the paged cache each spec run swaps in equal weights after its third
+    round (every ``data_ptr`` kept, streams unchanged); B7 launches
+    ``DRAFT_LAYERS * SPEC_K + n_layer`` times a self-draft round and
+    ``n_layer`` times a draft-model round (its draft cache is slotted), and
+    the slotted runs launch it never; after the drain every reservation
+    and every non-radix page is back in the pool. Last, one paged
+    self-draft run samples (temperature 0.8, top-k 40): leftover sampling
+    on the card fills every budget with tokens of the vocab."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = gpt2_125m(device="cuda", seed=0)
+    cfg = model.cfg
+    draft = GPT2(GPT2Config(n_layer=DRAFT_LAYERS), device="cuda", seed=1)
+    target_state = model.state_dict()
+    draft_params = {n: target_state[n] for n in draft.state_dict()}
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(24, 73)))
+               for _ in range(8)]
+    n_new = 32
+    out = {}
+    for kind in ("slotted", "paged"):
+        kw = dict(SERVE_KW, cache_kind=kind)
+        swap_at = 3 if kind == "paged" else None
+        _, plain, plain_launches, _, _ = _spec_parity_run(
+            InferenceEngine(model, **kw), prompts, n_new)
+        runs = {}
+        for flavour, spec_kw, per_round in (
+                ("self_draft", dict(draft_layers=DRAFT_LAYERS),
+                 DRAFT_LAYERS * SPEC_K + cfg.n_layer),
+                ("draft_model", dict(draft_model=draft,
+                                     draft_params=draft_params),
+                 cfg.n_layer)):
+            sched, streams, launches, rounds, swap = _spec_parity_run(
+                InferenceEngine(model, spec_k=SPEC_K, **spec_kw, **kw),
+                prompts, n_new, swap_at)
+            stats = sched.stats()
+            expected = per_round * sched.decode_steps if kind == "paged" \
+                else 0
+            runs[flavour] = {
+                "streams_equal": streams == plain, "rounds": len(rounds),
+                "accept_rate": stats["accept_rate"],
+                "tokens_per_target_forward":
+                    stats["tokens_per_target_forward"],
+                "launches": launches, "expected_launches": expected,
+                "swap": swap, "round_counts": rounds}
+            check(streams == plain,
+                  f"spec_parity {kind} {flavour}: greedy streams differ from "
+                  f"the plain scheduler's")
+            check(launches == expected,
+                  f"spec_parity {kind} {flavour}: B7 launches {launches} != "
+                  f"{expected}")
+            if swap is not None:
+                check(swap["data_ptr_unchanged"] and swap["bytes_moved"] > 0,
+                      f"spec_parity {kind} {flavour}: swap {swap}")
+            if kind == "paged":
+                alloc = sched.allocator
+                alloc.check()
+                pinned = int((alloc.refcount[1:] > 0).sum())
+                check(int(alloc.reserved.sum()) == 0
+                      and alloc.free_pages == alloc.n_pages - 1 - pinned,
+                      f"spec_parity {kind} {flavour}: pages not returned")
+        check(runs["draft_model"]["round_counts"]
+              == runs["self_draft"]["round_counts"],
+              f"spec_parity {kind}: the draft model's accept counts differ "
+              f"from the self-draft's")
+        for r in runs.values():
+            del r["round_counts"]
+        out[kind] = {"plain_launches": plain_launches, **runs}
+    # leftover sampling on the card (uniforms and leftover draws from a
+    # CUDA generator): every budget filled, every token in the vocab
+    sched, streams, launches, _, _ = _spec_parity_run(
+        InferenceEngine(model, spec_k=SPEC_K, draft_layers=DRAFT_LAYERS,
+                        sampling=SamplingParams(temperature=0.8, top_k=40),
+                        seed=5, **SERVE_KW), prompts, n_new)
+    per_round = DRAFT_LAYERS * SPEC_K + cfg.n_layer
+    out["sampled"] = {"temperature": 0.8, "top_k": 40,
+                      "rounds": sched.decode_steps,
+                      "accept_rate": sched.stats()["accept_rate"],
+                      "launches": launches}
+    check(len(streams) == len(prompts)
+          and all(len(t) == n_new and all(0 <= x < cfg.vocab_size for x in t)
+                  for t in streams.values())
+          and launches == per_round * sched.decode_steps,
+          f"spec_parity sampled: {out['sampled']}")
+    emit({"phase": "spec_parity", "dtype": "float32", "spec_k": SPEC_K,
+          "draft_layers": DRAFT_LAYERS, "requests": len(prompts),
+          "prompt_lens": [len(p) for p in prompts], "new_tokens": n_new,
+          **out})
+
+
+def serve_example_phase():
+    """The entry point ``examples.serve_gpt2``'s ``main`` at GPT-2 125M's
+    shape, paged, with a 16-token shared prefix and ``--spec-k 3`` (its
+    default draft: 6 of 12 layers), bf16 on the card: it returns 0 and
+    prints its accept-rate line."""
+    argv = ["--layers", "12", "--embd", "768", "--heads", "12", "--vocab",
+            "50257", "--seq-len", "1024", "--cache", "paged", "--page-size",
+            "16", "--shared-prefix", "16", "--slots", "8", "--prefill-len",
+            "128", "--requests", "16", "--max-new-tokens", "64", "--spec-k",
+            "3"]
+    buf = io.StringIO()
+    pa.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_gpt2.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    spec = [ln for ln in lines if ln.startswith("spec k=3: accept-rate")]
+    emit({"phase": "serve_example", "argv": argv, "returned": rc,
+          "wall_s": wall, "kernel_launches": pa.launches,
+          "summary": lines[lines.index("") + 1:] if "" in lines else lines})
+    check(rc == 0 and len(spec) == 1 and pa.launches > 0,
+          f"serve_example returned {rc}, printed {lines[-4:]}")
 
 
 def _device_kernels(prof):
@@ -491,15 +756,16 @@ def _device_kernels(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def profile_phase(engine):
+def profile_phase(engine, phase="profile", new_tokens=16):
     """Where a decode step's time goes: torch.profiler over 10 steady decode
-    steps of the serve engine at 8 active slots (host wall time vs device
-    busy time, and the top kernels by device time)."""
+    steps (spec rounds, for a speculative engine: ``spec_profile``) of the
+    serve engine at 8 active slots (host wall time vs device busy time, B7's
+    time and launches, and the top kernels by device time)."""
     rng = np.random.default_rng(3)
     sched = Scheduler(engine, emit_events=False)
     for _ in range(engine.n_slots):
         sched.submit(Request(prompt=rng.integers(0, engine.cfg.vocab_size, 48),
-                             max_new_tokens=16))
+                             max_new_tokens=new_tokens))
     sched.step()  # admissions and the first decode stay outside the window
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -518,8 +784,12 @@ def profile_phase(engine):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     paged_ms = sum(e.self_device_time_total for e in kernels
                    if "paged_decode" in e.key) / 1e3
+    paged_calls = sum(e.count for e in kernels
+                      if "paged_decode_split" in e.key)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    emit({"phase": "profile", "decode_steps": n_steps,
+    emit({"phase": phase, "decode_steps": n_steps,
+          "active_slots": int(sched.active.sum()),
+          "paged_decode_launches_per_step": paged_calls / n_steps,
           "wall_ms_per_step": wall_ms / n_steps,
           "device_busy_ms_per_step": busy_ms / n_steps,
           "device_busy_share": busy_ms / wall_ms,
@@ -1879,10 +2149,15 @@ def main() -> int:
     mres = masked_kernel_phase(resources)
     cp_hops_phase()
     parity_phase()
+    spec_parity_phase()
     torch.cuda.empty_cache()
-    launches, engine = serve_phase()
+    launches, engine, serve_streams = serve_phase()
     profile_phase(engine)
-    del engine
+    spec_launches, spec_engine = serve_spec_phase(engine.model, serve_streams)
+    profile_phase(spec_engine, phase="spec_profile",
+                  new_tokens=SERVE_NEW_TOKENS)
+    del engine, spec_engine
+    serve_example_phase()
     torch.cuda.empty_cache()
     parity_batches, dense = train_parity_phase()
     train_launches, train_result = train_phase()
@@ -1915,6 +2190,7 @@ def main() -> int:
 
     main_dtype = kres["ragged"]["bfloat16"]  # the serve phase runs in bf16
     serve_set = kres["serve"]["bfloat16"]
+    verify_set = kres["verify"]["bfloat16"]
     summary = [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -1935,6 +2211,15 @@ def main() -> int:
         "serve_lengths_device_ms": serve_set["device_ms"],
         "serve_lengths_bound_ms": serve_set["bound_ms"],
         "serve_lengths_library_ms": serve_set["library_ms"],
+        "spec_launches": spec_launches,
+        "verify_rows": kres["verify"]["rows"],
+        "verify_max_abs_err": verify_set["max_abs_err"],
+        "verify_ms": verify_set["ms"],
+        "verify_device_ms": verify_set["device_ms"],
+        "verify_plain_ms": verify_set["plain_ms"],
+        "verify_bound_ms": verify_set["bound_ms"],
+        "verify_library_ms": verify_set["library_ms"],
+        "verify_fp32_ms": kres["verify"]["float32"]["ms"],
     }]
     n_layer = GPT2Config().n_layer
     for name, key, replaces in FLASH_KERNELS:

@@ -7,8 +7,9 @@ context-parallel training (``parallel.context_parallel`` over
 ``distributed`` and ``mesh``); their kernels are written in CUDA C++
 (``ops/csrc``). Slice 8 is ResNet training under ``DataParallel``
 (``models.resnet``, ``examples.train_resnet_ddp``, the bench twin
-``bench``), on cuDNN and cuBLAS. Entry points run on the card unless the
-caller passes ``device="cpu"``.
+``bench``), on cuDNN and cuBLAS. Slice 9 is speculative decoding, live
+weight swaps and the serving entry point ``examples.serve_gpt2``. Entry
+points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from pytorch_distributed_tpu_torch._device import resolve_device  # noqa: F401

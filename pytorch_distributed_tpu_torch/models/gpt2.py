@@ -19,8 +19,10 @@ the backward (``torch.utils.checkpoint``, full per-block remat).
 The cached forward (``kv_cache=...``) updates the cache in place. On the
 paged cache, a one-token step (decode) scatters the new K/V through the
 block table and runs ``ops.paged_decode_attention`` -- the CUDA kernel on
-the card -- while a longer window (prefill) runs the plain
-``paged_cached_attention``; the slotted cache runs ``cached_attention``.
+the card. So does a speculative verify window (``verify=True``): its T
+tokens become T rows of the kernel, each attending up to its own position.
+A prefill window runs the plain ``paged_cached_attention``; the slotted
+cache runs ``cached_attention``.
 """
 
 from __future__ import annotations
@@ -134,14 +136,15 @@ class SelfAttention(nn.Module):
         if layer_cache is None:
             attn = cfg.attn_impl or default_attention
             y = attn(q, k, v, causal=True)
-        elif len(layer_cache) == 3:
-            k_pages, v_pages, tables = layer_cache
-            if T == 1:
-                pos = position_offset.long()[:, None]
+        elif len(layer_cache) == 4:
+            k_pages, v_pages, tables, rows = layer_cache
+            if rows is not None:
+                pos, row_tables, row_pos = rows
                 _scatter_new(k_pages, k, tables, pos)
                 _scatter_new(v_pages, v, tables, pos)
-                y = paged_decode_attention(q, k_pages, v_pages, tables,
-                                           position_offset)
+                y = paged_decode_attention(
+                    q.reshape(B * T, 1, H, D), k_pages, v_pages, row_tables,
+                    row_pos).view(B, T, H, D)
             else:
                 y, _, _ = paged_cached_attention(
                     q, k, v, k_pages, v_pages, tables, position_offset)
@@ -216,7 +219,16 @@ class GPT2(nn.Module):
     sequence), each block attends over its cache instead of the T x T causal
     window, and the call returns ``(logits, kv_cache)`` with the cache
     updated in place. Prefill is this path at T = padded prompt length,
-    decode at T = 1.
+    decode at T = 1. ``verify=True`` marks a speculative verify window
+    (the engine's spec step sets it): on a paged cache its T tokens run
+    through the decode kernel as T rows, where a prefill window runs the
+    plain gather.
+
+    ``n_layers`` (cached path only) truncates the stack to the first N
+    blocks, then ``ln_f`` and the tied head: the self-drafting draft of
+    speculative decoding. Those blocks compute what the full forward
+    computes there, so the draft shares the target's cache and writes only
+    the first N layers' K/V.
 
     ``device=None`` means the CUDA card (and raises without one); weights
     are drawn from a ``torch.Generator`` seeded with ``seed`` on that device.
@@ -267,14 +279,14 @@ class GPT2(nn.Module):
         return logits.reshape(*x.shape[:-1], w.shape[0])
 
     def forward(self, tokens, *, return_hidden: bool = False, kv_cache=None,
-                position_offset=None, n_layers=None):
-        if n_layers is not None:
-            raise NotImplementedError(
-                "n_layers (the self-drafting draft forward) comes with "
-                "speculative decoding, ROADMAP A.15"
-            )
+                position_offset=None, n_layers=None, verify: bool = False):
         if kv_cache is not None:
-            return self._cached_forward(tokens, kv_cache, position_offset)
+            return self._cached_forward(tokens, kv_cache, position_offset,
+                                        n_layers=n_layers, verify=verify)
+        if n_layers is not None:
+            raise ValueError(
+                "n_layers (truncated draft forward) requires kv_cache"
+            )
         cfg = self.cfg
         T = tokens.shape[1]
         if T > cfg.n_positions:
@@ -293,7 +305,8 @@ class GPT2(nn.Module):
             return x
         return self._head(x)
 
-    def _cached_forward(self, tokens, kv_cache, position_offset
+    def _cached_forward(self, tokens, kv_cache, position_offset, *,
+                        n_layers=None, verify=False
                         ) -> Tuple[torch.Tensor, object]:
         cfg = self.cfg
         B, T = tokens.shape
@@ -301,6 +314,11 @@ class GPT2(nn.Module):
             raise ValueError(
                 f"kv_cache has {kv_cache.k.shape[0]} layers, model has "
                 f"{cfg.n_layer}"
+            )
+        nl = cfg.n_layer if n_layers is None else int(n_layers)
+        if not (1 <= nl <= cfg.n_layer):
+            raise ValueError(
+                f"n_layers {nl} must be in [1, n_layer={cfg.n_layer}]"
             )
         if position_offset is None:
             position_offset = torch.zeros(B, dtype=torch.int32,
@@ -310,14 +328,25 @@ class GPT2(nn.Module):
         # rows are discarded by the engine)
         pos = position_offset.long()[:, None] + torch.arange(
             T, device=tokens.device)
-        pos = pos.clamp(max=cfg.n_positions - 1)
-        x = self.wte[tokens.long()].to(cfg.dtype) + self.wpe[pos].to(cfg.dtype)
+        x = (self.wte[tokens.long()].to(cfg.dtype)
+             + self.wpe[pos.clamp(max=cfg.n_positions - 1)].to(cfg.dtype))
         # duck-typed cache dispatch: a paged cache carries block tables
         tables = getattr(kv_cache, "block_tables", None)
-        for i, block in enumerate(self.h):
+        rows = None
+        if tables is not None and (T == 1 or verify):
+            # each new token is one row of the decode kernel: row (b, t)
+            # sits at position offset[b] + t and reads positions <= it
+            # through its sequence's table, the causal mask of the window;
+            # rows = (write positions [B, T], row tables, row positions)
+            if T == 1:
+                rows = (pos, tables, position_offset)
+            else:
+                rows = (pos, tables.repeat_interleave(T, dim=0),
+                        pos.reshape(-1).to(torch.int32))
+        for i, block in enumerate(self.h[:nl]):
             layer_cache = (
-                (kv_cache.k[i], kv_cache.v[i], tables) if tables is not None
-                else (kv_cache.k[i], kv_cache.v[i])
+                (kv_cache.k[i], kv_cache.v[i], tables, rows)
+                if tables is not None else (kv_cache.k[i], kv_cache.v[i])
             )
             x = block(x, layer_cache=layer_cache,
                       position_offset=position_offset)

@@ -32,8 +32,8 @@ def cached_attention(
     Args:
       q, k_new, v_new: ``[B, T, H, D]`` projections for the T new tokens.
       k_cache, v_cache: ``[B, S, H, D]`` per-slot cache, updated in place.
-        Every write position ``offset .. offset+T-1`` must lie below S (the
-        engine guarantees it; torch raises where JAX drops the write).
+        A write at a position ``>= S`` is dropped, as JAX's ``.at[].set``
+        drops it (a speculative window near the end of a slot).
       position_offset: ``[B]`` int32 global position of each sequence's
         first new token.
 
@@ -43,9 +43,10 @@ def cached_attention(
     B, T, H, D = q.shape
     S = k_cache.shape[1]
     pos = position_offset.long()[:, None] + torch.arange(T, device=q.device)
-    b_idx = torch.arange(B, device=q.device)[:, None]
-    k_cache[b_idx, pos] = k_new.to(k_cache.dtype)
-    v_cache[b_idx, pos] = v_new.to(v_cache.dtype)
+    b_idx = torch.arange(B, device=q.device)[:, None].expand(B, T)
+    keep = pos < S
+    k_cache[b_idx[keep], pos[keep]] = k_new[keep].to(k_cache.dtype)
+    v_cache[b_idx[keep], pos[keep]] = v_new[keep].to(v_cache.dtype)
 
     scale = 1.0 / torch.sqrt(torch.tensor(float(D))).to(q.dtype)
     scores = torch.einsum("bthd,bshd->bhts", q, k_cache.to(q.dtype)) * scale

@@ -1,9 +1,10 @@
 """Serving: slotted and paged KV caches, inference engine, continuous
-batching scheduler."""
+batching scheduler, speculative decoding."""
 
 from pytorch_distributed_tpu_torch.serving.engine import (  # noqa: F401
     InferenceEngine,
     SamplingParams,
+    SwapCost,
     sample_tokens,
 )
 from pytorch_distributed_tpu_torch.serving.kv_cache import KVCache  # noqa: F401
@@ -13,8 +14,14 @@ from pytorch_distributed_tpu_torch.serving.scheduler import (  # noqa: F401
     Request,
     Scheduler,
 )
+from pytorch_distributed_tpu_torch.serving.speculative import (  # noqa: F401
+    DraftConfig,
+    greedy_accept,
+    rejection_accept,
+)
 
 __all__ = [
+    "DraftConfig",
     "FinishedRequest",
     "InferenceEngine",
     "KVCache",
@@ -22,5 +29,8 @@ __all__ = [
     "Request",
     "SamplingParams",
     "Scheduler",
+    "SwapCost",
+    "greedy_accept",
+    "rejection_accept",
     "sample_tokens",
 ]

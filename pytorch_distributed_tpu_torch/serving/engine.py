@@ -1,7 +1,8 @@
-"""Inference engine: prefill + decode steps over the port's GPT-2.
+"""Inference engine: prefill, decode and speculative steps over the port's
+GPT-2.
 
-Port of ``pytorch_distributed_tpu/serving/engine.py`` without speculative
-decoding, TP cache sharding or live weight swaps (ROADMAP A.15):
+Port of ``pytorch_distributed_tpu/serving/engine.py`` without TP cache
+sharding (ROADMAP A.15c):
 
   * ``prefill`` -- one request's padded prompt ``[1, bucket]`` runs through
     the cache-aware forward into ONE slot of the shared cache, and the first
@@ -13,13 +14,25 @@ decoding, TP cache sharding or live weight swaps (ROADMAP A.15):
     and only ACTIVE slots' lengths advance (free slots ride along as
     padding, so the batch shape never changes). On the paged cache each
     layer's attention is the CUDA paged-decode kernel.
+  * ``spec_decode`` -- speculative decoding (``spec_k > 0``): a draft (the
+    first ``draft_layers`` target layers, or a separate small model with
+    its own slotted cache) proposes k tokens per slot into cache positions
+    past each slot's length, then ONE target forward over the ``[S, k+1]``
+    window verifies them and a per-slot prefix is accepted (exact argmax
+    match when greedy, leftover sampling otherwise; see
+    ``serving.speculative``). ``lengths`` advances by ``accepts + 1``;
+    rejected positions keep their K/V bytes, masked and overwritten by the
+    next step. On the paged cache the self-draft's one-token forwards and
+    the verify window both run the paged-decode kernel.
+  * ``swap_params`` -- new weights, copied in place between steps.
 
-PyTorch runs eagerly, so the steps are plain methods; the cache is updated
-in place and returned for the reference's calling convention. Only sampled
-token ids cross to the host each step.
+PyTorch runs eagerly, so the steps are plain methods; the caches are
+updated in place and returned for the reference's calling convention. Only
+sampled token ids cross to the host each step.
 
-Parity anchor: with ``SamplingParams(temperature=0)`` the engine emits
-exactly the argmax of the full uncached forward at every step.
+Parity anchor: with ``SamplingParams(temperature=0)`` the engine, with or
+without speculation, emits exactly the argmax of the full uncached forward
+at every step.
 """
 
 from __future__ import annotations
@@ -33,11 +46,14 @@ import torch
 from pytorch_distributed_tpu_torch._device import resolve_device
 from pytorch_distributed_tpu_torch.serving.kv_cache import KVCache
 from pytorch_distributed_tpu_torch.serving.paging import PagedKVCache
-from pytorch_distributed_tpu_torch.serving.speculative import filtered_probs
+from pytorch_distributed_tpu_torch.serving.speculative import (
+    DraftConfig,
+    filtered_probs,
+    greedy_accept,
+    rejection_accept,
+)
 
-__all__ = ["SamplingParams", "InferenceEngine", "sample_tokens"]
-
-_NOT_PORTED = "is not ported yet (speculative decoding and TP serving, ROADMAP A.15)"
+__all__ = ["SamplingParams", "InferenceEngine", "SwapCost", "sample_tokens"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,13 +83,62 @@ def sample_tokens(
     Greedy takes the argmax (the first maximal id); otherwise the draw uses
     ``generator``, which lives on the logits' device.
     """
+    return _sample(logits, generator, sp)[0]
+
+
+def _sample(logits, generator, sp: SamplingParams):
+    """``sample_tokens``, and the filtered distribution the tokens were
+    drawn from (None when greedy): a speculative draft's proposal."""
     logits = logits.float()
     if sp.temperature <= 0.0:
-        return torch.argmax(logits, dim=-1)
+        return torch.argmax(logits, dim=-1), None
     probs = filtered_probs(
         logits, temperature=sp.temperature, top_k=sp.top_k, top_p=sp.top_p
     )
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return torch.multinomial(probs, 1, generator=generator)[:, 0], probs
+
+
+@dataclasses.dataclass(frozen=True)
+class SwapCost:
+    """What ``swap_params`` moved: the bytes copied into the parameters."""
+
+    bytes_moved: int
+
+
+def _check_state(model, state, what: str):
+    """``(parameter, new value)`` pairs of ``state`` (the model's own names;
+    torch tensors on any device, or numpy arrays) for ``model``: the same
+    names, shapes and dtypes as its parameters, or ``ValueError``."""
+    own = model.state_dict(keep_vars=True)
+    if set(own) != set(state):
+        missing = sorted(set(own) - set(state))
+        extra = sorted(set(state) - set(own))
+        raise ValueError(
+            f"swap_params: {what} structure mismatch -- missing "
+            f"{missing[:4]}, unexpected {extra[:4]}"
+        )
+    pairs = []
+    for name, cur in own.items():
+        new = torch.as_tensor(state[name])
+        if new.shape != cur.shape or new.dtype != cur.dtype:
+            raise ValueError(
+                f"swap_params: leaf mismatch at {what} {name!r} -- have "
+                f"{tuple(cur.shape)}/{cur.dtype}, got "
+                f"{tuple(new.shape)}/{new.dtype}"
+            )
+        pairs.append((cur, new))
+    return pairs
+
+
+@torch.no_grad()
+def _copy_state(pairs) -> int:
+    """Copy each new value into its parameter in place (storage and
+    ``data_ptr`` stay); returns the bytes copied."""
+    moved = 0
+    for cur, new in pairs:
+        cur.copy_(new)
+        moved += new.numel() * new.element_size()
+    return moved
 
 
 def _default_buckets(prefill_len: int) -> Tuple[int, ...]:
@@ -88,7 +153,8 @@ def _default_buckets(prefill_len: int) -> Tuple[int, ...]:
 
 
 class InferenceEngine:
-    """Prefill/decode over a port ``GPT2`` and a slotted or paged cache.
+    """Prefill/decode/speculative steps over a port ``GPT2`` and a slotted
+    or paged cache.
 
     Args:
       model: a ``models.GPT2`` whose parameters live on ``device``.
@@ -98,17 +164,26 @@ class InferenceEngine:
       prefill_len: maximum prompt length.
       prefill_buckets: pad-to lengths for prefill; defaults to powers of two
         up to ``prefill_len``.
-      sampling: SamplingParams for both phases.
+      sampling: SamplingParams for every phase.
       cache_dtype: KV dtype (defaults to the model compute dtype).
       seed: seed of the sampling ``torch.Generator``.
+      spec_k: speculative-decoding draft depth; 0 disables speculation.
+      draft_layers: self-drafting -- the first N target layers (plus
+        ``ln_f`` and the tied head) are the draft, sharing the target's
+        parameters and cache.
+      draft_model / draft_params: a separate small ``models.GPT2`` draft
+        sharing the vocab, and the state dict the engine copies into it
+        (as ``swap_params`` does). Its own slotted cache
+        (:meth:`init_draft_cache`) is threaded by the scheduler beside the
+        target cache, whatever ``cache_kind`` is.
       cache_kind: ``"slotted"`` or ``"paged"`` (``serving.paging`` page
         pool + block tables; the scheduler drives the allocator/radix).
       page_size / n_pages: paged-cache geometry; ``n_pages`` defaults to
         slotted-equivalent capacity + the trash page.
       device: ``None`` means the CUDA card (raises without one); pass
         ``"cpu"`` to run the plain versions on the CPU.
-      cache_sharding, spec_k, draft_layers, draft_model, draft_params: not
-        ported yet; anything but the default raises NotImplementedError.
+      cache_sharding: TP serving, not ported yet; anything but ``None``
+        raises NotImplementedError.
     """
 
     def __init__(
@@ -133,17 +208,20 @@ class InferenceEngine:
         device=None,
     ):
         self.device = resolve_device(device)
-        if spec_k or draft_layers is not None or draft_model is not None \
-                or draft_params is not None:
-            raise NotImplementedError(f"speculative decoding {_NOT_PORTED}")
         if cache_sharding is not None:
-            raise NotImplementedError(f"cache_sharding {_NOT_PORTED}")
-        param_device = next(model.parameters()).device
-        if param_device.type != self.device.type:
-            raise ValueError(
-                f"model parameters live on {param_device}, the engine runs "
-                f"on {self.device}: move the model with .to()"
+            raise NotImplementedError(
+                "cache_sharding is not ported yet (TP serving, ROADMAP "
+                "A.15c)"
             )
+        for m in (model, draft_model):
+            if m is None:
+                continue
+            param_device = next(m.parameters()).device
+            if param_device.type != self.device.type:
+                raise ValueError(
+                    f"model parameters live on {param_device}, the engine "
+                    f"runs on {self.device}: move the model with .to()"
+                )
         sampling.validate()
         cfg = model.cfg
         self.model = model
@@ -185,6 +263,34 @@ class InferenceEngine:
             n_pages = self.n_slots * self.max_pages + 1  # + trash page
         self.n_pages = int(n_pages) if n_pages is not None else 0
 
+        # -- speculative configuration -------------------------------------
+        self.spec_k = int(spec_k)
+        self.draft_layers = draft_layers
+        self.draft_model = draft_model
+        if self.spec_k > 0:
+            DraftConfig(
+                k=self.spec_k, draft_layers=draft_layers,
+                use_draft_model=draft_model is not None,
+            ).validate(cfg.n_layer)
+            if draft_model is not None:
+                if draft_params is None:
+                    raise ValueError("draft_model requires draft_params")
+                if draft_model.cfg.vocab_size != cfg.vocab_size:
+                    raise ValueError(
+                        f"draft vocab {draft_model.cfg.vocab_size} != "
+                        f"target vocab {cfg.vocab_size} -- the draft must "
+                        f"share the tokenizer"
+                    )
+                _copy_state(_check_state(draft_model, draft_params, "draft"))
+            if self.spec_k + 1 >= self.max_len:
+                raise ValueError(
+                    f"spec_k {self.spec_k} leaves no room in max_len "
+                    f"{self.max_len}"
+                )
+        elif draft_layers is not None or draft_model is not None:
+            raise ValueError("draft_layers/draft_model require spec_k >= 1")
+        self._spec_steps = 0
+
     # -- state -------------------------------------------------------------
     def init_cache(self):
         """Fresh resident cache of the configured kind."""
@@ -199,20 +305,51 @@ class InferenceEngine:
             dtype=self.cache_dtype, device=self.device,
         )
 
-    def swap_params(self, *args, **kwargs):
-        raise NotImplementedError(f"swap_params {_NOT_PORTED}")
+    def init_draft_cache(self) -> Optional[KVCache]:
+        """Slotted cache for the separate draft model (None when
+        self-drafting or speculation is off: self-drafting shares the target
+        cache)."""
+        if self.draft_model is None:
+            return None
+        return KVCache.create(
+            self.draft_model.cfg, n_slots=self.n_slots, max_len=self.max_len,
+            dtype=self.cache_dtype, device=self.device,
+        )
+
+    def swap_params(self, params, *, draft_params=None) -> SwapCost:
+        """Install new weights between steps, copied in place.
+
+        ``params`` (and ``draft_params`` for a separate draft model) is a
+        state dict in the model's own names: torch tensors on any device,
+        or numpy arrays. Names, shapes and dtypes must match the current
+        parameters, and everything is checked before anything is copied.
+        Each parameter keeps its storage and ``data_ptr``, so a greedy
+        stream continues token-identically when the new values equal the
+        old. Safe whenever no step call is running.
+        """
+        if draft_params is not None and self.draft_model is None:
+            raise ValueError(
+                "swap_params: draft_params given but engine has no separate "
+                "draft model"
+            )
+        pairs = _check_state(self.model, params, "target")
+        if draft_params is not None:
+            pairs += _check_state(self.draft_model, draft_params, "draft")
+        return SwapCost(bytes_moved=_copy_state(pairs))
 
     # -- step bodies ---------------------------------------------------------
-    def _prefill_fn(self, cache: KVCache, tokens, slot: int, prompt_len: int):
-        """Slotted prefill of ``tokens [1, bucket]`` into one slot (a view of
-        the slot's rows, so compute is O(bucket), not O(slots x bucket))."""
+    def _slot_prefill(self, model, cache: KVCache, tokens, slot: int,
+                      prompt_len: int):
+        """Run ``tokens [1, bucket]`` through ``model`` into one slot of a
+        slotted cache (a view of the slot's rows, so compute is O(bucket),
+        not O(slots x bucket)); returns the logits ``[1, bucket, V]``."""
         sub = KVCache(
             k=cache.k[:, slot:slot + 1], v=cache.v[:, slot:slot + 1],
             lengths=torch.zeros(1, dtype=torch.int32, device=self.device),
         )
-        logits, _ = self.model(tokens, kv_cache=sub, position_offset=sub.lengths)
+        logits, _ = model(tokens, kv_cache=sub, position_offset=sub.lengths)
         cache.lengths[slot] = prompt_len
-        return logits[0, prompt_len - 1]
+        return logits
 
     def _paged_prefill_fn(self, cache: PagedKVCache, tokens, slot: int,
                           start: int, n_real: int):
@@ -239,6 +376,95 @@ class InferenceEngine:
         # only active slots advance; free slots ride as padding
         cache.advance(1, active)
         return next_tok
+
+    def _verify_and_commit(self, cache, base, last_tokens, draft, d_probs,
+                           active, gen):
+        """One target forward over ``[S, k+1]``, prefix acceptance, length
+        commit; shared by both draft flavours. ``base`` is a copy of the
+        lengths before the draft, not the cache's own tensor (which
+        ``advance`` moves in place)."""
+        sp = self.sampling
+        window = torch.cat([last_tokens[:, None], draft], dim=1)
+        logits, _ = self.model(window, kv_cache=cache, position_offset=base,
+                               verify=True)
+        if sp.temperature <= 0.0:
+            accepts, emitted = greedy_accept(logits, draft)
+        else:
+            t_probs = filtered_probs(logits, temperature=sp.temperature,
+                                     top_k=sp.top_k, top_p=sp.top_p)
+            accepts, emitted = rejection_accept(
+                t_probs, torch.stack(d_probs, dim=1), draft, gen)
+        n_emit = torch.where(active, accepts + 1, 0).to(torch.int32)
+        # commit: lengths = base + accepts + 1; the rejected tail keeps its
+        # speculative K/V bytes, masked and overwritten by the next step
+        cache.rollback(base)
+        cache.advance(n_emit)
+        # the token now at position lengths - 1 (the separate draft's
+        # catch-up refeed reads it): the last accepted proposal, or the old
+        # last token
+        ai = torch.clamp(accepts - 1, min=0)
+        prev = torch.gather(draft, 1, ai[:, None])[:, 0]
+        prev_next = torch.where(accepts > 0, prev, last_tokens)
+        return emitted, n_emit, prev_next
+
+    def _spec_self_fn(self, cache, last_tokens, active, gen):
+        """Self-drafting: k truncated forwards into the SAME cache at the
+        positions past each length (layers 0..N-1 only, no advance), then
+        one full verify that rewrites every drafted position for all
+        layers."""
+        base = cache.lengths.clone()
+        tok = last_tokens
+        draft, d_probs = [], []
+        for i in range(self.spec_k):
+            logits, _ = self.model(tok[:, None], kv_cache=cache,
+                                   position_offset=base + i,
+                                   n_layers=self.draft_layers)
+            tok, probs = _sample(logits[:, 0], gen, self.sampling)
+            draft.append(tok)
+            d_probs.append(probs)
+        return self._verify_and_commit(cache, base, last_tokens,
+                                       torch.stack(draft, dim=1), d_probs,
+                                       active, gen)
+
+    def _spec_draft_fn(self, cache, dcache, last_tokens, prev_tokens, active,
+                       gen):
+        """Separate draft model: k draft forwards against the draft's own
+        cache. The first is a ``[S, 2]`` catch-up refeed of ``[prev, last]``
+        at positions ``len-1, len``: rewriting a cached position is
+        idempotent, and after a full accept it fills the one position the
+        draft never processed."""
+        base = cache.lengths.clone()
+        refeed = torch.stack([prev_tokens, last_tokens], dim=1)
+        dlogits, _ = self.draft_model(
+            refeed, kv_cache=dcache,
+            position_offset=torch.clamp(base - 1, min=0))
+        tok, probs = _sample(dlogits[:, 1], gen, self.sampling)
+        draft, d_probs = [tok], [probs]
+        for i in range(1, self.spec_k):
+            dlogits, _ = self.draft_model(tok[:, None], kv_cache=dcache,
+                                          position_offset=base + i)
+            tok, probs = _sample(dlogits[:, 0], gen, self.sampling)
+            draft.append(tok)
+            d_probs.append(probs)
+        out = self._verify_and_commit(cache, base, last_tokens,
+                                      torch.stack(draft, dim=1), d_probs,
+                                      active, gen)
+        # the draft cache is valid through the same accepted prefix
+        dcache.rollback(cache.lengths)
+        return out
+
+    def _step_generator(self) -> Optional[torch.Generator]:
+        """A fresh generator for one spec step, seeded from the engine
+        generator's seed and the step count (where JAX folds the step into
+        the session key); a greedy step draws nothing."""
+        if self.sampling.temperature <= 0.0:
+            return None
+        self._spec_steps += 1
+        seed = np.random.SeedSequence(
+            [self._gen.initial_seed(), self._spec_steps]
+        ).generate_state(1, np.uint64)[0]
+        return torch.Generator(device=self.device).manual_seed(
+            int(seed) >> 1)
 
     # -- steps -------------------------------------------------------------
     def prefill_bucket(self, n: int) -> int:
@@ -306,9 +532,25 @@ class InferenceEngine:
             last = self._paged_prefill_fn(cache, tokens, slot, cached_len,
                                           n_real)
         else:
-            last = self._prefill_fn(cache, tokens, slot, n_real)
+            last = self._slot_prefill(self.model, cache, tokens, slot,
+                                      n_real)[0, n_real - 1]
         tok = sample_tokens(last[None], self._gen, self.sampling)[0]
         return cache, int(tok)
+
+    @torch.no_grad()
+    def prefill_draft(self, draft_cache: KVCache, slot: int,
+                      prompt: np.ndarray) -> KVCache:
+        """Admit ``prompt`` into the separate draft model's cache (the
+        target prefill's bucket; no sampling). Returns the draft cache,
+        updated in place."""
+        if self.draft_model is None:
+            raise RuntimeError("no separate draft model configured")
+        padded, n = self._pad_prompt(prompt)
+        if not (0 <= slot < self.n_slots):
+            raise ValueError(f"slot {slot} out of range")
+        self._slot_prefill(self.draft_model, draft_cache,
+                           torch.from_numpy(padded).to(self.device), slot, n)
+        return draft_cache
 
     @torch.no_grad()
     def decode(
@@ -324,3 +566,41 @@ class InferenceEngine:
         act = torch.as_tensor(np.asarray(active, bool), device=self.device)
         toks = self._decode_fn(cache, last, act)
         return cache, toks.cpu().numpy()
+
+    @torch.no_grad()
+    def spec_decode(
+        self,
+        cache,
+        draft_cache: Optional[KVCache],
+        last_tokens: np.ndarray,
+        prev_tokens: np.ndarray,
+        active: np.ndarray,
+    ) -> Tuple[Any, Optional[KVCache], np.ndarray, np.ndarray, np.ndarray]:
+        """One speculative step: draft k, verify once, accept a prefix.
+
+        Returns ``(cache, draft_cache, emitted [S, k+1], counts [S],
+        prev_tokens [S])``, the caches updated in place. Each active slot
+        emitted ``counts[slot]`` tokens (1..k+1): read
+        ``emitted[slot, :counts[slot]]``; entries past the count are
+        garbage. ``counts - 1`` is the per-slot accepted draft count.
+        ``prev_tokens`` is the token now at ``lengths - 1`` (thread it back
+        into the next call; only the separate draft's catch-up reads it)."""
+        if self.spec_k <= 0:
+            raise RuntimeError("spec_k=0 -- speculative decoding disabled")
+        last = torch.as_tensor(np.asarray(last_tokens, np.int64),
+                               device=self.device)
+        act = torch.as_tensor(np.asarray(active, bool), device=self.device)
+        gen = self._step_generator()
+        if self.draft_model is None:
+            emitted, counts, prev_next = self._spec_self_fn(cache, last, act,
+                                                            gen)
+        else:
+            prev = torch.as_tensor(np.asarray(prev_tokens, np.int64),
+                                   device=self.device)
+            emitted, counts, prev_next = self._spec_draft_fn(
+                cache, draft_cache, last, prev, act, gen)
+        # one device-to-host copy for the three results
+        host = torch.cat([emitted, counts[:, None].long(),
+                          prev_next[:, None]], dim=1).cpu().numpy()
+        k1 = self.spec_k + 1
+        return cache, draft_cache, host[:, :k1], host[:, k1], host[:, k1 + 1]

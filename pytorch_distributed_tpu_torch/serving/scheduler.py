@@ -1,11 +1,17 @@
 """Continuous batching: per-step join/evict over the engine's slot batch.
 
-Port of ``pytorch_distributed_tpu/serving/scheduler.py`` without the
-speculative step (ROADMAP A.15). Requests queue FIFO, every free slot is
-filled by a prefill at the top of each step, one decode step then advances
-ALL active slots together, and sequences that hit EOS, their token budget
-or slot capacity are evicted at iteration granularity so their slot is
-reusable on the very next step.
+Port of ``pytorch_distributed_tpu/serving/scheduler.py``. Requests queue
+FIFO, every free slot is filled by a prefill at the top of each step, one
+decode step then advances ALL active slots together, and sequences that hit
+EOS, their token budget or slot capacity are evicted at iteration
+granularity so their slot is reusable on the very next step.
+
+With a speculative engine (``engine.spec_k > 0``) each step consumes
+1..k+1 tokens per active slot from one draft + verify round: the accepted
+span is scanned for EOS, budget and capacity token by token, as the
+one-token path would have, so finish reasons and greedy token streams are
+those of non-speculative serving; only the target forwards per token
+change. ``swap_params`` installs new weights between steps.
 
 With a paged engine the scheduler also runs the host-side control plane:
 the ``PageAllocator`` (reservations, growth, COW) and the ``RadixTree``
@@ -13,7 +19,7 @@ the ``PageAllocator`` (reservations, growth, COW) and the ``RadixTree``
 tables.
 
 Per-request and per-step timings flow into ``observability``: TTFT and
-decode-step ``LatencyTracker``s and ``serving.*`` events.
+decode-step ``LatencyTracker``s, ``serving.*`` events and metrics.
 """
 
 from __future__ import annotations
@@ -90,15 +96,21 @@ class Scheduler:
     def __init__(self, engine: InferenceEngine, *, emit_events: bool = True):
         self.engine = engine
         self.cache = engine.init_cache()
+        self.draft_cache = engine.init_draft_cache()
         self.emit_events = emit_events
         self.queue: Deque[Request] = deque()
         self.slots: List[Optional[_SlotState]] = [None] * engine.n_slots
         self.last_tokens = np.zeros((engine.n_slots,), np.int64)
+        # token at position lengths-1 per slot (the separate draft's
+        # catch-up refeed reads it; harmless otherwise)
+        self.prev_tokens = np.zeros((engine.n_slots,), np.int64)
         self.active = np.zeros((engine.n_slots,), bool)
         self.ttft = LatencyTracker()
         self.decode_step = LatencyTracker()  # per decode step (whole batch)
         self.tokens_generated = 0
         self.decode_steps = 0
+        self.weight_swaps = 0
+        self.accept_rate = RatioTracker()        # accepted / proposed
         self.tokens_per_forward = RatioTracker()  # decode tokens / forwards
         self._next_id = 0
         if engine.cache_kind == "paged":
@@ -159,26 +171,109 @@ class Scheduler:
                     break
             finished.extend(self._admit(slot, self.queue.popleft(), plan))
 
+        # decode: one token (or a verified speculative span) per active slot
         if self.active.any():
-            self._grow_chains()
-            t0 = time.perf_counter()
-            self.cache, toks = self.engine.decode(
-                self.cache, self.last_tokens, self.active
-            )
-            dt = time.perf_counter() - t0
-            self.decode_step.add(dt)
-            self.decode_steps += 1
-            n_act = int(self.active.sum())
-            self.tokens_generated += n_act
-            self.tokens_per_forward.add(n_act)
-            put_metric("serving.tokens_generated", n_act)
-            for slot in map(int, np.flatnonzero(self.active)):
-                st = self.slots[slot]
-                tok = int(toks[slot])
+            if self.engine.spec_k > 0:
+                finished.extend(self._spec_step())
+            else:
+                self._grow_chains(spec=False)
+                t0 = time.perf_counter()
+                self.cache, toks = self.engine.decode(
+                    self.cache, self.last_tokens, self.active
+                )
+                dt = time.perf_counter() - t0
+                self.decode_step.add(dt)
+                self.decode_steps += 1
+                n_act = int(self.active.sum())
+                self.tokens_generated += n_act
+                self.tokens_per_forward.add(n_act)
+                put_metric("serving.tokens_generated", n_act)
+                for slot in map(int, np.flatnonzero(self.active)):
+                    st = self.slots[slot]
+                    tok = int(toks[slot])
+                    st.tokens.append(tok)
+                    self.last_tokens[slot] = tok
+                    finished.extend(self._maybe_finish(slot))
+        return finished
+
+    def _spec_step(self) -> List[FinishedRequest]:
+        """One speculative round: draft k, verify once, consume the
+        accepted span per slot (EOS, budget and capacity checked token by
+        token, so finish semantics match the one-token path)."""
+        finished: List[FinishedRequest] = []
+        k = self.engine.spec_k
+        self._grow_chains(spec=True)
+        t0 = time.perf_counter()
+        (self.cache, self.draft_cache, emitted, counts,
+         prev_next) = self.engine.spec_decode(
+            self.cache, self.draft_cache, self.last_tokens,
+            self.prev_tokens, self.active,
+        )
+        dt = time.perf_counter() - t0
+        self.decode_step.add(dt)
+        self.decode_steps += 1
+        active_slots = list(map(int, np.flatnonzero(self.active)))
+        n_act = len(active_slots)
+        accepted = int(counts[self.active].sum()) - n_act
+        self.accept_rate.add(accepted, k * n_act)
+        put_metric("serving.spec_proposed", k * n_act)
+        put_metric("serving.spec_accepted", accepted)
+        consumed_total = 0
+        step_counts = {}
+        for slot in active_slots:
+            st = self.slots[slot]
+            consumed = 0
+            for j in range(int(counts[slot])):
+                tok = int(emitted[slot, j])
                 st.tokens.append(tok)
                 self.last_tokens[slot] = tok
-                finished.extend(self._maybe_finish(slot))
+                consumed += 1
+                done = self._maybe_finish(slot)
+                if done:
+                    finished.extend(done)
+                    break
+            else:
+                # survived the whole span: the token at lengths-1 feeds the
+                # next draft catch-up
+                self.prev_tokens[slot] = int(prev_next[slot])
+                if self.allocator is not None:
+                    # page-granular rollback: pages taken for the rejected
+                    # tail go back to the free list (position
+                    # prompt+tokens-1 is the next write; its page stays),
+                    # and their reservation credit is refunded
+                    new_len = st.prompt.shape[0] + len(st.tokens) - 1
+                    self.allocator.release_tail(slot, new_len)
+            consumed_total += consumed
+            step_counts[slot] = consumed
+        self.tokens_generated += consumed_total
+        self.tokens_per_forward.add(consumed_total)
+        put_metric("serving.tokens_generated", consumed_total)
+        if self.emit_events:
+            record_event(
+                "serving.spec_step", source="scheduler",
+                proposed=k * n_act, accepted=accepted,
+                consumed=step_counts,
+            )
         return finished
+
+    def swap_params(self, params, *, draft_params=None):
+        """Install new weights between decode steps (see
+        :meth:`InferenceEngine.swap_params`: an in-place copy, so in-flight
+        sequences continue, token-identically for equal values).
+        ``step()`` is synchronous, so any moment outside it is a safe swap
+        point. Returns the engine's ``SwapCost``."""
+        t0 = time.perf_counter()
+        cost = self.engine.swap_params(params, draft_params=draft_params)
+        dt = time.perf_counter() - t0
+        self.weight_swaps += 1
+        if self.emit_events:
+            record_event(
+                "serving.weight_swap", source="scheduler",
+                bytes_moved=cost.bytes_moved, duration_s=dt,
+                n_active=self.n_active,
+            )
+        put_metric("serving.weight_swaps")
+        return cost
 
     def run(self, *, max_steps: Optional[int] = None) -> List[FinishedRequest]:
         """Step until the queue and all slots drain; returns all finished
@@ -195,8 +290,8 @@ class Scheduler:
     # -- paged-cache internals ---------------------------------------------
     def _span_pages(self, req: Request, prompt_len: int) -> int:
         """Worst-case pages a request can ever touch: prompt + its token
-        budget, capped by max_len."""
-        span = prompt_len + req.max_new_tokens
+        budget (+ the speculative write margin), capped by max_len."""
+        span = prompt_len + req.max_new_tokens + self.engine.spec_k
         return self.allocator.pages_for(min(span, self.engine.max_len))
 
     def _plan_admission(self, req: Request):
@@ -237,16 +332,19 @@ class Scheduler:
             )
             self.allocator.dirty = False
 
-    def _grow_chains(self) -> None:
-        """Before a decode step: every active slot's chain must cover its
-        next write position. Draws on the slot's admission reservation, so
-        it cannot fail."""
+    def _grow_chains(self, *, spec: bool) -> None:
+        """Before a decode/spec step: every active slot's chain must cover
+        its write span (the next position, or the k-token speculative
+        window). Draws on the slot's admission reservation, so it cannot
+        fail."""
         if self.allocator is None:
             return
+        margin = self.engine.spec_k if spec else 0
         for slot in map(int, np.flatnonzero(self.active)):
             st = self.slots[slot]
             next_pos = st.prompt.shape[0] + len(st.tokens) - 1
-            self.allocator.ensure(slot, min(next_pos + 1, self.engine.max_len))
+            need = min(next_pos + margin + 1, self.engine.max_len)
+            self.allocator.ensure(slot, need)
         self._sync_tables()
 
     # -- internals ---------------------------------------------------------
@@ -267,11 +365,19 @@ class Scheduler:
         self.cache, first_tok = self.engine.prefill(
             self.cache, slot, prompt, cached_len=cached_len
         )
+        if self.draft_cache is not None:
+            # the separate draft's slotted cache has no prefix sharing: it
+            # always prefills the whole prompt
+            self.draft_cache = self.engine.prefill_draft(
+                self.draft_cache, slot, prompt
+            )
         if self.radix is not None:
             # cache the prompt's full pages for future admissions (pins
             # them in the allocator so they outlive this sequence)
             self.radix.insert(prompt, self.allocator.chain(slot),
                               self.allocator)
+        # token at position lengths-1 == the prompt tail (draft catch-up)
+        self.prev_tokens[slot] = int(prompt[-1])
         ttft = time.perf_counter() - t0
         self.ttft.add(ttft)
         self.slots[slot] = _SlotState(
@@ -362,8 +468,11 @@ class Scheduler:
     # -- stats -------------------------------------------------------------
     def stats(self) -> Dict[str, float]:
         """Aggregate serving stats. ``tokens_per_target_forward`` counts
-        decode-phase tokens over decode steps (prefills excluded), i.e. the
-        active-slot average."""
+        decode-phase tokens over decode/spec steps (prefills excluded):
+        without speculation the active-slot average, with it growing toward
+        ``1 + accept_rate * spec_k`` per slot. A speculative engine adds
+        ``spec_k``, ``accept_rate`` and the draft tokens proposed and
+        accepted; ``weight_swaps`` counts ``swap_params`` calls."""
         d = self.decode_step.summary()
         out = {
             "tokens_generated": float(self.tokens_generated),
@@ -374,8 +483,14 @@ class Scheduler:
             "ttft_p50_s": self.ttft.percentile(50),
             "ttft_p99_s": self.ttft.percentile(99),
             "tokens_per_target_forward": self.tokens_per_forward.rate(),
+            "weight_swaps": float(self.weight_swaps),
             "cache_kind": self.engine.cache_kind,
         }
+        if self.engine.spec_k > 0:
+            out["spec_k"] = float(self.engine.spec_k)
+            out["accept_rate"] = self.accept_rate.rate()
+            out["spec_proposed"] = float(self.accept_rate.den)
+            out["spec_accepted"] = float(self.accept_rate.num)
         if self.allocator is not None:
             out["free_pages"] = float(self.allocator.available_pages)
             out["page_size"] = float(self.allocator.page_size)

@@ -203,9 +203,3 @@ def test_paged_cached_prefill_and_decode_match_flax(models):
     jcache, cache = _run_cached(jmodel, variables, model, jcache, cache,
                                 windows)
     np.testing.assert_allclose(cache.k.numpy(), np.asarray(jcache.k), **TOL)
-
-
-def test_self_draft_forward_is_not_ported(models):
-    _, _, model = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.zeros(1, 1, dtype=torch.long), n_layers=1)

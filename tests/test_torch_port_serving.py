@@ -108,7 +108,8 @@ def test_scheduler_streams_match_jax(models, cache_kind, scenario):
     got = {f.request_id: f.tokens for f in sched.run()}
     assert got == want
     stats, jstats = sched.stats(), jsched.stats()
-    assert sorted(stats) == sorted(jstats)
+    # the port also counts weight swaps in stats()
+    assert sorted(stats) == sorted([*jstats, "weight_swaps"])
     assert stats["cache_kind"] == cache_kind
     assert stats["tokens_generated"] == jstats["tokens_generated"]
     assert stats["decode_steps"] == jstats["decode_steps"]
@@ -302,19 +303,11 @@ def test_greedy_stream_independent_of_prefill_bucket(models, buckets):
     assert fin.tokens == seq[len(prompt):]
 
 
-@pytest.mark.parametrize("kwargs", [dict(spec_k=2, draft_layers=1),
-                                    dict(cache_sharding=object())])
+@pytest.mark.parametrize("kwargs", [dict(cache_sharding=object())])
 def test_unported_options_raise(models, kwargs):
     _, _, model = models
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngine(model, device="cpu", **kwargs)
-
-
-def test_swap_params_is_not_ported(models):
-    _, _, model = models
-    engine = InferenceEngine(model, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.swap_params({})
 
 
 def test_entry_points_default_to_the_card(models):
