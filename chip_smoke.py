@@ -8,13 +8,23 @@ Run from the repository root on a machine with one NVIDIA H100::
 It builds the port's CUDA kernels from the sources in the checkout (one
 ``nvcc`` per source, all at once) and drives the main paths of the port,
 serving, GPT-2 training, context-parallel training and ResNet training,
-printing one JSON line per phase:
+printing one JSON line per phase. The serving steps and the pipelined
+training step run as CUDA graph replays (one a step); the serving phases
+run the same requests through the eager step bodies too, as the
+reference the graphs are held against. A replay calls no kernel wrapper,
+so the wrappers' launch counters count eager launches and the launches a
+capture records; what the replays launched is counted in device traces
+(torch.profiler lists a replay's kernels):
 
   device        the card (``nvidia-smi`` name and power limit), library
                 versions, the kernel build time, and the registers, stack
                 and HGMMA (tensor-core) instructions of the Hopper-route
                 kernels (B1-B6 in bf16/fp16) read from the built
                 libraries with ``cuobjdump``;
+  profiler_edges  how far device timestamps sit before their launches on
+                the host clock, and a check that every profiled window,
+                fenced by idle host time at its edges, keeps all its
+                device records (the traced counts below rely on it);
   kernels       each CUDA kernel against its plain PyTorch version at its
                 main path's shapes, in fp32 and bf16, with its time, the
                 plain version's time, the least time the card could take
@@ -32,7 +42,8 @@ printing one JSON line per phase:
                 gradients against B1-B3 on the whole sequence;
   parity        GPT-2 125M at full width, fp32, paged cache: the engine's
                 greedy tokens equal the argmax of the port's own uncached
-                forward, and every decode step of every layer launched B7;
+                forward, every decode step of every layer launched B7 (device
+                trace), and every decode step was one graph replay;
   spec_parity   GPT-2 125M at full width, fp32, TF32 off, 8 requests on the
                 slotted and the paged cache: speculative greedy streams
                 (spec_k 3; a 6-layer self-draft, and a separate distilgpt2-
@@ -42,17 +53,29 @@ printing one JSON line per phase:
                 and keeps every data_ptr; B7 launches draft_layers x k +
                 n_layer times a paged self-draft round and n_layer times a
                 draft-model round;
+  graph_parity  the same runs (and plain decode, and a sampled plain and
+                spec run) through the graphs and through the eager step
+                bodies: streams token for token and accept counts equal, B7's
+                device launches (graphs) equal to its wrapper launches
+                (eager), one replay a step or round and no wrapper launch in
+                the graph runs, no replay in the eager runs;
   serve         serving's main path: GPT-2 125M at full width in bf16, 16
                 requests with a shared prefix through the continuous-batching
-                scheduler over the paged cache;
-  profile       torch.profiler over 10 decode steps of that engine: host wall
-                time against device busy time per step, and the top kernels;
+                scheduler over the paged cache, through the graphs and the
+                eager bodies (tokens/s, step p50/p99, TTFT, equal streams),
+                then once more through the graphs under a device trace: B7
+                n_layer times a step (the kernels line's launches);
+  profile       torch.profiler over 10 decode steps of that engine, graphs
+                and eager: host wall time against device busy time per
+                step, the replay's device span between CUDA events, the top
+                kernels, and B7 n_layer times a step in both;
   serve_spec    the serve phase with spec_k 3 and a 6-layer self-draft:
                 tokens/s, spec-round p50/p99, TTFT, accept rate, tokens per
                 target forward, the share of streams equal to serve's, and
                 B7's launches (the self-draft's one-token forwards and the
-                verify window), which must be 30 a round;
-  spec_profile  as profile, over 10 spec rounds of that engine;
+                verify window), which must be 30 a round in the device trace;
+  spec_profile  as profile, over 10 spec rounds of that engine (also
+                through the graphs and the eager bodies), B7 30 a round;
   serve_example ``examples/serve_gpt2.py``'s ``main`` at GPT-2 125M's shape,
                 paged, 16 requests with a shared prefix, ``--spec-k 3``;
   train_parity  GPT-2 125M at full width, fp32 with TF32 off, B=2, T=1024,
@@ -73,6 +96,16 @@ printing one JSON line per phase:
                 fp32 operands (a bf16-output GEMM must fail the logits
                 check), the head's forward + backward timed in both modes,
                 and 10 timed training steps with the 16-bit head;
+  runner_train  the train cell through ``AsyncRunner`` (``Trainer.run``'s
+                executor, one graph replay a step) against the eager
+                ``Trainer.step`` loop from the same weights and 10 batches:
+                losses, parameters and buffers equal, or within the eager
+                loop's own run-to-run spread; B1-B3's wrappers launch only in
+                the warm-up and the capture; step time, tokens/s, MFU, peak
+                memory of both;
+  train_graph_profile  torch.profiler and CUDA events over 3 replayed
+                training steps: device busy share, kernels per step, B1-B3
+                12 each a replayed step and no B4-B6;
   train_bf16_parity  bf16 GPT-2 125M, 5 steps on one fixed batch from the
                 same weights: flash attention (B1-B3), and ring flash
                 attention (B4-B6) under ``CPStrategy`` on a one-rank NCCL
@@ -104,7 +137,13 @@ printing one JSON line per phase:
                 at its ImageNet shapes: ResNet-50, batch 128 at 224 px,
                 bf16, SGD(0.1, 0.9): images/s, step p50/p90/p99, MFU, peak
                 memory, and whether cuDNN's algorithm search was on (the
-                bench switches it on, for this phase and the next);
+                bench switches it on, for this phase and the next); the
+                bench times images/s on ``AsyncRunner`` and the step
+                percentiles on the synchronized eager loop;
+  resnet_runner the bench's step through ``AsyncRunner`` against the eager
+                loop, 8 steps from the same weights: losses, parameters and
+                BatchNorm buffers equal (or within the eager spread),
+                images/s and peak memory (graph pool included) of both;
   resnet_profile  torch.profiler over 3 of the bench's steps: device busy
                 and idle share, kernels per step, and device time by kernel
                 family (conv forward / data grad / weight grad, BatchNorm,
@@ -137,7 +176,7 @@ from torch.autograd import DeviceType
 from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.profiler import ProfilerActivity, profile, schedule
 
-from pytorch_distributed_tpu_torch import bench
+from pytorch_distributed_tpu_torch import _graphs, bench
 from pytorch_distributed_tpu_torch import distributed as pdist
 from pytorch_distributed_tpu_torch.examples import (
     serve_gpt2,
@@ -149,6 +188,7 @@ from pytorch_distributed_tpu_torch.models import GPT2, GPT2Config, gpt2_125m
 from pytorch_distributed_tpu_torch.ops import _build
 from pytorch_distributed_tpu_torch.ops import chunked_xent
 from pytorch_distributed_tpu_torch.ops import paged_attention as pa
+from pytorch_distributed_tpu_torch.pipeline_exec import AsyncRunner
 from pytorch_distributed_tpu_torch.parallel import (
     CPStrategy,
     NoShard,
@@ -191,6 +231,9 @@ DRAFT_LAYERS = 6
 SERVE_KW = dict(n_slots=8, max_len=1024, prefill_len=128, cache_kind="paged",
                 page_size=16)
 SERVE_NEW_TOKENS = 64
+# B7's split kernel, by a substring of its name in device traces (the merge
+# kernel launches only where a chain is split across CTAs)
+B7_TRACE_NAME = "paged_decode_split"
 
 KERNEL_SOURCE = "pytorch_distributed_tpu_torch/ops/csrc/paged_decode_attention.cu"
 KERNEL_REPLACES = "pytorch_distributed_tpu/ops/paged_attention.py:128"
@@ -232,11 +275,18 @@ MASKED_SM90_KERNELS = ("flash_masked_fwd_kernel_sm90",
 # counter keys of the kernels with a Hopper route (bf16/fp16)
 SM90_KEYS = ("fwd", "dq", "dkv", "mfwd", "mdq", "mdkv")
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
-# Every profiled window runs one warm-up under the profiler, then calls
-# prof.step(): the warm-up enables the device tracing and only what follows
-# is recorded. A trace started cold lost its first device records on the
-# card (47 kernels, two layers' forward, in one training-step profile).
+# Every profiled window (``traced``) runs one warm-up under the profiler,
+# then calls prof.step(): the warm-up enables the device tracing and only
+# what follows is recorded. The profiler keeps only the device records whose
+# timestamps fall between the window's edges on the host clock, and on the
+# card a record's timestamp can sit milliseconds before the launch that made
+# it (the profiler_edges phase measures by how much). Work launched right at
+# an edge then vanishes from the trace: a train-step window lost two layers'
+# forward, a window of 20 decode calls lost all of them. So each window
+# leaves EDGE_S of idle host time after its opening edge and before its
+# closing one.
 WARM_SCHEDULE = schedule(wait=0, warmup=1, active=1, repeat=1)
+EDGE_S = 0.05
 
 
 def path(key: str) -> str:
@@ -280,6 +330,92 @@ def time_ms(fn, reps: int, flush) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+@contextlib.contextmanager
+def eager_bodies(engine):
+    """The engine's step bodies run eagerly, with no graph replay: the
+    reference that the graphs are held against (a patch made by this
+    script; the port has no such switch)."""
+    with mock.patch.object(engine, "_run", lambda kind, cache, dcache=None:
+                           engine._body(kind, cache, dcache)()):
+        yield
+
+
+@contextlib.contextmanager
+def replay_spans():
+    """CUDA events before and after every step program's call
+    (``_graphs.Program``): the device span of each graph replay."""
+    spans = []
+    call = _graphs.Program.__call__
+
+    def timed(self):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = call(self)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    with mock.patch.object(_graphs.Program, "__call__", timed):
+        yield spans
+
+
+def _switch_on():
+    torch.ones(1, device="cuda").add_(1)
+
+
+@contextlib.contextmanager
+def traced(warm_up=_switch_on, cpu=True):
+    """torch.profiler over the block: ``warm_up()`` runs first and is not
+    recorded, and the block is fenced by EDGE_S of idle host time at each
+    edge (see WARM_SCHEDULE). ``cpu`` records the host activity too.
+    Yields the profiler; read it after the block."""
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities, schedule=WARM_SCHEDULE) as prof:
+        warm_up()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(EDGE_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(EDGE_S)
+
+
+@contextlib.contextmanager
+def device_launches(*names):
+    """Device activity traced over the block (``traced``): yields a dict
+    that holds, after the block, the device launches of the kernels whose
+    names contain each of ``names``. This is what the card ran, graph
+    replays included; a replay calls no wrapper, so the wrappers' counters
+    see only eager launches and the launches a capture records."""
+    counts = {}
+    with traced(cpu=False) as prof:
+        yield counts
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    counts.update({n: sum(e.count for e in events if n in e.key)
+                   for n in names})
+
+
+def recounted(run, ok):
+    """``run()``, and once more if ``ok`` of its result is false: a second
+    guard beside ``traced``'s edge fences, should a device record still
+    fall outside its window (see WARM_SCHEDULE). Returns the last result
+    and the first one if it was repeated (None otherwise); the caller's
+    checks hold the last."""
+    out = run()
+    if ok(out):
+        return out, None
+    return run(), out
+
+
+def _spans_ms(spans) -> float:
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in spans)
+
+
 def _decode_tables(lengths, trash_row, B, M, page, P, g):
     """Block tables of B chains: each live row holds the pages its length
     reaches (shuffled page ids), ``trash_row`` (if any) stays all zero."""
@@ -290,6 +426,43 @@ def _decode_tables(lengths, trash_row, B, M, page, P, g):
             n = min(int(lengths[b]) // page + 1, M)
             tables[b, :n] = perm[b * M: b * M + n].int()
     return tables
+
+
+def profiler_edges_phase():
+    """How far the card's device timestamps sit from the host clock, and
+    whether ``traced``'s fenced windows keep every record: 24 windows over
+    200 pairs of tiny elementwise kernels each. For each kernel, its start
+    less the host start of its launch: a kernel cannot start before its
+    launch, so a negative value is the timestamps' error, and an error
+    larger than the time from a window's edge to its first launch drops the
+    record (see WARM_SCHEDULE). Every window must hold all 400 kernels."""
+    x = torch.zeros(1 << 16, device="cuda")
+    n, windows = 200, 24
+    seen, offsets = [], []
+    for _ in range(windows):
+        with traced() as prof:
+            for _ in range(n):
+                x.add_(1)
+                x.mul_(1.0)
+        events = prof.profiler.kineto_results.events()
+        launch = {e.correlation_id(): e.start_ns() for e in events
+                  if e.device_type() == DeviceType.CPU
+                  and "LaunchKernel" in e.name()}
+        kernels = [e for e in events if e.device_type() == DeviceType.CUDA
+                   and "elementwise" in e.name()]
+        seen.append(len(kernels))
+        offsets += [(e.start_ns() - launch[e.correlation_id()]) / 1e6
+                    for e in kernels if e.correlation_id() in launch]
+    emit({"phase": "profiler_edges", "edge_s": EDGE_S, "windows": windows,
+          "kernels_per_window": 2 * n, "fewest_seen_in_a_window": min(seen),
+          "launch_to_start_ms_min": min(offsets),
+          "launch_to_start_ms_median": statistics.median(offsets),
+          "records_before_their_launch": sum(o < 0 for o in offsets),
+          "records": len(offsets)})
+    check(all(k == 2 * n for k in seen),
+          f"a fenced profiler window lost device records: {seen} of {2 * n}")
+    check(len(offsets) == windows * 2 * n,
+          "a kernel record has no launch record beside it")
 
 
 def kernel_phase():
@@ -435,22 +608,32 @@ def kernel_phase():
 
 
 def parity_phase():
-    """fp32 full-width GPT-2 125M: engine greedy == uncached argmax."""
+    """fp32 full-width GPT-2 125M: engine greedy == uncached argmax; every
+    decode step is one graph replay (no wrapper launches B7 while the
+    scheduler runs), and the device trace shows B7 n_layer times a
+    step."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = gpt2_125m(device="cuda", seed=0)
     cfg = model.cfg
     engine = InferenceEngine(model, n_slots=8, max_len=1024, prefill_len=128,
                              cache_kind="paged", page_size=16)
-    sched = Scheduler(engine, emit_events=False)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in (20, 37)]
     n_new = 12
-    for p in prompts:
-        sched.submit(Request(prompt=p, max_new_tokens=n_new))
-    pa.launches = 0
-    finished = sched.run()
-    launches = pa.launches
+
+    def run():
+        sched = Scheduler(engine, emit_events=False)
+        for p in prompts:
+            sched.submit(Request(prompt=p, max_new_tokens=n_new))
+        pa.launches = 0
+        replays = engine.replays
+        with device_launches(B7_TRACE_NAME) as device:
+            finished = sched.run()
+        return (sched, finished, pa.launches, engine.replays - replays,
+                device[B7_TRACE_NAME])
+    (sched, finished, launches, replays, device), lost = recounted(
+        run, lambda r: r[4] == cfg.n_layer * r[0].decode_steps)
     got = {f.request_id: f.tokens for f in finished}
     want = {}
     with torch.no_grad():
@@ -463,11 +646,16 @@ def parity_phase():
     expected = cfg.n_layer * sched.decode_steps
     emit({"phase": "parity", "dtype": "float32", "requests": len(prompts),
           "new_tokens": n_new, "tokens_match": got == want,
-          "launches": launches, "expected_launches": expected,
-          "decode_steps": sched.decode_steps})
+          "device_launches": device, "expected_launches": expected,
+          "wrapper_launches": launches,
+          "first_window_device_launches": lost and lost[4],
+          "decode_steps": sched.decode_steps, "graph_replays": replays})
     check(got == want, f"greedy tokens {got} != uncached argmax {want}")
-    check(launches == expected > 0,
-          f"kernel launches {launches} != n_layer x decode steps {expected}")
+    check(replays == sched.decode_steps and launches == 0,
+          f"graph replays {replays} in {sched.decode_steps} decode steps, "
+          f"{launches} wrapper launches of B7 (an eager step)")
+    check(device == expected > 0,
+          f"B7 device launches {device} != n_layer x decode steps {expected}")
 
 
 def _serve_requests(vocab: int):
@@ -483,27 +671,45 @@ def _serve_requests(vocab: int):
     return warm, shared, prompts
 
 
-def _serve_run(engine):
-    """Warm-up on a throwaway scheduler (its own cache and radix tree), then
-    the 16 requests on a fresh one, B7's count set to 0 just before and read
-    just after. Returns the scheduler, the finished requests, the wall
-    time, B7's launches, the shared prefix and the prompts."""
+def _serve_run(engine, warm=True, count=False):
+    """Warm-up on a throwaway scheduler (its own cache and radix tree;
+    skipped without ``warm``), then the 16 requests on a fresh one (its
+    step program captured when it is built), B7's wrapper count set to 0
+    just before and read just after, and with ``count`` B7's device
+    launches traced meanwhile (the wall time is then not one to report).
+    Returns the scheduler, the finished requests, the wall time, B7's
+    wrapper launches and device launches (None without ``count``), the
+    graph replays, the capture's host time, the device memory reserved at
+    the capture beyond the caches (the graph's pool), the shared prefix and
+    the prompts."""
     warm_prompt, shared, prompts = _serve_requests(engine.cfg.vocab_size)
-    warm = Scheduler(engine, emit_events=False)
-    warm.submit(Request(prompt=warm_prompt, max_new_tokens=4))
-    warm.run()
-    del warm
+    if warm:
+        throwaway = Scheduler(engine, emit_events=False)
+        throwaway.submit(Request(prompt=warm_prompt, max_new_tokens=4))
+        throwaway.run()
+        del throwaway
 
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
     sched = Scheduler(engine, emit_events=False)
+    caches = [c for c in (sched.cache, sched.draft_cache) if c is not None]
+    pool = torch.cuda.memory_reserved() - reserved - sum(
+        t.nbytes for c in caches for t in (c.k, c.v, c.lengths))
+    program = engine._program("spec" if engine.spec_k else "decode",
+                              sched.cache, sched.draft_cache)
     for p in prompts:
         sched.submit(Request(prompt=p, max_new_tokens=SERVE_NEW_TOKENS))
     torch.cuda.synchronize()
     pa.launches = 0
+    replays = engine.replays
     t0 = time.perf_counter()
-    finished = sched.run()
-    torch.cuda.synchronize()
+    with (device_launches(B7_TRACE_NAME) if count
+          else contextlib.nullcontext({})) as device:
+        finished = sched.run()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = pa.launches
+    replays = engine.replays - replays
     sched.allocator.check()
     check(len(finished) == len(prompts),
           f"{len(finished)} of {len(prompts)} requests done")
@@ -511,7 +717,57 @@ def _serve_run(engine):
               and all(0 <= t < engine.cfg.vocab_size for t in f.tokens)
               for f in finished), "a request's tokens are short or out of vocab")
     check(int(sched.allocator.reserved.sum()) == 0, "reservations not drained")
-    return sched, finished, wall, launches, shared, prompts
+    return dict(sched=sched, finished=finished, wall=wall, launches=launches,
+                device=device.get(B7_TRACE_NAME),
+                replays=replays, capture_s=program.capture_s,
+                pool_reserved_bytes=pool, shared=shared, prompts=prompts)
+
+
+def _serve_pair(engine, what, per_step):
+    """``_serve_run`` through the graphs, then through the eager bodies on
+    the same engine, then through the graphs once more with B7's device
+    launches traced (``counted``). The graph run's step count is held to
+    its replays, with no wrapper launch of B7 (an eager step would make
+    some); the eager run's wrapper launches and the counted run's device
+    launches to ``per_step`` x steps, and the counted run's streams to the
+    graph run's. Returns the three runs, the first counted run if it was
+    repeated (see ``recounted``), the graph run's streams and the number
+    of requests whose streams agree with the eager run's."""
+    graph = _serve_run(engine)
+    with eager_bodies(engine):
+        eager = _serve_run(engine)
+    counted, lost = recounted(
+        lambda: _serve_run(engine, warm=False, count=True),
+        lambda r: r["device"] == per_step * r["sched"].decode_steps)
+    streams = [{f.request_id: f.tokens for f in r["finished"]}
+               for r in (graph, eager, counted)]
+    equal = sum(streams[0][r] == streams[1].get(r) for r in streams[0])
+    steps = graph["sched"].decode_steps
+    check(graph["replays"] == steps > 0 and eager["replays"] == 0
+          and graph["launches"] == 0,
+          f"{what}: {graph['replays']} replays and {graph['launches']} "
+          f"wrapper launches of B7 in {steps} steps (graphs), "
+          f"{eager['replays']} replays (eager)")
+    check(eager["launches"] == per_step * eager["sched"].decode_steps > 0,
+          f"{what}: eager B7 launches {eager['launches']} != {per_step} x "
+          f"{eager['sched'].decode_steps} steps")
+    check(counted["device"] == per_step * counted["sched"].decode_steps > 0
+          and streams[2] == streams[0],
+          f"{what}: B7 device launches {counted['device']} through the "
+          f"graphs != {per_step} x {counted['sched'].decode_steps} steps, "
+          f"or the counted run's streams differ")
+    lost = lost and lost["device"]
+    return graph, eager, counted, lost, streams[0], equal
+
+
+def _latency(run, step_key="decode_step") -> dict:
+    stats = run["sched"].stats()
+    return {"tokens_per_s": stats["tokens_generated"] / run["wall"],
+            f"{step_key}_p50_s": stats["decode_step_p50_s"],
+            f"{step_key}_p99_s": stats["decode_step_p99_s"],
+            "ttft_p50_s": stats["ttft_p50_s"], "wall_s": run["wall"],
+            "steps": run["sched"].decode_steps,
+            "kernel_launches": run["launches"]}
 
 
 def serve_phase():
@@ -519,7 +775,11 @@ def serve_phase():
     model = gpt2_125m(device="cuda", seed=1, dtype=torch.bfloat16)
     cfg = model.cfg
     engine = InferenceEngine(model, **SERVE_KW)
-    sched, finished, wall, launches, shared, prompts = _serve_run(engine)
+    graph, eager, counted, lost, streams, equal = _serve_pair(
+        engine, "serve", cfg.n_layer)
+    sched, finished, wall = graph["sched"], graph["finished"], graph["wall"]
+    launches, shared, prompts = counted["device"], graph["shared"], \
+        graph["prompts"]
     stats = sched.stats()
     emit({"phase": "serve", "model": "gpt2-125m", "dtype": "bfloat16",
           "n_slots": SERVE_KW["n_slots"], "max_len": SERVE_KW["max_len"],
@@ -535,12 +795,16 @@ def serve_phase():
           "ttft_p50_s": stats["ttft_p50_s"],
           "radix_hits": stats["radix_hits"],
           "prefill_tokens_cached": stats["prefill_tokens_cached"],
-          "decode_steps": sched.decode_steps, "kernel_launches": launches})
+          "decode_steps": sched.decode_steps, "kernel_launches": launches,
+          "kernel_launches_from": "device trace of a repeat of the run",
+          "first_trace_kernel_launches": lost,
+          "wrapper_launches": graph["launches"],
+          "graph_replays": graph["replays"], "capture_s": graph["capture_s"],
+          "graph_pool_reserved_bytes": graph["pool_reserved_bytes"],
+          "eager": _latency(eager), "streams_equal_to_eager": equal})
     check(stats["radix_hits"] >= len(prompts) - 1,
           "shared prefix missed the radix")
-    check(launches == cfg.n_layer * sched.decode_steps > 0,
-          f"kernel launches {launches} != n_layer x decode steps")
-    return launches, engine, {f.request_id: f.tokens for f in finished}
+    return launches, engine, streams
 
 
 def serve_spec_phase(model, serve_streams):
@@ -554,10 +818,12 @@ def serve_spec_phase(model, serve_streams):
     cfg = model.cfg
     engine = InferenceEngine(model, spec_k=SPEC_K, draft_layers=DRAFT_LAYERS,
                              **SERVE_KW)
-    sched, finished, wall, launches, shared, prompts = _serve_run(engine)
-    stats = sched.stats()
-    streams = {f.request_id: f.tokens for f in finished}
     per_round = DRAFT_LAYERS * SPEC_K + cfg.n_layer
+    graph, eager, counted, lost, streams, equal = _serve_pair(
+        engine, "serve_spec", per_round)
+    sched, finished, wall = graph["sched"], graph["finished"], graph["wall"]
+    launches, prompts = counted["device"], graph["prompts"]
+    stats = sched.stats()
     emit({"phase": "serve_spec", "model": "gpt2-125m", "dtype": "bfloat16",
           "spec_k": SPEC_K, "draft_layers": DRAFT_LAYERS,
           "requests": len(prompts), "new_tokens": SERVE_NEW_TOKENS,
@@ -571,22 +837,31 @@ def serve_spec_phase(model, serve_streams):
           "tokens_per_slot_round": 1 + stats["accept_rate"] * SPEC_K,
           "spec_rounds": sched.decode_steps,
           "kernel_launches": launches,
+          "kernel_launches_from": "device trace of a repeat of the run",
+          "first_trace_kernel_launches": lost,
+          "wrapper_launches": graph["launches"],
           "expected_launches": per_round * sched.decode_steps,
           "streams_equal_to_serve": sum(
               streams[r] == serve_streams[r] for r in serve_streams)
-          / len(serve_streams)})
-    check(launches == per_round * sched.decode_steps > 0,
-          f"serve_spec: B7 launches {launches} != "
-          f"(draft_layers x k + n_layer) x rounds = "
-          f"{per_round * sched.decode_steps}")
+          / len(serve_streams),
+          "graph_replays": graph["replays"], "capture_s": graph["capture_s"],
+          "graph_pool_reserved_bytes": graph["pool_reserved_bytes"],
+          "eager": {**_latency(eager, "spec_round"),
+                    "accept_rate": eager["sched"].stats()["accept_rate"]},
+          "streams_equal_to_eager": equal})
     return launches, engine
 
 
-def _spec_parity_run(engine, prompts, n_new, swap_at=None):
-    """Serve ``prompts`` on ``engine`` (B7's count from 0), recording each
-    spec round's per-slot counts; at step ``swap_at`` swap in clones of the
-    current parameters (and the draft's) and check that every parameter
-    kept its ``data_ptr``."""
+def _spec_parity_run(engine, prompts, n_new, swap_at=None, eager=False,
+                     count=False):
+    """Serve ``prompts`` on ``engine`` (B7's wrapper count from 0) through
+    its graphs, or its eager bodies with ``eager``, recording each spec
+    round's per-slot counts, with ``count`` B7's device launches traced; at
+    step ``swap_at`` swap in clones of the current parameters (and the
+    draft's) and check that every parameter and every compute-dtype copy
+    kept its ``data_ptr``. Returns the scheduler, the streams, B7's wrapper
+    launches, the per-round counts, the swap's report, the graph replays
+    and B7's device launches (None without ``count``)."""
     sched = Scheduler(engine, emit_events=False)
     rounds = []
     if engine.spec_k:
@@ -600,42 +875,65 @@ def _spec_parity_run(engine, prompts, n_new, swap_at=None):
     for p in prompts:
         sched.submit(Request(prompt=p, max_new_tokens=n_new))
     models = [m for m in (engine.model, engine.draft_model) if m is not None]
+
+    def ptrs():
+        return [t.data_ptr() for m in models
+                for t in (*m.parameters(), *m._copies.values())]
+
     swap = None
     finished = []
     torch.cuda.synchronize()
     pa.launches = 0
-    while sched.has_work:
-        finished.extend(sched.step())
-        if sched.decode_steps == swap_at and swap is None:
-            ptrs = [p.data_ptr() for m in models for p in m.parameters()]
-            clones = [{n: t.clone() for n, t in m.state_dict().items()}
-                      for m in models]
-            cost = sched.swap_params(*clones[:1], draft_params=(
-                clones[1] if len(clones) > 1 else None))
-            swap = {"at_step": swap_at, "bytes_moved": cost.bytes_moved,
-                    "data_ptr_unchanged": ptrs == [
-                        p.data_ptr() for m in models for p in m.parameters()]}
+    replays = engine.replays
+    with (eager_bodies(engine) if eager else contextlib.nullcontext()), \
+            (device_launches(B7_TRACE_NAME) if count
+             else contextlib.nullcontext({})) as device:
+        while sched.has_work:
+            finished.extend(sched.step())
+            if sched.decode_steps == swap_at and swap is None:
+                before = ptrs()
+                clones = [{n: t.clone() for n, t in m.state_dict().items()}
+                          for m in models]
+                cost = sched.swap_params(*clones[:1], draft_params=(
+                    clones[1] if len(clones) > 1 else None))
+                swap = {"at_step": swap_at, "bytes_moved": cost.bytes_moved,
+                        "data_ptr_unchanged": before == ptrs()}
     torch.cuda.synchronize()
-    launches = pa.launches
-    return sched, {f.request_id: f.tokens for f in finished}, launches, \
-        rounds, swap
+    if engine.spec_k:
+        del engine.spec_decode
+    return (sched, {f.request_id: f.tokens for f in finished}, pa.launches,
+            rounds, swap, engine.replays - replays, device.get(B7_TRACE_NAME))
 
 
 def spec_parity_phase():
     """GPT-2 125M at full width, fp32, TF32 off: 8 requests of 24-72
     tokens, 32 new tokens each, on the slotted and the paged cache (page
-    16). With spec_k = 3, the self-draft (6 layers) and the separate draft
-    model (distilgpt2's shape, 6 x 768, its weights the target's first six
-    layers with wte, wpe and ln_f) give the plain scheduler's greedy
-    streams token for token, and the same accept counts in every round. On
-    the paged cache each spec run swaps in equal weights after its third
-    round (every ``data_ptr`` kept, streams unchanged); B7 launches
-    ``DRAFT_LAYERS * SPEC_K + n_layer`` times a self-draft round and
-    ``n_layer`` times a draft-model round (its draft cache is slotted), and
-    the slotted runs launch it never; after the drain every reservation
-    and every non-radix page is back in the pool. Last, one paged
-    self-draft run samples (temperature 0.8, top-k 40): leftover sampling
-    on the card fills every budget with tokens of the vocab."""
+    16), each served twice: through the step graphs and through the eager
+    step bodies. Plain decode, the self-draft (6 layers) and the separate
+    draft model (distilgpt2's shape, 6 x 768, its weights the target's
+    first six layers with wte, wpe and ln_f), all with spec_k = 3 where
+    they speculate.
+
+    spec_parity (on the graph runs): both drafts give the plain
+    scheduler's greedy streams token for token, and the same accept counts
+    in every round. On the paged cache every run swaps in equal weights
+    after its third step (every ``data_ptr`` kept, of the parameters and of
+    their compute-dtype copies; streams unchanged); B7 launches n_layer
+    times a decode step, ``DRAFT_LAYERS * SPEC_K + n_layer`` times a
+    self-draft round and ``n_layer`` times a draft-model round (its draft
+    cache is slotted), by the device trace of each paged graph run, and the
+    slotted runs launch it never; after the
+    drain every reservation and every non-radix page is back in the pool.
+    One paged self-draft run samples (temperature 0.8, top-k 40): leftover
+    sampling on the card fills every budget with tokens of the vocab.
+
+    graph_parity: every graph run's streams equal its eager twin's token
+    for token, with the same accept counts in every round; its B7 device
+    launches equal the eager twin's wrapper launches; a graph run replays
+    exactly once a step or round, with no wrapper launch of B7, and its
+    eager twin never. The sampled spec run and a sampled plain decode run
+    (temperature 0.8, top-k 40, the generator registered with the graph)
+    give their eager twins' streams for the same seed."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = gpt2_125m(device="cuda", seed=0)
@@ -647,12 +945,50 @@ def spec_parity_phase():
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(24, 73)))
                for _ in range(8)]
     n_new = 32
-    out = {}
+    out, graph_out = {}, {}
+
+    def twins(what, make, swap_at, per_step):
+        """The graph run and its eager twin on fresh engines: checks of
+        graph_parity and of the launch counts; returns the graph run."""
+        count = per_step > 0
+        graph, lost = recounted(
+            lambda: _spec_parity_run(make(), prompts, n_new, swap_at,
+                                     count=count),
+            lambda r: not count or r[6] == per_step * r[0].decode_steps)
+        eager = _spec_parity_run(make(), prompts, n_new, swap_at, eager=True)
+        sched, streams, wrapper, rounds, swap, replays, device = graph
+        launches = device if count else wrapper
+        steps = sched.decode_steps
+        graph_out[what] = {
+            "steps": steps, "replays": replays,
+            "eager_replays": eager[5], "streams_equal": streams == eager[1],
+            "round_counts_equal": rounds == eager[3],
+            "device_launches": device, "wrapper_launches": wrapper,
+            "first_trace_device_launches": lost and lost[6],
+            "eager_launches": eager[2]}
+        check(streams == eager[1] and rounds == eager[3],
+              f"graph_parity {what}: graph and eager streams or accept "
+              f"counts differ")
+        check(replays == steps > 0 and eager[5] == 0 and wrapper == 0,
+              f"graph_parity {what}: {replays} replays and {wrapper} wrapper "
+              f"launches of B7 in {steps} steps, eager {eager[5]} replays")
+        check(launches == per_step * steps and eager[2] == per_step
+              * eager[0].decode_steps,
+              f"graph_parity {what}: B7 launches {launches} (graphs, device "
+              f"trace), {eager[2]} (eager), expected {per_step} a step")
+        if swap_at is not None:
+            for r in (swap, eager[4]):
+                check(r is not None and r["data_ptr_unchanged"]
+                      and r["bytes_moved"] > 0, f"{what}: swap {r}")
+        return sched, streams, launches, rounds, swap
+
     for kind in ("slotted", "paged"):
         kw = dict(SERVE_KW, cache_kind=kind)
-        swap_at = 3 if kind == "paged" else None
-        _, plain, plain_launches, _, _ = _spec_parity_run(
-            InferenceEngine(model, **kw), prompts, n_new)
+        paged = kind == "paged"
+        swap_at = 3 if paged else None
+        _, plain, plain_launches, _, _ = twins(
+            f"{kind}/plain", lambda: InferenceEngine(model, **kw), swap_at,
+            cfg.n_layer if paged else 0)
         runs = {}
         for flavour, spec_kw, per_round in (
                 ("self_draft", dict(draft_layers=DRAFT_LAYERS),
@@ -660,29 +996,25 @@ def spec_parity_phase():
                 ("draft_model", dict(draft_model=draft,
                                      draft_params=draft_params),
                  cfg.n_layer)):
-            sched, streams, launches, rounds, swap = _spec_parity_run(
-                InferenceEngine(model, spec_k=SPEC_K, **spec_kw, **kw),
-                prompts, n_new, swap_at)
+            sched, streams, launches, rounds, swap = twins(
+                f"{kind}/{flavour}",
+                lambda: InferenceEngine(model, spec_k=SPEC_K, **spec_kw,
+                                        **kw),
+                swap_at, per_round if paged else 0)
             stats = sched.stats()
-            expected = per_round * sched.decode_steps if kind == "paged" \
-                else 0
             runs[flavour] = {
                 "streams_equal": streams == plain, "rounds": len(rounds),
                 "accept_rate": stats["accept_rate"],
                 "tokens_per_target_forward":
                     stats["tokens_per_target_forward"],
-                "launches": launches, "expected_launches": expected,
+                "launches": launches,
+                "expected_launches": (per_round if paged else 0)
+                * sched.decode_steps,
                 "swap": swap, "round_counts": rounds}
             check(streams == plain,
                   f"spec_parity {kind} {flavour}: greedy streams differ from "
                   f"the plain scheduler's")
-            check(launches == expected,
-                  f"spec_parity {kind} {flavour}: B7 launches {launches} != "
-                  f"{expected}")
-            if swap is not None:
-                check(swap["data_ptr_unchanged"] and swap["bytes_moved"] > 0,
-                      f"spec_parity {kind} {flavour}: swap {swap}")
-            if kind == "paged":
+            if paged:
                 alloc = sched.allocator
                 alloc.check()
                 pinned = int((alloc.refcount[1:] > 0).sum())
@@ -696,26 +1028,33 @@ def spec_parity_phase():
         for r in runs.values():
             del r["round_counts"]
         out[kind] = {"plain_launches": plain_launches, **runs}
-    # leftover sampling on the card (uniforms and leftover draws from a
-    # CUDA generator): every budget filled, every token in the vocab
-    sched, streams, launches, _, _ = _spec_parity_run(
-        InferenceEngine(model, spec_k=SPEC_K, draft_layers=DRAFT_LAYERS,
-                        sampling=SamplingParams(temperature=0.8, top_k=40),
-                        seed=5, **SERVE_KW), prompts, n_new)
+    # sampling on the card from CUDA generators registered with the
+    # graphs: leftover sampling fills every budget with tokens of the
+    # vocab, and both sampled runs give their eager twins' streams
+    sampled = SamplingParams(temperature=0.8, top_k=40)
     per_round = DRAFT_LAYERS * SPEC_K + cfg.n_layer
+    sched, streams, launches, _, _ = twins(
+        "paged/self_draft/sampled",
+        lambda: InferenceEngine(model, spec_k=SPEC_K,
+                                draft_layers=DRAFT_LAYERS, sampling=sampled,
+                                seed=5, **SERVE_KW), None, per_round)
     out["sampled"] = {"temperature": 0.8, "top_k": 40,
                       "rounds": sched.decode_steps,
                       "accept_rate": sched.stats()["accept_rate"],
                       "launches": launches}
     check(len(streams) == len(prompts)
           and all(len(t) == n_new and all(0 <= x < cfg.vocab_size for x in t)
-                  for t in streams.values())
-          and launches == per_round * sched.decode_steps,
+                  for t in streams.values()),
           f"spec_parity sampled: {out['sampled']}")
+    twins("paged/plain/sampled",
+          lambda: InferenceEngine(model, sampling=sampled, seed=6,
+                                  **SERVE_KW), None, cfg.n_layer)
     emit({"phase": "spec_parity", "dtype": "float32", "spec_k": SPEC_K,
           "draft_layers": DRAFT_LAYERS, "requests": len(prompts),
           "prompt_lens": [len(p) for p in prompts], "new_tokens": n_new,
           **out})
+    emit({"phase": "graph_parity", "dtype": "float32", "tf32": False,
+          **graph_out})
 
 
 def serve_example_phase():
@@ -756,23 +1095,13 @@ def _device_kernels(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def profile_phase(engine, phase="profile", new_tokens=16):
-    """Where a decode step's time goes: torch.profiler over 10 steady decode
-    steps (spec rounds, for a speculative engine: ``spec_profile``) of the
-    serve engine at 8 active slots (host wall time vs device busy time, B7's
-    time and launches, and the top kernels by device time)."""
-    rng = np.random.default_rng(3)
-    sched = Scheduler(engine, emit_events=False)
-    for _ in range(engine.n_slots):
-        sched.submit(Request(prompt=rng.integers(0, engine.cfg.vocab_size, 48),
-                             max_new_tokens=new_tokens))
-    sched.step()  # admissions and the first decode stay outside the window
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=WARM_SCHEDULE) as prof:
-        sched.step()  # warm-up, not recorded
-        torch.cuda.synchronize()
-        prof.step()
+def _profile_window(sched, spans):
+    """torch.profiler over 10 steady steps of ``sched`` after one warm-up
+    step inside the window; ``spans`` (a list, or None) collects CUDA events
+    around each graph replay."""
+    with traced(sched.step) as prof:
+        if spans is not None:
+            spans.clear()
         steps0 = sched.decode_steps
         t0 = time.perf_counter()
         for _ in range(10):
@@ -787,17 +1116,66 @@ def profile_phase(engine, phase="profile", new_tokens=16):
     paged_calls = sum(e.count for e in kernels
                       if "paged_decode_split" in e.key)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    emit({"phase": phase, "decode_steps": n_steps,
-          "active_slots": int(sched.active.sum()),
-          "paged_decode_launches_per_step": paged_calls / n_steps,
-          "wall_ms_per_step": wall_ms / n_steps,
-          "device_busy_ms_per_step": busy_ms / n_steps,
-          "device_busy_share": busy_ms / wall_ms,
-          "paged_decode_ms_per_step": paged_ms / n_steps,
-          "device_kernels_per_step": sum(e.count for e in kernels) / n_steps,
-          "top_kernels": [{"name": e.key[:80],
-                           "ms_per_step": e.self_device_time_total / 1e3 / n_steps,
-                           "calls_per_step": e.count / n_steps} for e in top]})
+    out = {"decode_steps": n_steps,
+           "active_slots": int(sched.active.sum()),
+           "paged_decode_launches_per_step": paged_calls / n_steps,
+           "wall_ms_per_step": wall_ms / n_steps,
+           "device_busy_ms_per_step": busy_ms / n_steps,
+           "device_busy_share": busy_ms / wall_ms,
+           "paged_decode_ms_per_step": paged_ms / n_steps,
+           "device_kernels_per_step": sum(e.count for e in kernels) / n_steps,
+           "top_kernels": [{"name": e.key[:80],
+                            "ms_per_step":
+                                e.self_device_time_total / 1e3 / n_steps,
+                            "calls_per_step": e.count / n_steps}
+                           for e in top]}
+    if spans is not None:
+        replay_ms = _spans_ms(spans)
+        out.update(replays=len(spans), replay_ms_per_step=replay_ms / n_steps,
+                   replay_share_of_wall=replay_ms / wall_ms)
+    return out
+
+
+def profile_phase(engine, per_step, phase="profile", new_tokens=16):
+    """Where a decode step's time goes: 10 steady decode steps (spec rounds,
+    for a speculative engine: ``spec_profile``) of the serve engine at 8
+    active slots, through the graphs and then through the eager bodies:
+    host wall time against the profiler's device busy time, B7's time and
+    launches (``per_step`` a step, in both modes: the trace lists a
+    replay's kernels), the top kernels by device time and, for the graphs,
+    the device span of each replay between CUDA events. A window whose B7
+    count is off is profiled once more (see ``recounted``)."""
+    out, lost = {}, {}
+
+    def window(mode):
+        rng = np.random.default_rng(3)
+        sched = Scheduler(engine, emit_events=False)
+        for _ in range(engine.n_slots):
+            sched.submit(Request(prompt=rng.integers(0, engine.cfg.vocab_size,
+                                                     48),
+                                 max_new_tokens=new_tokens))
+        sched.step()  # admissions and the first step stay outside
+        torch.cuda.synchronize()
+        with (replay_spans() if mode == "graph" else eager_bodies(engine)
+              ) as spans:
+            return _profile_window(sched, spans)
+
+    for mode in ("graph", "eager"):
+        out[mode], first = recounted(
+            lambda: window(mode),
+            lambda r: r["paged_decode_launches_per_step"] == per_step)
+        lost[mode] = first and first["paged_decode_launches_per_step"]
+    emit({"phase": phase, **out["graph"], "eager": out["eager"],
+          "expected_paged_decode_launches_per_step": per_step,
+          "first_window_launches_per_step": lost})
+    check(out["graph"]["replays"] == out["graph"]["decode_steps"],
+          f"{phase}: {out['graph']['replays']} replays in "
+          f"{out['graph']['decode_steps']} steps")
+    for mode in out:
+        check(out[mode]["paged_decode_launches_per_step"] == per_step,
+              f"{phase} ({mode}): B7 launches "
+              f"{out[mode]['paged_decode_launches_per_step']} a step in the "
+              f"trace, expected {per_step}")
 
 
 def _flash_inputs(B, T, H, D, dtype, g):
@@ -842,17 +1220,19 @@ def _device_ms(fn, reps: int, match: str) -> float:
     """Device time of one call of the kernels whose name holds ``match``,
     from torch.profiler over ``reps`` calls (no host work included; the
     host activity is recorded so that ``_device_kernels`` can drop the
-    device-side ranges of host annotations)."""
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=WARM_SCHEDULE) as prof:
-        fn()  # warm-up, not recorded
-        torch.cuda.synchronize()
-        prof.step()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in _device_kernels(prof)
-               if match in e.key) / 1e3 / reps
+    device-side ranges of host annotations). A window that saw none of
+    them lost its records (see WARM_SCHEDULE) and is taken once more."""
+    def window():
+        with traced(fn) as prof:
+            for _ in range(reps):
+                fn()
+        return sum(e.self_device_time_total for e in _device_kernels(prof)
+                   if match in e.key) / 1e3 / reps
+
+    ms, _ = recounted(window, lambda ms: ms > 0)
+    check(ms > 0, f"the profiler saw no device time of {match!r} kernels "
+                  f"in two windows")
+    return ms
 
 
 def _sdpa_times(q, k, v, do, flush, **sdpa_kw):
@@ -1650,13 +2030,8 @@ def head_phase(train_result):
             F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                             targets.reshape(-1)).backward()
         times[mode] = time_ms(fwd_bwd, 5, flush)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=WARM_SCHEDULE) as prof:
-            fwd_bwd()  # warm-up, not recorded
-            torch.cuda.synchronize()
-            prof.step()
+        with traced(fwd_bwd) as prof:
             fwd_bwd()
-            torch.cuda.synchronize()
         top = sorted(_device_kernels(prof),
                      key=lambda e: -e.self_device_time_total)[:4]
         kernels[mode] = [{"name": e.key[:90],
@@ -1769,21 +2144,22 @@ def train_profile_phase(trainer, state, batch, phase="train_profile",
     (B=8, T=1024): host wall time against device busy time, top kernels,
     and the flash kernels' (``kernels``) share of the busy time. Each
     kernel name in ``expect_calls`` must launch n_layer times a step, and
-    no other kernel of ``kernels`` may launch. A trace can lose a run of
-    device records even after the warm-up (one window in four on the card:
-    44 kernels of a train_cp window, one B4 among them, while the wrappers
-    counted every launch), so a window whose calls are off is profiled
-    once more; the check holds the second window, and the first one's
+    no other kernel of ``kernels`` may launch. Before ``traced`` fenced
+    its edges, one window in four on the card lost device records (44
+    kernels of a train_cp window, one B4 among them, while the wrappers
+    counted every launch); a window whose calls are still off is profiled
+    once more, the check holds the second window, and the first one's
     calls are printed beside it."""
     steps = 3
     n_layer = GPT2Config().n_layer
     lost = []
+
+    def warm_up():  # a step not recorded
+        nonlocal state
+        state, _ = trainer.step(state, batch)
+
     for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=WARM_SCHEDULE) as prof:
-            state, _ = trainer.step(state, batch)  # warm-up, not recorded
-            torch.cuda.synchronize()
-            prof.step()
+        with traced(warm_up) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
                 state, _ = trainer.step(state, batch)
@@ -1826,6 +2202,191 @@ def train_profile_phase(trainer, state, batch, phase="train_profile",
           f"{phase}: calls per step {calls}, expected {n_layer} each")
     check(not stray, f"{phase}: kernels off the Hopper route: {stray}")
     return {k: v / steps for k, v in flash_ms.items()}
+
+
+def _runner_runs(build, batches, name, flops_per_step=None):
+    """Three runs from the same weights on the same batches: the eager
+    ``Trainer.step`` loop twice (its run-to-run spread) and ``AsyncRunner``
+    (its start, warm-up and capture off the clock). Each: per-step losses,
+    the wall time a step (closed by one sync; the eager loop's first step,
+    which grows the allocator's pools, is left off the clock), peak device
+    memory (graph pool included), the flash launches, and the final
+    parameters and buffers (kept on the card for the comparison)."""
+    runs = {}
+    for run in ("eager_a", "eager_b", "runner"):
+        trainer, state = build()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_flash_counts()
+        extra = {}
+        if run == "runner":
+            runner = AsyncRunner(trainer, depth=2, drain_every=len(batches))
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
+            runner.start(state, batches[0])
+            torch.cuda.synchronize()
+            extra = {"start_s": time.perf_counter() - t0,
+                     "capture_s": runner._program.capture_s,
+                     "captured": runner._program.captured,
+                     "start_reserved_bytes":
+                         torch.cuda.memory_reserved() - reserved}
+            t0 = time.perf_counter()
+            for batch in batches:
+                runner.submit(batch)
+            extra["replays"] = runner._program.replays
+            state, hist = runner.finish()
+            step_s = (time.perf_counter() - t0) / len(batches)
+            losses = hist["loss"].tolist()
+        else:
+            out = []
+            for i, batch in enumerate(batches):
+                state, m = trainer.step(state, batch)
+                out.append(m["loss"])
+                if i == 0:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+            losses = [float(x) for x in out]
+            step_s = (time.perf_counter() - t0) / (len(batches) - 1)
+        model = trainer.model
+        runs[run] = {
+            "losses": losses, "step_s": step_s,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "memory_reserved_bytes": torch.cuda.memory_reserved(),
+            "launches": dict(fa.launches), **extra,
+            "_final": [t.detach().clone() for t in
+                       (*model.parameters(), *model.buffers())]}
+        if run == "runner":
+            runs[run]["_runner"] = (runner, trainer, state)
+        else:
+            del trainer, state
+        torch.cuda.empty_cache()
+    a, b, r = runs["eager_a"], runs["eager_b"], runs["runner"]
+
+    def diff(x, y):
+        return max(float((s - t).abs().max()) for s, t in
+                   zip(x["_final"], y["_final"]))
+    spread = {"losses": max(abs(p - q) for p, q in zip(a["losses"],
+                                                        b["losses"])),
+              "state": diff(a, b)}
+    got = {"losses": max(abs(p - q) for p, q in zip(r["losses"],
+                                                     a["losses"])),
+           "state": diff(r, a)}
+    for k in ("losses", "state"):
+        check(got[k] <= spread[k],
+              f"{name}: runner vs eager {k} differ by {got[k]}, beyond the "
+              f"eager loop's own spread {spread[k]}")
+    check(r["captured"] and r["replays"] == len(batches),
+          f"{name}: {r['replays']} replays for {len(batches)} steps")
+    for run in runs.values():
+        del run["_final"]
+    return runs, spread, got
+
+
+def _gpt2_runner_trainer():
+    """train's model and step (GPT-2 125M, bf16, flash attention, AdamW),
+    AdamW built ``capturable`` so that the eager loop and the runner take
+    the same update arithmetic."""
+    model = gpt2_125m(device="cuda", seed=2, dtype=torch.bfloat16,
+                      attn_impl=fa.flash_attention)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
+                            eps=1e-8, capturable=True)
+    trainer = Trainer(model, opt, NoShard("cuda"), loss_fn=lm_loss,
+                      policy="bf16")
+    return trainer, trainer.init()
+
+
+def runner_train_phase():
+    """The train cell through ``Trainer.run``'s executor: GPT-2 125M, bf16,
+    B = 8 x 1024, flash attention, 10 steps on distinct batches. The
+    runner's losses, parameters and buffers against the eager
+    ``Trainer.step`` loop from the same weights and batches: equal bit for
+    bit where the eager loop is deterministic run to run, else within its
+    own spread (two eager runs). One replay a step; B1-B3's wrappers launch
+    n_layer times each warm-up step and the capture, and never at a
+    replay. Step time, tokens/s, MFU and peak memory for both; then 3
+    profiled replays (the train_graph_profile line): the profiler's device
+    time and the CUDA-event span of each replay against the wall time, and
+    B1-B3's launches in the trace, n_layer each a replayed step (a window
+    whose counts are off is profiled once more, see ``recounted``)."""
+    steps = 10
+    bf16_peak, _, _ = peaks()
+    batches = _lm_batches(steps, 8, 1024, seed=12)
+    runs, spread, got = _runner_runs(_gpt2_runner_trainer, batches,
+                                     "runner_train")
+    n_layer = GPT2Config().n_layer
+    runner, trainer, state = runs["runner"].pop("_runner")
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    for run in runs.values():
+        run["tokens_per_s"] = 8 * 1024 / run["step_s"]
+        run["mfu"] = 6 * n_params * run["tokens_per_s"] / bf16_peak
+    expected = {k: n_layer * steps for k in CAUSAL_KEYS}
+    warm = {k: n_layer * (AsyncRunner.warmup_steps + 1) for k in CAUSAL_KEYS}
+    emit({"phase": "runner_train", "model": "gpt2-125m", "dtype": "bfloat16",
+          "global_batch": 8, "seq_len": 1024, "steps": steps,
+          "warmup_steps": AsyncRunner.warmup_steps,
+          "eager_spread": spread, "runner_vs_eager": got,
+          "expected_launches": {"eager": expected, "runner": warm}, **runs})
+    for run in ("eager_a", "eager_b"):
+        check(all(runs[run]["launches"][k] == expected[k] for k in CAUSAL_KEYS),
+              f"runner_train {run}: launches {runs[run]['launches']}")
+    check(all(runs["runner"]["launches"][k] == warm[k] for k in CAUSAL_KEYS)
+          and not any(runs["runner"]["launches"][k] for k in MASKED_KEYS),
+          f"runner_train: wrapper launches {runs['runner']['launches']} != "
+          f"n_layer x (warm-up steps + the capture) of B1-B3 and none of "
+          f"B4-B6")
+    check(all(np.isfinite(runs["runner"]["losses"])), "a runner loss is not "
+          "finite")
+
+    # the replayed step's busy share and kernels
+    prof_steps = 3
+    expect_calls = {name: n_layer for name in SM90_KERNELS}
+    expect_calls.update({name: 0 for name in MASKED_SM90_KERNELS})
+
+    def window():
+        runner.start(state, batches[0])           # the same step, no rebuild
+        with replay_spans() as spans:
+            with traced(lambda: (runner.submit(batches[0]),
+                                 runner.sync())) as prof:
+                spans.clear()
+                t0 = time.perf_counter()
+                for i in range(prof_steps):
+                    runner.submit(batches[i + 1])
+                runner.sync()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            runner.finish()
+        device = _device_kernels(prof)
+        calls = {name: sum(e.count for e in device if name in e.key)
+                 / prof_steps for name in expect_calls}
+        return device, calls, spans, wall_ms
+
+    (device, calls, spans, wall_ms), first = recounted(
+        window, lambda r: r[1] == expect_calls)
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    replay_ms = _spans_ms(spans)
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:6]
+    emit({"phase": "train_graph_profile", "steps": prof_steps,
+          "wall_ms_per_step": wall_ms / prof_steps,
+          "device_busy_ms_per_step": busy_ms / prof_steps,
+          "device_busy_share": busy_ms / wall_ms,
+          "device_kernels_per_step": sum(e.count for e in device) / prof_steps,
+          "flash_calls_per_step": calls,
+          "first_window_flash_calls_per_step": first and first[1],
+          "replays": len(spans), "replay_ms_per_step": replay_ms / prof_steps,
+          "replay_share_of_wall": replay_ms / wall_ms,
+          "top_kernels": [{"name": e.key[:80],
+                           "ms_per_step": e.self_device_time_total / 1e3
+                           / prof_steps,
+                           "calls_per_step": e.count / prof_steps}
+                          for e in top]})
+    check(len(spans) == prof_steps and replay_ms > 0,
+          f"train_graph_profile: {len(spans)} replays, {replay_ms} ms")
+    check(calls == expect_calls,
+          f"train_graph_profile: flash calls per replayed step {calls}, "
+          f"expected {expect_calls}")
+    del runner, trainer, state
+    torch.cuda.empty_cache()
+    return runs
 
 
 # -- ResNet training (no kernel of the port runs on this path: convolutions,
@@ -1982,6 +2543,35 @@ def resnet_train_phase(smi):
     return out
 
 
+def resnet_runner_phase(bench_out):
+    """The bench twin's step (ResNet-50, batch 128 at 224 px, bf16,
+    SGD(0.1, 0.9), one fixed batch, cuDNN's algorithm search on) through
+    ``AsyncRunner`` against the eager ``Trainer.step`` loop, 8 steps from
+    the same weights: losses, parameters and BatchNorm buffers equal bit for
+    bit where the eager loop is deterministic run to run, else within its
+    own spread (two eager runs); images/s of both and their peak memory,
+    the graph pool included. The bench's own runner throughput and synced
+    step p50 (resnet_train) are repeated beside them."""
+    steps, batch = 8, 128
+
+    def build():
+        trainer, _ = bench.build(torch.device("cuda"), batch=batch, hw=224)
+        return trainer, trainer.init()
+
+    fixed = bench.build(torch.device("cuda"), batch=batch, hw=224)[1]
+    runs, spread, got = _runner_runs(build, [fixed] * steps, "resnet_runner")
+    del runs["runner"]["_runner"]
+    for run in runs.values():
+        run["images_per_s"] = batch / run["step_s"]
+    emit({"phase": "resnet_runner", "model": "resnet50", "batch": batch,
+          "hw": 224, "dtype": "bfloat16", "steps": steps,
+          "warmup_steps": AsyncRunner.warmup_steps,
+          "eager_spread": spread, "runner_vs_eager": got,
+          "bench_images_per_s_runner": bench_out["value"],
+          "bench_step_ms_p50_synced": bench_out["step_ms_p50"], **runs})
+    torch.cuda.empty_cache()
+
+
 def resnet_amp_accum_phase():
     """The reference's config #3: ResNet-50 computing in fp16 with the loss
     scaler, ``grad_accum_steps=2`` (two microbatches of 64), batch 128 at
@@ -2041,11 +2631,12 @@ def resnet_profile_phase():
     state = trainer.init()
     state, _ = trainer.step(state, fixed)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=WARM_SCHEDULE) as prof:
-        state, _ = trainer.step(state, fixed)  # warm-up, not recorded
-        torch.cuda.synchronize()
-        prof.step()
+
+    def warm_up():  # a step not recorded
+        nonlocal state
+        state, _ = trainer.step(state, fixed)
+
+    with traced(warm_up) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             state, _ = trainer.step(state, fixed)
@@ -2144,6 +2735,7 @@ def main() -> int:
           "cuda": torch.version.cuda, "build_s": build_s,
           "sm90_kernels": resources})
 
+    profiler_edges_phase()
     kres = kernel_phase()
     fres = flash_kernel_phase()
     mres = masked_kernel_phase(resources)
@@ -2152,10 +2744,11 @@ def main() -> int:
     spec_parity_phase()
     torch.cuda.empty_cache()
     launches, engine, serve_streams = serve_phase()
-    profile_phase(engine)
+    n_layer = GPT2Config().n_layer
+    profile_phase(engine, n_layer)
     spec_launches, spec_engine = serve_spec_phase(engine.model, serve_streams)
-    profile_phase(spec_engine, phase="spec_profile",
-                  new_tokens=SERVE_NEW_TOKENS)
+    profile_phase(spec_engine, DRAFT_LAYERS * SPEC_K + n_layer,
+                  phase="spec_profile", new_tokens=SERVE_NEW_TOKENS)
     del engine, spec_engine
     serve_example_phase()
     torch.cuda.empty_cache()
@@ -2165,6 +2758,7 @@ def main() -> int:
                                       expect_calls=SM90_KERNELS)
     torch.cuda.empty_cache()
     head_phase(train_result)
+    runner_train_phase()
 
     # context parallelism over a one-rank NCCL group: one card, cp = 1
     with socket.socket() as sock:
@@ -2185,7 +2779,8 @@ def main() -> int:
     resnet_parity_phase()
     resnet_amp_accum_phase()
     resnet_example_phase()
-    resnet_train_phase(smi)   # switches cuDNN's algorithm search on
+    bench_out = resnet_train_phase(smi)   # cuDNN's algorithm search on
+    resnet_runner_phase(bench_out)
     resnet_profile_phase()
 
     main_dtype = kres["ragged"]["bfloat16"]  # the serve phase runs in bf16
@@ -2221,7 +2816,6 @@ def main() -> int:
         "verify_library_ms": verify_set["library_ms"],
         "verify_fp32_ms": kres["verify"]["float32"]["ms"],
     }]
-    n_layer = GPT2Config().n_layer
     for name, key, replaces in FLASH_KERNELS:
         r = fres["bfloat16"][key]  # the train phase runs in bf16
         summary.append({

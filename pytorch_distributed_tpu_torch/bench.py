@@ -12,11 +12,13 @@ data-parallel strategy of a one-device mesh)::
 
 Honesty rules, kept from ``bench.py``:
 
-* 3 warm-up steps, then 50 timed steps with no host read in between; the
-  timed window ends with one ``loss.item()`` of the last step, whose loss
-  depends on every step before it, so it cannot return before the chain
-  ran;
-* 15 more steps, each synchronized, give the step time's p50 and p90;
+* throughput comes from the pipelined executor, the product path
+  (``pipeline_exec.AsyncRunner``: one CUDA graph replay a step, two steps
+  in flight, the metric ring drained once): 3 warm-up submits closed by
+  ``sync()``, then 50 timed submits closed by ``finish()``, the one
+  chain-closing host read;
+* 15 more steps of the eager ``Trainer.step``, each synchronized, give the
+  step time's p50, p90 and p99 (the stall the runner removes);
 * the loss must fall from the last warm-up step, or end below 0.9 ln 1000
   (the fixed batch is memorised); otherwise no throughput is reported;
 * MFU counts 4.09 x 3 GFLOP per 224 px image (forward + backward) against
@@ -27,10 +29,7 @@ Honesty rules, kept from ``bench.py``:
   ``resnet50_smoke_bs{B}_{H}px_images_per_sec``.
 
 cuDNN's algorithm search (``torch.backends.cudnn.benchmark``) is switched
-on before the warm-up, and its state is in the line. The pipelined
-executor of the JAX bench (``AsyncRunner``) is not ported (ROADMAP A.6):
-the timed loop calls ``Trainer.step`` in a plain loop, which queues the
-card's work without waiting for it.
+on before the warm-up, and its state is in the line.
 """
 
 from __future__ import annotations
@@ -101,6 +100,7 @@ def run(device, *, batch: int, hw: int, steps: int, sync_steps: int,
         warmup: int) -> Dict:
     """Build the step, time it, and return the JSON line's fields."""
     from pytorch_distributed_tpu_torch import resolve_device
+    from pytorch_distributed_tpu_torch.pipeline_exec import AsyncRunner
 
     device = resolve_device(device)
     on_card = device.type == "cuda"
@@ -124,15 +124,22 @@ def run(device, *, batch: int, hw: int, steps: int, sync_steps: int,
     state = trainer.init()
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
+    # the product path: the runner (its start warms up, captures and puts
+    # the warm-up's changes back, all off the clock)
+    runner = AsyncRunner(trainer, depth=2, drain_every=warmup + steps)
+    runner.start(state, fixed)
     for _ in range(warmup):
-        state, m = trainer.step(state, fixed)
-    first_loss = float(m["loss"])   # the last warm-up step's loss
+        runner.submit(fixed)
+    runner.sync()
     t0 = time.perf_counter()
     for _ in range(steps):
-        state, m = trainer.step(state, fixed)
-    m["loss"].item()                # the one chain-closing host read
+        runner.submit(fixed)
+    dispatches = runner.dispatch_count
+    state, hist = runner.finish()   # the one chain-closing host read
     dt_pipelined = time.perf_counter() - t0
+    first_loss = float(hist["loss"][warmup - 1])  # the last warm-up step's
 
+    # the deliberately synchronized eager steps
     step_times = []
     for _ in range(sync_steps):
         t1 = time.perf_counter()
@@ -200,6 +207,9 @@ def run(device, *, batch: int, hw: int, steps: int, sync_steps: int,
               "dispatch_ms_per_program": dispatch_ms},
         "loss_first": first_loss,
         "loss_last": final_loss,
+        "runner": {"programs_per_step": runner.programs_per_step,
+                   "dispatches": dispatches,
+                   "graph": on_card},
         "cudnn_benchmark": torch.backends.cudnn.benchmark,
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                               if on_card else None),

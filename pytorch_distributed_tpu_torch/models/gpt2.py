@@ -22,7 +22,10 @@ block table and runs ``ops.paged_decode_attention`` -- the CUDA kernel on
 the card. So does a speculative verify window (``verify=True``): its T
 tokens become T rows of the kernel, each attending up to its own position.
 A prefill window runs the plain ``paged_cached_attention``; the slotted
-cache runs ``cached_attention``.
+cache runs ``cached_attention``. After ``cast_weights()`` (the serving
+engine calls it) the cached forward reads compute-dtype copies of the
+weights made once, where the training forward casts them on every call
+(autograd needs the casts).
 """
 
 from __future__ import annotations
@@ -107,8 +110,16 @@ def default_attention(q, k, v, *, causal: bool = True):
     return torch.einsum("bhts,bshd->bthd", probs, v)
 
 
-def _linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+def _cast(p: torch.Tensor, dtype: torch.dtype, copies) -> torch.Tensor:
+    """``p`` in ``dtype``: its copy in ``copies`` (``GPT2.cast_weights``)
+    when given, else a cast made now."""
+    return p.to(dtype) if copies is None else copies[p]
+
+
+def _linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype,
+            copies=None) -> torch.Tensor:
+    return F.linear(x.to(dtype), _cast(lin.weight, dtype, copies),
+                    _cast(lin.bias, dtype, copies))
 
 
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, cfg: GPT2Config) -> torch.Tensor:
@@ -125,11 +136,12 @@ class SelfAttention(nn.Module):
         self.c_attn = nn.Linear(cfg.n_embd, 3 * cfg.n_embd, **kw)
         self.c_proj = nn.Linear(cfg.n_embd, cfg.n_embd, **kw)
 
-    def forward(self, x, *, layer_cache=None, position_offset=None):
+    def forward(self, x, *, layer_cache=None, position_offset=None,
+                copies=None):
         cfg = self.cfg
         B, T, C = x.shape
         H, D = cfg.n_head, C // cfg.n_head
-        q, k, v = _linear(x, self.c_attn, cfg.dtype).split(C, dim=-1)
+        q, k, v = _linear(x, self.c_attn, cfg.dtype, copies).split(C, dim=-1)
         q = q.view(B, T, H, D)
         k = k.view(B, T, H, D)
         v = v.view(B, T, H, D)
@@ -151,7 +163,7 @@ class SelfAttention(nn.Module):
         else:
             y, _, _ = cached_attention(q, k, v, layer_cache[0],
                                        layer_cache[1], position_offset)
-        return _linear(y.reshape(B, T, C), self.c_proj, cfg.dtype)
+        return _linear(y.reshape(B, T, C), self.c_proj, cfg.dtype, copies)
 
 
 class MLP(nn.Module):
@@ -162,9 +174,10 @@ class MLP(nn.Module):
         self.c_fc = nn.Linear(cfg.n_embd, 4 * cfg.n_embd, **kw)
         self.c_proj = nn.Linear(4 * cfg.n_embd, cfg.n_embd, **kw)
 
-    def forward(self, x):
-        y = F.gelu(_linear(x, self.c_fc, self.cfg.dtype), approximate="tanh")
-        return _linear(y, self.c_proj, self.cfg.dtype)
+    def forward(self, x, copies=None):
+        dtype = self.cfg.dtype
+        y = F.gelu(_linear(x, self.c_fc, dtype, copies), approximate="tanh")
+        return _linear(y, self.c_proj, dtype, copies)
 
 
 class Block(nn.Module):
@@ -177,11 +190,12 @@ class Block(nn.Module):
         self.ln_2 = nn.LayerNorm(cfg.n_embd, **kw)
         self.mlp = MLP(cfg, device)
 
-    def forward(self, x, *, layer_cache=None, position_offset=None):
+    def forward(self, x, *, layer_cache=None, position_offset=None,
+                copies=None):
         x = x + self.attn(_layer_norm(x, self.ln_1, self.cfg),
                           layer_cache=layer_cache,
-                          position_offset=position_offset)
-        return x + self.mlp(_layer_norm(x, self.ln_2, self.cfg))
+                          position_offset=position_offset, copies=copies)
+        return x + self.mlp(_layer_norm(x, self.ln_2, self.cfg), copies)
 
 
 class HeadMatmul(torch.autograd.Function):
@@ -232,6 +246,11 @@ class GPT2(nn.Module):
 
     ``device=None`` means the CUDA card (and raises without one); weights
     are drawn from a ``torch.Generator`` seeded with ``seed`` on that device.
+
+    ``cast_weights()`` makes compute-dtype copies of the parameters that
+    the cached forward reads from then on (aliases where a parameter is
+    already in the compute dtype); call it again after changing the
+    parameters, and it refreshes the copies in place.
     """
 
     def __init__(self, cfg: GPT2Config, *, device=None, seed: int = 0):
@@ -245,6 +264,21 @@ class GPT2(nn.Module):
         self.h = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layer))
         self.ln_f = nn.LayerNorm(cfg.n_embd, eps=cfg.layer_norm_eps, **kw)
         self.reset_parameters(torch.Generator(device=device).manual_seed(seed))
+        self._copies: Optional[dict] = None
+
+    @torch.no_grad()
+    def cast_weights(self) -> None:
+        """Make, or refresh in place, the compute-dtype copy of every
+        parameter (keyed by the parameter) for the cached forward; each
+        copy keeps its storage, and so its ``data_ptr``, across refreshes."""
+        dtype = self.cfg.dtype
+        if self._copies is None:
+            self._copies = {p: p if p.dtype == dtype else p.detach().to(dtype)
+                            for p in self.parameters()}
+            return
+        for p, c in self._copies.items():
+            if c is not p:
+                c.copy_(p)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -269,12 +303,12 @@ class GPT2(nn.Module):
             ln.weight.fill_(1.0)
             ln.bias.zero_()
 
-    def _head(self, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, x: torch.Tensor, copies=None) -> torch.Tensor:
         # weight-tied LM head; logits in fp32 for a stable softmax
         if self.cfg.head_in_fp32:
             return torch.matmul(x.float(), self.wte.float().t())
         # the compute-dtype operands, fp32 out (``matmul_f32``)
-        w = self.wte.to(self.cfg.dtype)
+        w = _cast(self.wte, self.cfg.dtype, copies)
         logits = HeadMatmul.apply(x.reshape(-1, x.shape[-1]), w)
         return logits.reshape(*x.shape[:-1], w.shape[0])
 
@@ -328,8 +362,11 @@ class GPT2(nn.Module):
         # rows are discarded by the engine)
         pos = position_offset.long()[:, None] + torch.arange(
             T, device=tokens.device)
-        x = (self.wte[tokens.long()].to(cfg.dtype)
-             + self.wpe[pos.clamp(max=cfg.n_positions - 1)].to(cfg.dtype))
+        copies = self._copies
+        wte = self.wte if copies is None else copies[self.wte]
+        wpe = self.wpe if copies is None else copies[self.wpe]
+        x = (wte[tokens.long()].to(cfg.dtype)
+             + wpe[pos.clamp(max=cfg.n_positions - 1)].to(cfg.dtype))
         # duck-typed cache dispatch: a paged cache carries block tables
         tables = getattr(kv_cache, "block_tables", None)
         rows = None
@@ -341,16 +378,16 @@ class GPT2(nn.Module):
             if T == 1:
                 rows = (pos, tables, position_offset)
             else:
-                rows = (pos, tables.repeat_interleave(T, dim=0),
-                        pos.reshape(-1).to(torch.int32))
+                rows = (pos, tables[:, None].expand(B, T, tables.shape[1])
+                        .reshape(B * T, -1), pos.reshape(-1).to(torch.int32))
         for i, block in enumerate(self.h[:nl]):
             layer_cache = (
                 (kv_cache.k[i], kv_cache.v[i], tables, rows)
                 if tables is not None else (kv_cache.k[i], kv_cache.v[i])
             )
             x = block(x, layer_cache=layer_cache,
-                      position_offset=position_offset)
-        return self._head(_layer_norm(x, self.ln_f, cfg)), kv_cache
+                      position_offset=position_offset, copies=copies)
+        return self._head(_layer_norm(x, self.ln_f, cfg), copies), kv_cache
 
 
 def gpt2_125m(*, device=None, seed: int = 0, **overrides) -> GPT2:

@@ -35,6 +35,7 @@ from typing import Tuple
 import torch
 
 from pytorch_distributed_tpu_torch.ops import _build
+from pytorch_distributed_tpu_torch.ops.decode_attention import attention_scale
 
 __all__ = [
     "paged_cached_attention",
@@ -110,7 +111,7 @@ def paged_cached_attention(
     k_seq = k_pages[tables].reshape(B, S, H, D)
     v_seq = v_pages[tables].reshape(B, S, H, D)
 
-    scale = 1.0 / torch.sqrt(torch.tensor(float(D))).to(q.dtype)
+    scale = attention_scale(D, q.dtype)
     scores = torch.einsum("bthd,bshd->bhts", q, k_seq.to(q.dtype)) * scale
     visible = torch.arange(S, device=q.device)[None, None, :] <= pos[:, :, None]
     scores = scores.masked_fill(

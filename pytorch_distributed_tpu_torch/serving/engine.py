@@ -26,9 +26,18 @@ sharding (ROADMAP A.15c):
     the verify window both run the paged-decode kernel.
   * ``swap_params`` -- new weights, copied in place between steps.
 
-PyTorch runs eagerly, so the steps are plain methods; the caches are
-updated in place and returned for the reference's calling convention. Only
-sampled token ids cross to the host each step.
+The JAX engine jits its decode step and both spec steps, one program each.
+Here each is a step body over static buffers (``last_tokens``, ``active``
+and ``prev_tokens`` of ``[S]``, filled by one host-to-device copy each) and
+the cache, updated in place; on the card the body is captured once per
+cache object (keyed on its tensors' ``data_ptr``s; the ``Scheduler`` has it
+captured when it builds its caches, ``prepare``) as a CUDA graph and each
+call is one replay (``_graphs.Program``), on the CPU it runs eagerly. The
+programs stay valid across prefills, evictions, table updates and
+``swap_params``, which all write in place; a new cache gets a new capture.
+The engine warms each body up on a scratch cache when it is built, and
+casts the weights to the compute dtype once (``GPT2.cast_weights``). Only
+sampled token ids cross to the host each step. Prefill runs eagerly.
 
 Parity anchor: with ``SamplingParams(temperature=0)`` the engine, with or
 without speculation, emits exactly the argmax of the full uncached forward
@@ -38,16 +47,19 @@ at every step.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch._device import resolve_device
+from pytorch_distributed_tpu_torch._graphs import Program, warm_stream
 from pytorch_distributed_tpu_torch.serving.kv_cache import KVCache
 from pytorch_distributed_tpu_torch.serving.paging import PagedKVCache
 from pytorch_distributed_tpu_torch.serving.speculative import (
     DraftConfig,
+    draw,
     filtered_probs,
     greedy_accept,
     rejection_accept,
@@ -95,7 +107,7 @@ def _sample(logits, generator, sp: SamplingParams):
     probs = filtered_probs(
         logits, temperature=sp.temperature, top_k=sp.top_k, top_p=sp.top_p
     )
-    return torch.multinomial(probs, 1, generator=generator)[:, 0], probs
+    return draw(probs, generator), probs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,6 +153,14 @@ def _copy_state(pairs) -> int:
     return moved
 
 
+def _state_tensors(*caches) -> Tuple[torch.Tensor, ...]:
+    """The tensors a step program reads and writes in each cache."""
+    return tuple(t for c in caches if c is not None
+                 for t in (c.k, c.v, c.lengths,
+                           getattr(c, "block_tables", None))
+                 if t is not None)
+
+
 def _default_buckets(prefill_len: int) -> Tuple[int, ...]:
     """Powers of two from 8 up to ``prefill_len`` (inclusive cap)."""
     buckets = []
@@ -156,8 +176,14 @@ class InferenceEngine:
     """Prefill/decode/speculative steps over a port ``GPT2`` and a slotted
     or paged cache.
 
+    ``replays`` counts the graph replays of the decode and spec steps (one
+    per call on the card, none on the CPU).
+
     Args:
-      model: a ``models.GPT2`` whose parameters live on ``device``.
+      model: a ``models.GPT2`` whose parameters live on ``device``; the
+        engine keeps compute-dtype copies of its weights
+        (``GPT2.cast_weights``), so change its parameters through
+        ``swap_params``.
       n_slots: decode batch width (concurrent sequences).
       max_len: per-sequence capacity (prompt + generated); defaults to the
         model's ``n_positions``.
@@ -291,6 +317,25 @@ class InferenceEngine:
             raise ValueError("draft_layers/draft_model require spec_k >= 1")
         self._spec_steps = 0
 
+        # -- one program per step ------------------------------------------
+        for m in (model, draft_model):
+            if m is not None:
+                m.cast_weights()
+        S = self.n_slots
+        self._last = torch.zeros(S, dtype=torch.int64, device=self.device)
+        self._prev = torch.zeros(S, dtype=torch.int64, device=self.device)
+        self._active = torch.zeros(S, dtype=torch.bool, device=self.device)
+        # the spec step's draws, seeded anew every round (_seed_spec)
+        self._spec_gen = (torch.Generator(device=self.device)
+                          if sampling.temperature > 0 and self.spec_k else None)
+        self._programs: dict = {}
+        self.replays = 0
+        self._pool = self._stream = None
+        if self.device.type == "cuda":
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = warm_stream(self.device)
+            self._warm_up()
+
     # -- state -------------------------------------------------------------
     def init_cache(self):
         """Fresh resident cache of the configured kind."""
@@ -335,7 +380,11 @@ class InferenceEngine:
         pairs = _check_state(self.model, params, "target")
         if draft_params is not None:
             pairs += _check_state(self.draft_model, draft_params, "draft")
-        return SwapCost(bytes_moved=_copy_state(pairs))
+        cost = SwapCost(bytes_moved=_copy_state(pairs))
+        self.model.cast_weights()
+        if draft_params is not None:
+            self.draft_model.cast_weights()
+        return cost
 
     # -- step bodies ---------------------------------------------------------
     def _slot_prefill(self, model, cache: KVCache, tokens, slot: int,
@@ -453,18 +502,89 @@ class InferenceEngine:
         dcache.rollback(cache.lengths)
         return out
 
-    def _step_generator(self) -> Optional[torch.Generator]:
-        """A fresh generator for one spec step, seeded from the engine
+    def _seed_spec(self) -> None:
+        """Seed the spec step's generator for one round from the engine
         generator's seed and the step count (where JAX folds the step into
-        the session key); a greedy step draws nothing."""
-        if self.sampling.temperature <= 0.0:
-            return None
+        its key); a greedy round draws nothing."""
+        if self._spec_gen is None:
+            return
         self._spec_steps += 1
         seed = np.random.SeedSequence(
             [self._gen.initial_seed(), self._spec_steps]
         ).generate_state(1, np.uint64)[0]
-        return torch.Generator(device=self.device).manual_seed(
-            int(seed) >> 1)
+        self._spec_gen.manual_seed(int(seed) >> 1)
+
+    # -- programs ----------------------------------------------------------
+    def _body(self, kind: str, cache, dcache=None):
+        """The step body of ``kind`` (``"decode"`` or ``"spec"``) over
+        ``cache`` (and the draft cache) and the static inputs: a function
+        of no arguments returning the step's outputs (the tokens ``[S]``;
+        for a spec round ``[emitted | count | prev]`` as ``[S, k + 3]``).
+        It runs without autograd, whoever calls it (the warm-up, a capture
+        or a step), and holds the caches weakly: a program must not keep a
+        cache alive."""
+        ref = weakref.ref(cache)
+        dref = weakref.ref(dcache) if dcache is not None else lambda: None
+        last, active, gen = self._last, self._active, self._spec_gen
+        if kind == "decode":
+            return torch.no_grad()(
+                lambda: self._decode_fn(ref(), last, active))
+
+        @torch.no_grad()
+        def spec():
+            if self.draft_model is None:
+                out = self._spec_self_fn(ref(), last, active, gen)
+            else:
+                out = self._spec_draft_fn(ref(), dref(), last, self._prev,
+                                          active, gen)
+            emitted, counts, prev_next = out
+            return torch.cat([emitted, counts[:, None].long(),
+                              prev_next[:, None]], dim=1)
+        return spec
+
+    def _program(self, kind: str, cache, dcache=None):
+        """The step program of ``kind`` for these caches, built (on the
+        card: captured) at the first call with them; dropped when either
+        cache object dies."""
+        key = (kind,) + tuple(t.data_ptr() for t in
+                              _state_tensors(cache, dcache))
+        prog = self._programs.get(key)
+        if prog is None:
+            gens = () if self.sampling.temperature <= 0.0 else (
+                self._gen if kind == "decode" else self._spec_gen,)
+            prog = Program(self._body(kind, cache, dcache),
+                           device=self.device, pool=self._pool,
+                           generators=gens, stream=self._stream)
+            self._programs[key] = prog
+            for c in (cache, dcache):
+                if c is not None:
+                    weakref.finalize(c, self._programs.pop, key, None)
+        return prog
+
+    def prepare(self, cache, draft_cache=None) -> None:
+        """Build the step program the scheduler runs on these caches now
+        (the spec round with speculation, else the decode step; on the
+        card, its capture), so that no step pays for it."""
+        self._program("spec" if self.spec_k else "decode", cache, draft_cache)
+
+    def _run(self, kind: str, cache, dcache=None):
+        prog = self._program(kind, cache, dcache)
+        self.replays += prog.captured
+        return prog()
+
+    def _warm_up(self) -> None:
+        """Run each step body once on scratch caches, on the capture
+        stream, before any capture (cuBLAS, lazily loaded kernels and the
+        kernels' first-use build); the sampling generator is left as it
+        was."""
+        saved = self._gen.get_state()
+        with torch.cuda.stream(self._stream):
+            cache, dcache = self.init_cache(), self.init_draft_cache()
+            self._body("decode", cache)()
+            if self.spec_k:
+                self._body("spec", cache, dcache)()
+        self._gen.set_state(saved)
+        torch.cuda.current_stream(self.device).wait_stream(self._stream)
 
     # -- steps -------------------------------------------------------------
     def prefill_bucket(self, n: int) -> int:
@@ -561,11 +681,16 @@ class InferenceEngine:
         ``last_tokens [S]``: each active slot's most recent token;
         ``active [S]`` bool. Returns the cache (updated in place) and the
         sampled tokens ``[S]`` (garbage at inactive slots)."""
-        last = torch.as_tensor(np.asarray(last_tokens, np.int64),
-                               device=self.device)
-        act = torch.as_tensor(np.asarray(active, bool), device=self.device)
-        toks = self._decode_fn(cache, last, act)
+        self._fill(self._last, last_tokens, np.int64)
+        self._fill(self._active, active, bool)
+        toks = self._run("decode", cache)
         return cache, toks.cpu().numpy()
+
+    @staticmethod
+    def _fill(static: torch.Tensor, values, dtype) -> None:
+        """One host-to-device copy of ``values`` into a static input."""
+        static.copy_(torch.from_numpy(np.ascontiguousarray(values, dtype)),
+                     non_blocking=True)
 
     @torch.no_grad()
     def spec_decode(
@@ -587,20 +712,12 @@ class InferenceEngine:
         into the next call; only the separate draft's catch-up reads it)."""
         if self.spec_k <= 0:
             raise RuntimeError("spec_k=0 -- speculative decoding disabled")
-        last = torch.as_tensor(np.asarray(last_tokens, np.int64),
-                               device=self.device)
-        act = torch.as_tensor(np.asarray(active, bool), device=self.device)
-        gen = self._step_generator()
-        if self.draft_model is None:
-            emitted, counts, prev_next = self._spec_self_fn(cache, last, act,
-                                                            gen)
-        else:
-            prev = torch.as_tensor(np.asarray(prev_tokens, np.int64),
-                                   device=self.device)
-            emitted, counts, prev_next = self._spec_draft_fn(
-                cache, draft_cache, last, prev, act, gen)
+        self._fill(self._last, last_tokens, np.int64)
+        self._fill(self._active, active, bool)
+        if self.draft_model is not None:
+            self._fill(self._prev, prev_tokens, np.int64)
+        self._seed_spec()
         # one device-to-host copy for the three results
-        host = torch.cat([emitted, counts[:, None].long(),
-                          prev_next[:, None]], dim=1).cpu().numpy()
+        host = self._run("spec", cache, draft_cache).cpu().numpy()
         k1 = self.spec_k + 1
         return cache, draft_cache, host[:, :k1], host[:, k1], host[:, k1 + 1]

@@ -70,11 +70,9 @@ class KVCache:
         """``lengths += n_tokens`` (``[S]`` or scalar), masked to
         ``active`` slots. The K/V bytes were already written by the cached
         forward; this commits how many of them are real."""
-        n = torch.as_tensor(n_tokens, dtype=torch.int32,
-                            device=self.lengths.device)
         if active is not None:
-            n = torch.where(active, n, 0).to(torch.int32)
-        self.lengths += n
+            n_tokens = torch.where(active, n_tokens, 0).to(torch.int32)
+        self.lengths += n_tokens
 
     def rollback(self, lengths) -> None:
         """Reset per-slot lengths; positions past them keep their bytes,

@@ -97,11 +97,9 @@ class PagedKVCache:
     def advance(self, n_tokens, active=None) -> None:
         """``lengths += n_tokens`` (``[S]`` or scalar), masked to
         ``active`` slots."""
-        n = torch.as_tensor(n_tokens, dtype=torch.int32,
-                            device=self.lengths.device)
         if active is not None:
-            n = torch.where(active, n, 0).to(torch.int32)
-        self.lengths += n
+            n_tokens = torch.where(active, n_tokens, 0).to(torch.int32)
+        self.lengths += n_tokens
 
     def rollback(self, lengths) -> None:
         """Reset per-slot lengths. K/V bytes past the new length stay in

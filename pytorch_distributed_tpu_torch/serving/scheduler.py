@@ -97,6 +97,7 @@ class Scheduler:
         self.engine = engine
         self.cache = engine.init_cache()
         self.draft_cache = engine.init_draft_cache()
+        engine.prepare(self.cache, self.draft_cache)
         self.emit_events = emit_events
         self.queue: Deque[Request] = deque()
         self.slots: List[Optional[_SlotState]] = [None] * engine.n_slots

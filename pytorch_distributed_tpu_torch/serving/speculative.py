@@ -19,7 +19,8 @@ Port of ``pytorch_distributed_tpu/serving/speculative.py``. The contract
 Both sides of the accept test see the same filtered distribution, so the
 temperature / top-k / top-p pipeline lives here and the engine's
 ``sample_tokens`` routes through it. Random draws come from an explicit
-``torch.Generator`` on the logits' device.
+``torch.Generator`` on the logits' device, and none reads back to the host,
+so a step that draws runs inside a captured CUDA graph.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 
 __all__ = [
     "DraftConfig",
+    "draw",
     "filter_logits",
     "filtered_probs",
     "greedy_accept",
@@ -114,6 +116,17 @@ def filtered_probs(
     )
 
 
+def draw(probs: torch.Tensor, generator: Optional[torch.Generator]
+         ) -> torch.Tensor:
+    """One sample per row of ``probs [N, V]`` -> ``[N]`` int64: the argmax
+    of ``probs / E`` with ``E`` exponential(1) noise: what
+    ``torch.multinomial(probs, 1, generator=generator)`` computes (the same
+    tokens from the same generator state), without its validity check,
+    which reads back to the host."""
+    noise = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / noise, dim=-1)
+
+
 def greedy_accept(
     target_logits: torch.Tensor, draft_tokens: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -184,7 +197,7 @@ def rejection_accept(
     # degenerate leftover (p_t == p_d up to float dust): fall back to p_t;
     # there the two distributions agree, so the choice is unbiased
     leftover = torch.where(mass > 1e-9, leftover / mass, pt_a)
-    fix = torch.multinomial(leftover, 1, generator=generator)[:, 0]
+    fix = draw(leftover, generator)
 
     padded = torch.cat(
         [draft_tokens, torch.zeros((S, 1), dtype=torch.long, device=dev)],

@@ -340,11 +340,19 @@ class Trainer:
             for k, old in saved.items():
                 st[k].copy_(torch.where(all_finite.to(old.device), st[k], old))
 
-    def run(self, state: TrainState, batches, **kwargs):
-        raise NotImplementedError(
-            "Trainer.run (the pipelined AsyncRunner executor) is not ported "
-            "yet: ROADMAP A.6; call Trainer.step in a loop"
-        )
+    def run(self, state: TrainState, batches, *, depth: int = 2,
+            drain_every: int = 32):
+        """Drive a whole batch stream through the pipelined executor
+        (:class:`..pipeline_exec.AsyncRunner`): one CUDA graph replay per
+        step on the card, up to ``depth`` steps in flight, metrics kept in
+        an on-device ring copied to the host every ``drain_every`` steps
+        without blocking; the host blocks only at the end. Returns
+        ``(final_state, MetricHistory)``: the per-step metric series that
+        sequential :meth:`step` calls would return."""
+        from pytorch_distributed_tpu_torch.pipeline_exec import AsyncRunner
+
+        runner = AsyncRunner(self, depth=depth, drain_every=drain_every)
+        return runner.run(state, batches)
 
     # -- eval --------------------------------------------------------------
     @torch.no_grad()
