@@ -7,7 +7,8 @@ Run from the repository root on a machine with one NVIDIA H100::
 
 It builds the port's CUDA kernels from the sources in the checkout (one
 ``nvcc`` per source, all at once) and drives the main paths of the port,
-serving, GPT-2 training, context-parallel training and ResNet training,
+serving, GPT-2 training (FSDP, ZeRO1, DataParallel), context-parallel
+training and ResNet training,
 printing one JSON line per phase. The serving steps and the pipelined
 training step run as CUDA graph replays (one a step); the serving phases
 run the same requests through the eager step bodies too, as the
@@ -84,8 +85,9 @@ capture records; what the replays launched is counted in device traces
                 every step of every layer launched B1, B2 and B3;
   train         training's main path: ``examples/train_gpt2.py``'s ``main``
                 at its defaults (12 x 768, T=1024, global batch 8, bf16,
-                flash attention), 3 warm-up and 20 timed steps; then 10 steps
-                on one fixed batch, whose loss must fall;
+                flash attention, FSDP on a one-rank NCCL group), 3 warm-up
+                and 20 timed steps; then 10 steps on one fixed batch, whose
+                loss must fall;
   train_profile torch.profiler over 3 training steps: device busy share, top
                 kernels, and B1-B3's share of the busy time; the Hopper
                 B1, B2 and B3 kernels launch n_layer times a step;
@@ -106,6 +108,10 @@ capture records; what the replays launched is counted in device traces
   train_graph_profile  torch.profiler and CUDA events over 3 replayed
                 training steps: device busy share, kernels per step, B1-B3
                 12 each a replayed step and no B4-B6;
+  fsdp_train    the entry point's FSDP (the train phase: a one-rank NCCL
+                group, every parameter whole) against NoShard (the entry
+                point with FSDP patched out, 8 steps): losses equal bit for
+                bit, step time and peak memory of both;
   train_bf16_parity  bf16 GPT-2 125M, 5 steps on one fixed batch from the
                 same weights: flash attention (B1-B3), and ring flash
                 attention (B4-B6) under ``CPStrategy`` on a one-rank NCCL
@@ -122,6 +128,18 @@ capture records; what the replays launched is counted in device traces
   train_cp_profile  as train_profile, for train_cp's steps and B4-B6; the
                 Hopper B4-B6 kernels launch n_layer times a step, and no
                 CUDA-core flash kernel launches;
+  sharded_runner  runner_train's cell under DataParallel, ZeRO1 and FSDP on
+                a one-rank NCCL group: the runner (one replay a step, the
+                collectives captured in the graph) against the eager loop
+                (losses, parameters, buffers), the collectives issued,
+                nccl_ms_per_step and B1-B3's launches in 3 traced replays,
+                step time against runner_train's NoShard runner;
+  fsdp_ranks    four spawned ranks sharing the card over gloo (where gloo
+                takes card tensors): GPT-2 125M, bf16, 2 rows a rank, 3
+                steps under FSDP and ZeRO1 against NoShard in this process
+                (losses within 1%), each rank's parameter and
+                optimizer-state bytes (a quarter of NoShard's) and peak
+                memory;
   resnet_parity ResNet-18 (CIFAR stem, B=16) and ResNet-50 (ImageNet stem
                 at 64 px, B=8), fp32 with TF32 off: the port on the card
                 against the port on the CPU (train and eval logits with
@@ -171,6 +189,8 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -191,7 +211,11 @@ from pytorch_distributed_tpu_torch.ops import paged_attention as pa
 from pytorch_distributed_tpu_torch.pipeline_exec import AsyncRunner
 from pytorch_distributed_tpu_torch.parallel import (
     CPStrategy,
+    DataParallel,
+    FullyShardedDataParallel,
     NoShard,
+    ZeRO1,
+    comm,
     make_ring_attention,
     zigzag_reorder,
     zigzag_restore,
@@ -1868,7 +1892,49 @@ def train_phase():
           and not any(launches[k] for k in MASKED_KEYS),
           f"flash launches {launches} != n_layer x steps {expected} of B1-B3 "
           "and none of B4-B6")
-    return launches, result
+    check(out["strategy"] == "FullyShardedDataParallel" and out["world"] == 1,
+          f"the entry point ran {out['strategy']} on {out['world']} ranks")
+    return launches, result, dict(out, max_memory_allocated_bytes=peak_mem)
+
+
+def fsdp_train_phase(fsdp_out):
+    """The entry point's FSDP (the train phase: one rank, so the rule keeps
+    every parameter whole) against NoShard on the same batches: the entry
+    point again with ``FullyShardedDataParallel`` patched to ``NoShard``
+    (a patch made by this script; the port has no such switch), 8 steps.
+    The losses are equal bit for bit: the sharded route's all-reduces on a
+    one-rank NCCL group and its norm (the whole gradients' sum of squares
+    plus an all-reduced zero) change no bit. B1-B3 launch n_layer times a
+    step in the NoShard run."""
+    steps = 8
+    parallel = importlib.import_module("pytorch_distributed_tpu_torch.parallel")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_counts()
+    with mock.patch.object(parallel, "FullyShardedDataParallel",
+                           lambda mesh, **kw: NoShard(mesh.device)):
+        out = train_gpt2.main(["--steps", str(steps)])
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_layer = GPT2Config().n_layer
+    fsdp_losses = fsdp_out["losses"][:steps]
+    emit({"phase": "fsdp_train", "model": "gpt2-125m", "dtype": out["dtype"],
+          "global_batch": 8, "seq_len": 1024, "steps": steps,
+          "fsdp": {"strategy": fsdp_out["strategy"], "mesh": fsdp_out["mesh"],
+                   "losses": fsdp_losses,
+                   "step_p50_s": statistics.median(fsdp_out["step_s"][3:]),
+                   "max_memory_allocated_bytes":
+                       fsdp_out["max_memory_allocated_bytes"]},
+          "noshard": {"strategy": out["strategy"], "losses": out["losses"],
+                      "step_p50_s": statistics.median(out["step_s"][3:]),
+                      "max_memory_allocated_bytes": peak,
+                      "kernel_launches": launches},
+          "losses_equal": out["losses"] == fsdp_losses})
+    check(out["strategy"] == "NoShard", "the patch did not take")
+    check(out["losses"] == fsdp_losses,
+          f"FSDP losses {fsdp_losses} != NoShard's {out['losses']}")
+    check(all(launches[k] == n_layer * steps for k in CAUSAL_KEYS),
+          f"fsdp_train NoShard launches {launches}")
 
 
 @contextlib.contextmanager
@@ -2283,6 +2349,27 @@ def _runner_runs(build, batches, name, flops_per_step=None):
     return runs, spread, got
 
 
+def _replay_window(runner, state, batches, prof_steps, expect_calls):
+    """``prof_steps`` replays of a started runner's step under ``traced``:
+    the device kernels, the calls per step of each name in
+    ``expect_calls``, the replays' CUDA-event spans and the wall time."""
+    runner.start(state, batches[0])           # the same step, no rebuild
+    with replay_spans() as spans:
+        with traced(lambda: (runner.submit(batches[0]),
+                             runner.sync())) as prof:
+            spans.clear()
+            t0 = time.perf_counter()
+            for i in range(prof_steps):
+                runner.submit(batches[i + 1])
+            runner.sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        runner.finish()
+    device = _device_kernels(prof)
+    calls = {name: sum(e.count for e in device if name in e.key)
+             / prof_steps for name in expect_calls}
+    return device, calls, spans, wall_ms
+
+
 def _gpt2_runner_trainer():
     """train's model and step (GPT-2 125M, bf16, flash attention, AdamW),
     AdamW built ``capturable`` so that the eager loop and the runner take
@@ -2344,21 +2431,7 @@ def runner_train_phase():
     expect_calls.update({name: 0 for name in MASKED_SM90_KERNELS})
 
     def window():
-        runner.start(state, batches[0])           # the same step, no rebuild
-        with replay_spans() as spans:
-            with traced(lambda: (runner.submit(batches[0]),
-                                 runner.sync())) as prof:
-                spans.clear()
-                t0 = time.perf_counter()
-                for i in range(prof_steps):
-                    runner.submit(batches[i + 1])
-                runner.sync()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            runner.finish()
-        device = _device_kernels(prof)
-        calls = {name: sum(e.count for e in device if name in e.key)
-                 / prof_steps for name in expect_calls}
-        return device, calls, spans, wall_ms
+        return _replay_window(runner, state, batches, prof_steps, expect_calls)
 
     (device, calls, spans, wall_ms), first = recounted(
         window, lambda r: r[1] == expect_calls)
@@ -2387,6 +2460,286 @@ def runner_train_phase():
     del runner, trainer, state
     torch.cuda.empty_cache()
     return runs
+
+
+# -- the sharded strategies on the card ------------------------------------
+SHARDED_KINDS = ("DataParallel", "ZeRO1", "FullyShardedDataParallel")
+
+
+def _sharded_trainer(kind):
+    """runner_train's model and step (GPT-2 125M, bf16, flash attention,
+    capturable AdamW) under ``kind`` on the one-rank NCCL group; ZeRO1 and
+    FSDP with the entry point's ``min_shard_size=8``."""
+    n = pdist.get_world_size()
+    if kind == "FullyShardedDataParallel":
+        strategy = FullyShardedDataParallel(
+            init_device_mesh((n,), ("fsdp",)), min_shard_size=8)
+    elif kind == "ZeRO1":
+        strategy = ZeRO1(init_device_mesh((n,), ("dp",)), min_shard_size=8)
+    else:
+        strategy = DataParallel(init_device_mesh((n,), ("dp",)))
+    model = gpt2_125m(device="cuda", seed=2, dtype=torch.bfloat16,
+                      attn_impl=fa.flash_attention)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
+                            eps=1e-8, capturable=True)
+    trainer = Trainer(model, opt, strategy, loss_fn=lm_loss, policy="bf16")
+    return trainer, trainer.init()
+
+
+def sharded_runner_phase(noshard_runs):
+    """The runner under ``DataParallel``, ``ZeRO1`` and
+    ``FullyShardedDataParallel`` on a one-rank NCCL group (one card: every
+    parameter whole, but the step runs the sharded route: the update
+    layout's all-reduces and the norm's all-reduce, NCCL calls captured in
+    the step's graph). runner_train's cell: GPT-2 125M, bf16, B = 8 x 1024,
+    10 steps; per strategy the eager loop twice and the runner (one replay
+    a step), whose losses, parameters and buffers must equal the eager
+    loop's (or lie within its spread), and the collectives its capture
+    recorded: ``comm.counts`` over the two eager runs, the warm-up steps
+    and the capture must be the step's collectives (DataParallel's one
+    all-reduce; at one rank ZeRO1's and FSDP's whole-gradient all-reduce
+    and the norm's) times the steps those ran, and the profiled replays
+    must call no collective wrapper. Then 3 profiled replays of each:
+    ``nccl_ms_per_step`` (the device time of kernels named nccl; NCCL's
+    in-place all-reduce on one rank launches none), B1-B3 n_layer times a
+    replayed step, and step time against runner_train's NoShard
+    runner."""
+    steps = 10
+    prof_steps = 3
+    n_layer = GPT2Config().n_layer
+    batches = _lm_batches(steps, 8, 1024, seed=12)
+    expect_calls = {name: n_layer for name in SM90_KERNELS}
+    expect_calls.update({name: 0 for name in MASKED_SM90_KERNELS})
+    out = {}
+    for kind in SHARDED_KINDS:
+        comm.reset_counts()
+        runs, spread, got = _runner_runs(lambda: _sharded_trainer(kind),
+                                         batches, f"sharded_runner {kind}")
+        runner, trainer, state = runs["runner"].pop("_runner")
+        captured = dict(comm.counts)   # the eager runs', the warm-up's and
+        comm.reset_counts()            # the capture's collectives
+        (device, calls, spans, wall_ms), first = recounted(
+            lambda: _replay_window(runner, state, batches, prof_steps,
+                                   expect_calls),
+            lambda r: r[1] == expect_calls)
+        replays_counted = dict(comm.counts)
+        nccl = [e for e in device if "nccl" in e.key.lower()]
+        out[kind] = {
+            "sharded_update": runner.sharded_update,
+            "losses_runner": runs["runner"]["losses"],
+            "eager_spread": spread, "runner_vs_eager": got,
+            "step_s": {k: runs[k]["step_s"] for k in runs},
+            "max_memory_allocated_bytes": {
+                k: runs[k]["max_memory_allocated_bytes"] for k in runs},
+            "replays": runs["runner"]["replays"],
+            "collectives_eager_warmup_capture": captured,
+            "collectives_in_replays": replays_counted,
+            "nccl_ms_per_step": sum(e.self_device_time_total for e in nccl)
+            / 1e3 / prof_steps,
+            "nccl_kernels_per_step": sum(e.count for e in nccl) / prof_steps,
+            "nccl_kernels": sorted({e.key[:80] for e in nccl}),
+            "device_busy_ms_per_step": sum(e.self_device_time_total
+                                           for e in device) / 1e3 / prof_steps,
+            "wall_ms_per_step": wall_ms / prof_steps,
+            "replay_ms_per_step": _spans_ms(spans) / prof_steps,
+            "flash_calls_per_step": calls,
+            "first_window_flash_calls_per_step": first and first[1],
+            "step_s_over_noshard_runner":
+                runs["runner"]["step_s"] / noshard_runs["runner"]["step_s"],
+        }
+        check(calls == expect_calls,
+              f"sharded_runner {kind}: flash calls per replayed step {calls}")
+        per_step = 1 if kind == "DataParallel" else 2
+        runs_steps = 2 * steps + AsyncRunner.warmup_steps + 1
+        check(captured == {"all_reduce": per_step * runs_steps,
+                           "reduce_scatter": 0, "all_gather": 0,
+                           "broadcast": 3},
+              f"sharded_runner {kind}: collectives {captured}, expected "
+              f"{per_step} all-reduces a step over {runs_steps} steps (the "
+              f"capture's among them) and one broadcast an init")
+        check(not any(replays_counted.values()),
+              f"sharded_runner {kind}: a replay called a collective "
+              f"wrapper: {replays_counted}")
+        del runner, trainer, state, runs
+        torch.cuda.empty_cache()
+    emit({"phase": "sharded_runner", "model": "gpt2-125m",
+          "dtype": "bfloat16", "global_batch": 8, "seq_len": 1024,
+          "steps": steps, "profiled_steps": prof_steps,
+          "ranks": pdist.get_world_size(),
+          "noshard_runner_step_s": noshard_runs["runner"]["step_s"], **out})
+    return out
+
+
+FSDP_RANKS = 4
+FSDP_RANKS_STEPS = 3
+FSDP_RANKS_LOSS_RTOL = 1e-2   # bf16, as train_bf16_parity's limit
+
+
+def _probe_gloo_cuda(device):
+    """Which collectives a gloo group runs on card tensors here: True, or
+    the error."""
+    x = torch.arange(8, dtype=torch.float32, device=device)
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(8 * FSDP_RANKS, device=device), x.clone()),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(8 // FSDP_RANKS, device=device), x.clone()),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize(device)
+            out[name] = True
+        except RuntimeError as e:   # the probe's answer, not a failure
+            out[name] = f"{type(e).__name__}: {e}"[:300]
+    return out
+
+
+def _fsdp_rank(rank, port, out_dir, batches):
+    """One of FSDP_RANKS ranks sharing the card over gloo: the probe, then
+    GPT-2 125M (bf16, flash attention, AdamW) for FSDP_RANKS_STEPS eager
+    steps under FSDP and under ZeRO1, each from the same seeded weights."""
+    device = torch.device("cuda", 0)
+    pdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                             rank=rank, world_size=FSDP_RANKS, device=device)
+    result = {"rank": rank}
+    try:
+        result["probe"] = _probe_gloo_cuda(device)
+        if all(v is True for v in result["probe"].values()):
+            _build.load_all(LIBRARIES)
+            for kind in ("FullyShardedDataParallel", "ZeRO1"):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(device)
+                if kind == "ZeRO1":
+                    strategy = ZeRO1(init_device_mesh((FSDP_RANKS,), ("dp",)),
+                                     min_shard_size=8)
+                else:
+                    strategy = FullyShardedDataParallel(
+                        init_device_mesh((FSDP_RANKS,), ("fsdp",)),
+                        min_shard_size=8)
+                model = gpt2_125m(device=device, seed=7, dtype=torch.bfloat16,
+                                  attn_impl=fa.flash_attention)
+                opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                        weight_decay=0.01, eps=1e-8)
+                trainer = Trainer(model, opt, strategy, loss_fn=lm_loss,
+                                  policy="bf16")
+                state = trainer.init()
+                losses, step_s = [], []
+                for batch in batches:
+                    t0 = time.perf_counter()
+                    state, m = trainer.step(state, batch)
+                    losses.append(float(m["loss"]))
+                    step_s.append(time.perf_counter() - t0)
+                result[kind] = {
+                    "losses": losses, "step_s": step_s,
+                    "param_bytes": sum(p.numel() * p.element_size()
+                                       for p in model.parameters()),
+                    "opt_bytes": sum(v.numel() * v.element_size()
+                                     for st in opt.state.values()
+                                     for v in st.values()),
+                    "max_memory_allocated_bytes":
+                        torch.cuda.max_memory_allocated(device),
+                    "sharded_leaves": sum(leaf.sharded for leaf in
+                                          trainer.layout.leaves),
+                }
+                del trainer, state, model, opt
+    finally:
+        torch.save(result, f"{out_dir}/fsdp_rank{rank}.pt")
+        pdist.destroy_process_group()
+
+
+def fsdp_ranks_phase():
+    """FSDP_RANKS spawned ranks on the one card over gloo (NCCL will not
+    put two ranks on one GPU), with real sharding: first a probe of
+    whether gloo takes card tensors for ``all_reduce``,
+    ``all_gather_into_tensor`` and ``reduce_scatter_tensor``; where it
+    does, GPT-2 125M at full width and depth, 8 x 1024 global (2 rows a
+    rank), bf16, 3 eager steps under FSDP and under ZeRO1 against NoShard
+    on the same batches in this process (the mean of the ranks' losses
+    within FSDP_RANKS_LOSS_RTOL), with each rank's parameter and
+    optimizer-state bytes against NoShard's (a quarter: every GPT-2 125M
+    tensor divides by 4) and its peak memory. Where gloo refuses card
+    tensors, the phase prints the probe and trains nothing."""
+    import tempfile
+
+    batches = _lm_batches(FSDP_RANKS_STEPS, 8, 1024, seed=21)
+    model = gpt2_125m(device="cuda", seed=7, dtype=torch.bfloat16,
+                      attn_impl=fa.flash_attention)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
+                            eps=1e-8)
+    trainer = Trainer(model, opt, NoShard("cuda"), loss_fn=lm_loss,
+                      policy="bf16")
+    state = trainer.init()
+    want = []
+    for batch in batches:
+        state, m = trainer.step(state, batch)
+        want.append(float(m["loss"]))
+    noshard_bytes = {
+        "param_bytes": sum(p.numel() * p.element_size()
+                           for p in model.parameters()),
+        "opt_bytes": sum(v.numel() * v.element_size()
+                         for st in opt.state.values() for v in st.values())}
+    del trainer, state, model, opt
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    # the ranks' results go under the port's (gitignored) build directory
+    _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as out_dir:
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(
+            _fsdp_rank, args=(port, out_dir, batches), nprocs=FSDP_RANKS,
+            join=False, start_method="spawn")
+        deadline = time.monotonic() + 240
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                check(False, "fsdp_ranks: the ranks did not finish in 240 s")
+        wall_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{out_dir}/fsdp_rank{r}.pt", weights_only=False)
+                 for r in range(FSDP_RANKS)]
+    probe = ranks[0]["probe"]
+    ran = all(v is True for v in probe.values())
+    line = {"phase": "fsdp_ranks", "ranks": FSDP_RANKS, "backend": "gloo",
+            "gloo_takes_card_tensors": probe, "ran": ran, "wall_s": wall_s,
+            "model": "gpt2-125m", "dtype": "bfloat16", "global_batch": 8,
+            "seq_len": 1024, "steps": FSDP_RANKS_STEPS,
+            "noshard": {"losses": want, **noshard_bytes},
+            "loss_rtol": FSDP_RANKS_LOSS_RTOL}
+    if not ran:
+        line["left_out"] = ("gloo refuses card tensors for a collective the "
+                            "strategies issue; no host-staging path is added")
+        emit(line)
+        return line
+    for kind in ("FullyShardedDataParallel", "ZeRO1"):
+        mean = [float(np.mean([r[kind]["losses"][i] for r in ranks]))
+                for i in range(FSDP_RANKS_STEPS)]
+        rel = [abs(a - b) / abs(b) for a, b in zip(mean, want)]
+        line[kind] = {
+            "mean_losses": mean, "loss_rel_err": rel,
+            "per_rank": [{k: r[kind][k] for k in (
+                "param_bytes", "opt_bytes", "max_memory_allocated_bytes",
+                "sharded_leaves", "step_s")} for r in ranks],
+            "param_bytes_over_noshard": ranks[0][kind]["param_bytes"]
+            / noshard_bytes["param_bytes"],
+            "opt_bytes_over_noshard": ranks[0][kind]["opt_bytes"]
+            / noshard_bytes["opt_bytes"]}
+    emit(line)
+    for kind in ("FullyShardedDataParallel", "ZeRO1"):
+        r = line[kind]
+        check(max(r["loss_rel_err"]) <= FSDP_RANKS_LOSS_RTOL,
+              f"fsdp_ranks {kind}: losses {r['mean_losses']} vs {want}")
+        check(r["opt_bytes_over_noshard"] <= 0.26,
+              f"fsdp_ranks {kind}: optimizer state not in quarters")
+    check(line["FullyShardedDataParallel"]["param_bytes_over_noshard"] <= 0.26,
+          "fsdp_ranks: FSDP parameters not in quarters")
+    check(line["ZeRO1"]["param_bytes_over_noshard"] == 1.0,
+          "fsdp_ranks: ZeRO1 parameters not whole")
+    return line
 
 
 # -- ResNet training (no kernel of the port runs on this path: convolutions,
@@ -2753,14 +3106,16 @@ def main() -> int:
     serve_example_phase()
     torch.cuda.empty_cache()
     parity_batches, dense = train_parity_phase()
-    train_launches, train_result = train_phase()
+    train_launches, train_result, train_out = train_phase()
+    fsdp_train_phase(train_out)
     train_split = train_profile_phase(*train_fixed_batch_phase(),
                                       expect_calls=SM90_KERNELS)
     torch.cuda.empty_cache()
     head_phase(train_result)
-    runner_train_phase()
+    noshard_runs = runner_train_phase()
 
-    # context parallelism over a one-rank NCCL group: one card, cp = 1
+    # context parallelism and the sharded strategies' runner over a
+    # one-rank NCCL group: one card, cp = dp = fsdp = 1
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
@@ -2772,8 +3127,12 @@ def main() -> int:
         del dense
         train_bf16_parity_phase(mesh)
         cp_launches, cp_split = train_cp_phase(mesh)
+        torch.cuda.empty_cache()
+        sharded_runner_phase(noshard_runs)
     finally:
         pdist.destroy_process_group()
+    torch.cuda.empty_cache()
+    fsdp_ranks_phase()
 
     torch.cuda.empty_cache()
     resnet_parity_phase()

@@ -204,7 +204,12 @@ def run(device, *, batch: int, hw: int, steps: int, sync_steps: int,
                         "dispatch_ms_per_program": dispatch_ms} if anomaly
         else {"pipelined_ms": step_ms_pipelined,
               "blocking_extra_ms": p50 * 1e3 - step_ms_pipelined,
-              "dispatch_ms_per_program": dispatch_ms},
+              "dispatch_ms_per_program": dispatch_ms,
+              "programs_per_step": runner.programs_per_step,
+              "strategy": type(trainer.strategy).__name__,
+              "sharded_update": runner.sharded_update,
+              "runner_depth": runner.depth,
+              "metric_drain_every": runner.drain_every},
         "loss_first": first_loss,
         "loss_last": final_loss,
         "runner": {"programs_per_step": runner.programs_per_step,

@@ -8,6 +8,12 @@ the CPU. There is no fallback from one to the other: a group that cannot
 come up raises. The stores, rendezvous and elastic pieces of the JAX
 package are ROADMAP A.12 and A.13.
 
+An NCCL group is made with ``TORCH_NCCL_ASYNC_ERROR_HANDLING=0`` unless
+the caller set the variable: the pipelined executor captures a sharded
+step's collectives in a CUDA graph, and c10d's asynchronous error handling
+must not query the events of a capture (the torch CUDA-graphs notes ask
+the same of whole-network DDP capture).
+
 Typical use, one process per rank::
 
     init_process_group(init_method="tcp://localhost:29500", rank=r,
@@ -19,6 +25,7 @@ Typical use, one process per rank::
 
 from __future__ import annotations
 
+import os
 from datetime import timedelta
 from typing import Optional, Union
 
@@ -53,7 +60,10 @@ def init_process_group(
 
     ``device=None`` is the card: rank ``r`` binds card ``r % device_count``
     and the backend is NCCL. ``device="cpu"`` picks gloo. An explicit
-    ``backend`` must be the one the device takes. Give either
+    ``backend`` must be the one the device takes, with one exception:
+    ``backend="gloo"`` on the card, for ranks that share one card (NCCL
+    will not put two ranks on one GPU; gloo stages card tensors through
+    host memory itself, for the collectives it supports there). Give either
     ``init_method`` (``tcp://host:port``, ``file://path``, or ``env://``)
     or ``store``, with ``rank`` and ``world_size``.
     """
@@ -65,18 +75,22 @@ def init_process_group(
     if want is None:
         raise ValueError(f"no process-group backend for device {device}")
     if backend is not None and backend.lower() != want:
-        raise ValueError(
-            f"backend {backend!r} on a {device.type} group: the port runs "
-            f"{want} there"
-        )
+        if (device.type, backend.lower()) != ("cuda", "gloo"):
+            raise ValueError(
+                f"backend {backend!r} on a {device.type} group: the port "
+                f"runs {want} there"
+            )
+        want = "gloo"
     if device.type == "cuda":
         if device.index is None:
             device = torch.device("cuda", max(rank, 0) % torch.cuda.device_count())
         torch.cuda.set_device(device)
+        if want == "nccl":
+            os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
     dist.init_process_group(
         backend=want, init_method=init_method, store=store, rank=rank,
         world_size=world_size, timeout=timeout,
-        device_id=device if device.type == "cuda" else None,
+        device_id=device if want == "nccl" else None,
     )
     _group_device = device
 

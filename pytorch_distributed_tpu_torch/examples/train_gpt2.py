@@ -1,30 +1,47 @@
-"""GPT-2 language-model training on one card: the port's training entry point.
+"""FSDP GPT-2 language-model training: the port's training entry point.
 
-The one-device counterpart of ``examples/train_gpt2_fsdp.py`` (GPT-2 125M
-by default, AdamW, LM loss over synthetic WikiText-shaped token windows),
-with the same flags and defaults. The model runs under ``NoShard`` on the
-CUDA card, with the causal flash kernels (``--attn flash``, the default)
-as its attention. The bf16 policy runs the model in bf16 on the card, with
-fp32 parameters; on the CPU it runs in fp32, as the JAX script does off the
-TPU. ``--device cpu`` runs the plain versions of the kernels::
+The twin of ``examples/train_gpt2_fsdp.py`` (BASELINE config #4: GPT-2
+125M by default, AdamW, LM loss over synthetic WikiText-shaped token
+windows), with the same flags and defaults. One process per rank: under
+``torchrun`` (or any launcher that sets ``RANK`` and ``WORLD_SIZE``) the
+script joins the process group (NCCL on the card, gloo with ``--device
+cpu``); without a launcher it makes a one-rank group. The ranks form the
+mesh ``(dp, world // dp)`` over ``("dp", "fsdp")`` and train under
+``FullyShardedDataParallel(mesh, dp_axis="dp" if dp > 1 else None,
+min_shard_size=8)``, as the JAX script does: parameters, gradients and
+AdamW state held as 1/fsdp shards, the batch split over every rank. On
+one rank the rule keeps every parameter whole (``trivial_axis``), and
+the steps are ``NoShard``'s. The attention is the causal flash kernels
+(``--attn flash``, the default). The bf16 policy runs the model in bf16
+on the card, with fp32 parameters; on the CPU it runs in fp32, as the JAX
+script does off the TPU. ``--device cpu`` runs the plain versions of the
+kernels::
 
     python -m pytorch_distributed_tpu_torch.examples.train_gpt2 \\
         --device cpu --layers 2 --embd 64 --heads 4 --seq-len 64 --steps 5
+    torchrun --standalone --nproc-per-node 4 -m \\
+        pytorch_distributed_tpu_torch.examples.train_gpt2 --dp 2 \\
+        --device cpu --layers 2 --embd 64 --heads 4 --seq-len 64 --steps 5
 
-``main(argv)`` returns the run's metrics (per-step losses and times), so a
-caller can drive it in-process. Sharded runs (``--dp``), checkpoints
-(``--ckpt-dir``), MoE (``--moe-experts``) and the token-file corpus
-(``--data-bin``) are not ported yet and raise, naming their ROADMAP items.
+``main(argv)`` returns the run's metrics (per-step losses, the mean over
+the ranks, the same on every rank; step times), so a caller can drive it
+in-process; a caller that made the process group already keeps it.
+Checkpoints (``--ckpt-dir``), MoE (``--moe-experts``) and the token-file
+corpus (``--data-bin``) are not ported yet and raise, naming their ROADMAP
+items.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import socket
 import sys
 import time
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 
 def parse_args(argv=None):
@@ -43,7 +60,7 @@ def parse_args(argv=None):
                    help="recompute each block in the backward (activation "
                         "memory for FLOPs)")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel size (not ported: ROADMAP A.4/A.11)")
+                   help="extra pure-DP axis size (mesh = dp x fsdp)")
     p.add_argument("--ckpt-dir", default=None,
                    help="checkpoint directory (not ported: ROADMAP A.13)")
     p.add_argument("--ckpt-every", type=int, default=50)
@@ -76,8 +93,6 @@ def parse_args(argv=None):
 
 
 def _not_ported(args) -> Optional[str]:
-    if args.dp > 1:
-        return "--dp > 1 (data-parallel and FSDP strategies): ROADMAP A.4/A.11"
     if args.ckpt_dir:
         return "--ckpt-dir (sharded checkpoints): ROADMAP A.13"
     if args.moe_experts or args.ep > 1:
@@ -93,24 +108,62 @@ def main(argv=None) -> Dict:
     if missing:
         raise NotImplementedError(f"not ported yet: {missing}")
 
+    from pytorch_distributed_tpu_torch import distributed as pdist
     from pytorch_distributed_tpu_torch import resolve_device
+
+    device = resolve_device(args.device)
+    own_group = not dist.is_initialized()
+    if own_group:
+        if "WORLD_SIZE" in os.environ:          # torchrun's env:// contract
+            if device.type == "cuda" and device.index is None:
+                device = torch.device("cuda",
+                                      int(os.environ.get("LOCAL_RANK", 0)))
+            pdist.init_process_group(init_method="env://",
+                                     rank=int(os.environ["RANK"]),
+                                     world_size=int(os.environ["WORLD_SIZE"]),
+                                     device=device)
+        else:
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            pdist.init_process_group(init_method=f"tcp://localhost:{port}",
+                                     rank=0, world_size=1, device=device)
+    try:
+        return _train(args)
+    finally:
+        if own_group:
+            pdist.destroy_process_group()
+
+
+def _train(args) -> Dict:
+    from pytorch_distributed_tpu_torch import distributed as pdist
     from pytorch_distributed_tpu_torch.data import (
         DistributedSampler,
         SyntheticLMDataset,
         make_loader,
+        shard_batch_for_mesh,
     )
+    from pytorch_distributed_tpu_torch.mesh import init_device_mesh
     from pytorch_distributed_tpu_torch.models import GPT2, GPT2Config
     from pytorch_distributed_tpu_torch.ops.flash_attention import (
         flash_attention,
     )
-    from pytorch_distributed_tpu_torch.parallel import NoShard
+    from pytorch_distributed_tpu_torch.parallel import (
+        FullyShardedDataParallel,
+    )
     from pytorch_distributed_tpu_torch.trainer import (
         Trainer,
         lm_loss,
         make_chunked_lm_loss,
     )
 
-    device = resolve_device(args.device)
+    nproc, pid = pdist.get_world_size(), pdist.get_rank()
+    if nproc % args.dp:
+        raise SystemExit("--dp must divide the process count")
+    mesh = init_device_mesh((args.dp, nproc // args.dp), ("dp", "fsdp"))
+    strategy = FullyShardedDataParallel(
+        mesh, dp_axis="dp" if args.dp > 1 else None, min_shard_size=8)
+    device = strategy.device
     on_card = device.type == "cuda"
     cfg = GPT2Config(
         vocab_size=args.vocab,
@@ -124,27 +177,33 @@ def main(argv=None) -> Dict:
         attn_impl=flash_attention if args.attn == "flash" else None,
     )
     model = GPT2(cfg, device=device, seed=args.seed)
+    n_params = sum(p.numel() for p in model.parameters())
     optimizer = torch.optim.AdamW(model.parameters(), lr=args.lr,
                                   weight_decay=args.weight_decay, eps=1e-8)
     loss_fn = (make_chunked_lm_loss(args.chunked_loss) if args.chunked_loss
                else lm_loss)
-    trainer = Trainer(model, optimizer, NoShard(device), loss_fn=loss_fn,
+    trainer = Trainer(model, optimizer, strategy, loss_fn=loss_fn,
                       policy=args.policy if on_card else "fp32")
 
+    shards = strategy.data_shard_count
+    if args.global_batch % shards:
+        raise SystemExit("--global-batch must divide by the process count")
     dataset = SyntheticLMDataset(args.dataset_size, seq_len=args.seq_len,
                                  seed=args.seed)
     dataset.vocab_size = min(args.vocab, dataset.vocab_size)
-    sampler = DistributedSampler(dataset, num_replicas=1, rank=0,
+    sampler = DistributedSampler(dataset, num_replicas=shards,
+                                 rank=strategy.data_shard_index,
                                  shuffle=True, seed=args.seed)
-    loader = make_loader(dataset, args.global_batch, sampler, device=device,
-                         num_workers=args.num_workers,
+    loader = make_loader(dataset, args.global_batch // shards, sampler,
+                         device=device, num_workers=args.num_workers,
                          prefetch_factor=args.prefetch,
                          mp_context=args.mp_context)
 
     state = trainer.init()
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"GPT-2: {n_params / 1e6:.1f}M params on {device} "
-          f"({cfg.dtype}, attention {args.attn})", flush=True)
+    if pid == 0:
+        print(f"GPT-2: {n_params / 1e6:.1f}M params on {device} "
+              f"({cfg.dtype}, attention {args.attn}), mesh {mesh.shape}",
+              flush=True)
 
     losses: List[torch.Tensor] = []
     step_s: List[float] = []
@@ -154,25 +213,36 @@ def main(argv=None) -> Dict:
         for batch in loader:
             if state.step >= args.steps:
                 break
+            placed = shard_batch_for_mesh(batch, mesh, strategy.batch_axes,
+                                          global_batch=shards == 1)
             t0 = time.perf_counter()
-            state, metrics = trainer.step(state, tuple(batch))
+            state, metrics = trainer.step(state, placed)
             if on_card:
                 torch.cuda.synchronize(device)
             step_s.append(time.perf_counter() - t0)
             losses.append(metrics["loss"].detach())
-            if state.step % args.log_every == 0:
+            if state.step % args.log_every == 0 and pid == 0:
                 print(f"step {state.step} loss {float(metrics['loss']):.4f} "
                       f"ppl {float(metrics['perplexity']):.1f}", flush=True)
         epoch += 1
 
+    # each rank's loss is its shard's: the mean over the ranks is the
+    # global batch's
+    mean = torch.stack(losses).float()
+    if shards > 1:
+        dist.all_reduce(mean, group=strategy.group)
+        mean /= shards
     return {
         "n_params": n_params,
         "tokens_per_step": args.global_batch * args.seq_len,
-        "losses": [float(x) for x in losses],
+        "losses": mean.tolist(),
         "step_s": step_s,
         "device": str(device),
         "dtype": str(cfg.dtype).removeprefix("torch."),
         "attn": args.attn,
+        "world": nproc,
+        "mesh": mesh.shape,
+        "strategy": type(strategy).__name__,
     }
 
 

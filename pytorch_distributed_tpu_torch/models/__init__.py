@@ -2,6 +2,8 @@
 package."""
 
 from pytorch_distributed_tpu_torch.models.convert import (  # noqa: F401
+    full_optimizer_state,
+    full_state_dict,
     gpt2_flax_from_state_dict,
     gpt2_state_dict_from_flax,
     load_adamw_state_from_optax,
@@ -26,6 +28,8 @@ __all__ = [
     "GPT2",
     "GPT2Config",
     "ResNet",
+    "full_optimizer_state",
+    "full_state_dict",
     "gpt2_125m",
     "gpt2_flax_from_state_dict",
     "gpt2_state_dict_from_flax",

@@ -16,6 +16,12 @@ ResNet: the port's module names are the flax tree's paths (``conv_init``,
 ``weight``, and its ``batch_stats`` ``mean``/``var`` the buffers
 ``running_mean``/``running_var``. optax ``sgd`` momentum (``TraceState``
 ``trace``, a tree like the params) is torch SGD's ``momentum_buffer``.
+
+Sharded training (``parallel.sharded_update``): the optax loaders take the
+trainer's ``layout`` and give each rank its block of every sharded state
+tensor (the optax state given whole, as numpy); :func:`full_state_dict`
+and :func:`full_optimizer_state` gather the blocks back into whole tensors
+on every rank (collective calls: every rank makes them).
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ import numpy as np
 import torch
 
 __all__ = [
+    "full_optimizer_state",
+    "full_state_dict",
     "gpt2_flax_from_state_dict",
     "gpt2_state_dict_from_flax",
     "load_adamw_state_from_optax",
@@ -37,6 +45,58 @@ __all__ = [
 
 def _t(a: Any) -> torch.Tensor:
     return torch.tensor(np.asarray(a))
+
+
+def _opt_tensors(optimizer, model, layout):
+    """(name, the optimizer's tensor, its Shard or None) for every tensor
+    in ``optimizer``'s groups."""
+    if layout is None:
+        name_of = {id(p): (n, None) for n, p in model.named_parameters()}
+    else:
+        name_of = {id(leaf.tensor): (leaf.name, layout.spec(leaf.name))
+                   for leaf in layout.leaves}
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            yield (*name_of[id(p)], p, group)
+
+
+def _local(full: torch.Tensor, spec) -> torch.Tensor:
+    from pytorch_distributed_tpu_torch.parallel.fsdp import local_block
+
+    return full if spec is None else local_block(full, spec.dim, spec.rank,
+                                                 spec.size)
+
+
+@torch.no_grad()
+def full_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``model.state_dict()`` with every parameter that FSDP holds as its
+    shard gathered back into the whole tensor (a copy; collective)."""
+    from pytorch_distributed_tpu_torch.parallel.fsdp import full_tensor
+
+    params = dict(model.named_parameters())
+    out = {}
+    for name, t in model.state_dict().items():
+        p = params.get(name)
+        out[name] = full_tensor(t, getattr(p, "fsdp", None))
+    return out
+
+
+@torch.no_grad()
+def full_optimizer_state(optimizer: torch.optim.Optimizer,
+                         model: torch.nn.Module, layout=None
+                         ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{parameter name: {state key: whole tensor}}`` of ``optimizer``,
+    its sharded state gathered through the trainer's ``layout`` (None:
+    held whole; collective)."""
+    from pytorch_distributed_tpu_torch.parallel.fsdp import full_tensor
+
+    out = {}
+    for name, spec, p, _ in _opt_tensors(optimizer, model, layout):
+        out[name] = {k: full_tensor(v, spec if v.shape == p.shape and v.dim()
+                                    else None)
+                     for k, v in optimizer.state[p].items()
+                     if isinstance(v, torch.Tensor)}
+    return out
 
 
 def _pairs(n_layer: int) -> Iterator[Tuple[Tuple[str, ...], str, bool]]:
@@ -91,27 +151,26 @@ def gpt2_flax_from_state_dict(state_dict) -> Dict[str, Any]:
 
 
 def load_adamw_state_from_optax(optimizer: torch.optim.Optimizer,
-                                model: torch.nn.Module, count, mu, nu) -> None:
+                                model: torch.nn.Module, count, mu, nu,
+                                layout=None) -> None:
     """Set ``optimizer``'s ``torch.optim.AdamW`` state for ``model``'s
     parameters from optax adamw state (``ScaleByAdamState``: ``count`` and
     the ``mu``/``nu`` trees, numpy). optax's first and second moments are
     torch's ``exp_avg`` and ``exp_avg_sq``, its ``count`` torch's ``step``.
     Tensors go to each parameter's device (``step`` to the CPU unless the
-    group is ``capturable`` or ``fused``, as torch keeps it)."""
+    group is ``capturable`` or ``fused``, as torch keeps it). Under a
+    sharded trainer pass its ``layout``: each rank takes its blocks."""
     mu_sd = gpt2_state_dict_from_flax(mu)
     nu_sd = gpt2_state_dict_from_flax(nu)
     step = float(np.asarray(count))
-    name_of = {id(p): n for n, p in model.named_parameters()}
-    for group in optimizer.param_groups:
+    for name, spec, p, group in _opt_tensors(optimizer, model, layout):
         on_device = group.get("capturable") or group.get("fused")
-        for p in group["params"]:
-            name = name_of[id(p)]
-            optimizer.state[p] = {
-                "step": torch.tensor(step, dtype=torch.float32,
-                                     device=p.device if on_device else "cpu"),
-                "exp_avg": mu_sd[name].to(p.device, p.dtype),
-                "exp_avg_sq": nu_sd[name].to(p.device, p.dtype),
-            }
+        optimizer.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32,
+                                 device=p.device if on_device else "cpu"),
+            "exp_avg": _local(mu_sd[name], spec).to(p.device, p.dtype),
+            "exp_avg_sq": _local(nu_sd[name], spec).to(p.device, p.dtype),
+        }
 
 
 # -- ResNet ----------------------------------------------------------------
@@ -178,16 +237,16 @@ def resnet_flax_from_state_dict(state_dict) -> Tuple[Dict, Dict]:
 
 
 def load_sgd_state_from_optax(optimizer: torch.optim.Optimizer,
-                              model: torch.nn.Module, trace) -> None:
+                              model: torch.nn.Module, trace,
+                              layout=None) -> None:
     """Set ``optimizer``'s ``torch.optim.SGD`` momentum buffers for a
     ResNet ``model`` from optax ``sgd`` state: the ``trace`` tree of
     ``TraceState`` (numpy or jax leaves). optax's ``trace = g + m * trace``
     is torch's ``buf = m * buf + g`` (dampening 0). Each buffer takes its
-    parameter's device, dtype and memory format."""
+    parameter's device, dtype and memory format; under a sharded trainer
+    (its ``layout``) each rank takes its blocks."""
     sd = resnet_state_dict_from_flax(trace)
-    name_of = {id(p): n for n, p in model.named_parameters()}
-    for group in optimizer.param_groups:
-        for p in group["params"]:
-            buf = torch.empty_like(p)
-            buf.copy_(sd[name_of[id(p)]])
-            optimizer.state[p]["momentum_buffer"] = buf
+    for name, spec, p, _ in _opt_tensors(optimizer, model, layout):
+        buf = torch.empty_like(p)
+        buf.copy_(_local(sd[name], spec))
+        optimizer.state[p]["momentum_buffer"] = buf

@@ -13,24 +13,94 @@ Port of ``pytorch_distributed_tpu/parallel/strategies.py``:
   gradient, as the JAX step does;
 * ``CPStrategy(mesh, cp_axis)``: ``DataParallel`` over the context-parallel
   axis with the batch replicated: the sequence is split inside the
-  attention (``parallel.context_parallel``), not here.
+  attention (``parallel.context_parallel``), not here;
+* ``FullyShardedDataParallel(mesh, fsdp_axis, dp_axis=None)``: FSDP
+  FULL_SHARD: every parameter, its gradient and its optimizer state held
+  as this rank's 1/fsdp shard (``parallel.fsdp``), the batch split over
+  ``(dp, fsdp)``;
+* ``HybridShard(mesh, fsdp_axis, dcn_axis)``: FSDP inside a node,
+  replicas across nodes (torch ``HYBRID_SHARD``);
+* ``ZeRO1(mesh, dp_axis, sharded_update=True)``: replicated parameters
+  and gradients in the forward and backward, the optimizer state and the
+  weight update held as 1/dp shards (``parallel.sharded_update``).
 
-The strategies that shard parameters (FSDP, ZeRO1, hybrid) are ROADMAP
-A.11; gradient communication hooks are A.14.
+The placement rule is the reference's, to the letter:
+``shard_spec_with_reason`` names the dim a parameter shards along (the
+largest one the axis size divides, ties to the first), or why it stays
+whole. The port applies it to the **torch** shape of a parameter, and a
+torch ``Linear`` weight is ``[out, in]`` where flax's kernel is ``[in,
+out]``: where two dims tie, the port can shard the other logical dim than
+the reference (a square ``[C, C]`` projection: torch's dim 0 is flax's dim
+1). The bytes held and the reasons are the same, since the rule reads only
+the product and which sizes divide.
+
+Where the reference answers with a ``PartitionSpec``, the port answers
+with the dim that shards (``None``: the whole tensor): ``param_pspec``,
+``opt_pspec``, ``update_pspec`` and ``model_state_pspec`` take a
+parameter's name and torch shape. Gradient communication hooks are
+ROADMAP A.14.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Union
+import math
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from pytorch_distributed_tpu_torch._device import resolve_device
 from pytorch_distributed_tpu_torch.data.sharding import LocalBatch
+from pytorch_distributed_tpu_torch.parallel import comm
 
-__all__ = ["ShardingStrategy", "NoShard", "DataParallel", "CPStrategy"]
+__all__ = [
+    "SHARD_REASONS",
+    "ShardingStrategy",
+    "NoShard",
+    "DataParallel",
+    "CPStrategy",
+    "FullyShardedDataParallel",
+    "HybridShard",
+    "ZeRO1",
+    "shard_spec_with_reason",
+]
+
+#: why ``shard_spec_with_reason`` kept a shape whole (or did not)
+SHARD_REASONS = ("sharded", "scalar", "trivial_axis", "small", "indivisible")
+
+
+def shard_spec_with_reason(shape: Tuple[int, ...], axis_name: str,
+                           axis_size: int, min_size: int
+                           ) -> Tuple[Optional[int], str]:
+    """(dim, reason) of the largest-divisible-dim rule: the dim of
+    ``shape`` that shards over ``axis_name`` (``None``: it stays whole),
+    and why.
+
+    The dim is the largest one divisible by ``axis_size``; ties break to
+    the first. The reasons to keep a shape whole, checked in this order:
+
+      * ``scalar``        a 0-d tensor has no dim to shard;
+      * ``trivial_axis``  ``axis_size <= 1``: the shard is the whole;
+      * ``small``         fewer than ``min_size`` elements (FSDP's minimum
+        wrap size; checked before divisibility);
+      * ``indivisible``   no dim is a positive multiple of ``axis_size``
+        (zero-size dims included).
+    """
+    shape = tuple(shape)
+    if not shape:
+        return None, "scalar"
+    if axis_size <= 1:
+        return None, "trivial_axis"
+    if math.prod(shape) < min_size:
+        return None, "small"
+    best = None
+    for i, s in enumerate(shape):
+        if s > 0 and s % axis_size == 0:
+            if best is None or s > shape[best]:
+                best = i
+    if best is None:
+        return None, "indivisible"
+    return best, "sharded"
 
 
 def _to_device(x, device: torch.device):
@@ -47,13 +117,69 @@ def _to_device(x, device: torch.device):
 
 
 class ShardingStrategy:
-    """Base: everything on one device, batch not split."""
+    """Base: everything on one device and whole, batch not split."""
+
+    #: mesh axes that split the global batch (a name, a tuple of names
+    #: split row-major, or None: every rank takes the whole batch)
+    batch_axes: Union[str, Tuple[str, ...], None] = None
+
+    #: True routes the trainer's step through ``parallel.sharded_update``:
+    #: gradients reduce-scattered into the ``update_pspec`` layout, the
+    #: optimizer stepping on the shard beside its state, and (ZeRO1) the
+    #: new values gathered back into the whole parameters
+    sharded_update: bool = False
+
+    #: the axis that ``param_pspec`` shards over (FSDP), and the one that
+    #: ``opt_pspec``/``update_pspec`` shard over
+    param_axis: Optional[str] = None
+    update_axis: Optional[str] = None
 
     def __init__(self, device: Optional[Union[str, torch.device]] = None):
         device = resolve_device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
+
+    # -- placement rules (a dim, or None: whole) ----------------------------
+    def param_pspec(self, name: str, shape) -> Optional[int]:
+        """The dim the parameter ``name`` is held sharded along."""
+        return None
+
+    def opt_pspec(self, name: str, shape) -> Optional[int]:
+        """The dim its optimizer state is held sharded along: by default
+        the state follows its parameter."""
+        return self.param_pspec(name, shape)
+
+    def update_pspec(self, name: str, shape) -> Optional[int]:
+        """The layout of its gradient and update inside the sharded step:
+        the parameter's (FSDP: already the 1/fsdp shard); ZeRO1 takes the
+        optimizer state's, so that a whole parameter gets a 1/dp update."""
+        return self.param_pspec(name, shape)
+
+    def model_state_pspec(self, name: str, shape) -> Optional[int]:
+        """Buffers (BatchNorm statistics) are small and stay whole."""
+        return None
+
+    # -- batch ---------------------------------------------------------------
+    @property
+    def _batch_axes(self) -> Tuple[str, ...]:
+        if self.batch_axes is None:
+            return ()
+        return ((self.batch_axes,) if isinstance(self.batch_axes, str)
+                else tuple(self.batch_axes))
+
+    @property
+    def data_shard_count(self) -> int:
+        """Number of data shards (the 'world size' for the sampler)."""
+        axes = self._batch_axes
+        return self.mesh.size(axes) if axes else 1
+
+    @property
+    def data_shard_index(self) -> int:
+        """This rank's data shard (the sampler's 'rank'): its coordinate,
+        row-major over the batch axes."""
+        axes = self._batch_axes
+        return self.mesh.get_local_rank(axes) if axes else 0
 
     def place_batch(self, batch, accum: int = 1):
         """Host batch (numpy arrays or tensors, nested in tuples) on the
@@ -67,47 +193,64 @@ class ShardingStrategy:
         """The gradients the optimizer steps on (one replica: as they are)."""
         return grads
 
+    def describe(self) -> str:
+        return f"{type(self).__name__}(mesh={getattr(self, 'mesh', None)!r})"
+
+    def collective_signature(self) -> dict:
+        """The step's collective set, the reference's contract on its
+        compiled step (``comm.counts`` shows the port's):
+
+        * ``grad_reduce``: a gradient reduction (all-reduce or
+          reduce-scatter) runs;
+        * ``param_gather``: ``"none"`` (no parameter gather: DP keeps the
+          parameters whole end to end), ``"delta"`` (ZeRO1's sharded
+          update: one gather per sharded-update leaf, never one of the
+          whole model) or ``"per_param"`` (FSDP: a gather per sharded
+          parameter where it is used);
+        * ``forbid``: families no data-parallel step issues.
+        """
+        return {
+            "grad_reduce": False,
+            "param_gather": "none",
+            "forbid": ("all-to-all", "collective-permute"),
+        }
+
 
 class NoShard(ShardingStrategy):
     """Single-device, fully replicated strategy (torch
     ``ShardingStrategy.NO_SHARD``)."""
 
 
-class DataParallel(ShardingStrategy):
-    """DDP semantics over ``mesh``'s ``dp_axis``: replicated parameters,
-    the batch split along dim 0 by the rank's coordinate on the axis, and
-    the gradients averaged over the axis's group after the backward."""
+class _Replicas(ShardingStrategy):
+    """The data-parallel part every multi-rank strategy shares: the batch
+    split over ``batch_axes`` (row-major), replicas over ``self.group``
+    made equal at start-up, BatchNorm over the batch axes' group."""
 
-    def __init__(self, mesh, dp_axis: str = "dp"):
-        if dp_axis not in mesh.axis_names:
-            raise ValueError(f"axis {dp_axis!r} not in mesh {mesh.axis_names}")
+    def __init__(self, mesh, *axes: Optional[str]):
+        for axis in axes:
+            if axis is not None and axis not in mesh.axis_names:
+                raise ValueError(
+                    f"axis {axis!r} not in mesh {mesh.axis_names}")
         super().__init__(mesh.device)
         self.mesh = mesh
-        self.dp_axis = dp_axis
-        self.batch_axes = dp_axis
-        self.group = mesh.get_group(dp_axis)
-
-    @property
-    def data_shard_count(self) -> int:
-        """Number of data shards (the 'world size' for the sampler)."""
-        return 1 if self.batch_axes is None else self.mesh.size(self.batch_axes)
 
     def place_batch(self, batch, accum: int = 1):
         """This rank's rows of the global batch, in microbatch order: the
         global batch splits into ``accum`` microbatches of consecutive rows
         (the JAX step's reshape), each microbatch into ``data_shard_count``
-        equal shares, and the rank's shares are stacked, so that cutting
-        its rows into ``accum`` equal parts gives its share of each
-        microbatch. At ``accum = 1`` this is the ``rank``-th of
-        ``data_shard_count`` equal slices. A :class:`LocalBatch` (this
-        rank's own rows, from a per-process loader) is placed as it is."""
+        equal shares, and the rank's shares (its ``data_shard_index``) are
+        stacked, so that cutting its rows into ``accum`` equal parts gives
+        its share of each microbatch. At ``accum = 1`` this is the
+        ``data_shard_index``-th of ``data_shard_count`` equal slices. A
+        :class:`LocalBatch` (this rank's own rows, from a per-process
+        loader) is placed as it is."""
         if isinstance(batch, LocalBatch):
             return LocalBatch(super().place_batch(tuple(batch)))
         batch = super().place_batch(batch)
         n = self.data_shard_count
         if n == 1:
             return batch
-        i = self.mesh.get_local_rank(self.batch_axes)
+        i = self.data_shard_index
 
         def shard(x):
             if isinstance(x, (tuple, list)):
@@ -124,34 +267,52 @@ class DataParallel(ShardingStrategy):
     @torch.no_grad()
     def sync_params(self, model: torch.nn.Module) -> None:
         """Every replica takes the parameters and floating buffers (the
-        BatchNorm running statistics) of the axis's first rank (one
+        BatchNorm running statistics) of the group's first rank (one
         broadcast of one flat buffer per dtype), and each BatchNorm (a
         module with a ``stats_group`` attribute) takes its statistics over
-        the axis's group when the batch is split over it."""
+        the group of the batch axes when the batch is split."""
         tensors = list(model.parameters()) + [
             b for b in model.buffers() if b.is_floating_point()]
         for dtype in dict.fromkeys(t.dtype for t in tensors):
             same = [t for t in tensors if t.dtype == dtype]
             flat = torch.cat([t.reshape(-1) for t in same])
-            dist.broadcast(flat, dist.get_global_rank(self.group, 0),
-                           group=self.group)
+            comm.broadcast(flat, self.group)
             for t, new in zip(same, flat.split([t.numel() for t in same])):
                 t.copy_(new.view_as(t))
-        stats_group = self.group if self.batch_axes is not None else None
+        axes = self._batch_axes
+        stats_group = self.mesh.get_group(axes) if axes else None
         for m in model.modules():
             if hasattr(m, "stats_group"):
                 m.stats_group = stats_group
 
     @torch.no_grad()
     def reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """The mean of every rank's gradients over the axis's group: one
-        fp32 buffer, one all-reduce (sum), divided by the group size."""
-        n = dist.get_world_size(self.group)
+        """The mean of every rank's gradients over the replicas' group:
+        one fp32 buffer, one all-reduce (sum), divided by the group size."""
+        n = self.mesh.size(self._replica_axes)
         flat = torch.cat([g.reshape(-1).float() for g in grads])
-        dist.all_reduce(flat, group=self.group)
+        comm.all_reduce(flat, self.group)
         flat /= n
         return [new.view_as(g).to(g.dtype)
                 for g, new in zip(grads, flat.split([g.numel() for g in grads]))]
+
+    def collective_signature(self) -> dict:
+        sig = super().collective_signature()
+        sig["grad_reduce"] = True
+        return sig
+
+
+class DataParallel(_Replicas):
+    """DDP semantics over ``mesh``'s ``dp_axis``: replicated parameters,
+    the batch split along dim 0 by the rank's coordinate on the axis, and
+    the gradients averaged over the axis's group after the backward."""
+
+    def __init__(self, mesh, dp_axis: str = "dp"):
+        super().__init__(mesh, dp_axis)
+        self.dp_axis = dp_axis
+        self.batch_axes = dp_axis
+        self._replica_axes = (dp_axis,)
+        self.group = mesh.get_group(dp_axis)
 
 
 class CPStrategy(DataParallel):
@@ -163,3 +324,106 @@ class CPStrategy(DataParallel):
     def __init__(self, mesh, cp_axis: str = "cp"):
         super().__init__(mesh, cp_axis)
         self.batch_axes = None
+
+
+class FullyShardedDataParallel(_Replicas):
+    """FSDP FULL_SHARD semantics: parameters, gradients and optimizer state
+    sharded over ``fsdp_axis``; the batch split over it too (each FSDP rank
+    is a data-parallel rank), and over ``dp_axis`` when given
+    (``batch_axes = (dp, fsdp)``), across which the shards are replicated.
+
+    The SimpleFSDP mechanism (arXiv 2411.00284) the reference cites, by
+    hand where XLA inserted it: ``parallel.fsdp`` holds each sharded
+    parameter as this rank's shard, all-gathers it where the model reads
+    it, and reduce-scatters its gradient into the shard in the backward.
+    ``sharded_update`` keeps the gradient, the optimizer state and the
+    step on that shard. ``min_shard_size`` keeps tiny parameters whole
+    (the wrap-policy analog)."""
+
+    sharded_update = True
+
+    def __init__(self, mesh, fsdp_axis: str = "fsdp", *,
+                 dp_axis: Optional[str] = None, min_shard_size: int = 1024):
+        super().__init__(mesh, fsdp_axis, dp_axis)
+        self.fsdp_axis = fsdp_axis
+        self.dp_axis = dp_axis
+        self.min_shard_size = min_shard_size
+        self.batch_axes = ((dp_axis, fsdp_axis) if dp_axis is not None
+                           else fsdp_axis)
+        self.param_axis = self.update_axis = fsdp_axis
+        self._replica_axes = self._batch_axes
+        # whole parameters are replicas over every batch axis; shards over
+        # the axes besides fsdp
+        self.group = mesh.get_group(self._batch_axes)
+        self.shard_group = mesh.get_group(fsdp_axis)
+        self.shard_replicas = (None if dp_axis is None
+                               else mesh.get_group(dp_axis))
+
+    def param_pspec(self, name: str, shape) -> Optional[int]:
+        return shard_spec_with_reason(tuple(shape), self.fsdp_axis,
+                                      self.mesh.size(self.fsdp_axis),
+                                      self.min_shard_size)[0]
+
+    def collective_signature(self) -> dict:
+        sig = super().collective_signature()
+        sig["param_gather"] = "per_param"
+        return sig
+
+
+class HybridShard(FullyShardedDataParallel):
+    """HSDP (torch FSDP ``HYBRID_SHARD``): parameters sharded over the
+    inner ``fsdp_axis`` (inside a node), replicated over the outer
+    ``dcn_axis`` (across nodes); the batch split over both. Use with a
+    mesh from ``init_hybrid_mesh((per_node,), (n_nodes,), ("dcn",
+    "fsdp"))``."""
+
+    def __init__(self, mesh, fsdp_axis: str = "fsdp", dcn_axis: str = "dcn",
+                 *, min_shard_size: int = 1024):
+        if dcn_axis not in mesh.axis_names:
+            raise ValueError(f"axis {dcn_axis!r} not in mesh {mesh.axis_names}")
+        super().__init__(mesh, fsdp_axis, dp_axis=dcn_axis,
+                         min_shard_size=min_shard_size)
+        self.dcn_axis = dcn_axis
+
+
+class ZeRO1(DataParallel):
+    """ZeRO stage 1 (torch ``ZeroRedundancyOptimizer``): parameters and
+    gradients whole in the forward and backward, the optimizer state held
+    as 1/dp shards.
+
+    ``sharded_update=True`` (the default) is the cross-replica sharded
+    weight update of arXiv 2004.13336: the gradients are reduce-scattered
+    into the 1/dp ``update_pspec`` layout (in place of DP's all-reduce),
+    the optimizer steps on the shard beside its state, and the new shard
+    values are all-gathered back into the whole parameters.
+    ``sharded_update=False`` keeps DP's gradient all-reduce (whole
+    gradients, DP's norm) and steps each rank's slice of them beside its
+    state shard, then gathers the same way: ``ZeroRedundancyOptimizer``'s
+    rank-partitioned step."""
+
+    def __init__(self, mesh, dp_axis: str = "dp", *,
+                 min_shard_size: int = 1024, sharded_update: bool = True):
+        super().__init__(mesh, dp_axis)
+        self.min_shard_size = min_shard_size
+        self.sharded_update = bool(sharded_update)
+        self.update_axis = dp_axis
+        self.shard_group = self.group
+        self.shard_replicas = None
+
+    def opt_pspec(self, name: str, shape) -> Optional[int]:
+        return shard_spec_with_reason(tuple(shape), self.dp_axis,
+                                      self.mesh.size(self.dp_axis),
+                                      self.min_shard_size)[0]
+
+    def update_pspec(self, name: str, shape) -> Optional[int]:
+        # the gradient and the update live where the optimizer state lives
+        return self.opt_pspec(name, shape)
+
+    def collective_signature(self) -> dict:
+        # one gather per sharded-update leaf (its whole bytes), never one
+        # of the whole model; the port gathers also when the update math
+        # is not sharded (its state is), where the reference's compiled
+        # step has none (ROADMAP C)
+        sig = super().collective_signature()
+        sig["param_gather"] = "delta"
+        return sig

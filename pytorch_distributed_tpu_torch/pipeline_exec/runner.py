@@ -25,11 +25,20 @@ is captured once as a CUDA graph (``_graphs.Program``) and every
 Before the capture, :meth:`AsyncRunner.start` runs ``warmup_steps`` eager
 steps on the capture stream (cuDNN's algorithm search, cuBLAS, the first
 build of the port's kernels) and then puts back every tensor they changed:
-the parameters, the model's buffers, the optimizer state, the scaler state
-and the ring. So the runner's steps are the steps sequential
+the parameters (FSDP's shards among them), the model's buffers, the
+tensors the optimizer steps on (ZeRO1's blocks), the optimizer state, the
+scaler state and the ring. So the runner's steps are the steps sequential
 ``Trainer.step`` calls would take. On the card, Adam's parameter groups are
 made ``capturable`` (their step counts move to the card), which graph
 capture requires.
+
+Under a sharded strategy the step's collectives (``parallel.comm``: the
+gradient reduce-scatters and all-reduces, the parameter gathers, the
+norm's all-reduce) are captured with it: each is a synchronous NCCL call
+on the capture stream (the process group is made with
+``TORCH_NCCL_ASYNC_ERROR_HANDLING=0``, ``distributed.init_process_group``),
+so a replay runs them in place. ``sharded_update`` reports whether the
+step takes the sharded update, as the reference's runner does.
 """
 
 from __future__ import annotations
@@ -93,9 +102,14 @@ def _make_capturable(optimizer: torch.optim.Optimizer) -> None:
 
 def _step_tensors(trainer, state) -> list:
     """Every tensor a step changes: the parameters, the model's buffers,
-    the optimizer state and the scaler state."""
+    the tensors the optimizer steps on where they are not parameters (the
+    blocks of ZeRO1's sharded update), the optimizer state and the scaler
+    state."""
     model, opt = trainer.model, trainer.optimizer
     tensors = list(model.parameters()) + list(model.buffers())
+    seen = {id(t) for t in tensors}
+    tensors += [p for group in opt.param_groups for p in group["params"]
+                if id(p) not in seen]
     for st in opt.state.values():
         for k, v in st.items():
             if not isinstance(v, torch.Tensor):
@@ -164,6 +178,9 @@ class AsyncRunner:
         self.depth = int(depth)
         self.drain_every = int(drain_every)
         self.device = trainer.strategy.device
+        #: the step takes the sharded weight update (ZeRO1, FSDP)
+        self.sharded_update = bool(getattr(trainer.strategy,
+                                           "sharded_update", False))
         self._program = None
         self._key = None
         self._reset()
@@ -317,6 +334,7 @@ class AsyncRunner:
             "pipeline_exec.step_budget", steps=self._n, depth=self.depth,
             drain_every=size, programs_per_step=self.programs_per_step,
             graph=self._program.captured, drains_issued=len(self._drains),
+            sharded_update=self.sharded_update,
             finish_block_ms=round((time.perf_counter() - t0) * 1e3, 3))
         state = self._state.replace(step=self._state.step + self._n)
         self._reset()

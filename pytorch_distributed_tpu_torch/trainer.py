@@ -1,10 +1,11 @@
 """Trainer: the training step of the port.
 
-Port of ``pytorch_distributed_tpu/trainer.py`` for replicated strategies
-(``NoShard`` on one device; ``DataParallel`` and ``CPStrategy``, one
-process per rank). The JAX step is one jitted program over an immutable
-state; here the model holds the parameters and the optimizer its state, and
-``step`` updates both in place. The step keeps the JAX step's order:
+Port of ``pytorch_distributed_tpu/trainer.py`` (``NoShard`` on one
+device; ``DataParallel``, ``CPStrategy``, ``ZeRO1``,
+``FullyShardedDataParallel`` and ``HybridShard``, one process per rank).
+The JAX step is one jitted program over an immutable state; here the model
+holds the parameters and the optimizer its state, and ``step`` updates
+both in place. The step keeps the JAX step's order:
 
   1. the strategy places the batch (its rank's rows under a dp split, in
      the order the microbatches need) and the policy casts its floating
@@ -12,15 +13,22 @@ state; here the model holds the parameters and the optimizer its state, and
   2. microbatch accumulation: the grads of ``grad_accum_steps`` equal
      microbatches are summed and divided by their count (the mean); then
      ``strategy.reduce_grads`` averages them over the replicas (the JAX
-     step's gradient all-reduce; ``NoShard`` leaves them as they are).
+     step's gradient all-reduce; ``NoShard`` leaves them as they are), or,
+     under a strategy with a sharded update (ZeRO1, FSDP),
+     ``sharded_update.shard_grads`` puts them into the update layout (the
+     reduce-scatter point), so that everything below runs on the shards.
      Microbatch ``i`` is rows ``[i B / accum, (i + 1) B / accum)`` of the
      global batch, as the JAX step's reshape makes it; under a dp split
      each rank holds its share of every microbatch;
-  3. with a loss scaler: unscale, and an all-finite check over every grad;
+  3. with a loss scaler: unscale, and an all-finite check over every grad
+     (on the shards: reduced over the shard group on the device, together
+     with the norm's sum of squares);
   4. global-norm clipping, ``grads * min(1, clip / (norm + 1e-6))``;
   5. the optimizer step (``torch.optim.AdamW``: the same update as
      ``optax.adamw``; ``torch.optim.SGD`` with momentum and no dampening:
-     ``optax.sgd``);
+     ``optax.sgd``); under a sharded update it steps on the shards beside
+     their state, and ZeRO1 gathers the new values into the whole
+     parameters (``sharded_update.apply_sharded_update``);
   6. skip-on-inf: where the step was not finite, the old parameters and
      optimizer state are kept (a device-side ``torch.where``; nothing is
      read back to the host inside the step). The model's buffers (the
@@ -32,6 +40,16 @@ Metrics are 0-d tensors on the device: ``loss``, ``grad_norm``,
 and, with a scaler, ``loss_scale``. ``grad_norm`` is that of the averaged
 gradients; ``loss`` and the loss function's metrics are the rank's own
 (under a dp split, those of its slice of the batch).
+
+Under a sharded strategy the optimizer is still built by the user over
+``model.parameters()``: ``init`` makes the layout
+(``sharded_update.ShardedParams``: FSDP holds its parameters as their
+shards, in place, so the optimizer keeps pointing at them; ZeRO1 makes a
+block of each sharded parameter) and re-points the optimizer's parameter
+groups at the tensors it steps on, before its state is created, so the
+state is made on the shards. ``trainer.layout`` is that layout (None under
+a replicated strategy), and ``models.convert.full_state_dict`` gathers the
+shards back into the whole ``state_dict``.
 
 A loss function is ``loss_fn(model, batch, train) -> (loss, metrics)``.
 
@@ -47,6 +65,7 @@ Typical use::
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -55,6 +74,13 @@ import torch.nn.functional as F
 from pytorch_distributed_tpu_torch.amp import GradScaler, Policy, get_policy
 from pytorch_distributed_tpu_torch.ops.chunked_xent import chunked_cross_entropy
 from pytorch_distributed_tpu_torch.parallel import ShardingStrategy, TrainState
+from pytorch_distributed_tpu_torch.parallel.fsdp import regather_saved
+from pytorch_distributed_tpu_torch.parallel.sharded_update import (
+    ShardedParams,
+    apply_sharded_update,
+    grad_norm_and_finite,
+    shard_grads,
+)
 
 __all__ = [
     "Trainer",
@@ -198,7 +224,8 @@ class Trainer:
       model: ``torch.nn.Module``, its parameters on the strategy's device.
       optimizer: a ``torch.optim`` optimizer over ``model``'s parameters.
       strategy: placement (``NoShard``: the single card; ``DataParallel``
-        or ``CPStrategy``: replicas over a mesh axis).
+        or ``CPStrategy``: replicas over a mesh axis; ``ZeRO1``,
+        ``FullyShardedDataParallel``, ``HybridShard``: sharded).
       loss_fn: ``(model, batch, train) -> (loss, metrics)``; see
         ``classification_loss`` / ``lm_loss`` / ``make_chunked_lm_loss``.
       policy: 'fp32' | 'bf16' | 'fp16' | Policy -- batch cast and scaler
@@ -238,6 +265,9 @@ class Trainer:
         self.scaler = scaler
         self.clip_norm = clip_norm
         self._params = [p for p in model.parameters() if p.requires_grad]
+        #: the sharded layout (``init`` makes it), or None
+        self.layout: Optional[ShardedParams] = None
+        self._fsdp = False   # parameters held as shards: regather_saved
 
     @property
     def _scaling(self) -> bool:
@@ -246,7 +276,8 @@ class Trainer:
     # -- init --------------------------------------------------------------
     def init(self) -> TrainState:
         """The train state at step 0: every replica takes the first rank's
-        parameters, and the optimizer state is created."""
+        parameters, a sharded strategy cuts them (and re-points the
+        optimizer at its shards), and the optimizer state is created."""
         dev = self.strategy.device
         for name, p in self.model.named_parameters():
             if p.device != dev:
@@ -261,6 +292,11 @@ class Trainer:
             for group in self.optimizer.param_groups:
                 group["capturable"] = True
         self.strategy.sync_params(self.model)
+        if getattr(self.strategy, "update_axis", None) is not None:
+            self.layout = ShardedParams(self.strategy, self.model,
+                                        self.optimizer)
+            self._fsdp = any(leaf.param_shard is not None
+                             for leaf in self.layout.leaves)
         _init_adam_state(self.optimizer)
         _init_sgd_state(self.optimizer)
         return TrainState(
@@ -281,9 +317,12 @@ class Trainer:
         for p in params:
             p.grad = None
 
+        layout = self.layout
         losses, per_mb = [], []
         for mb in _microbatches(batch, accum):
-            loss, metrics = self.loss_fn(model, mb, True)
+            with (regather_saved() if self._fsdp
+                  else contextlib.nullcontext()):
+                loss, metrics = self.loss_fn(model, mb, True)
             (self.scaler.scale(loss, state.scaler) if scaling
              else loss).backward()
             losses.append(loss.detach())
@@ -292,30 +331,35 @@ class Trainer:
                  for p in params]
         if accum > 1:
             grads = [g / accum for g in grads]
-        grads = self.strategy.reduce_grads(grads)
+        grads = (shard_grads(layout, grads) if layout is not None
+                 else self.strategy.reduce_grads(grads))
         loss = torch.stack(losses).mean()
         metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
                    for k in per_mb[0]}
 
         if scaling:
             grads, all_finite = self.scaler.unscale(grads, state.scaler)
-            new_scaler = self.scaler.update(state.scaler, all_finite)
         else:
             all_finite = torch.ones((), dtype=torch.bool, device=loss.device)
-            new_scaler = state.scaler
-
-        grad_norm = torch.sqrt(sum((g.float() * g.float()).sum()
-                                   for g in grads))
+        if layout is not None:
+            grad_norm, all_finite = grad_norm_and_finite(layout, grads,
+                                                         all_finite)
+        else:
+            grad_norm = torch.sqrt(sum((g.float() * g.float()).sum()
+                                       for g in grads))
+        new_scaler = (self.scaler.update(state.scaler, all_finite)
+                      if scaling else state.scaler)
         if self.clip_norm is not None:
             factor = torch.clamp(self.clip_norm / (grad_norm + 1e-6), max=1.0)
             grads = [g * factor for g in grads]
-        for p, g in zip(params, grads):
-            p.grad = g.to(p.dtype)
-
-        if scaling:
-            self._step_or_keep(all_finite)
+        opt_step = ((lambda: self._step_or_keep(all_finite)) if scaling
+                    else self.optimizer.step)
+        if layout is not None:
+            apply_sharded_update(layout, grads, opt_step)
         else:
-            self.optimizer.step()
+            for p, g in zip(params, grads):
+                p.grad = g.to(p.dtype)
+            opt_step()
 
         out_metrics = {"loss": loss, "grad_norm": grad_norm,
                        "all_finite": all_finite, **metrics}
@@ -325,15 +369,18 @@ class Trainer:
 
     @torch.no_grad()
     def _step_or_keep(self, all_finite: torch.Tensor) -> None:
-        """Optimizer step, then keep the old params and optimizer state
-        wherever ``all_finite`` is False."""
+        """Optimizer step, then keep the old params (the shards under a
+        sharded update) and optimizer state wherever ``all_finite`` is
+        False."""
         opt = self.optimizer
-        old_params = [p.detach().clone() for p in self._params]
+        tensors = (self._params if self.layout is None
+                   else self.layout.tensors)
+        old_params = [p.detach().clone() for p in tensors]
         old_state = {p: {k: v.clone() for k, v in opt.state[p].items()
                          if isinstance(v, torch.Tensor)}
-                     for p in self._params}
+                     for p in tensors}
         opt.step()
-        for p, old in zip(self._params, old_params):
+        for p, old in zip(tensors, old_params):
             p.copy_(torch.where(all_finite, p, old))
         for p, saved in old_state.items():
             st = opt.state[p]

@@ -245,6 +245,31 @@ def test_moved_state_rebuilds_the_step(move):
         torch.testing.assert_close(got[k], v, rtol=0, atol=0, msg=k)
 
 
+def test_snapshot_restores_the_tensors_the_optimizer_steps_on():
+    """Under ZeRO1 the optimizer steps on blocks of the parameters that
+    are not ``model.parameters()`` (``sharded_update.ShardedParams``): the
+    runner's snapshot holds them beside their state, so its warm-up is
+    undone for them too (the runner under ZeRO1 on 4 ranks is in
+    ``tests/test_torch_port_zero1_ranks.py``)."""
+    from pytorch_distributed_tpu_torch.pipeline_exec.runner import (
+        _snapshot,
+        _step_tensors,
+    )
+
+    model = GPT2(GPT2Config(**TINY), device="cpu", seed=3)
+    block = torch.zeros(5)
+    opt = torch.optim.AdamW([*model.parameters(), block], lr=LR)
+    trainer = Trainer(model, opt, NoShard("cpu"), loss_fn=lm_loss)
+    state = trainer.init()
+    assert any(t is block for t in _step_tensors(trainer, state))
+    restore = _snapshot(trainer, state)
+    with torch.no_grad():
+        block.add_(1.0)
+        opt.state[block]["exp_avg"].add_(1.0)
+    restore()
+    assert not block.any() and not opt.state[block]["exp_avg"].any()
+
+
 def test_empty_stream():
     trainer, state = _gpt2()
     out_state, hist = trainer.run(state, [])

@@ -87,3 +87,8 @@ def test_bench_twin_prints_the_smoke_line(capsys):
     assert keys <= set(out)
     assert out["platform"] == "cpu" and out["mfu"] is None
     assert out["value"] > 0 and out["loss_last"] < out["loss_first"]
+    if "anomaly" not in out:   # the bench keeps NoShard: no sharded update
+        budget = out["step_budget"]
+        assert budget["strategy"] == "NoShard"
+        assert budget["sharded_update"] is False
+        assert budget["programs_per_step"] == 1.0

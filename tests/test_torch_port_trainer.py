@@ -333,10 +333,79 @@ def test_entry_point_trains_on_cpu():
     out = train_main(common + ["--steps", "2", "--chunked-loss", "4",
                                "--remat", "--attn", "dense"])
     assert len(out["losses"]) == 2
-    for flags, item in ((["--dp", "2"], "A.4"), (["--ckpt-dir", "x"], "A.13"),
-                        (["--moe-experts", "4"], "A.14")):
+    # the entry point runs FSDP on a one-rank group: everything whole
+    assert out["strategy"] == "FullyShardedDataParallel"
+    assert out["world"] == 1 and out["mesh"] == {"dp": 1, "fsdp": 1}
+    # --dp is ported (tests/test_torch_port_train_gpt2_ranks.py); it must
+    # divide the process count, as in the JAX script
+    with pytest.raises(SystemExit, match="--dp must divide"):
+        train_main(common + ["--dp", "2"])
+    for flags, item in ((["--ckpt-dir", "x"], "A.13"),
+                        (["--moe-experts", "4"], "A.14"),
+                        (["--data-bin", "x"], "A.8")):
         with pytest.raises(NotImplementedError, match=item):
             train_main(common + flags)
+
+
+@pytest.mark.parametrize("strategy", ["fsdp", "zero1", "zero1_state",
+                                      "hybrid"])
+def test_sharded_route_on_one_rank_equals_noshard(tmp_path, strategy):
+    """On a one-rank group the rule keeps every parameter whole
+    (``trivial_axis``), and the sharded route of the step (the update
+    layout's all-reduces, the norm and finite flag reduced over the group,
+    the optimizer on the layout's tensors) gives NoShard's steps bit for
+    bit, through a skipped fp16 step: the CPU side of the card's
+    ``fsdp_train`` check."""
+    from pytorch_distributed_tpu_torch import distributed as pdist
+    from pytorch_distributed_tpu_torch.mesh import (
+        init_device_mesh,
+        init_hybrid_mesh,
+    )
+    from pytorch_distributed_tpu_torch.models import full_state_dict
+    from pytorch_distributed_tpu_torch.parallel import (
+        FullyShardedDataParallel,
+        HybridShard,
+        ZeRO1,
+    )
+
+    def run(make):
+        model = GPT2(GPT2Config(**TINY), device="cpu", seed=2)
+        opt = torch.optim.AdamW(model.parameters(), lr=LR, weight_decay=WD,
+                                eps=1e-8)
+        tr = Trainer(model, opt, make(), loss_fn=lm_loss, clip_norm=1.0,
+                     scaler=GradScaler(init_scale=2.0**126))  # overflows
+        state, trace = tr.init(), []
+        for batch in _batches(3, seed=4):
+            state, m = tr.step(state, batch)
+            trace.append([float(m[k]) for k in ("loss", "grad_norm",
+                                                "all_finite", "loss_scale")])
+        return trace, full_state_dict(model), tr
+
+    want, want_params, _ = run(lambda: NoShard("cpu"))
+    assert want[0][2] == 0.0 and want[-1][2] == 1.0     # a skipped step
+    pdist.init_process_group(init_method=f"file://{tmp_path}/store", rank=0,
+                             world_size=1, device="cpu")
+    try:
+        makers = {
+            "fsdp": lambda: FullyShardedDataParallel(
+                init_device_mesh((1,), ("fsdp",)), min_shard_size=8),
+            "zero1": lambda: ZeRO1(init_device_mesh((1,), ("dp",)),
+                                   min_shard_size=8),
+            "zero1_state": lambda: ZeRO1(init_device_mesh((1,), ("dp",)),
+                                         min_shard_size=8,
+                                         sharded_update=False),
+            "hybrid": lambda: HybridShard(
+                init_hybrid_mesh((1,), (1,), ("dcn", "fsdp")),
+                min_shard_size=8),
+        }
+        got, got_params, tr = run(makers[strategy])
+    finally:
+        pdist.destroy_process_group()
+    assert tr.layout is not None and not any(
+        leaf.sharded for leaf in tr.layout.leaves)
+    np.testing.assert_array_equal(got, want)    # NaN norms where skipped
+    for name, p in want_params.items():
+        assert torch.equal(got_params[name], p), name
 
 
 def test_data_copies_match_the_jax_package():
