@@ -8,8 +8,10 @@ Run from the repository root on a machine with one NVIDIA H100::
 It builds the port's CUDA kernels from the sources in the checkout (one
 ``nvcc`` per source, all at once) and drives the main paths of the port,
 serving, GPT-2 training (FSDP, ZeRO1, DataParallel), context-parallel
-training and ResNet training,
-printing one JSON line per phase. The serving steps and the pipelined
+training, ResNet training, and checkpointed training that the elastic
+launcher restarts (its checkpoints go under the gitignored build
+directory and are deleted), printing one JSON line per phase. The
+serving steps and the pipelined
 training step run as CUDA graph replays (one a step); the serving phases
 run the same requests through the eager step bodies too, as the
 reference the graphs are held against. A replay calls no kernel wrapper,
@@ -134,6 +136,13 @@ capture records; what the replays launched is counted in device traces
                 (losses, parameters, buffers), the collectives issued,
                 nccl_ms_per_step and B1-B3's launches in 3 traced replays,
                 step time against runner_train's NoShard runner;
+  ckpt_gpt2     checkpoints of GPT-2 125M (bf16, AdamW): the entry point
+                (FSDP, its own one-rank NCCL group) saves with
+                ``--ckpt-dir`` and a second run resumes (steps numbered on);
+                the checkpoint restored in place into a live
+                ``AsyncRunner`` keeps its captured step, and its losses
+                equal the eager loop's from the same checkpoint; blocking
+                and async save, restore, bytes;
   fsdp_ranks    four spawned ranks sharing the card over gloo (where gloo
                 takes card tensors): GPT-2 125M, bf16, 2 rows a rank, 3
                 steps under FSDP and ZeRO1 against NoShard in this process
@@ -151,6 +160,13 @@ capture records; what the replays launched is counted in device traces
   resnet_example  ``examples/train_resnet_ddp.py``'s ``main`` at
                 ``--model resnet50 --dataset imagenet --global-batch 128
                 --steps-per-epoch 5``, with 6 loader workers;
+  elastic_resnet  BASELINE config #5 on one card: the same entry point
+                (bf16, ``--ckpt-dir``) under the port's
+                ``LocalElasticAgent`` in this process, its worker killed
+                once checkpoint 10 is committed: one restart, the steps
+                numbered on, the resumed losses against an uninterrupted
+                run's; images/s before and after, the time to recover
+                split by stage, and ResNet-50's checkpoint costs;
   resnet_train  the bench twin (``pytorch_distributed_tpu_torch/bench.py``)
                 at its ImageNet shapes: ResNet-50, batch 128 at 224 px,
                 bf16, SGD(0.1, 0.9): images/s, step p50/p90/p99, MFU, peak
@@ -178,11 +194,15 @@ import contextlib
 import importlib
 import io
 import json
+import os
 import re
+import shutil
+import signal
 import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from unittest import mock
@@ -196,8 +216,19 @@ from torch.autograd import DeviceType
 from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.profiler import ProfilerActivity, profile, schedule
 
-from pytorch_distributed_tpu_torch import _graphs, bench
+from pytorch_distributed_tpu_torch import _graphs, bench, observability
 from pytorch_distributed_tpu_torch import distributed as pdist
+from pytorch_distributed_tpu_torch.checkpoint import (
+    CheckpointManager,
+    get_state_dict,
+    set_state_dict,
+)
+from pytorch_distributed_tpu_torch.distributed import TCPStore
+from pytorch_distributed_tpu_torch.elastic import (
+    DynamicRendezvous,
+    LocalElasticAgent,
+    WorkerSpec,
+)
 from pytorch_distributed_tpu_torch.examples import (
     serve_gpt2,
     train_gpt2,
@@ -209,6 +240,7 @@ from pytorch_distributed_tpu_torch.ops import _build
 from pytorch_distributed_tpu_torch.ops import chunked_xent
 from pytorch_distributed_tpu_torch.ops import paged_attention as pa
 from pytorch_distributed_tpu_torch.pipeline_exec import AsyncRunner
+from pytorch_distributed_tpu_torch.pipeline_exec.runner import _step_tensors
 from pytorch_distributed_tpu_torch.parallel import (
     CPStrategy,
     DataParallel,
@@ -3021,6 +3053,330 @@ def resnet_profile_phase():
 
 
 
+# -- checkpoints and the elastic launcher (BASELINE config #5) ------------
+
+CKPT_ROOT = Path(__file__).resolve().parent / "pytorch_distributed_tpu_torch" \
+    / "_build" / "ckpt_smoke"
+ELASTIC_K = 10            # steps an epoch, and steps between checkpoints
+ELASTIC_EPOCHS = 3
+# resumed against uninterrupted ResNet-50 losses (bf16): one bf16 step of
+# the loss, relative
+ELASTIC_LOSS_RTOL = 1e-2
+RESNET_ELASTIC_ARGS = (
+    "--model", "resnet50", "--dataset", "imagenet", "--global-batch", "128",
+    "--policy", "bf16", "--steps-per-epoch", str(ELASTIC_K),
+    "--epochs", str(ELASTIC_EPOCHS), "--ckpt-every", str(ELASTIC_K),
+    "--dataset-size", str(128 * ELASTIC_K), "--num-workers", "6",
+    "--log-every", "1")
+STEP_LINE = re.compile(r"\[rank 0\] step (\d+) loss \S+ \(([\d.]+) ms\)")
+
+
+def _fresh_dir(name: str) -> Path:
+    d = CKPT_ROOT / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def _dir_bytes(d: Path) -> int:
+    return sum(p.stat().st_size for p in Path(d).rglob("*") if p.is_file())
+
+
+def _checksums(trainer, state):
+    """One fp64 sum of squares per state tensor (on the device)."""
+    return torch.stack([
+        (t.to_local() if hasattr(t, "to_local") else t).double().square().sum()
+        .to("cpu") for t in get_state_dict(trainer, state).values()])
+
+
+def _ckpt_times(trainer, state, step_fn, root: Path) -> dict:
+    """Checkpoint costs of ``trainer``'s state: a blocking save; an async
+    save (the stall until ``save`` returns: DCP's copy to host memory, and
+    the whole write); one training step, then a restore of the async
+    checkpoint into the live tensors (every state tensor keeps its address,
+    every value comes back); the bytes on disk."""
+    sd = get_state_dict(trainer, state)
+    state_bytes = sum((v.to_local() if hasattr(v, "to_local") else v).nbytes
+                      for v in sd.values())
+    want = _checksums(trainer, state)
+    torch.cuda.synchronize()
+    with CheckpointManager(root / "blocking") as mgr:
+        t0 = time.perf_counter()
+        mgr.save(state.step, sd)
+        save_s = time.perf_counter() - t0
+    with CheckpointManager(root / "async", async_save=True) as mgr:
+        t0 = time.perf_counter()
+        mgr.save(state.step, sd)
+        stall_s = time.perf_counter() - t0
+        handle = type(mgr._pending._future).__name__
+        mgr.wait_until_finished()
+        async_s = time.perf_counter() - t0
+        moved = step_fn(state)
+        ptrs = [t.data_ptr() for t in _step_tensors(trainer, moved)]
+        changed = not torch.equal(_checksums(trainer, moved), want)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = set_state_dict(trainer, moved,
+                              mgr.restore(get_state_dict(trainer, moved)))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    same_ptrs = [t.data_ptr() for t in _step_tensors(trainer, back)] == ptrs
+    restored = torch.equal(_checksums(trainer, back), want)
+    out = {"state_bytes": state_bytes,
+           "disk_bytes": _dir_bytes(root / "async"),
+           "save_blocking_s": save_s, "save_async_stall_s": stall_s,
+           "save_async_total_s": async_s, "async_handle": handle,
+           "restore_s": restore_s, "restore_keeps_addresses": same_ptrs,
+           "restored_step": back.step}
+    check(changed and restored and same_ptrs and back.step == state.step,
+          f"checkpoint round trip: step changed the state {changed}, "
+          f"restored values {restored}, addresses kept {same_ptrs}, step "
+          f"{back.step} != {state.step}")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _elastic_run(name: str, kill: bool) -> dict:
+    """``examples/train_resnet_ddp.py`` at RESNET_ELASTIC_ARGS under a
+    ``LocalElasticAgent`` in this process (one worker, a one-rank NCCL
+    group); with ``kill``, SIGKILL the worker as soon as checkpoint
+    ELASTIC_K is committed."""
+    root = _fresh_dir(name)
+    ckpt = root / "ckpt"
+    store = TCPStore("127.0.0.1", 0, is_master=True)
+    repo = str(Path(__file__).resolve().parent)
+    spec = WorkerSpec(
+        cmd=[sys.executable, "-m",
+             "pytorch_distributed_tpu_torch.examples.train_resnet_ddp",
+             *RESNET_ELASTIC_ARGS, "--ckpt-dir", str(ckpt)],
+        nproc_per_node=1, run_id=name, max_restarts=1,
+        log_dir=str(root / "logs"), extra_env={"PYTHONPATH": repo})
+    agent = LocalElasticAgent(spec, DynamicRendezvous(store, name, 1, 1))
+    errors = []
+
+    def run():
+        try:
+            agent.run()
+        except Exception as e:        # re-raised by the check below
+            errors.append(e)
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    t_kill = None
+    if kill:
+        marker = ckpt / str(ELASTIC_K) / ".metadata"
+        while not marker.exists():
+            check(thread.is_alive(), f"{name}: the agent stopped: {errors}")
+            time.sleep(0.005)
+        pid = agent.workers[0].proc.pid
+        t_kill = time.time()
+        os.kill(pid, signal.SIGKILL)
+    thread.join(timeout=600)
+    store.close()
+    check(not thread.is_alive() and not errors,
+          f"{name}: the agent failed: {errors}")
+    logs = {int(d.name.removeprefix("round")): (d / "worker_0.log").read_text()
+            for d in (root / "logs" / name).iterdir()}
+    events = [e for e in observability.recent_events(1000)
+              if (e.metadata or {}).get("run_id") == name]
+    return {"agent": agent, "logs": logs, "events": events, "t_kill": t_kill,
+            "root": root}
+
+
+def _summary(log: str) -> dict:
+    return json.loads(log.strip().splitlines()[-1])
+
+
+def elastic_resnet_phase(smi):
+    """BASELINE config #5 on one card: ``examples/train_resnet_ddp.py``
+    (ResNet-50, batch 128 at 224 px, bf16, synthetic ImageNet from 6
+    loader workers, DataParallel over a one-rank NCCL group) under the
+    port's ``LocalElasticAgent``, ``--ckpt-dir`` with ``--steps-per-epoch``
+    equal to ``--ckpt-every`` (ELASTIC_K) and 3 epochs. Once checkpoint
+    ELASTIC_K is committed the worker is SIGKILLed; the agent restarts it
+    (exactly once), and the new process resumes at step ELASTIC_K + 1, on
+    an epoch boundary, so it sees the batches of an uninterrupted run under
+    the same agent: its losses are held against that run's within
+    ELASTIC_LOSS_RTOL. Reported: images/s before the kill, after the
+    resume and uninterrupted; the time to recover from the kill to the
+    first step of the new process, split into the agent's detection, the
+    restart (stopping the group and the rendezvous), the process start
+    (Python and torch imported), CUDA, NCCL and model set-up, the restore
+    and the first step (cuDNN's first plans; its algorithm search is off
+    in the entry point); and the checkpoint costs of the same trainer in
+    this process (a blocking and an async save, a restore, bytes)."""
+    torch.cuda.empty_cache()
+    whole = _elastic_run("elastic_whole", kill=False)
+    killed = _elastic_run("elastic_resnet", kill=True)
+    agent = killed["agent"]
+    check(agent.restart_count == 1 and whole["agent"].restart_count == 0,
+          f"elastic_resnet: {agent.restart_count} restarts")
+    before = [(int(s), float(ms)) for s, ms in STEP_LINE.findall(
+        killed["logs"][0])]
+    resumed = _summary(killed["logs"][1])
+    want = _summary(whole["logs"][0])
+    k = resumed["resumed_from"]
+    check(k is not None and k >= ELASTIC_K and resumed["first_step"] == k + 1,
+          f"elastic_resnet: resumed from {k}, first step "
+          f"{resumed['first_step']}: the steps did not continue")
+    check(k % ELASTIC_K == 0, f"resumed from {k}, not an epoch boundary")
+    got = np.array(resumed["losses"])
+    ref = np.array(want["losses"][k:])
+    check(got.shape == ref.shape and bool(np.all(np.isfinite(got))),
+          f"elastic_resnet: resumed losses {got.tolist()}")
+    rel = np.abs(got - ref) / np.abs(ref)
+    check(float(rel.max()) <= ELASTIC_LOSS_RTOL,
+          f"elastic_resnet: resumed losses {got.tolist()} against the "
+          f"uninterrupted {ref.tolist()} (rtol {ELASTIC_LOSS_RTOL})")
+    failed = [e.timestamp for e in killed["events"]
+              if e.name == "elastic.group_failed"]
+    started = [e.timestamp for e in killed["events"]
+               if e.name == "elastic.workers_started"
+               and e.metadata["round"] == 1]
+    check(len(failed) == 1 and len(started) == 1,
+          f"elastic_resnet: events {[e.name for e in killed['events']]}")
+    m, t_kill = resumed["marks"], killed["t_kill"]
+    recover = {
+        "detect_s": failed[0] - t_kill,
+        "restart_s": started[0] - failed[0],
+        "process_start_s": m["start"] - started[0],
+        "cuda_nccl_model_s": m["ready"] - m["start"],
+        "restore_s": m["restored"] - m["ready"],
+        "first_step_s": m["first_step_done"] - m["restored"],
+    }
+    recover["total_s"] = m["first_step_done"] - t_kill
+
+    def images_per_s(step_s):
+        return 128 / statistics.median(step_s) if step_s else None
+
+    trainer, fixed = bench.build(torch.device("cuda"), batch=128, hw=224)
+    state, _ = trainer.step(trainer.init(), fixed)
+    costs = _ckpt_times(trainer, state,
+                        lambda s: trainer.step(s, fixed)[0],
+                        CKPT_ROOT / "resnet_times")
+    del trainer, state, fixed
+    emit({"phase": "elastic_resnet", "nvidia_smi": smi, "model": "resnet50",
+          "dtype": "bfloat16", "global_batch": 128, "hw": 224,
+          "steps_per_epoch": ELASTIC_K, "epochs": ELASTIC_EPOCHS,
+          "restarts": agent.restart_count, "killed_after_commit_of": ELASTIC_K,
+          "steps_before_kill": before[-1][0] if before else 0,
+          "resumed_from": k, "first_step_after_resume": resumed["first_step"],
+          "losses_resumed": got.tolist(), "losses_uninterrupted": ref.tolist(),
+          "loss_max_rel_diff": float(rel.max()),
+          "losses_bit_equal": bool(np.array_equal(got, ref)),
+          "images_per_s_before_kill": images_per_s(
+              [ms / 1e3 for _, ms in before[1:]]),
+          "images_per_s_after_resume": images_per_s(resumed["step_s"][1:]),
+          "images_per_s_uninterrupted": images_per_s(want["step_s"][1:]),
+          "time_to_recover": recover, "checkpoint": costs})
+    shutil.rmtree(whole["root"], ignore_errors=True)
+    shutil.rmtree(killed["root"], ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def ckpt_gpt2_phase(smi):
+    """GPT-2 125M checkpoints (bf16 policy, fp32 parameters, AdamW): the
+    entry point ``examples/train_gpt2.py`` (FSDP on its own one-rank NCCL
+    group) saves at step 2 with ``--ckpt-dir``, and a second run of it
+    resumes from step 2 for steps 3-4 and saves at the end (its time from
+    ``main`` to its first step, split into the process group and model,
+    the restore and the first step: a resume inside one process, no agent).
+    Then, on a
+    one-rank NCCL group, sharded_runner's FSDP trainer runs 3 steps on
+    ``AsyncRunner`` (one replay a step), the entry point's step-4
+    checkpoint is restored in place into its live tensors, and the runner
+    goes on without rebuilding its captured step; its 3 losses from the
+    restored state equal those of the eager ``Trainer.step`` from the same
+    checkpoint (or lie within the eager loop's run-to-run spread). Also
+    the checkpoint costs of that trainer (a blocking and an async save, a
+    restore, bytes)."""
+    torch.cuda.empty_cache()
+    root = _fresh_dir("gpt2")
+    args = ["--ckpt-dir", str(root / "ckpt"), "--ckpt-every", "2"]
+    t0 = time.perf_counter()
+    first = train_gpt2.main(["--steps", "2", *args])
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    second = train_gpt2.main(["--steps", "4", *args])
+    second_s = time.perf_counter() - t0
+    check(first["resumed_from"] is None and len(first["losses"]) == 2,
+          f"ckpt_gpt2: first run {first['resumed_from']}")
+    check(second["resumed_from"] == 2 and second["first_step"] == 3
+          and len(second["losses"]) == 2
+          and all(np.isfinite(second["losses"])),
+          f"ckpt_gpt2: the second run resumed from {second['resumed_from']}, "
+          f"first step {second['first_step']}, losses {second['losses']}")
+    with CheckpointManager(root / "ckpt") as mgr:
+        steps = mgr.all_steps()
+    check(steps == [2, 4], f"ckpt_gpt2: committed steps {steps}")
+    m = second["marks"]
+    resume = {"group_and_model_s": m["ready"] - m["start"],
+              "restore_s": m["restored"] - m["ready"],
+              "first_step_s": m["first_step_done"] - m["restored"],
+              "total_s": m["first_step_done"] - m["start"]}
+
+    batches = _lm_batches(3, 8, 1024, seed=21)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    pdist.init_process_group(init_method=f"tcp://localhost:{port}", rank=0,
+                             world_size=1)
+    try:
+        trainer, state = _sharded_trainer("FullyShardedDataParallel")
+        runner = AsyncRunner(trainer, depth=2, drain_every=len(batches))
+        state, _ = runner.run(state, batches)
+        program = runner._program
+        with CheckpointManager(root / "ckpt") as mgr:
+            sd = get_state_dict(trainer, state)
+            t0 = time.perf_counter()
+            state = set_state_dict(trainer, state, mgr.restore(sd, step=4))
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            check(state.step == 4, f"ckpt_gpt2: restored step {state.step}")
+            state, hist = runner.run(state, batches)
+            rebuilt = runner._program is not program
+            eager = []
+            for _ in range(2):
+                st = set_state_dict(trainer, state,
+                                    mgr.restore(get_state_dict(trainer, state),
+                                                step=4))
+                losses = []
+                for b in batches:
+                    st, m = trainer.step(st, b)
+                    losses.append(float(m["loss"]))
+                eager.append(losses)
+        runner_losses = [float(x) for x in hist["loss"]]
+        spread = max(abs(a - b) for a, b in zip(*eager))
+        off = max(abs(a - b) for a, b in zip(runner_losses, eager[0]))
+        check(not rebuilt, "ckpt_gpt2: the restore rebuilt the runner's step")
+        check(off <= spread, f"ckpt_gpt2: runner losses {runner_losses} "
+              f"after the restore against eager {eager}")
+        check(st.step == 7 and state.step == 7, "ckpt_gpt2: steps")
+        costs = _ckpt_times(trainer, state,
+                            lambda s: trainer.step(s, batches[0])[0],
+                            root / "times")
+        del runner, trainer, state, st
+    finally:
+        pdist.destroy_process_group()
+    emit({"phase": "ckpt_gpt2", "nvidia_smi": smi, "model": "gpt2-125m",
+          "dtype": "bfloat16", "global_batch": 8, "seq_len": 1024,
+          "strategy": second["strategy"], "world": second["world"],
+          "entry_point": {"first_run_s": first_s, "second_run_s": second_s,
+                          "resumed_from": second["resumed_from"],
+                          "first_step": second["first_step"],
+                          "losses_first_run": first["losses"],
+                          "losses_after_resume": second["losses"],
+                          "committed_steps": steps,
+                          "resume_in_process": resume},
+          "runner": {"restore_into_live_runner_s": restore_s,
+                     "rebuilt": rebuilt, "losses_after_restore": runner_losses,
+                     "eager_losses": eager, "eager_spread": spread,
+                     "runner_vs_eager": off},
+          "checkpoint": costs})
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def kernel_resources():
     """Registers, stack bytes and HGMMA (wgmma) instructions of each
     Hopper-route kernel, read from the built B1-B3 and B4-B6 libraries with
@@ -3132,12 +3488,14 @@ def main() -> int:
     finally:
         pdist.destroy_process_group()
     torch.cuda.empty_cache()
+    ckpt_gpt2_phase(smi)
     fsdp_ranks_phase()
 
     torch.cuda.empty_cache()
     resnet_parity_phase()
     resnet_amp_accum_phase()
     resnet_example_phase()
+    elastic_resnet_phase(smi)
     bench_out = resnet_train_phase(smi)   # cuDNN's algorithm search on
     resnet_runner_phase(bench_out)
     resnet_profile_phase()

@@ -8,8 +8,10 @@ context-parallel training (``parallel.context_parallel`` over
 (``ops/csrc``). Slice 8 is ResNet training under ``DataParallel``
 (``models.resnet``, ``examples.train_resnet_ddp``, the bench twin
 ``bench``), on cuDNN and cuBLAS. Slice 9 is speculative decoding, live
-weight swaps and the serving entry point ``examples.serve_gpt2``. Entry
-points run on the card unless the caller passes ``device="cpu"``.
+weight swaps and the serving entry point ``examples.serve_gpt2``.
+``checkpoint`` and ``elastic`` save and resume training, and restart the
+workers that die (``python -m pytorch_distributed_tpu_torch.elastic.run``).
+Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from pytorch_distributed_tpu_torch._device import resolve_device  # noqa: F401

@@ -1,12 +1,14 @@
 """Process groups of the port, over ``torch.distributed``.
 
 Port of the part of ``pytorch_distributed_tpu/distributed/__init__.py``
-that context parallelism needs: the default process group, its rank and
-size, and its teardown. The backend follows the port's device: NCCL when
-the group runs on the card (the default), gloo when the caller asks for
-the CPU. There is no fallback from one to the other: a group that cannot
-come up raises. The stores, rendezvous and elastic pieces of the JAX
-package are ROADMAP A.12 and A.13.
+that the port's training runs on: the default process group, its rank and
+size, and its teardown, and the stores (``store.py``: TCP, Hash, File,
+Prefix) and ``init_method`` rendezvous (``rendezvous.py``) that the
+elastic launcher and checkpoints use. The backend follows the port's
+device: NCCL when the group runs on the card (the default), gloo when the
+caller asks for the CPU. There is no fallback from one to the other: a
+group that cannot come up raises. ``process_group.py``, ``batch_ops.py``,
+the bootstrap and the reference's backends are ROADMAP A.12.
 
 An NCCL group is made with ``TORCH_NCCL_ASYNC_ERROR_HANDLING=0`` unless
 the caller set the variable: the pipelined executor captures a sharded
@@ -33,6 +35,18 @@ import torch
 import torch.distributed as dist
 
 from pytorch_distributed_tpu_torch._device import resolve_device
+from pytorch_distributed_tpu_torch.distributed.rendezvous import (
+    register_rendezvous_handler,
+    rendezvous,
+)
+from pytorch_distributed_tpu_torch.distributed.store import (
+    FileStore,
+    HashStore,
+    PrefixStore,
+    Store,
+    StoreTimeoutError,
+    TCPStore,
+)
 
 __all__ = [
     "init_process_group",
@@ -40,6 +54,14 @@ __all__ = [
     "get_world_size",
     "get_device",
     "destroy_process_group",
+    "Store",
+    "TCPStore",
+    "HashStore",
+    "FileStore",
+    "PrefixStore",
+    "StoreTimeoutError",
+    "rendezvous",
+    "register_rendezvous_handler",
 ]
 
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
@@ -52,7 +74,7 @@ def init_process_group(
     *,
     rank: int = -1,
     world_size: int = -1,
-    store: Optional[dist.Store] = None,
+    store: Optional[Union[Store, dist.Store]] = None,
     device: Optional[Union[str, torch.device]] = None,
     timeout: timedelta = timedelta(minutes=5),
 ) -> None:
@@ -87,6 +109,8 @@ def init_process_group(
         torch.cuda.set_device(device)
         if want == "nccl":
             os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
+    if isinstance(store, Store):
+        store = store.as_c10d()
     dist.init_process_group(
         backend=want, init_method=init_method, store=store, rank=rank,
         world_size=world_size, timeout=timeout,

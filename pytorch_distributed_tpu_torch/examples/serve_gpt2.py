@@ -29,9 +29,11 @@ are served from cached pages)::
     python -m pytorch_distributed_tpu_torch.examples.serve_gpt2 \\
         --cache paged --page-size 16 --shared-prefix 16 --requests 8
 
-``main(argv)`` returns 0. Checkpoints (``--ckpt-dir``, ROADMAP A.13) and
-TP/DP serving meshes (``--dp x --tp > 1``, ROADMAP A.15c) are not ported
-yet and raise.
+``main(argv)`` returns 0. Serving a training checkpoint's weights
+(``--ckpt-dir``) and TP/DP serving meshes (``--dp x --tp > 1``) are not
+ported yet and raise: both are ROADMAP A.15c (the JAX script loads the
+weights through ``serving/sharding.py``'s ``load_gpt2_params``, onto the
+serving mesh's tensor-parallel layout).
 """
 
 from __future__ import annotations
@@ -54,7 +56,8 @@ def parse_args(argv=None):
     p.add_argument("--seq-len", type=int, default=128)
     # serving
     p.add_argument("--ckpt-dir", default=None,
-                   help="training checkpoint dir (not ported: ROADMAP A.13)")
+                   help="training checkpoint dir (not ported: ROADMAP "
+                        "A.15c)")
     p.add_argument("--step", type=int, default=None,
                    help="checkpoint step (default: latest)")
     p.add_argument("--tp", type=int, default=1,
@@ -103,7 +106,8 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     if args.ckpt_dir:
         raise NotImplementedError(
-            "not ported yet: --ckpt-dir (checkpoint loading): ROADMAP A.13")
+            "not ported yet: --ckpt-dir (serving a training checkpoint's "
+            "weights, loaded onto the serving mesh): ROADMAP A.15c")
     if args.dp * args.tp > 1:
         raise NotImplementedError(
             "not ported yet: --dp x --tp > 1 (TP/DP serving meshes): "

@@ -24,16 +24,27 @@ kernels::
         --device cpu --layers 2 --embd 64 --heads 4 --seq-len 64 --steps 5
 
 ``main(argv)`` returns the run's metrics (per-step losses, the mean over
-the ranks, the same on every rank; step times), so a caller can drive it
+the ranks, the same on every rank; step times; the step it started from
+and wall-clock marks of its start, of the model being ready, of the
+restore and of its first step), so a caller can drive it
 in-process; a caller that made the process group already keeps it.
-Checkpoints (``--ckpt-dir``), MoE (``--moe-experts``) and the token-file
-corpus (``--data-bin``) are not ported yet and raise, naming their ROADMAP
-items.
+Run as a script, it prints them as its last line, in JSON. MoE
+(``--moe-experts``) and the token-file corpus (``--data-bin``) are not
+ported yet and raise, naming their ROADMAP items.
+
+``--ckpt-dir D`` saves the sharded state (each rank its blocks, through
+``checkpoint.CheckpointManager``) every ``--ckpt-every`` steps and at the
+end, and a run that finds a committed checkpoint in ``D`` resumes from
+the newest (its data from the first epoch's first batch again, as the JAX
+script does), on whatever world it runs now: under
+``python -m pytorch_distributed_tpu_torch.elastic.run`` a failed worker
+group restarts and resumes.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import socket
 import sys
@@ -62,7 +73,8 @@ def parse_args(argv=None):
     p.add_argument("--dp", type=int, default=1,
                    help="extra pure-DP axis size (mesh = dp x fsdp)")
     p.add_argument("--ckpt-dir", default=None,
-                   help="checkpoint directory (not ported: ROADMAP A.13)")
+                   help="checkpoint directory: save there, and resume from "
+                        "its newest checkpoint")
     p.add_argument("--ckpt-every", type=int, default=50)
     p.add_argument("--dataset-size", type=int, default=2048)
     p.add_argument("--data-bin", default=None,
@@ -93,8 +105,6 @@ def parse_args(argv=None):
 
 
 def _not_ported(args) -> Optional[str]:
-    if args.ckpt_dir:
-        return "--ckpt-dir (sharded checkpoints): ROADMAP A.13"
     if args.moe_experts or args.ep > 1:
         return "--moe-experts/--ep (mixture of experts): ROADMAP A.14"
     if args.data_bin:
@@ -103,6 +113,7 @@ def _not_ported(args) -> Optional[str]:
 
 
 def main(argv=None) -> Dict:
+    marks = {"start": time.time()}
     args = parse_args(argv)
     missing = _not_ported(args)
     if missing:
@@ -129,14 +140,19 @@ def main(argv=None) -> Dict:
             pdist.init_process_group(init_method=f"tcp://localhost:{port}",
                                      rank=0, world_size=1, device=device)
     try:
-        return _train(args)
+        return _train(args, marks)
     finally:
         if own_group:
             pdist.destroy_process_group()
 
 
-def _train(args) -> Dict:
+def _train(args, marks) -> Dict:
     from pytorch_distributed_tpu_torch import distributed as pdist
+    from pytorch_distributed_tpu_torch.checkpoint import (
+        CheckpointManager,
+        get_state_dict,
+        set_state_dict,
+    )
     from pytorch_distributed_tpu_torch.data import (
         DistributedSampler,
         SyntheticLMDataset,
@@ -204,6 +220,19 @@ def _train(args) -> Dict:
         print(f"GPT-2: {n_params / 1e6:.1f}M params on {device} "
               f"({cfg.dtype}, attention {args.attn}), mesh {mesh.shape}",
               flush=True)
+    marks["ready"] = time.time()
+    ckpt, resumed = None, None
+    if args.ckpt_dir:
+        ckpt = CheckpointManager(args.ckpt_dir, max_to_keep=3)
+        resumed = ckpt.latest_step()
+        if resumed is not None:
+            state = set_state_dict(trainer, state,
+                                   ckpt.restore(get_state_dict(trainer, state)))
+            restart = int(os.environ.get("TPURUN_RESTART_COUNT", "0"))
+            print(f"[rank {pid}] resumed from step {state.step} "
+                  f"(restart #{restart})", flush=True)
+    marks["restored"] = time.time()
+    first_step = state.step + 1
 
     losses: List[torch.Tensor] = []
     step_s: List[float] = []
@@ -221,14 +250,21 @@ def _train(args) -> Dict:
                 torch.cuda.synchronize(device)
             step_s.append(time.perf_counter() - t0)
             losses.append(metrics["loss"].detach())
+            marks.setdefault("first_step_done", time.time())
             if state.step % args.log_every == 0 and pid == 0:
                 print(f"step {state.step} loss {float(metrics['loss']):.4f} "
                       f"ppl {float(metrics['perplexity']):.1f}", flush=True)
+            if ckpt and state.step % args.ckpt_every == 0:
+                ckpt.save(state.step, get_state_dict(trainer, state))
         epoch += 1
+    if ckpt:
+        ckpt.save(state.step, get_state_dict(trainer, state))
+        ckpt.close()                 # waits for the save to finish
 
     # each rank's loss is its shard's: the mean over the ranks is the
     # global batch's
-    mean = torch.stack(losses).float()
+    mean = (torch.stack(losses).float() if losses
+            else torch.zeros(0, device=device))
     if shards > 1:
         dist.all_reduce(mean, group=strategy.group)
         mean /= shards
@@ -243,9 +279,12 @@ def _train(args) -> Dict:
         "world": nproc,
         "mesh": mesh.shape,
         "strategy": type(strategy).__name__,
+        "first_step": first_step,
+        "resumed_from": resumed,
+        "marks": marks,
     }
 
 
 if __name__ == "__main__":
-    main()
+    print(json.dumps(main()), flush=True)
     sys.exit(0)

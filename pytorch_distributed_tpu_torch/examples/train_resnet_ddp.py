@@ -19,19 +19,36 @@ AMP and accumulation (config #3): ``--policy fp16 --grad-accum 2``. On the
 card the model computes in the policy's dtype (bf16, or fp16 with the loss
 scaler, as ``torch.amp`` does); on the CPU it computes in fp32, as the JAX
 script does off the TPU. The data are the synthetic CIFAR-10 / ImageNet
-datasets, made from ``--seed``. Checkpoints (``--ckpt-dir``), gradient
-communication hooks (``--comm-hook``) and the JPEG ImageFolder path
-(``--data-dir``) are not ported yet and raise, naming their ROADMAP items.
+datasets, made from ``--seed``. Gradient communication hooks
+(``--comm-hook``) and the JPEG ImageFolder path (``--data-dir``) are not
+ported yet and raise, naming their ROADMAP items.
 
-``main(argv)`` returns the run's losses and step times, so a caller can
-drive it in-process.
+``--ckpt-dir D`` saves the model, the optimizer and the step every
+``--ckpt-every`` steps and at the end (``checkpoint.CheckpointManager``,
+the newest 3 kept), and a run that finds a committed checkpoint in ``D``
+resumes from the newest: ``start_epoch = step // steps_per_epoch``,
+re-entered at its first batch, as the JAX script does. Under the elastic
+launcher this is BASELINE config #5: a worker that dies is restarted and
+resumes::
+
+    python -m pytorch_distributed_tpu_torch.elastic.run --standalone \
+        --nproc-per-node 1 -m \
+        pytorch_distributed_tpu_torch.examples.train_resnet_ddp \
+        --model resnet50 --dataset imagenet --ckpt-dir ckpt
+
+``main(argv)`` returns the run's losses and step times (and the step it
+started from, and wall-clock marks of its start, of the model being ready,
+of the restore and of its first step), so a caller can drive it
+in-process; run as a script it prints them as its last line, in JSON.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
+import time
 from typing import Dict, Optional
 
 import torch
@@ -54,7 +71,8 @@ def parse_args(argv=None):
     p.add_argument("--grad-accum", type=int, default=1)
     p.add_argument("--clip-norm", type=float, default=None)
     p.add_argument("--ckpt-dir", default=None,
-                   help="checkpoint directory (not ported: ROADMAP A.13)")
+                   help="checkpoint directory: save there, and resume from "
+                        "its newest checkpoint")
     p.add_argument("--ckpt-every", type=int, default=50)
     p.add_argument("--dataset-size", type=int, default=512)
     p.add_argument("--data-dir", default=None,
@@ -81,8 +99,6 @@ def parse_args(argv=None):
 
 
 def _not_ported(args) -> Optional[str]:
-    if args.ckpt_dir:
-        return "--ckpt-dir (checkpoint save and resume): ROADMAP A.13"
     if args.comm_hook:
         return "--comm-hook (gradient communication hooks): ROADMAP A.14"
     if args.data_dir:
@@ -91,6 +107,7 @@ def _not_ported(args) -> Optional[str]:
 
 
 def main(argv=None) -> Dict:
+    marks = {"start": time.time()}
     args = parse_args(argv)
     missing = _not_ported(args)
     if missing:
@@ -99,6 +116,11 @@ def main(argv=None) -> Dict:
     from pytorch_distributed_tpu_torch import distributed as pdist
     from pytorch_distributed_tpu_torch import models, resolve_device
     from pytorch_distributed_tpu_torch.amp import get_policy
+    from pytorch_distributed_tpu_torch.checkpoint import (
+        CheckpointManager,
+        get_state_dict,
+        set_state_dict,
+    )
     from pytorch_distributed_tpu_torch.data import (
         DistributedSampler,
         SyntheticCIFAR10,
@@ -168,6 +190,19 @@ def main(argv=None) -> Dict:
         print(f"[rank {pid}] {args.model}: {n_params / 1e6:.1f}M params on "
               f"{device} ({dtype}, policy {args.policy}, {nproc} rank(s))",
               flush=True)
+        marks["ready"] = time.time()
+        ckpt, resumed = None, None
+        if args.ckpt_dir:
+            ckpt = CheckpointManager(args.ckpt_dir, max_to_keep=3)
+            resumed = ckpt.latest_step()
+            if resumed is not None:
+                state = set_state_dict(trainer, state, ckpt.restore(
+                    get_state_dict(trainer, state)))
+                restart = int(os.environ.get("TPURUN_RESTART_COUNT", "0"))
+                print(f"[rank {pid}] resumed from step {resumed} "
+                      f"(restart #{restart})", flush=True)
+        marks["restored"] = time.time()
+        first_step = state.step + 1
 
         log = IterationLogger(sample_rate=1)
         steps_per_epoch = args.steps_per_epoch or len(sampler) // batch_size
@@ -177,7 +212,7 @@ def main(argv=None) -> Dict:
                 f"per-process batch ({batch_size}): nothing to train on; "
                 f"grow --dataset-size or shrink --global-batch")
         losses = []
-        for epoch in range(args.epochs):
+        for epoch in range(state.step // steps_per_epoch, args.epochs):
             sampler.set_epoch(epoch)
             batches = (prefetch_to_device(loader, device, args.prefetch)
                        if args.prefetch else loader)
@@ -192,14 +227,21 @@ def main(argv=None) -> Dict:
                 loss = float(metrics["loss"])
                 log.end_iteration(loss=loss)
                 losses.append(loss)
+                marks.setdefault("first_step_done", time.time())
                 if state.step % args.log_every == 0:
-                    print(f"[rank {pid}] step {state.step} loss {loss:.4f}",
+                    print(f"[rank {pid}] step {state.step} loss {loss:.4f} "
+                          f"({log.samples[-1]['step_time_s'] * 1e3:.1f} ms)",
                           flush=True)
+                if ckpt and state.step % args.ckpt_every == 0:
+                    ckpt.save(state.step, get_state_dict(trainer, state))
             if args.prefetch:
                 batches.close()   # ends the loader's workers
             if losses:
                 print(f"[rank {pid}] epoch {epoch} done at step {state.step} "
                       f"loss {losses[-1]:.4f}", flush=True)
+        if ckpt:
+            ckpt.save(state.step, get_state_dict(trainer, state))
+            ckpt.close()             # waits for the save to finish
     finally:
         if launched:
             pdist.destroy_process_group()
@@ -212,9 +254,12 @@ def main(argv=None) -> Dict:
         "device": str(device),
         "dtype": str(dtype).removeprefix("torch."),
         "world": nproc,
+        "first_step": first_step,
+        "resumed_from": resumed,
+        "marks": marks,
     }
 
 
 if __name__ == "__main__":
-    main()
+    print(json.dumps(main()), flush=True)
     sys.exit(0)

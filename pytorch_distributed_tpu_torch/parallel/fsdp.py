@@ -59,8 +59,10 @@ class Shard:
 def local_block(t: torch.Tensor, dim: int, rank: int, size: int
                 ) -> torch.Tensor:
     """Block ``rank`` of ``size`` equal blocks of ``t`` along ``dim``, as a
-    contiguous copy."""
-    return t.chunk(size, dim)[rank].contiguous()
+    contiguous copy with storage of its own (a dim-0 block is contiguous
+    already: ``.contiguous()`` would keep a view that holds the whole
+    tensor's storage alive)."""
+    return t.chunk(size, dim)[rank].clone(memory_format=torch.contiguous_format)
 
 
 def gather(shard: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:

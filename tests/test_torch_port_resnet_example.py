@@ -65,7 +65,6 @@ def test_entry_point_under_torchrun_env_runs_data_parallel(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--ckpt-dir", "ckpt"], "A.13"),
     (["--comm-hook", "allreduce"], "A.14"),
     (["--data-dir", "images"], "A.8"),
 ])

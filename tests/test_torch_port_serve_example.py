@@ -47,7 +47,7 @@ def test_serve_example_runs_and_reports(capsys, extra, lines):
 
 
 @pytest.mark.parametrize("extra,item", [(["--ckpt-dir", "/nonexistent"],
-                                         "A.13"),
+                                         "A.15c"),
                                         (["--tp", "2"], "A.15c"),
                                         (["--dp", "2"], "A.15c")])
 def test_unported_options_raise(extra, item):

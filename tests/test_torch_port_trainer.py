@@ -340,8 +340,7 @@ def test_entry_point_trains_on_cpu():
     # divide the process count, as in the JAX script
     with pytest.raises(SystemExit, match="--dp must divide"):
         train_main(common + ["--dp", "2"])
-    for flags, item in ((["--ckpt-dir", "x"], "A.13"),
-                        (["--moe-experts", "4"], "A.14"),
+    for flags, item in ((["--moe-experts", "4"], "A.14"),
                         (["--data-bin", "x"], "A.8")):
         with pytest.raises(NotImplementedError, match=item):
             train_main(common + flags)
