@@ -136,6 +136,15 @@ capture records; what the replays launched is counted in device traces
                 (losses, parameters, buffers), the collectives issued,
                 nccl_ms_per_step and B1-B3's launches in 3 traced replays,
                 step time against runner_train's NoShard runner;
+  powersgd      the train cell's step (GPT-2 125M, B=8, T=1024, bf16, B1-B3)
+                under DataParallel on the one-rank NCCL group with
+                ``PowerSGD(rank=2, start_iter=3)``, 8 steps across
+                ``start_iter``: the runner (two programs, one a branch)
+                against the eager loop, B1-B3 n_layer times a replayed
+                step, the hook's device time against the allreduce
+                hook's, the wire elements against ``wire_elements``
+                (521,890 of 124,439,808), the error buffers' bytes, step
+                time against sharded_runner's DataParallel runner;
   ckpt_gpt2     checkpoints of GPT-2 125M (bf16, AdamW): the entry point
                 (FSDP, its own one-rank NCCL group) saves with
                 ``--ckpt-dir`` and a second run resumes (steps numbered on);
@@ -149,6 +158,14 @@ capture records; what the replays launched is counted in device traces
                 (losses within 1%), each rank's parameter and
                 optimizer-state bytes (a quarter of NoShard's) and peak
                 memory;
+  hooks_ranks   the same four ranks and cell under DataParallel with the
+                allreduce, bf16_compress, reduce_scatter and ring_allreduce
+                hooks and PowerSGD, each where gloo takes its collectives
+                on card tensors (the probe; a refused hook is printed with
+                the probe's error): the ranks' synced gradients equal, the
+                losses within 1% of NoShard's, the bytes on the wire a step
+                (bf16 half of fp32; PowerSGD's = ``wire_elements``), and
+                ``average_parameters`` one all-reduce per dtype;
   resnet_parity ResNet-18 (CIFAR stem, B=16) and ResNet-50 (ImageNet stem
                 at 64 px, B=8), fp32 with TF32 off: the port on the card
                 against the port on the CPU (train and eval logits with
@@ -167,6 +184,12 @@ capture records; what the replays launched is counted in device traces
                 numbered on, the resumed losses against an uninterrupted
                 run's; images/s before and after, the time to recover
                 split by stage, and ResNet-50's checkpoint costs;
+  comm_hooks    the same entry point at ResNet-50, batch 128, bf16, 10
+                steps with each ``--comm-hook`` (its own one-rank NCCL
+                group) and twice without: allreduce, reduce_scatter and
+                ring_allreduce give the hookless losses (within their
+                spread), bf16/fp16 compression differs within 5e-2;
+                images/s, collectives and bytes a step;
   resnet_train  the bench twin (``pytorch_distributed_tpu_torch/bench.py``)
                 at its ImageNet shapes: ResNet-50, batch 128 at 224 px,
                 bf16, SGD(0.1, 0.9): images/s, step p50/p90/p99, MFU, peak
@@ -2325,14 +2348,17 @@ def _runner_runs(build, batches, name, flops_per_step=None):
             runner.start(state, batches[0])
             torch.cuda.synchronize()
             extra = {"start_s": time.perf_counter() - t0,
-                     "capture_s": runner._program.capture_s,
-                     "captured": runner._program.captured,
                      "start_reserved_bytes":
                          torch.cuda.memory_reserved() - reserved}
             t0 = time.perf_counter()
             for batch in batches:
                 runner.submit(batch)
-            extra["replays"] = runner._program.replays
+            programs = runner.programs.values()
+            extra.update(
+                programs=len(programs),
+                capture_s=sum(p.capture_s for p in programs),
+                captured=all(p.captured for p in programs),
+                replays=sum(p.replays for p in programs))
             state, hist = runner.finish()
             step_s = (time.perf_counter() - t0) / len(batches)
             losses = hist["loss"].tolist()
@@ -2605,14 +2631,19 @@ def sharded_runner_phase(noshard_runs):
 FSDP_RANKS = 4
 FSDP_RANKS_STEPS = 3
 FSDP_RANKS_LOSS_RTOL = 1e-2   # bf16, as train_bf16_parity's limit
+#: the probe's collectives that FSDP and ZeRO1 issue
+FSDP_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
+                    "reduce_scatter_tensor")
 
 
 def _probe_gloo_cuda(device):
     """Which collectives a gloo group runs on card tensors here: True, or
-    the error."""
+    the error. Every rank calls every probe, in one order. Sends and
+    receives are probed apart (``_probe_gloo_p2p``)."""
     x = torch.arange(8, dtype=torch.float32, device=device)
     calls = {
         "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_reduce_bf16": lambda: dist.all_reduce(x.to(torch.bfloat16)),
         "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
             torch.empty(8 * FSDP_RANKS, device=device), x.clone()),
         "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
@@ -2639,7 +2670,7 @@ def _fsdp_rank(rank, port, out_dir, batches):
     result = {"rank": rank}
     try:
         result["probe"] = _probe_gloo_cuda(device)
-        if all(v is True for v in result["probe"].values()):
+        if all(result["probe"][k] is True for k in FSDP_COLLECTIVES):
             _build.load_all(LIBRARIES)
             for kind in ("FullyShardedDataParallel", "ZeRO1"):
                 torch.cuda.empty_cache()
@@ -2735,7 +2766,7 @@ def fsdp_ranks_phase():
         ranks = [torch.load(f"{out_dir}/fsdp_rank{r}.pt", weights_only=False)
                  for r in range(FSDP_RANKS)]
     probe = ranks[0]["probe"]
-    ran = all(v is True for v in probe.values())
+    ran = all(probe[k] is True for k in FSDP_COLLECTIVES)
     line = {"phase": "fsdp_ranks", "ranks": FSDP_RANKS, "backend": "gloo",
             "gloo_takes_card_tensors": probe, "ran": ran, "wall_s": wall_s,
             "model": "gpt2-125m", "dtype": "bfloat16", "global_batch": 8,
@@ -2771,6 +2802,435 @@ def fsdp_ranks_phase():
           "fsdp_ranks: FSDP parameters not in quarters")
     check(line["ZeRO1"]["param_bytes_over_noshard"] == 1.0,
           "fsdp_ranks: ZeRO1 parameters not whole")
+    return line
+
+
+# -- gradient communication: hooks, PowerSGD, model averaging --------------
+HOOKS = ("allreduce", "bf16_compress", "fp16_compress", "reduce_scatter",
+         "ring_allreduce")
+HOOK_STEPS = 10
+HOOK_LOSS_TOL = 5e-2      # the 16-bit hooks against the hookless losses
+PSGD_STEPS = 8
+PSGD = dict(rank=2, start_iter=3)
+RESNET_HOOK_ARGS = ("--model", "resnet50", "--dataset", "imagenet",
+                    "--policy", "bf16", "--global-batch", "128",
+                    "--steps-per-epoch", str(HOOK_STEPS), "--dataset-size",
+                    "1280", "--num-workers", "6", "--log-every", "100")
+
+
+def _per_step(counts, wire, steps, init_broadcasts):
+    """Collectives and bytes a step of ``comm``'s totals over ``steps``
+    steps, the start-up broadcasts left out."""
+    counts = dict(counts)
+    counts["broadcast"] -= init_broadcasts
+    wire = {k: v for k, v in wire.items() if not k.startswith("broadcast")}
+    return ({k: v / steps for k, v in counts.items() if v},
+            {k: v / steps for k, v in wire.items()})
+
+
+def comm_hooks_phase():
+    """``examples/train_resnet_ddp.py``'s ``main`` at ResNet-50, ImageNet,
+    batch 128 at 224 px, bf16, HOOK_STEPS steps with each ``--comm-hook``
+    (DataParallel on the entry point's own one-rank NCCL group) and twice
+    with none (NoShard; the two give the eager loop's run-to-run spread).
+    At one rank per-rank BatchNorm is the global batch's and a mean over
+    one rank is exact, so allreduce, reduce_scatter and ring_allreduce give
+    the hookless losses (within the spread, 0 when the step is
+    deterministic); bf16 and fp16 compression round the gradients and
+    differ, within HOOK_LOSS_TOL. Images/s, and the collectives and bytes
+    a step (``parallel.comm``)."""
+    runs = {}
+    for name in ("none_a", "none_b") + HOOKS:
+        torch.cuda.empty_cache()
+        comm.reset_counts()
+        args = list(RESNET_HOOK_ARGS)
+        if not name.startswith("none"):
+            args += ["--comm-hook", name]
+        out = train_resnet_ddp.main(args)
+        step_s = out["step_s"][1:]       # the first step grows the pools
+        runs[name] = {
+            "losses": out["losses"],
+            "images_per_s": out["images_per_step"] * len(step_s)
+            / sum(step_s),
+            "world": out["world"]}
+        if not name.startswith("none"):
+            per_step, wire = _per_step(comm.counts, comm.wire_bytes,
+                                       len(out["losses"]), 1)
+            runs[name].update(collectives_per_step=per_step,
+                              wire_bytes_per_step=wire)
+    base = runs["none_a"]["losses"]
+    spread = max(abs(a - b) for a, b in zip(base, runs["none_b"]["losses"]))
+    for name in HOOKS:
+        runs[name]["max_loss_diff"] = max(
+            abs(a - b) for a, b in zip(runs[name]["losses"], base))
+    emit({"phase": "comm_hooks", "model": "resnet50", "dataset": "imagenet",
+          "global_batch": 128, "dtype": "bfloat16", "steps": HOOK_STEPS,
+          "ranks": 1, "backend": "nccl", "hookless_spread": spread,
+          "loss_tol_16bit": HOOK_LOSS_TOL, **runs})
+    for name in HOOKS:
+        r = runs[name]
+        check(len(r["losses"]) == HOOK_STEPS
+              and all(np.isfinite(r["losses"])),
+              f"comm_hooks {name}: losses {r['losses']}")
+        if name.endswith("_compress"):
+            check(0 < r["max_loss_diff"] <= HOOK_LOSS_TOL,
+                  f"comm_hooks {name}: {r['max_loss_diff']} from the "
+                  f"hookless losses (0 < d <= {HOOK_LOSS_TOL})")
+            dtype = "bfloat16" if name.startswith("bf16") else "float16"
+            check(f"all_reduce.{dtype}" in r["wire_bytes_per_step"],
+                  f"comm_hooks {name}: no {dtype} on the wire: "
+                  f"{r['wire_bytes_per_step']}")
+        else:
+            check(r["max_loss_diff"] <= spread,
+                  f"comm_hooks {name}: losses {r['max_loss_diff']} from the "
+                  f"hookless ones, beyond their spread {spread}")
+    return runs
+
+
+def _psgd_trainer(hook):
+    """runner_train's model and step (GPT-2 125M, bf16, flash attention,
+    capturable AdamW) under DataParallel on the one-rank NCCL group, with
+    ``hook`` (a ``PowerSGD``, or None)."""
+    strategy = DataParallel(init_device_mesh((pdist.get_world_size(),),
+                                             ("dp",)))
+    model = gpt2_125m(device="cuda", seed=2, dtype=torch.bfloat16,
+                      attn_impl=fa.flash_attention)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
+                            eps=1e-8, capturable=True)
+    trainer = Trainer(model, opt, strategy, loss_fn=lm_loss, policy="bf16",
+                      comm_hook=hook)
+    return trainer, trainer.init()
+
+
+def _hook_device_ms(hook, grads, group, step, comm_state=None, reps=3):
+    """Device time, kernels and host wall time of one hook call on
+    ``grads``, from a traced window of ``reps`` calls."""
+    def call():
+        if comm_state is not None:
+            hook.apply(comm_state, grads, group, step)
+        else:
+            hook(grads, group)
+
+    with traced(call) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = _device_kernels(prof)
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:6]
+    return {"device_ms": sum(e.self_device_time_total for e in device)
+            / 1e3 / reps,
+            "kernels": sum(e.count for e in device) / reps,
+            "wall_ms": wall_ms / reps,
+            "top_kernels": [{"name": e.key[:80],
+                             "ms": e.self_device_time_total / 1e3 / reps}
+                            for e in top]}
+
+
+def powersgd_phase(dp_runner_step_s):
+    """GPT-2 125M at full width and depth, the train cell's step (B = 8,
+    T = 1024, bf16, flash B1-B3, capturable AdamW), under DataParallel on
+    the one-rank NCCL group with ``PowerSGD(rank=2, start_iter=3)``,
+    PSGD_STEPS steps across ``start_iter``: the eager ``Trainer.step`` loop
+    twice and ``AsyncRunner`` (losses, parameters and buffers within the
+    eager spread; at most two programs captured, one for the warm-up
+    branch and one for the compressed one). Then 3 traced replays of the
+    compressed step (B1-B3 n_layer times each), the hook's own device time
+    on GPT-2's gradients against the allreduce hook's, the elements on the
+    wire against ``wire_elements`` (521,890 of 124,439,808), the error
+    buffers' bytes, the compressed program's step time (PSGD_STEPS replays
+    after the builds) against sharded_runner's DataParallel runner without
+    a hook, and peak memory."""
+    from pytorch_distributed_tpu_torch.parallel import (
+        PowerSGD,
+        allreduce_hook,
+    )
+
+    n_layer = GPT2Config().n_layer
+    batches = _lm_batches(PSGD_STEPS, 8, 1024, seed=31)
+    comm.reset_counts()
+    runs, spread, got = _runner_runs(
+        lambda: _psgd_trainer(PowerSGD(**PSGD)), batches, "powersgd")
+    runner, trainer, state = runs["runner"].pop("_runner")
+    hook, group = trainer.comm_hook, trainer.strategy.group
+    compressed, dense = hook.wire_elements(trainer.model)
+    # one eager compressed step's wire
+    comm.reset_counts()
+    state, _ = trainer.step(state, batches[0])
+    step_wire = dict(comm.wire_bytes)
+    expect_calls = {name: n_layer for name in SM90_KERNELS}
+    expect_calls.update({name: 0 for name in MASKED_SM90_KERNELS})
+    (device, calls, spans, wall_ms), first = recounted(
+        lambda: _replay_window(runner, state, batches, 3, expect_calls),
+        lambda r: r[1] == expect_calls)
+    # the compressed program's replays alone (the runner's step time above
+    # includes the second program's warm-up and capture at start_iter)
+    runner.start(state, batches[0])
+    runner.submit(batches[0])
+    runner.sync()
+    t0 = time.perf_counter()
+    for batch in batches:
+        runner.submit(batch)
+    state, _ = runner.finish()
+    compressed_step_s = (time.perf_counter() - t0) / len(batches)
+    grads = [torch.randn_like(p) for p in trainer._params]
+    timing = {"powersgd": _hook_device_ms(hook, grads, group,
+                                          hook.start_iter, state.comm_state),
+              "allreduce": _hook_device_ms(allreduce_hook, grads, group, 0)}
+    error_bytes = sum(e["e"].numel() * e["e"].element_size()
+                      for e in state.comm_state.values())
+    line = {
+        "phase": "powersgd", "model": "gpt2-125m", "dtype": "bfloat16",
+        "global_batch": 8, "seq_len": 1024, "steps": PSGD_STEPS,
+        "powersgd": PSGD, "ranks": pdist.get_world_size(),
+        "eager_spread": spread, "runner_vs_eager": got,
+        "programs": runs["runner"]["programs"],
+        "program_keys": sorted(runner.programs),
+        "wire_elements": [compressed, dense],
+        "wire_elements_per_step": step_wire.get("all_reduce.float32", 0) / 4,
+        "error_feedback_bytes": error_bytes,
+        "hook_device": timing,
+        "flash_calls_per_replayed_step": calls,
+        "first_window_flash_calls_per_step": first and first[1],
+        "replay_ms_per_step": _spans_ms(spans) / 3,
+        "device_busy_ms_per_replayed_step": sum(
+            e.self_device_time_total for e in device) / 1e3 / 3,
+        "step_s": {k: runs[k]["step_s"] for k in runs},
+        "runner_compressed_step_s": compressed_step_s,
+        "dp_runner_step_s": dp_runner_step_s,
+        "compressed_step_s_over_dp_runner":
+            compressed_step_s / dp_runner_step_s,
+        "max_memory_allocated_bytes": {
+            k: runs[k]["max_memory_allocated_bytes"] for k in runs},
+        "losses": {k: runs[k]["losses"] for k in runs}}
+    emit(line)
+    check(runs["runner"]["programs"] == 2
+          and sorted(runner.programs) == [False, True],
+          f"powersgd: programs {sorted(runner.programs)}")
+    check(calls == expect_calls,
+          f"powersgd: flash calls per replayed step {calls}")
+    check((compressed, dense) == (521_890, 124_439_808),
+          f"powersgd: wire_elements {(compressed, dense)}")
+    check(line["wire_elements_per_step"] == compressed,
+          f"powersgd: {line['wire_elements_per_step']} fp32 elements on "
+          f"the wire a compressed step, wire_elements says {compressed}")
+    del runner, trainer, state, runs, grads
+    torch.cuda.empty_cache()
+    return line
+
+
+HOOK_RANKS_HOOKS = ("allreduce", "bf16_compress", "reduce_scatter",
+                    "ring_allreduce", "powersgd")
+#: the probe's collectives each hook issues (besides DataParallel's
+#: start-up broadcast)
+HOOK_COLLECTIVES = {
+    "allreduce": ("all_reduce",),
+    "bf16_compress": ("all_reduce_bf16", "all_reduce"),
+    "reduce_scatter": ("reduce_scatter_tensor", "all_gather_into_tensor",
+                       "all_reduce"),
+    "ring_allreduce": ("send_recv", "all_reduce"),
+    "powersgd": ("all_reduce",),
+}
+
+
+def _p2p_probe_rank(rank, port, device):
+    pdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                             rank=rank, world_size=2, device=device)
+    try:
+        x = torch.full((8,), float(rank), device=device)
+        recv = torch.empty_like(x)
+        comm.p2p(dist.group.WORLD, sends=[(x, 1 - rank)],
+                 recvs=[(recv, 1 - rank)])
+        check(float(recv[0]) == 1 - rank, "gloo send/recv: wrong data")
+    finally:
+        pdist.destroy_process_group()
+
+
+def _probe_gloo_p2p(device):
+    """Whether gloo sends and receives card tensors: True, or the error.
+    Two throwaway ranks probe it apart from the ranks that train: gloo
+    hands the socket a card tensor's device pointer (``writev``: "Bad
+    address"), which raises in the caller or aborts the process from
+    gloo's own thread, where a ``try`` cannot catch it."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = torch.multiprocessing.start_processes(
+        _p2p_probe_rank, args=(port, device), nprocs=2, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + 60
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                return "the probe's ranks did not finish in 60 s"
+    except (torch.multiprocessing.ProcessExitedException,
+            torch.multiprocessing.ProcessRaisedException) as e:
+        # the rank's own error is the last line of the report
+        return f"{type(e).__name__}: {str(e).strip().splitlines()[-1]}"[:300]
+    finally:   # the rank left waiting on its dead peer
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    return True
+
+
+def _hooks_rank(rank, port, out_dir, batches, device, p2p):
+    """One of FSDP_RANKS ranks sharing the card over gloo: the probe, then
+    GPT-2 125M (bf16, flash attention, AdamW) for FSDP_RANKS_STEPS eager
+    steps under DataParallel with each hook the probe allows, from the same
+    seeded weights; a digest of the synced gradients each step, the
+    collectives and bytes a step; then ``average_parameters``'s
+    all-reduces."""
+    import hashlib
+
+    from pytorch_distributed_tpu_torch.parallel import (
+        PowerSGD,
+        average_parameters,
+    )
+
+    pdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                             rank=rank, world_size=FSDP_RANKS, device=device)
+    result = {"rank": rank}
+    try:
+        probe = _probe_gloo_cuda(device)
+        result["probe"] = probe = {**probe, "send_recv": p2p}
+        _build.load_all(LIBRARIES)
+        mesh = init_device_mesh((FSDP_RANKS,), ("dp",))
+        for name in HOOK_RANKS_HOOKS:
+            if not all(probe[k] is True for k in HOOK_COLLECTIVES[name]):
+                continue
+            torch.cuda.empty_cache()
+            hook = PowerSGD(rank=2, start_iter=1) if name == "powersgd" \
+                else name
+            model = gpt2_125m(device=device, seed=7, dtype=torch.bfloat16,
+                              attn_impl=fa.flash_attention)
+            opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                    weight_decay=0.01, eps=1e-8)
+            trainer = Trainer(model, opt, DataParallel(mesh, "dp"),
+                              loss_fn=lm_loss, policy="bf16", comm_hook=hook)
+            state = trainer.init()
+            run = {"losses": [], "digests": [], "step_s": [], "wire": [],
+                   "counts": []}
+            for batch in batches:
+                comm.reset_counts()
+                t0 = time.perf_counter()
+                state, m = trainer.step(state, batch)
+                run["losses"].append(float(m["loss"]))
+                torch.cuda.synchronize(device)
+                run["step_s"].append(time.perf_counter() - t0)
+                run["wire"].append(dict(comm.wire_bytes))
+                run["counts"].append(dict(comm.counts))
+                flat = torch.cat([p.grad.reshape(-1) for p in
+                                  model.parameters()]).cpu().numpy()
+                run["digests"].append(hashlib.sha1(flat.tobytes())
+                                      .hexdigest())
+            if name == "powersgd":
+                run["wire_elements"] = hook.wire_elements(model)
+            result[name] = run
+            del trainer, state, model, opt
+        # one all-reduce per dtype: fp32, and bf16 where gloo takes it
+        pg = pdist.get_default_group()
+        params = list(gpt2_125m(device=device, seed=rank).parameters())
+        if probe["all_reduce_bf16"] is True:
+            params.append(params[0].to(torch.bfloat16))
+        before = observability.get_metrics().get("pg.all_reduce", 0)
+        average_parameters(params, pg)
+        result["average_parameters"] = {
+            "dtypes": len({p.dtype for p in params}),
+            "all_reduces": observability.get_metrics().get("pg.all_reduce", 0)
+            - before}
+    finally:
+        torch.save(result, f"{out_dir}/hooks_rank{rank}.pt")
+        pdist.destroy_process_group()
+
+
+def hooks_ranks_phase(want, device=torch.device("cuda", 0)):
+    """FSDP_RANKS spawned ranks on the one card over gloo (as fsdp_ranks),
+    GPT-2 125M at full width and depth, 8 x 1024 global (2 rows a rank),
+    bf16, FSDP_RANKS_STEPS steps under DataParallel with the allreduce,
+    bf16_compress, reduce_scatter and ring_allreduce hooks and
+    ``PowerSGD(rank=2, start_iter=1)``, each where the probe allows its
+    collectives (a hook the probe refuses is printed with the probe's
+    error and not run). The ranks' synced gradients are equal (a digest a
+    step); the mean of the ranks' losses within FSDP_RANKS_LOSS_RTOL of
+    NoShard's (``want``, fsdp_ranks' run on the same batches); the bytes
+    on the wire a step: bf16's half of the allreduce hook's, PowerSGD's
+    compressed steps ``wire_elements``' fp32 elements; and
+    ``average_parameters`` one all-reduce per dtype."""
+    import tempfile
+
+    batches = _lm_batches(FSDP_RANKS_STEPS, 8, 1024, seed=21)
+    p2p = _probe_gloo_p2p(device)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as out_dir:
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(
+            _hooks_rank, args=(port, out_dir, batches, device, p2p),
+            nprocs=FSDP_RANKS,
+            join=False, start_method="spawn")
+        deadline = time.monotonic() + 300
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                check(False, "hooks_ranks: the ranks did not finish in 300 s")
+        wall_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{out_dir}/hooks_rank{r}.pt", weights_only=False)
+                 for r in range(FSDP_RANKS)]
+    probe = ranks[0]["probe"]
+    line = {"phase": "hooks_ranks", "ranks": FSDP_RANKS, "backend": "gloo",
+            "gloo_takes_card_tensors": probe, "wall_s": wall_s,
+            "model": "gpt2-125m", "dtype": "bfloat16", "global_batch": 8,
+            "seq_len": 1024, "steps": FSDP_RANKS_STEPS,
+            "noshard_losses": want, "loss_rtol": FSDP_RANKS_LOSS_RTOL,
+            "average_parameters": ranks[0]["average_parameters"]}
+    for name in HOOK_RANKS_HOOKS:
+        if name not in ranks[0]:
+            line[name] = {"ran": False, "refused_by_probe": {
+                k: probe[k] for k in HOOK_COLLECTIVES[name]
+                if probe[k] is not True}}
+            continue
+        r0 = ranks[0][name]
+        mean = [float(np.mean([r[name]["losses"][i] for r in ranks]))
+                for i in range(FSDP_RANKS_STEPS)]
+        line[name] = {
+            "ran": True, "mean_losses": mean,
+            "loss_rel_err": [abs(a - b) / abs(b) for a, b in zip(mean, want)],
+            "grads_equal_across_ranks": all(
+                r[name]["digests"] == r0["digests"] for r in ranks),
+            "wire_bytes_per_step": r0["wire"],
+            "collectives_per_step": r0["counts"],
+            "step_s": [r[name]["step_s"] for r in ranks]}
+        if name == "powersgd":
+            line[name]["wire_elements"] = r0["wire_elements"]
+    emit(line)
+    ran = [n for n in HOOK_RANKS_HOOKS if line[n]["ran"]]
+    for name in ran:
+        r = line[name]
+        check(r["grads_equal_across_ranks"],
+              f"hooks_ranks {name}: the ranks' synced gradients differ")
+        check(max(r["loss_rel_err"]) <= FSDP_RANKS_LOSS_RTOL,
+              f"hooks_ranks {name}: losses {r['mean_losses']} vs {want}")
+    if "bf16_compress" in ran and "allreduce" in ran:
+        bf16 = line["bf16_compress"]["wire_bytes_per_step"][-1]
+        fp32 = line["allreduce"]["wire_bytes_per_step"][-1]
+        check(bf16["all_reduce.bfloat16"] * 2 == fp32["all_reduce.float32"],
+              f"hooks_ranks: bf16 bytes {bf16} not half of fp32's {fp32}")
+    if "powersgd" in ran:
+        compressed = line["powersgd"]["wire_elements"][0]
+        wire = line["powersgd"]["wire_bytes_per_step"][-1]
+        check(wire["all_reduce.float32"] == compressed * 4,
+              f"hooks_ranks powersgd: {wire} on the wire, wire_elements "
+              f"{compressed}")
+    avg = line["average_parameters"]
+    check(avg["all_reduces"] == avg["dtypes"],
+          f"hooks_ranks: average_parameters made {avg['all_reduces']} "
+          f"all-reduces for {avg['dtypes']} dtypes")
     return line
 
 
@@ -3484,18 +3944,21 @@ def main() -> int:
         train_bf16_parity_phase(mesh)
         cp_launches, cp_split = train_cp_phase(mesh)
         torch.cuda.empty_cache()
-        sharded_runner_phase(noshard_runs)
+        sharded = sharded_runner_phase(noshard_runs)
+        powersgd_phase(sharded["DataParallel"]["step_s"]["runner"])
     finally:
         pdist.destroy_process_group()
     torch.cuda.empty_cache()
     ckpt_gpt2_phase(smi)
-    fsdp_ranks_phase()
+    fsdp = fsdp_ranks_phase()
+    hooks_ranks_phase(fsdp["noshard"]["losses"])
 
     torch.cuda.empty_cache()
     resnet_parity_phase()
     resnet_amp_accum_phase()
     resnet_example_phase()
     elastic_resnet_phase(smi)
+    comm_hooks_phase()
     bench_out = resnet_train_phase(smi)   # cuDNN's algorithm search on
     resnet_runner_phase(bench_out)
     resnet_profile_phase()

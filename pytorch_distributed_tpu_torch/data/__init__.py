@@ -6,7 +6,8 @@ Copies of ``pytorch_distributed_tpu/data/datasets.py`` and ``sampler.py``
 package), the counterpart of its ``sharding.py``, and of its loader the
 part the ResNet entry point needs: batching goes through
 ``torch.utils.data.DataLoader`` with this sampler (``make_loader``), and
-``prefetch_to_device`` copies batches ahead on a side stream; the JAX
+``prefetch_to_device`` copies batches ahead on a side stream, and
+``pad_batch`` pads an uneven final batch under a validity mask; the JAX
 package's worker-pool loader and the JPEG ImageFolder path are ROADMAP
 A.8.
 """
@@ -20,6 +21,7 @@ from pytorch_distributed_tpu_torch.data.datasets import (
 )
 from pytorch_distributed_tpu_torch.data.loader import (
     make_loader,
+    pad_batch,
     prefetch_to_device,
 )
 from pytorch_distributed_tpu_torch.data.sampler import DistributedSampler
@@ -37,6 +39,7 @@ __all__ = [
     "SyntheticLMDataset",
     "make_loader",
     "make_token_stream",
+    "pad_batch",
     "prefetch_to_device",
     "shard_batch_for_mesh",
 ]

@@ -7,6 +7,7 @@ A.8; torch's ``DataLoader`` plays its part, with pinned host memory on the
 card. :func:`prefetch_to_device` is the counterpart of ``prefetch_to_mesh``
 (``loader.py:278``): while the step runs on batch ``n``, the copies of the
 next ``depth`` batches are already queued on a side stream.
+:func:`pad_batch` is the reference's uneven-final-batch padding.
 """
 
 from __future__ import annotations
@@ -14,10 +15,33 @@ from __future__ import annotations
 import collections
 from typing import Iterable, Iterator
 
+import numpy as np
 import torch
 from torch.utils.data import DataLoader
 
-__all__ = ["make_loader", "prefetch_to_device"]
+__all__ = ["make_loader", "pad_batch", "prefetch_to_device"]
+
+
+def pad_batch(batch, to_size: int):
+    """A (tuple of) numpy array(s) padded along dim 0 to ``to_size``, as
+    ``(*padded, mask)`` with a 0/1 fp32 validity mask: the uneven final
+    batch (torch ``Join``'s role). Every rank steps with a full-shape batch
+    and the mask-aware losses (``trainer.classification_loss``,
+    ``lm_loss``) leave the padded rows out of the loss and the gradients.
+    The padding repeats the last row; a rank with no rows at all (``n ==
+    0``) pads with zeros under an all-zero mask."""
+    arrays = batch if isinstance(batch, tuple) else (batch,)
+    n = arrays[0].shape[0]
+    if n > to_size:
+        raise ValueError(f"batch ({n}) larger than pad target ({to_size})")
+    pad = to_size - n
+    padded = tuple(
+        np.concatenate([a, np.repeat(a[-1:], pad, axis=0) if n
+                        else np.zeros((pad,) + a.shape[1:], a.dtype)])
+        if pad else a
+        for a in arrays)
+    mask = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
+    return (*padded, mask)
 
 
 def make_loader(dataset, batch_size: int, sampler, *, device: torch.device,

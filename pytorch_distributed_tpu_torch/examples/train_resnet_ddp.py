@@ -19,9 +19,17 @@ AMP and accumulation (config #3): ``--policy fp16 --grad-accum 2``. On the
 card the model computes in the policy's dtype (bf16, or fp16 with the loss
 scaler, as ``torch.amp`` does); on the CPU it computes in fp32, as the JAX
 script does off the TPU. The data are the synthetic CIFAR-10 / ImageNet
-datasets, made from ``--seed``. Gradient communication hooks
-(``--comm-hook``) and the JPEG ImageFolder path (``--data-dir``) are not
-ported yet and raise, naming their ROADMAP items.
+datasets, made from ``--seed``. The JPEG ImageFolder path
+(``--data-dir``) is not ported yet and raises, naming its ROADMAP item.
+
+``--comm-hook`` (``allreduce``, ``bf16_compress``, ``fp16_compress``,
+``reduce_scatter``, ``ring_allreduce``) trains under ``DataParallel`` with
+that hook in place of its gradient all-reduce, as the JAX script does; one
+process without ``torchrun`` then makes a one-rank group of its own (tcp
+on a free localhost port; NCCL on the card). Under a hook each rank's
+BatchNorm takes its own rows' statistics (the model is built without
+``bn_axis_name``, as the JAX script's is) and the running statistics are
+averaged over the ranks after each step.
 
 ``--ckpt-dir D`` saves the model, the optimizer and the step every
 ``--ckpt-every`` steps and at the end (``checkpoint.CheckpointManager``,
@@ -47,6 +55,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import socket
 import sys
 import time
 from typing import Dict, Optional
@@ -91,16 +100,13 @@ def parse_args(argv=None):
     p.add_argument("--comm-hook", default=None,
                    choices=["allreduce", "bf16_compress", "fp16_compress",
                             "reduce_scatter", "ring_allreduce"],
-                   help="gradient communication hook (not ported: ROADMAP "
-                        "A.14)")
+                   help="gradient communication hook, under DataParallel")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
     return p.parse_args(argv)
 
 
 def _not_ported(args) -> Optional[str]:
-    if args.comm_hook:
-        return "--comm-hook (gradient communication hooks): ROADMAP A.14"
     if args.data_dir:
         return "--data-dir (the JPEG ImageFolder dataset): ROADMAP A.8"
     return None
@@ -139,6 +145,7 @@ def main(argv=None) -> Dict:
 
     launched = "WORLD_SIZE" in os.environ   # torchrun's env:// contract
     device = resolve_device(args.device)
+    own_group = launched or args.comm_hook is not None
     if launched:
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
@@ -146,6 +153,13 @@ def main(argv=None) -> Dict:
                                  rank=int(os.environ["RANK"]),
                                  world_size=int(os.environ["WORLD_SIZE"]),
                                  device=device)
+    elif own_group:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        pdist.init_process_group(init_method=f"tcp://localhost:{port}",
+                                 rank=0, world_size=1, device=device)
+    if own_group:
         nproc, pid = pdist.get_world_size(), pdist.get_rank()
         mesh = init_device_mesh((nproc,), ("dp",))
         strategy = DataParallel(mesh)
@@ -174,6 +188,7 @@ def main(argv=None) -> Dict:
             policy=args.policy,
             grad_accum_steps=args.grad_accum,
             clip_norm=args.clip_norm,
+            comm_hook=args.comm_hook,
         )
         if args.global_batch % (nproc * args.grad_accum):
             raise SystemExit(
@@ -243,7 +258,7 @@ def main(argv=None) -> Dict:
             ckpt.save(state.step, get_state_dict(trainer, state))
             ckpt.close()             # waits for the save to finish
     finally:
-        if launched:
+        if own_group:
             pdist.destroy_process_group()
 
     return {
@@ -254,6 +269,7 @@ def main(argv=None) -> Dict:
         "device": str(device),
         "dtype": str(dtype).removeprefix("torch."),
         "world": nproc,
+        "comm_hook": args.comm_hook,
         "first_step": first_step,
         "resumed_from": resumed,
         "marks": marks,

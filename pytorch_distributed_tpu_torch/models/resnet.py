@@ -25,7 +25,11 @@ What it keeps of flax, where torch's own modules would differ:
   ``ra = m * ra + (1 - m) * batch`` with flax's momentum 0.9, and the
   statistics of the whole global batch when a process group is bound
   (``stats_group``; ``DataParallel`` binds its dp group), which is what
-  the JAX package's global-view step computes.
+  the JAX package's global-view step computes. Under a gradient
+  communication hook the reference computes per dp shard, and a
+  BatchNorm takes the statistics of its own rows unless the model was
+  built with ``bn_axis_name`` (flax's ``axis_name``): ``Trainer`` then
+  binds the group of that mesh axis only where it is set.
 
 Weights are drawn as flax draws them (conv ``variance_scaling(2.0,
 "fan_out", "normal")``, Dense LeCun-normal with zero bias, the last BN
@@ -135,9 +139,11 @@ class BatchNorm(nn.Module):
 
     def __init__(self, features: int, *, momentum: float = 0.9,
                  epsilon: float = 1e-5, param_dtype=torch.float32,
-                 device=None):
+                 device=None, axis_name: Optional[str] = None):
         super().__init__()
         self.momentum, self.epsilon = momentum, epsilon
+        #: the mesh axis whose group takes the statistics under a comm hook
+        self.axis_name = axis_name
         kw = dict(dtype=param_dtype, device=device)
         self.weight = nn.Parameter(torch.ones(features, **kw))
         self.bias = nn.Parameter(torch.zeros(features, **kw))
@@ -269,7 +275,8 @@ def _layers(kw):
 
     def norm(features):
         return BatchNorm(features, momentum=kw["bn_momentum"],
-                         param_dtype=param_dtype, device=device)
+                         param_dtype=param_dtype, device=device,
+                         axis_name=kw.get("bn_axis_name"))
 
     return conv, norm
 
@@ -287,6 +294,10 @@ class ResNet(nn.Module):
       dtype: compute dtype; parameters and BN statistics stay
         ``param_dtype``.
       bn_momentum: flax's BN momentum (the running average keeps this much).
+      bn_axis_name: the mesh axis (``"dp"``) over which BatchNorm takes its
+        statistics under a gradient communication hook; None: each rank's
+        own rows there (without a hook ``DataParallel`` always takes the
+        global batch's).
       device: ``None`` is the CUDA card (raises without one).
       seed: seed of the ``torch.Generator`` the weights are drawn from.
     """
@@ -295,13 +306,14 @@ class ResNet(nn.Module):
                  num_classes: int = 1000, *, num_filters: int = 64,
                  cifar_stem: bool = False, dtype=torch.float32,
                  param_dtype=torch.float32, bn_momentum: float = 0.9,
-                 device=None, seed: int = 0):
+                 bn_axis_name: Optional[str] = None, device=None,
+                 seed: int = 0):
         super().__init__()
         device = resolve_device(device)
         self.dtype, self.param_dtype = dtype, param_dtype
         self.cifar_stem = cifar_stem
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device,
-                  bn_momentum=bn_momentum)
+                  bn_momentum=bn_momentum, bn_axis_name=bn_axis_name)
         conv, norm = _layers(kw)
         if cifar_stem:
             self.conv_init = conv(3, num_filters, 3)

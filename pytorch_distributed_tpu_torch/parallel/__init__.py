@@ -7,9 +7,27 @@ shards, ``parallel.fsdp``) and ``ZeRO1`` (the optimizer state and the
 update as shards); the sharded weight update is
 ``parallel.sharded_update``, the placement rule
 ``shard_spec_with_reason``. Ring and Ulysses attention are in
-``parallel.context_parallel``.
+``parallel.context_parallel``. The gradient communication hooks
+(``comm_hooks``: allreduce, bf16/fp16 compression, bucketed
+reduce-scatter, ring all-reduce; ``powersgd.PowerSGD``) and model
+averaging (``averagers``) run on the data-parallel group.
 """
 
+from pytorch_distributed_tpu_torch.parallel.averagers import (
+    EMAAverager,
+    PeriodicModelAverager,
+    average_parameters,
+)
+from pytorch_distributed_tpu_torch.parallel.comm_hooks import (
+    allreduce_hook,
+    bf16_compress,
+    fp16_compress,
+    get_comm_hook,
+    make_bucketed_rs_hook,
+    make_ring_allreduce_hook,
+    reduce_scatter_hook,
+    ring_allreduce_hook,
+)
 from pytorch_distributed_tpu_torch.parallel.context_parallel import (
     make_ring_attention,
     make_ulysses_attention,
@@ -18,6 +36,7 @@ from pytorch_distributed_tpu_torch.parallel.context_parallel import (
     zigzag_reorder,
     zigzag_restore,
 )
+from pytorch_distributed_tpu_torch.parallel.powersgd import PowerSGD
 from pytorch_distributed_tpu_torch.parallel.state import (
     TrainState,
     make_state_specs,
@@ -52,4 +71,16 @@ __all__ = [
     "ulysses_attention",
     "zigzag_reorder",
     "zigzag_restore",
+    "EMAAverager",
+    "PeriodicModelAverager",
+    "PowerSGD",
+    "allreduce_hook",
+    "average_parameters",
+    "bf16_compress",
+    "fp16_compress",
+    "get_comm_hook",
+    "make_bucketed_rs_hook",
+    "make_ring_allreduce_hook",
+    "reduce_scatter_hook",
+    "ring_allreduce_hook",
 ]

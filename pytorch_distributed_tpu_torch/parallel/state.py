@@ -5,7 +5,8 @@ state (params, optimizer state, scaler) is one pytree threaded through the
 jitted step. In torch the parameters live in the model and the optimizer
 state in the optimizer, both updated in place by ``Trainer.step``, so the
 state object keeps the rest: the step count, the loss-scaler state and a
-communication-hook state (``None``: hooks are ROADMAP A.14).
+stateful communication hook's state (PowerSGD's Q and error buffers,
+which its ``apply`` updates in place; ``None`` without such a hook).
 
 :func:`make_state_specs` is the counterpart of the reference's: where a
 parameter and its optimizer state are held sharded, and along which dim.

@@ -39,6 +39,17 @@ on the capture stream (the process group is made with
 ``TORCH_NCCL_ASYNC_ERROR_HANDLING=0``, ``distributed.init_process_group``),
 so a replay runs them in place. ``sharded_update`` reports whether the
 step takes the sharded update, as the reference's runner does.
+
+A gradient communication hook's collectives are captured the same way,
+and a stateful hook's state (``TrainState.comm_state``: PowerSGD's Q and
+error buffers, updated in place) is a step tensor like the optimizer's.
+Where the step's program depends on the step count (PowerSGD's warm-up
+before ``start_iter``, a ``lax.cond`` in the reference), the runner keys
+its programs on ``Trainer.program_key(step)``: each key's program is
+warmed up and captured when the first step that needs it is submitted,
+so a run across ``start_iter`` captures two programs, and neither warm-up
+runs the other's branch. The programs share one memory pool and replay
+in the order they were captured.
 """
 
 from __future__ import annotations
@@ -119,15 +130,25 @@ def _step_tensors(trainer, state) -> list:
             tensors.append(v)
     if state.scaler is not None:
         tensors += [state.scaler.scale, state.scaler.growth_tracker]
+    tensors += _tensor_leaves(state.comm_state)
     return tensors
 
 
-def _snapshot(trainer, state) -> Callable[[], None]:
-    """Copies of every tensor a step changes; returns the function that
-    puts them back in place."""
+def _tensor_leaves(tree) -> list:
+    """The tensors of a (nested) dict: a stateful hook's comm state."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensor_leaves(v)]
+    return []
+
+
+def _snapshot(trainer, state, extra=()) -> Callable[[], None]:
+    """Copies of every tensor a step changes (and of ``extra``); returns
+    the function that puts them back in place."""
     opt = trainer.optimizer
     keys = {p: tuple(st) for p, st in opt.state.items() if st}
-    tensors = _step_tensors(trainer, state)
+    tensors = _step_tensors(trainer, state) + list(extra)
     saved = [t.detach().clone() for t in tensors]
 
     @torch.no_grad()
@@ -181,9 +202,17 @@ class AsyncRunner:
         #: the step takes the sharded weight update (ZeRO1, FSDP)
         self.sharded_update = bool(getattr(trainer.strategy,
                                            "sharded_update", False))
-        self._program = None
+        #: the captured step programs, by ``Trainer.program_key``
+        self.programs: Dict = {}
         self._key = None
+        self._ring = None
         self._reset()
+
+    @property
+    def _program(self):
+        """The program of the first key built (the only one without a
+        stateful hook), or None."""
+        return next(iter(self.programs.values()), None)
 
     @property
     def dispatch_count(self) -> int:
@@ -212,30 +241,44 @@ class AsyncRunner:
                     new_state.scaler.growth_tracker)
         return body
 
-    def _build(self, state, sample) -> None:
-        """Static inputs shaped as ``sample``, the warm-up (undone), the
-        ring and the program."""
+    def _build(self, state, sample, key) -> None:
+        """The program of ``key`` for ``state`` (at the step that first
+        needs it): the warm-up (undone), then the capture. The first build
+        also makes the static inputs shaped as ``sample``, the ring and the
+        programs' memory pool; a later one warms up on the inputs and ring
+        as they are and puts the ring back too."""
         device, trainer = self.device, self.trainer
         on_card = device.type == "cuda"
-        inputs = type(sample)(torch.as_tensor(x).to(device, copy=True)
-                              for x in sample)
-        restore = _snapshot(trainer, state)
+        first = not self.programs
+        if first:
+            inputs = type(sample)(torch.as_tensor(x).to(device, copy=True)
+                                  for x in sample)
+            restore = _snapshot(trainer, state)
+            self._pool = torch.cuda.graph_pool_handle() if on_card else None
+        else:
+            inputs, ring = self._inputs, self._ring
+            restore = _snapshot(trainer, state, (ring.idx, ring.buf))
         side = warm_stream(device) if on_card else None
         with torch.cuda.stream(side) if on_card else contextlib.nullcontext():
             try:
-                _, metrics = trainer.step(state, inputs)
-                ring = MetricRing.create(_metric_names(metrics),
-                                         self.drain_every, device)
+                warm = self.warmup_steps
+                if first:
+                    _, metrics = trainer.step(state, inputs)
+                    ring = MetricRing.create(_metric_names(metrics),
+                                             self.drain_every, device)
+                    warm -= 1
                 body = self._body(state, inputs, ring)
-                for _ in range(self.warmup_steps - 1):
+                for _ in range(warm):
                     body()
             finally:
                 restore()
         if on_card:
             torch.cuda.current_stream(device).wait_stream(side)
-        ring.reset()
-        self._inputs, self._ring = inputs, ring
-        self._program = Program(body, device=device, stream=side)
+        if first:
+            ring.reset()
+            self._inputs, self._ring = inputs, ring
+        self.programs[key] = Program(body, device=device, stream=side,
+                                     pool=self._pool)
 
     def start(self, state, sample_batch) -> "AsyncRunner":
         """Bind the runner to ``state`` and build the pipelined step:
@@ -250,6 +293,12 @@ class AsyncRunner:
         self._reset()
         if not isinstance(sample_batch, (tuple, list)):
             raise TypeError("a batch is a tuple of arrays or tensors")
+        hook = self.trainer.comm_hook
+        if (self.device.type == "cuda" and self.trainer.comm_hook_stateful
+                and not getattr(hook, "warm_start", True)):
+            raise ValueError(
+                "the runner replays a stateful comm hook with warm_start "
+                "only: a fresh Q every step is drawn on the host")
         if self.device.type == "cuda":
             _make_capturable(self.trainer.optimizer)
         # the program reads and writes the step's tensors at these
@@ -261,8 +310,9 @@ class AsyncRunner:
                repr([{k: v for k, v in g.items() if k != "params"}
                      for g in self.trainer.optimizer.param_groups]))
         if key != self._key:
-            self._program = None
-            self._build(state, sample_batch)
+            self.programs = {}
+            self._build(state, sample_batch,
+                        self.trainer.program_key(state.step))
             self._key = key
         else:
             self._ring.reset()
@@ -283,7 +333,11 @@ class AsyncRunner:
             raise ValueError("batch shapes differ from the started batch's")
         for s, x in zip(self._inputs, batch):
             s.copy_(torch.as_tensor(x), non_blocking=True)
-        self._program()
+        step = self._state.step + self._n
+        key = self.trainer.program_key(step)
+        if key not in self.programs:
+            self._build(self._state.replace(step=step), None, key)
+        self.programs[key]()
         self._n += 1
         self._dispatches += 1
         if self.device.type == "cuda":
@@ -333,7 +387,8 @@ class AsyncRunner:
         record_event(
             "pipeline_exec.step_budget", steps=self._n, depth=self.depth,
             drain_every=size, programs_per_step=self.programs_per_step,
-            graph=self._program.captured, drains_issued=len(self._drains),
+            graph=any(p.captured for p in self.programs.values()),
+            programs=len(self.programs), drains_issued=len(self._drains),
             sharded_update=self.sharded_update,
             finish_block_ms=round((time.perf_counter() - t0) * 1e3, 3))
         state = self._state.replace(step=self._state.step + self._n)

@@ -35,6 +35,17 @@ both in place. The step keeps the JAX step's order:
      BatchNorm running statistics) keep what the forward wrote, as the
      JAX step keeps the new model state on a skipped step.
 
+With ``comm_hook`` (``DataParallel`` only: replicated parameters, the
+batch split over the dp axis) the step takes the reference's manual-DDP
+structure: after accumulation the hook replaces the strategy's gradient
+reduction (one reduction a step, no_sync semantics), a stateful hook
+(``PowerSGD``) carrying its state in ``TrainState.comm_state`` (made by
+``init``, updated in place). Each rank's BatchNorm then takes the
+statistics of its own rows, unless the model asked for the dp group's
+(``bn_axis_name``), as the reference's per-shard step does, and after the
+backward the model's floating buffers (the running statistics) are
+averaged over the dp group, as the reference ``pmean``s its model state.
+
 Metrics are 0-d tensors on the device: ``loss``, ``grad_norm``,
 ``all_finite``, the loss function's own (``perplexity`` for the LM losses)
 and, with a scaler, ``loss_scale``. ``grad_norm`` is that of the averaged
@@ -73,7 +84,15 @@ import torch.nn.functional as F
 
 from pytorch_distributed_tpu_torch.amp import GradScaler, Policy, get_policy
 from pytorch_distributed_tpu_torch.ops.chunked_xent import chunked_cross_entropy
-from pytorch_distributed_tpu_torch.parallel import ShardingStrategy, TrainState
+from pytorch_distributed_tpu_torch.parallel import (
+    DataParallel,
+    ShardingStrategy,
+    TrainState,
+)
+from pytorch_distributed_tpu_torch.parallel.comm_hooks import (
+    allreduce_hook,
+    get_comm_hook,
+)
 from pytorch_distributed_tpu_torch.parallel.fsdp import regather_saved
 from pytorch_distributed_tpu_torch.parallel.sharded_update import (
     ShardedParams,
@@ -233,7 +252,10 @@ class Trainer:
       grad_accum_steps: microbatch count; the batch must divide by it.
       scaler: GradScaler for fp16 (defaults to enabled iff policy is fp16).
       clip_norm: global-norm gradient clipping threshold.
-      comm_hook: not ported (ROADMAP A.14); must be None.
+      comm_hook: None, a hook name of ``parallel.comm_hooks`` (``allreduce``,
+        ``bf16_compress``, ``fp16_compress``, ``reduce_scatter``,
+        ``ring_allreduce``), a callable ``hook(grads, group)``, or a
+        stateful hook (``parallel.PowerSGD``); ``DataParallel`` only.
     """
 
     def __init__(
@@ -249,11 +271,19 @@ class Trainer:
         clip_norm: Optional[float] = None,
         comm_hook=None,
     ):
+        self.comm_hook = comm_hook
+        #: a stateful hook (PowerSGD) carries state in TrainState.comm_state
+        self.comm_hook_stateful = bool(getattr(comm_hook, "stateful", False))
+        self._hook = None
         if comm_hook is not None:
-            raise NotImplementedError(
-                "gradient communication hooks (bf16/fp16 compression, "
-                "PowerSGD) are not ported yet: ROADMAP A.14"
-            )
+            if (not isinstance(strategy, DataParallel)
+                    or getattr(strategy, "update_axis", None) is not None):
+                raise ValueError(
+                    "Trainer comm_hook supports the DataParallel strategy "
+                    "only (replicated params, batch sharded on dp_axis): "
+                    "the manual-DDP structure the hook contract assumes")
+            self._hook = (comm_hook if self.comm_hook_stateful
+                          else get_comm_hook(comm_hook))
         self.model = model
         self.optimizer = optimizer
         self.strategy = strategy
@@ -299,10 +329,28 @@ class Trainer:
                              for leaf in self.layout.leaves)
         _init_adam_state(self.optimizer)
         _init_sgd_state(self.optimizer)
+        comm_state = None
+        if self._hook is not None:
+            mesh = self.strategy.mesh
+            for m in self.model.modules():   # per-rank BN unless asked
+                if hasattr(m, "stats_group"):
+                    axis = getattr(m, "axis_name", None)
+                    m.stats_group = mesh.get_group(axis) if axis else None
+            if self.comm_hook_stateful:
+                comm_state = self.comm_hook.init(self.model)
         return TrainState(
             step=0,
             scaler=self.scaler.init(dev) if self.scaler else None,
+            comm_state=comm_state,
         )
+
+    def program_key(self, step: int):
+        """What the step's program depends on besides its tensors: a
+        stateful hook's branch at ``step`` (PowerSGD's warm-up or
+        compression), else None. The runner captures one program a key."""
+        if self.comm_hook_stateful:
+            return self.comm_hook.program_key(step)
+        return None
 
     # -- the step ----------------------------------------------------------
     def step(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
@@ -331,8 +379,12 @@ class Trainer:
                  for p in params]
         if accum > 1:
             grads = [g / accum for g in grads]
-        grads = (shard_grads(layout, grads) if layout is not None
-                 else self.strategy.reduce_grads(grads))
+        if layout is not None:
+            grads = shard_grads(layout, grads)
+        elif self._hook is not None:
+            grads, state = self._hooked(state, grads)
+        else:
+            grads = self.strategy.reduce_grads(grads)
         loss = torch.stack(losses).mean()
         metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
                    for k in per_mb[0]}
@@ -366,6 +418,27 @@ class Trainer:
         if scaling:
             out_metrics["loss_scale"] = state.scaler.scale
         return state.replace(step=state.step + 1, scaler=new_scaler), out_metrics
+
+    @torch.no_grad()
+    def _hooked(self, state: TrainState, grads):
+        """The hook's mean of the gradients over the dp group (a stateful
+        hook's state updated), and the model's floating buffers averaged
+        over the group."""
+        group = self.strategy.group
+        if self.comm_hook_stateful:
+            if state.comm_state is None:
+                raise ValueError("stateful comm_hook needs comm_state: "
+                                 "create the state with Trainer.init()")
+            comm_state, grads = self._hook.apply(state.comm_state, grads,
+                                                 group, state.step)
+            state = state.replace(comm_state=comm_state)
+        else:
+            grads = self._hook(grads, group)
+        buffers = [b for b in self.model.buffers() if b.is_floating_point()]
+        if buffers:
+            for b, new in zip(buffers, allreduce_hook(buffers, group)):
+                b.copy_(new)
+        return grads, state
 
     @torch.no_grad()
     def _step_or_keep(self, all_finite: torch.Tensor) -> None:

@@ -65,12 +65,35 @@ def test_entry_point_under_torchrun_env_runs_data_parallel(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--comm-hook", "allreduce"], "A.14"),
     (["--data-dir", "images"], "A.8"),
 ])
 def test_flags_not_ported_raise(flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         train_resnet_ddp.main(TINY + flag)
+
+
+_HOOKLESS = {}
+
+
+@pytest.mark.parametrize("hook", ["allreduce", "bf16_compress",
+                                  "fp16_compress", "reduce_scatter",
+                                  "ring_allreduce"])
+def test_comm_hook_flag_trains_under_data_parallel(hook):
+    """``--comm-hook`` runs DataParallel on a one-rank group of the entry
+    point's own: the full-precision hooks give the hookless (NoShard)
+    losses bit for bit (a mean over one rank is exact, per-rank BN is the
+    global batch's), the 16-bit ones differ and stay within 5e-2."""
+    if not _HOOKLESS:
+        _HOOKLESS.update(train_resnet_ddp.main(TINY))
+    out = train_resnet_ddp.main(TINY + ["--comm-hook", hook])
+    _check_run(out)
+    assert out["comm_hook"] == hook and out["world"] == 1
+    if hook.endswith("_compress"):
+        assert out["losses"] != _HOOKLESS["losses"]
+        assert max(abs(a - b) for a, b in zip(out["losses"],
+                                              _HOOKLESS["losses"])) <= 5e-2
+    else:
+        assert out["losses"] == _HOOKLESS["losses"]
 
 
 def test_bench_twin_prints_the_smoke_line(capsys):
