@@ -7,8 +7,9 @@ Run from the repository root on a machine with one NVIDIA H100::
 
 It builds the port's CUDA kernels from the sources in the checkout (one
 ``nvcc`` per source, all at once) and drives the main paths of the port,
-serving, GPT-2 training (FSDP, ZeRO1, DataParallel), context-parallel
-training, ResNet training, and checkpointed training that the elastic
+serving (and tensor-parallel serving), GPT-2 training (FSDP, ZeRO1,
+DataParallel, TensorParallel), context-parallel training, ResNet training
+(also from JPEG files), and checkpointed training that the elastic
 launcher restarts (its checkpoints go under the gitignored build
 directory and are deleted), printing one JSON line per phase. The
 serving steps and the pipelined
@@ -152,6 +153,18 @@ capture records; what the replays launched is counted in device traces
                 ``AsyncRunner`` keeps its captured step, and its losses
                 equal the eager loop's from the same checkpoint; blocking
                 and async save, restore, bytes;
+  tp_train      runner_train's cell under ``TensorParallel`` on the
+                one-rank NCCL group (dp 1, tp 1), sequence parallelism off
+                and on: the runner equals NoShard's runner bit for bit,
+                B1-B3 12 each a replayed step, the collectives counted a
+                step; step time against NoShard's runner;
+  tp_serve      the serve phase through a model cut over a (dp 1, tp 1)
+                serving mesh with its paged cache on tp (NCCL: graphs, the
+                tp all-reduces in the capture): streams equal serve's, one
+                replay and B7 12 times a decode step; tokens/s and decode
+                p50 against serve's;
+  serve_ckpt    ``examples/serve_gpt2.py``'s ``main`` with ``--ckpt-dir`` on
+                ckpt_gpt2's checkpoint (run inside that phase);
   fsdp_ranks    four spawned ranks sharing the card over gloo (where gloo
                 takes card tensors): GPT-2 125M, bf16, 2 rows a rank, 3
                 steps under FSDP and ZeRO1 against NoShard in this process
@@ -166,6 +179,12 @@ capture records; what the replays launched is counted in device traces
                 losses within 1% of NoShard's, the bytes on the wire a step
                 (bf16 half of fp32; PowerSGD's = ``wire_elements``), and
                 ``average_parameters`` one all-reduce per dtype;
+  tp_ranks      the same four ranks: TensorParallel at (dp 1, tp 4), with
+                and without sequence parallelism, and (dp 2, tp 2), 3 bf16
+                steps within 1% of NoShard's losses, the collectives and
+                bytes a rank the plan's, B1-B3 on every rank; then fp32
+                TP serving at tp 4 through the eager bodies (gloo), its
+                greedy streams against the one-rank engine's;
   resnet_parity ResNet-18 (CIFAR stem, B=16) and ResNet-50 (ImageNet stem
                 at 64 px, B=8), fp32 with TF32 off: the port on the card
                 against the port on the CPU (train and eval logits with
@@ -177,6 +196,15 @@ capture records; what the replays launched is counted in device traces
   resnet_example  ``examples/train_resnet_ddp.py``'s ``main`` at
                 ``--model resnet50 --dataset imagenet --global-batch 128
                 --steps-per-epoch 5``, with 6 loader workers;
+  disk_data     the disk datasets: 1,280 random-pixel JPEGs (10 classes,
+                256 x 320) and a repeating token file, written under the
+                build directory and deleted after: the loader's images/s at
+                1 and 6 workers, the ResNet entry point from ``--data-dir``
+                (ResNet-50, batch 128, bf16, 6 workers, 2 epochs of 10
+                steps) against the same flags on synthetic ImageNet, and
+                the GPT-2 entry
+                point from ``--data-bin`` (10 steps, the loss must fall)
+                against the train phase's tokens/s;
   elastic_resnet  BASELINE config #5 on one card: the same entry point
                 (bf16, ``--ckpt-dir``) under the port's
                 ``LocalElasticAgent`` in this process, its worker killed
@@ -217,6 +245,7 @@ import contextlib
 import importlib
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -252,6 +281,14 @@ from pytorch_distributed_tpu_torch.elastic import (
     LocalElasticAgent,
     WorkerSpec,
 )
+from pytorch_distributed_tpu_torch.data import (
+    DistributedSampler,
+    ImageFolderDataset,
+    make_image_transform,
+    make_loader,
+    write_image_folder,
+    write_token_bin,
+)
 from pytorch_distributed_tpu_torch.examples import (
     serve_gpt2,
     train_gpt2,
@@ -269,8 +306,10 @@ from pytorch_distributed_tpu_torch.parallel import (
     DataParallel,
     FullyShardedDataParallel,
     NoShard,
+    TensorParallel,
     ZeRO1,
     comm,
+    gpt2_tp_plan,
     make_ring_attention,
     zigzag_reorder,
     zigzag_restore,
@@ -280,6 +319,9 @@ from pytorch_distributed_tpu_torch.serving import (
     Request,
     SamplingParams,
     Scheduler,
+    paged_kv_cache_sharding,
+    serving_mesh,
+    shard_gpt2_params,
 )
 from pytorch_distributed_tpu_torch.trainer import (
     Trainer,
@@ -883,7 +925,7 @@ def serve_phase():
           "eager": _latency(eager), "streams_equal_to_eager": equal})
     check(stats["radix_hits"] >= len(prompts) - 1,
           "shared prefix missed the radix")
-    return launches, engine, streams
+    return launches, engine, streams, _latency(graph)
 
 
 def serve_spec_phase(model, serve_streams):
@@ -2325,14 +2367,16 @@ def train_profile_phase(trainer, state, batch, phase="train_profile",
     return {k: v / steps for k, v in flash_ms.items()}
 
 
-def _runner_runs(build, batches, name, flops_per_step=None):
+def _runner_runs(build, batches, name, flops_per_step=None,
+                 keep_final=False):
     """Three runs from the same weights on the same batches: the eager
     ``Trainer.step`` loop twice (its run-to-run spread) and ``AsyncRunner``
     (its start, warm-up and capture off the clock). Each: per-step losses,
     the wall time a step (closed by one sync; the eager loop's first step,
     which grows the allocator's pools, is left off the clock), peak device
     memory (graph pool included), the flash launches, and the final
-    parameters and buffers (kept on the card for the comparison)."""
+    parameters and buffers (kept on the card for the comparison; the
+    runner's stay in ``runs["runner"]["_final"]`` with ``keep_final``)."""
     runs = {}
     for run in ("eager_a", "eager_b", "runner"):
         trainer, state = build()
@@ -2402,8 +2446,9 @@ def _runner_runs(build, batches, name, flops_per_step=None):
               f"eager loop's own spread {spread[k]}")
     check(r["captured"] and r["replays"] == len(batches),
           f"{name}: {r['replays']} replays for {len(batches)} steps")
-    for run in runs.values():
-        del run["_final"]
+    for key, run in runs.items():
+        if not (keep_final and key == "runner"):
+            del run["_final"]
     return runs, spread, got
 
 
@@ -2458,9 +2503,10 @@ def runner_train_phase():
     bf16_peak, _, _ = peaks()
     batches = _lm_batches(steps, 8, 1024, seed=12)
     runs, spread, got = _runner_runs(_gpt2_runner_trainer, batches,
-                                     "runner_train")
+                                     "runner_train", keep_final=True)
     n_layer = GPT2Config().n_layer
     runner, trainer, state = runs["runner"].pop("_runner")
+    final = runs["runner"].pop("_final")
     n_params = sum(p.numel() for p in trainer.model.parameters())
     for run in runs.values():
         run["tokens_per_s"] = 8 * 1024 / run["step_s"]
@@ -2517,7 +2563,7 @@ def runner_train_phase():
           f"expected {expect_calls}")
     del runner, trainer, state
     torch.cuda.empty_cache()
-    return runs
+    return runs, final
 
 
 # -- the sharded strategies on the card ------------------------------------
@@ -3457,6 +3503,7 @@ def resnet_example_phase():
     emit({"phase": "resnet_example", **out})
     check(len(out["losses"]) == 5 and all(np.isfinite(out["losses"])),
           f"resnet_example losses {out['losses']}")
+    return out
 
 
 def _family(name: str) -> str:
@@ -3818,6 +3865,7 @@ def ckpt_gpt2_phase(smi):
         del runner, trainer, state, st
     finally:
         pdist.destroy_process_group()
+    serve_ckpt_phase(root / "ckpt")
     emit({"phase": "ckpt_gpt2", "nvidia_smi": smi, "model": "gpt2-125m",
           "dtype": "bfloat16", "global_batch": 8, "seq_len": 1024,
           "strategy": second["strategy"], "world": second["world"],
@@ -3834,6 +3882,538 @@ def ckpt_gpt2_phase(smi):
                      "runner_vs_eager": off},
           "checkpoint": costs})
     shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+# -- tensor parallelism and the disk datasets --------------------------------
+TP_RANKS = 4
+TP_RANKS_STEPS = 3
+TP_RANKS_LOSS_RTOL = 1e-2     # bf16, as fsdp_ranks' limit
+#: (tag, (dp, tp), sequence_parallel) of the ranks' training runs
+TP_RANKS_JOBS = (("dp1_tp4", (1, 4), False), ("dp1_tp4_sp", (1, 4), True),
+                 ("dp2_tp2", (2, 2), False))
+TP_SERVE_REQUESTS = 8
+TP_SERVE_NEW_TOKENS = 24
+TP_GAP_RTOL = 1e-5            # a departing greedy stream's top-2 gap
+DISK_ROOT = Path(__file__).resolve().parent / "pytorch_distributed_tpu_torch" \
+    / "_build" / "disk_smoke"
+DISK_STEPS = 10
+
+
+def _tp_step_collectives(n_layer: int, sp: bool) -> dict:
+    """The collectives one ``TensorParallel`` step of GPT-2 issues (a dp
+    axis, no fsdp): per layer Megatron's f and g twice (all-reduces; with
+    sequence parallelism all-gathers and reduce-scatters along T), the two
+    tables' gathers, the dp mean and the norm (with SP also the split and
+    join of the sequence and the partial gradients' sum over tp)."""
+    if sp:
+        return {"all_reduce": 3, "reduce_scatter": 4 * n_layer,
+                "all_gather": 4 * n_layer + 4, "broadcast": 0}
+    return {"all_reduce": 4 * n_layer + 2, "reduce_scatter": 0,
+            "all_gather": 2, "broadcast": 0}
+
+
+def _tp_trainer(sp: bool):
+    """runner_train's model and step (GPT-2 125M, bf16, flash attention,
+    capturable AdamW, seed 2) under ``TensorParallel`` on a ``(dp 1, tp
+    n)`` mesh of the process group."""
+    n = pdist.get_world_size()
+    strategy = TensorParallel(init_device_mesh((1, n), ("dp", "tp")),
+                              gpt2_tp_plan(), sequence_parallel=sp)
+    model = gpt2_125m(device="cuda", seed=2, dtype=torch.bfloat16,
+                      attn_impl=fa.flash_attention)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
+                            eps=1e-8, capturable=True)
+    trainer = Trainer(model, opt, strategy, loss_fn=lm_loss, policy="bf16")
+    return trainer, trainer.init()
+
+
+def tp_train_phase(noshard_runs, noshard_final):
+    """TensorParallel training on the one-rank NCCL group (``(dp 1, tp
+    1)``: every collective spans one rank), runner_train's cell (GPT-2
+    125M, bf16, B = 8 x 1024, flash attention, 10 steps), with sequence
+    parallelism off and on: the eager loop twice and the runner (one
+    replay a step, the collectives captured in it); the runner's losses,
+    parameters and buffers equal NoShard's runner (runner_train) bit for
+    bit; ``comm.counts`` over the eager runs, the warm-up and the capture
+    equal ``_tp_step_collectives`` times the steps those ran, and a replay
+    calls no wrapper; B1-B3 launch n_layer times each a replayed step in a
+    device trace; step time against NoShard's runner."""
+    t_phase = time.perf_counter()
+    steps, prof_steps = 10, 3
+    n_layer = GPT2Config().n_layer
+    batches = _lm_batches(steps, 8, 1024, seed=12)      # runner_train's
+    expect_calls = {name: n_layer for name in SM90_KERNELS}
+    expect_calls.update({name: 0 for name in MASKED_SM90_KERNELS})
+    out = {}
+    for sp in (False, True):
+        key = "sequence_parallel" if sp else "tp"
+        comm.reset_counts()
+        runs, spread, got = _runner_runs(lambda: _tp_trainer(sp), batches,
+                                         f"tp_train {key}", keep_final=True)
+        runner, trainer, state = runs["runner"].pop("_runner")
+        final = runs["runner"].pop("_final")
+        captured = dict(comm.counts)
+        same_losses = runs["runner"]["losses"] == noshard_runs["runner"][
+            "losses"]
+        same_state = len(final) == len(noshard_final) and all(
+            torch.equal(a, b) for a, b in zip(final, noshard_final))
+        comm.reset_counts()
+        (device, calls, spans, wall_ms), first = recounted(
+            lambda: _replay_window(runner, state, batches, prof_steps,
+                                   expect_calls),
+            lambda r: r[1] == expect_calls)
+        replays_counted = dict(comm.counts)
+        per_step = _tp_step_collectives(n_layer, sp)
+        runs_steps = 2 * steps + AsyncRunner.warmup_steps + 1
+        want = {k: v * runs_steps for k, v in per_step.items()}
+        want["broadcast"] = 3                       # one an init
+        nccl = [e for e in device if "nccl" in e.key.lower()]
+        out[key] = {
+            "signature": trainer.strategy.collective_signature(),
+            "losses_runner": runs["runner"]["losses"],
+            "equal_to_noshard_runner": {"losses": same_losses,
+                                        "parameters_and_buffers": same_state},
+            "eager_spread": spread, "runner_vs_eager": got,
+            "step_s": {k: runs[k]["step_s"] for k in runs},
+            "step_s_over_noshard_runner":
+                runs["runner"]["step_s"] / noshard_runs["runner"]["step_s"],
+            "max_memory_allocated_bytes": {
+                k: runs[k]["max_memory_allocated_bytes"] for k in runs},
+            "replays": runs["runner"]["replays"],
+            "collectives_per_step": per_step,
+            "collectives_eager_warmup_capture": captured,
+            "collectives_in_replays": replays_counted,
+            "wire_bytes_eager_warmup_capture": dict(comm.wire_bytes),
+            "nccl_ms_per_step": sum(e.self_device_time_total for e in nccl)
+            / 1e3 / prof_steps,
+            "device_busy_ms_per_step": sum(e.self_device_time_total
+                                           for e in device) / 1e3 / prof_steps,
+            "replay_ms_per_step": _spans_ms(spans) / prof_steps,
+            "flash_calls_per_step": calls,
+            "first_window_flash_calls_per_step": first and first[1]}
+        check(same_losses and same_state,
+              f"tp_train {key}: the runner is not NoShard's runner bit for "
+              f"bit (losses {same_losses}, state {same_state})")
+        check(captured == want,
+              f"tp_train {key}: collectives {captured}, expected {want}")
+        check(not any(replays_counted.values()),
+              f"tp_train {key}: a replay called a collective wrapper: "
+              f"{replays_counted}")
+        check(calls == expect_calls,
+              f"tp_train {key}: flash calls per replayed step {calls}")
+        del runner, trainer, state, runs, final
+        torch.cuda.empty_cache()
+    emit({"phase": "tp_train", "model": "gpt2-125m", "dtype": "bfloat16",
+          "global_batch": 8, "seq_len": 1024, "steps": steps,
+          "mesh": {"dp": 1, "tp": pdist.get_world_size()},
+          "noshard_runner_step_s": noshard_runs["runner"]["step_s"],
+          "phase_s": time.perf_counter() - t_phase, **out})
+
+
+def tp_serve_phase(serve_streams, serve_latency):
+    """TP serving's main path on the one-rank NCCL group: the serve phase's
+    model (GPT-2 125M, bf16, seed 1) cut over a ``(dp 1, tp 1)`` serving
+    mesh, its paged cache on tp (``paged_kv_cache_sharding``), the serve
+    phase's 16 requests through the graphs, the eager bodies and the
+    graphs under a device trace (``_serve_pair``). The engine runs graphs
+    (NCCL); its capture records the step's tp all-reduces (2 x n_layer,
+    ``comm.counts`` around building a scheduler's program), one replay a
+    decode step, B7 n_layer times a step in the device trace, and the
+    greedy streams equal the serve phase's. Tokens/s and decode p50 against
+    serve's."""
+    t_phase = time.perf_counter()
+    n_layer = GPT2Config().n_layer
+    mesh = serving_mesh(dp=1, tp=pdist.get_world_size())
+    model = gpt2_125m(device="cuda", seed=1, dtype=torch.bfloat16)
+    shard_gpt2_params(model, mesh)
+    engine = InferenceEngine(model, cache_sharding=paged_kv_cache_sharding(
+        mesh), **SERVE_KW)
+    comm.reset_counts()
+    probe = Scheduler(engine, emit_events=False)     # prepare: the capture
+    captured = dict(comm.counts)
+    del probe
+    graph, eager, counted, lost, streams, equal = _serve_pair(
+        engine, "tp_serve", n_layer)
+    equal_serve = sum(streams[r] == serve_streams.get(r) for r in streams)
+    line = {"phase": "tp_serve", "model": "gpt2-125m", "dtype": "bfloat16",
+            "mesh": mesh.shape, "graphs": engine.graphs,
+            "heads_a_rank": graph["sched"].cache.k.shape[3],
+            "collectives_captured_a_step": captured,
+            **_latency(graph), "kernel_launches": counted["device"],
+            "kernel_launches_from": "device trace of a repeat of the run",
+            "first_trace_kernel_launches": lost,
+            "graph_replays": graph["replays"],
+            "decode_steps": graph["sched"].decode_steps,
+            "eager": _latency(eager), "streams_equal_to_eager": equal,
+            "streams_equal_to_serve": equal_serve,
+            "serve": serve_latency,
+            "tokens_per_s_over_serve": _latency(graph)["tokens_per_s"]
+            / serve_latency["tokens_per_s"],
+            "phase_s": time.perf_counter() - t_phase}
+    emit(line)
+    check(engine.graphs, "tp_serve: the engine does not run graphs on NCCL")
+    check(captured == {"all_reduce": 2 * n_layer, "reduce_scatter": 0,
+                       "all_gather": 0, "broadcast": 0},
+          f"tp_serve: the capture recorded {captured}, expected "
+          f"{2 * n_layer} all-reduces")
+    check(equal_serve == len(serve_streams) == len(streams),
+          f"tp_serve: {equal_serve} of {len(serve_streams)} streams equal "
+          "the serve phase's")
+    del engine, model
+    torch.cuda.empty_cache()
+
+
+def serve_ckpt_phase(ckpt_dir: Path):
+    """``examples.serve_gpt2``'s ``main`` at GPT-2 125M's shape on the
+    checkpoint ``train_gpt2.py --ckpt-dir`` wrote (ckpt_gpt2's, step 4):
+    only its model entries are read; it returns 0 and serves 8 requests."""
+    argv = ["--layers", "12", "--embd", "768", "--heads", "12", "--vocab",
+            "50257", "--seq-len", "1024", "--cache", "paged", "--slots", "8",
+            "--prefill-len", "128", "--requests", "8", "--max-new-tokens",
+            "32", "--ckpt-dir", str(ckpt_dir)]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_gpt2.main(argv)
+    torch.cuda.synchronize()
+    lines = buf.getvalue().splitlines()
+    emit({"phase": "serve_ckpt", "argv": argv, "returned": rc,
+          "wall_s": time.perf_counter() - t0, "loaded": lines[0],
+          "summary": lines[lines.index("") + 1:] if "" in lines else lines})
+    check(rc == 0 and lines[0] == f"loaded params from {ckpt_dir} (step 4)"
+          and any(ln.startswith("served 8 requests") for ln in lines),
+          f"serve_ckpt returned {rc}, printed {lines[:2]} ... {lines[-3:]}")
+
+
+def _tp_rank(rank, port, out_dir, batches, prompts):
+    """One of TP_RANKS ranks sharing the card over gloo: GPT-2 125M (bf16,
+    flash attention, AdamW, seed 7) for TP_RANKS_STEPS eager steps under
+    each of TP_RANKS_JOBS, then TP serving at tp = TP_RANKS in fp32 (TF32
+    off) through the eager bodies (a gloo group cannot be captured)."""
+    device = torch.device("cuda", 0)
+    pdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                             rank=rank, world_size=TP_RANKS, device=device)
+    result = {"rank": rank}
+    try:
+        _build.load_all(LIBRARIES)
+        for tag, shape, sp in TP_RANKS_JOBS:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            strategy = TensorParallel(init_device_mesh(shape, ("dp", "tp")),
+                                      gpt2_tp_plan(), sequence_parallel=sp)
+            model = gpt2_125m(device=device, seed=7, dtype=torch.bfloat16,
+                              attn_impl=fa.flash_attention)
+            opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                    weight_decay=0.01, eps=1e-8)
+            trainer = Trainer(model, opt, strategy, loss_fn=lm_loss,
+                              policy="bf16")
+            state = trainer.init()
+            _reset_flash_counts()
+            losses, step_s = [], []
+            for i, batch in enumerate(batches):
+                if i == len(batches) - 1:
+                    comm.reset_counts()
+                t0 = time.perf_counter()
+                state, m = trainer.step(state, batch)
+                losses.append(float(m["loss"]))
+                step_s.append(time.perf_counter() - t0)
+            result[tag] = {
+                "losses": losses, "step_s": step_s,
+                "collectives_last_step": dict(comm.counts),
+                "wire_bytes_last_step": dict(comm.wire_bytes),
+                "launches": dict(fa.launches),
+                "param_bytes": sum(p.numel() * p.element_size()
+                                   for p in model.parameters()),
+                "held": {n: tuple(p.shape)
+                         for n, p in model.named_parameters()},
+                "max_memory_allocated_bytes":
+                    torch.cuda.max_memory_allocated(device)}
+            del trainer, state, model, opt
+        torch.cuda.empty_cache()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        mesh = serving_mesh(dp=1, tp=TP_RANKS)
+        model = gpt2_125m(device=device, seed=1)
+        shard_gpt2_params(model, mesh)
+        engine = InferenceEngine(model, cache_sharding=paged_kv_cache_sharding(
+            mesh), **SERVE_KW)
+        sched = Scheduler(engine, emit_events=False)
+        for p in prompts:
+            sched.submit(Request(prompt=p, max_new_tokens=TP_SERVE_NEW_TOKENS))
+        t0 = time.perf_counter()
+        finished = sched.run()
+        result["serve"] = {
+            "graphs": engine.graphs, "replays": engine.replays,
+            "wall_s": time.perf_counter() - t0,
+            "decode_steps": sched.decode_steps,
+            "heads_a_rank": sched.cache.k.shape[3],
+            "streams": {f.request_id: f.tokens for f in finished}}
+    finally:
+        torch.save(result, f"{out_dir}/tp_rank{rank}.pt")
+        pdist.destroy_process_group()
+
+
+def _tp_held(name: str, shape, tp: int):
+    """The block of ``shape`` a rank holds under ``gpt2_tp_plan`` at ``tp``
+    (the first pattern that matches ``name``)."""
+    style = next((st for pat, st in gpt2_tp_plan().items()
+                  if re.search(pat, name)), None)
+    dim = None if style is None else style.shard_dim(name, shape)
+    return tuple(n // tp if d == dim else n for d, n in enumerate(shape))
+
+
+def _top2_gap(model, prompt, tokens, i) -> float:
+    """The relative gap between the two largest logits where a greedy
+    stream chose ``tokens[i]`` (the uncached forward on the prompt and the
+    stream's first ``i`` tokens)."""
+    seq = torch.tensor(np.concatenate([prompt, tokens[:i]])[None],
+                       device="cuda")
+    with torch.no_grad():
+        top = model(seq)[0, -1].topk(2).values
+    return float((top[0] - top[1]) / top[0].abs())
+
+
+def tp_ranks_phase():
+    """TP_RANKS spawned ranks sharing the card over gloo: training under
+    ``TensorParallel`` at ``(dp 1, tp 4)`` (3 heads a rank), with and
+    without sequence parallelism, and at ``(dp 2, tp 2)``, GPT-2 125M,
+    bf16, 8 x 1024 global, 3 eager steps against NoShard on the same
+    batches in this process (the mean of the ranks' losses within
+    TP_RANKS_LOSS_RTOL); the last step's collectives equal
+    ``_tp_step_collectives`` (SP: reduce-scatters and all-gathers in place
+    of the tp all-reduces); each rank's parameter shapes and bytes the
+    plan's; B1-B3 launch n_layer times a step on every rank. Then TP
+    serving at tp = 4 in fp32 (TF32 off), paged, 8 of the serve phase's
+    prompts, greedy, through the eager bodies (the engine's ``graphs`` is
+    False on gloo): every rank's streams equal, and equal to this process's
+    one-rank fp32 engine's, except where a stream departs at a step whose
+    top-2 logit gap is under TP_GAP_RTOL (printed)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    n_layer = GPT2Config().n_layer
+    batches = _lm_batches(TP_RANKS_STEPS, 8, 1024, seed=23)
+    model = gpt2_125m(device="cuda", seed=7, dtype=torch.bfloat16,
+                      attn_impl=fa.flash_attention)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
+                            eps=1e-8)
+    trainer = Trainer(model, opt, NoShard("cuda"), loss_fn=lm_loss,
+                      policy="bf16")
+    state = trainer.init()
+    want = []
+    for batch in batches:
+        state, m = trainer.step(state, batch)
+        want.append(float(m["loss"]))
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    del trainer, state, model, opt
+    # the one-rank fp32 serving reference
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, _, prompts = _serve_requests(GPT2Config().vocab_size)
+    prompts = prompts[:TP_SERVE_REQUESTS]
+    ref_model = gpt2_125m(device="cuda", seed=1)
+    sched = Scheduler(InferenceEngine(ref_model, **SERVE_KW),
+                      emit_events=False)
+    for p in prompts:
+        sched.submit(Request(prompt=p, max_new_tokens=TP_SERVE_NEW_TOKENS))
+    ref_streams = {f.request_id: f.tokens for f in sched.run()}
+    del sched
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as out_dir:
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(
+            _tp_rank, args=(port, out_dir, batches, prompts), nprocs=TP_RANKS,
+            join=False, start_method="spawn")
+        deadline = time.monotonic() + 300
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                check(False, "tp_ranks: the ranks did not finish in 300 s")
+        wall_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{out_dir}/tp_rank{r}.pt", weights_only=False)
+                 for r in range(TP_RANKS)]
+    line = {"phase": "tp_ranks", "ranks": TP_RANKS, "backend": "gloo",
+            "model": "gpt2-125m", "dtype": "bfloat16", "global_batch": 8,
+            "seq_len": 1024, "steps": TP_RANKS_STEPS, "wall_s": wall_s,
+            "noshard_losses": want, "loss_rtol": TP_RANKS_LOSS_RTOL}
+    for tag, (dp, tp), sp in TP_RANKS_JOBS:
+        mean = [float(np.mean([r[tag]["losses"][i] for r in ranks]))
+                for i in range(TP_RANKS_STEPS)]
+        held = {n: _tp_held(n, sh, tp) for n, sh in shapes.items()}
+        line[tag] = {
+            "mesh": {"dp": dp, "tp": tp}, "sequence_parallel": sp,
+            "mean_losses": mean,
+            "loss_rel_err": [abs(a - b) / abs(b) for a, b in zip(mean, want)],
+            "per_rank": [{k: r[tag][k] for k in (
+                "step_s", "param_bytes", "max_memory_allocated_bytes",
+                "launches")} for r in ranks],
+            "collectives_last_step": ranks[0][tag]["collectives_last_step"],
+            "wire_bytes_last_step": ranks[0][tag]["wire_bytes_last_step"],
+            "param_bytes_planned": 4 * sum(math.prod(v)
+                                           for v in held.values())}
+        r = line[tag]
+        check(max(r["loss_rel_err"]) <= TP_RANKS_LOSS_RTOL,
+              f"tp_ranks {tag}: losses {mean} vs {want}")
+        check(all(x[tag]["held"] == held for x in ranks)
+              and all(p["param_bytes"] == r["param_bytes_planned"]
+                      for p in r["per_rank"]),
+              f"tp_ranks {tag}: the ranks do not hold the plan's blocks")
+        check(all(x[tag]["collectives_last_step"]
+                  == _tp_step_collectives(n_layer, sp) for x in ranks),
+              f"tp_ranks {tag}: collectives "
+              f"{[x[tag]['collectives_last_step'] for x in ranks]}")
+        check(all(x[tag]["launches"][k] == n_layer * TP_RANKS_STEPS
+                  for x in ranks for k in CAUSAL_KEYS),
+              f"tp_ranks {tag}: B1-B3 launches "
+              f"{[x[tag]['launches'] for x in ranks]}")
+    departures = []
+    for rid, tokens in ranks[0]["serve"]["streams"].items():
+        want_tokens = ref_streams[rid]
+        if tokens != want_tokens:
+            i = next(j for j, (a, b) in enumerate(zip(tokens, want_tokens))
+                     if a != b)
+            departures.append({"request": rid, "at": i, "top2_rel_gap":
+                               _top2_gap(ref_model, prompts[rid],
+                                         want_tokens, i)})
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+        tf32
+    serve = ranks[0]["serve"]
+    line["serve"] = {
+        "tp": TP_RANKS, "dtype": "float32", "tf32": False,
+        "requests": len(prompts), "new_tokens": TP_SERVE_NEW_TOKENS,
+        "graphs": [r["serve"]["graphs"] for r in ranks],
+        "replays": serve["replays"], "decode_steps": serve["decode_steps"],
+        "heads_a_rank": serve["heads_a_rank"], "wall_s": serve["wall_s"],
+        "streams_equal_to_one_rank": sum(
+            serve["streams"][r] == ref_streams[r] for r in ref_streams),
+        "departures": departures}
+    line["phase_s"] = time.perf_counter() - t_phase
+    emit(line)
+    check(not any(line["serve"]["graphs"]) and serve["replays"] == 0,
+          "tp_ranks: the engine on a gloo tp group did not run eagerly")
+    check(all(r["serve"]["streams"] == serve["streams"] for r in ranks),
+          "tp_ranks: the ranks' streams differ")
+    check(len(serve["streams"]) == len(prompts)
+          and serve["heads_a_rank"] == GPT2Config().n_head // TP_RANKS,
+          "tp_ranks: requests or heads a rank")
+    check(all(d["top2_rel_gap"] < TP_GAP_RTOL for d in departures),
+          f"tp_ranks: streams depart from the one-rank engine's at a clear "
+          f"argmax: {departures}")
+    del ref_model
+    torch.cuda.empty_cache()
+
+
+def _images_per_s(loader, batches: int) -> float:
+    """Images a second of ``loader`` over ``batches`` batches after its
+    first (the workers' start-up left out)."""
+    it = iter(loader)
+    next(it)
+    t0, n = time.perf_counter(), 0
+    for _ in range(batches):
+        n += next(it)[0].shape[0]
+    rate = n / (time.perf_counter() - t0)
+    del it
+    return rate
+
+
+def disk_data_phase(train_result, resnet_example):
+    """The disk datasets: ``write_image_folder`` makes 10 classes x 128
+    random-pixel JPEGs at 256 x 320, ``write_token_bin`` a corpus of one
+    4,096-token random sequence repeated (both under the gitignored build
+    directory, deleted after). The loader alone (``make_loader`` over
+    ``ImageFolderDataset`` with the train transform at 224 px) in images/s
+    at 1 and 6 workers; ``examples.train_resnet_ddp`` at ResNet-50, batch
+    128, bf16, 6 workers, 2 epochs of DISK_STEPS steps on synthetic
+    ImageNet and then from ``--data-dir`` (images/s over the wall time from
+    the first step's end to the run's, the loader's waits included; and 128
+    over the median step alone), beside resnet_example's (fp32, synthetic,
+    the step alone); ``examples.train_gpt2`` at its defaults with
+    ``--data-bin`` (2 workers) for DISK_STEPS steps, whose loss must fall,
+    tokens/s against the train phase's. Random pixels compress badly:
+    these JPEGs decode slower than photographs of the same size."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(DISK_ROOT, ignore_errors=True)
+    images, corpus = DISK_ROOT / "images", DISK_ROOT / "corpus.bin"
+    t0 = time.perf_counter()
+    write_image_folder(str(images), n_classes=10, per_class=128,
+                       size=(256, 320), seed=0)
+    base = np.random.default_rng(4).integers(0, GPT2Config().vocab_size, 4096)
+    write_token_bin(str(corpus), np.tile(base, 2 * DISK_STEPS + 1))
+    write_s = time.perf_counter() - t0
+    try:
+        ds = ImageFolderDataset(str(images), transform=make_image_transform(
+            224, train=True, seed=0))
+        loader_rate = {}
+        for workers, n in ((1, 2), (6, 8)):
+            sampler = DistributedSampler(ds, num_replicas=1, rank=0, seed=0)
+            loader_rate[workers] = _images_per_s(make_loader(
+                ds, 128, sampler, device=torch.device("cuda"),
+                num_workers=workers), n)
+        resnet = ["--model", "resnet50", "--dataset", "imagenet",
+                  "--global-batch", "128", "--policy", "bf16",
+                  "--steps-per-epoch", str(DISK_STEPS), "--epochs", "2",
+                  "--num-workers", "6", "--log-every", "100"]
+        runs = {}
+        # synthetic first: its first bf16 steps pay cuDNN's first calls at
+        # these shapes, which would otherwise give the disk run's workers
+        # a head start
+        for name, extra in (("synthetic", ["--dataset-size",
+                                           str(128 * DISK_STEPS)]),
+                            ("disk", ["--data-dir", str(images)])):
+            torch.cuda.empty_cache()
+            out = train_resnet_ddp.main(resnet + extra)
+            end = time.time()
+            # from the first step's end to the run's: the steps and the
+            # loader's waits between them (the second epoch's workers start
+            # afresh, with nothing decoded ahead)
+            wall = end - out["marks"]["first_step_done"]
+            n = len(out["losses"])
+            runs[name] = {"losses": out["losses"], "step_s": out["step_s"],
+                          "images_per_s": 128 * (n - 1) / wall,
+                          "step_images_per_s": 128 / statistics.median(
+                              out["step_s"][1:]), "data": out["data"]}
+        torch.cuda.empty_cache()
+        gpt2 = train_gpt2.main(["--steps", str(DISK_STEPS), "--data-bin",
+                                str(corpus), "--num-workers", "2",
+                                "--log-every", "100"])
+        step_s = gpt2["step_s"][3:]
+        tokens_per_s = gpt2["tokens_per_step"] * len(step_s) / sum(step_s)
+    finally:
+        shutil.rmtree(DISK_ROOT, ignore_errors=True)
+    emit({"phase": "disk_data", "jpegs": 1280, "jpeg_size": [256, 320],
+          "write_s": write_s, "cpu_count": os.cpu_count(),
+          "loader_images_per_s": {"workers_1": loader_rate[1],
+                                  "workers_6": loader_rate[6]},
+          "resnet50_bf16_batch128": runs,
+          "disk_over_synthetic": runs["disk"]["images_per_s"]
+          / runs["synthetic"]["images_per_s"],
+          "step_disk_over_synthetic": runs["disk"]["step_images_per_s"]
+          / runs["synthetic"]["step_images_per_s"],
+          "resnet_example_fp32_step_images_per_s": 128 / statistics.median(
+              resnet_example["step_s"][1:]),
+          "gpt2_data_bin": {"losses": gpt2["losses"],
+                            "tokens_per_s": tokens_per_s,
+                            "train_phase_tokens_per_s":
+                                train_result["tokens_per_s"],
+                            "data": gpt2["data"]},
+          "note": "random-pixel JPEGs decode slower than photographs",
+          "phase_s": time.perf_counter() - t_phase})
+    check(runs["disk"]["data"] == str(images)
+          and len(runs["disk"]["losses"]) == 2 * DISK_STEPS
+          and all(np.isfinite(runs["disk"]["losses"])),
+          f"disk_data: the ResNet run from files {runs['disk']['losses']}")
+    check(len(gpt2["losses"]) == DISK_STEPS
+          and gpt2["losses"][-1] < gpt2["losses"][0],
+          f"disk_data: the GPT-2 loss from the token file did not fall: "
+          f"{gpt2['losses']}")
     torch.cuda.empty_cache()
 
 
@@ -3912,7 +4492,7 @@ def main() -> int:
     parity_phase()
     spec_parity_phase()
     torch.cuda.empty_cache()
-    launches, engine, serve_streams = serve_phase()
+    launches, engine, serve_streams, serve_latency = serve_phase()
     n_layer = GPT2Config().n_layer
     profile_phase(engine, n_layer)
     spec_launches, spec_engine = serve_spec_phase(engine.model, serve_streams)
@@ -3928,7 +4508,7 @@ def main() -> int:
                                       expect_calls=SM90_KERNELS)
     torch.cuda.empty_cache()
     head_phase(train_result)
-    noshard_runs = runner_train_phase()
+    noshard_runs, noshard_final = runner_train_phase()
 
     # context parallelism and the sharded strategies' runner over a
     # one-rank NCCL group: one card, cp = dp = fsdp = 1
@@ -3946,17 +4526,23 @@ def main() -> int:
         torch.cuda.empty_cache()
         sharded = sharded_runner_phase(noshard_runs)
         powersgd_phase(sharded["DataParallel"]["step_s"]["runner"])
+        tp_train_phase(noshard_runs, noshard_final)
+        del noshard_final
+        torch.cuda.empty_cache()
+        tp_serve_phase(serve_streams, serve_latency)
     finally:
         pdist.destroy_process_group()
     torch.cuda.empty_cache()
     ckpt_gpt2_phase(smi)
     fsdp = fsdp_ranks_phase()
     hooks_ranks_phase(fsdp["noshard"]["losses"])
+    tp_ranks_phase()
 
     torch.cuda.empty_cache()
     resnet_parity_phase()
     resnet_amp_accum_phase()
-    resnet_example_phase()
+    resnet_example = resnet_example_phase()
+    disk_data_phase(train_result, resnet_example)
     elastic_resnet_phase(smi)
     comm_hooks_phase()
     bench_out = resnet_train_phase(smi)   # cuDNN's algorithm search on

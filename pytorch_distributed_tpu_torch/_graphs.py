@@ -60,6 +60,8 @@ class Program:
       generators: the ``torch.Generator``s the body draws from.
       stream: the side stream to capture on: the one the caller warmed
         the body up on (``warm_stream``).
+      capture: False runs the body eagerly on the card too (a body whose
+        collectives cannot be captured: a gloo group's).
 
     ``replays`` counts the replays and ``capture_s`` is the capture's host
     time.
@@ -67,13 +69,14 @@ class Program:
 
     def __init__(self, body: Callable, *, device: torch.device, pool=None,
                  generators: Sequence[torch.Generator] = (),
-                 stream: Optional[torch.cuda.Stream] = None):
+                 stream: Optional[torch.cuda.Stream] = None,
+                 capture: bool = True):
         self.body = body
         self.replays = 0
         self.outputs = None
         self.capture_s = 0.0
         self._graph: Optional[torch.cuda.CUDAGraph] = None
-        if device.type == "cuda":
+        if device.type == "cuda" and capture:
             self._capture(stream, pool, tuple(generators))
 
     @property

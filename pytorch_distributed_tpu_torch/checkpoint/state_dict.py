@@ -75,6 +75,11 @@ def _view(entry: _Entry, strategy):
 
 
 def _model_entries(model: torch.nn.Module, strategy) -> Iterator:
+    if any(hasattr(p, "tp") for p in model.parameters()):
+        raise NotImplementedError(
+            "not ported yet: checkpoints of a tensor-parallel model's state "
+            "(ROADMAP A.14); serving loads its blocks with "
+            "serving.load_gpt2_params")
     sharded = {n: p.fsdp for n, p in model.named_parameters()
                if hasattr(p, "fsdp")}
     axis = getattr(strategy, "param_axis", None)

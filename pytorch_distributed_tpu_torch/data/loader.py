@@ -1,10 +1,10 @@
 """Batches for the training entry points: ``torch.utils.data.DataLoader``
 over the port's ``DistributedSampler``, and a device prefetcher.
 
-The part of ``pytorch_distributed_tpu/data/loader.py`` that the ResNet
-entry point needs. The JAX package's own worker-pool loader is ROADMAP
-A.8; torch's ``DataLoader`` plays its part, with pinned host memory on the
-card. :func:`prefetch_to_device` is the counterpart of ``prefetch_to_mesh``
+The part of ``pytorch_distributed_tpu/data/loader.py`` that the entry
+points need. Torch's ``DataLoader`` plays the part of the JAX package's
+own worker-pool loader, with pinned host memory on the card.
+:func:`prefetch_to_device` is the counterpart of ``prefetch_to_mesh``
 (``loader.py:278``): while the step runs on batch ``n``, the copies of the
 next ``depth`` batches are already queued on a side stream.
 :func:`pad_batch` is the reference's uneven-final-batch padding.

@@ -29,21 +29,33 @@ are served from cached pages)::
     python -m pytorch_distributed_tpu_torch.examples.serve_gpt2 \\
         --cache paged --page-size 16 --shared-prefix 16 --requests 8
 
-``main(argv)`` returns 0. Serving a training checkpoint's weights
-(``--ckpt-dir``) and TP/DP serving meshes (``--dp x --tp > 1``) are not
-ported yet and raise: both are ROADMAP A.15c (the JAX script loads the
-weights through ``serving/sharding.py``'s ``load_gpt2_params``, onto the
-serving mesh's tensor-parallel layout).
+A training checkpoint's weights (``--ckpt-dir``, the newest step or
+``--step``; ``examples/train_gpt2.py --ckpt-dir`` writes them) load
+through ``serving.load_gpt2_params``: only the model's entries are read.
+``--tp``/``--dp`` serve over a ``(dp, tp)`` mesh of ``dp x tp`` ranks,
+one process each, launched by ``torchrun`` or the port's launcher (NCCL
+on the cards, gloo with ``--device cpu``): every tp rank holds its blocks
+of the weights and its heads of the cache, the dp replicas serve the same
+requests, and rank 0 prints::
+
+    python -m pytorch_distributed_tpu_torch.elastic.run --standalone \\
+        --nproc-per-node 2 \\
+        -m pytorch_distributed_tpu_torch.examples.serve_gpt2 \\
+        --tp 2 --device cpu --ckpt-dir ckpt
+
+``main(argv)`` returns 0.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def parse_args(argv=None):
@@ -56,14 +68,14 @@ def parse_args(argv=None):
     p.add_argument("--seq-len", type=int, default=128)
     # serving
     p.add_argument("--ckpt-dir", default=None,
-                   help="training checkpoint dir (not ported: ROADMAP "
-                        "A.15c)")
+                   help="training checkpoint dir (CheckpointManager's): "
+                        "serve its weights")
     p.add_argument("--step", type=int, default=None,
                    help="checkpoint step (default: latest)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel axis size of the serving mesh (not "
-                        "ported beyond 1: ROADMAP A.15c)")
-    p.add_argument("--dp", type=int, default=1)
+                   help="tensor-parallel axis size of the serving mesh")
+    p.add_argument("--dp", type=int, default=1,
+                   help="replicas of the serving mesh (same requests)")
     p.add_argument("--slots", type=int, default=4,
                    help="concurrent sequences (decode batch width)")
     p.add_argument("--max-len", type=int, default=None,
@@ -104,25 +116,50 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "not ported yet: --ckpt-dir (serving a training checkpoint's "
-            "weights, loaded onto the serving mesh): ROADMAP A.15c")
-    if args.dp * args.tp > 1:
-        raise NotImplementedError(
-            "not ported yet: --dp x --tp > 1 (TP/DP serving meshes): "
-            "ROADMAP A.15c")
-
+    from pytorch_distributed_tpu_torch import distributed as pdist
     from pytorch_distributed_tpu_torch import resolve_device
+
+    device = resolve_device(args.device)
+    ranks = args.dp * args.tp
+    own_group = ranks > 1 and not dist.is_initialized()
+    if own_group:
+        if "WORLD_SIZE" not in os.environ:
+            raise SystemExit(f"--dp x --tp = {ranks} ranks: launch them "
+                             "with torchrun or python -m "
+                             "pytorch_distributed_tpu_torch.elastic.run")
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             0)))
+        pdist.init_process_group(init_method="env://",
+                                 rank=int(os.environ["RANK"]),
+                                 world_size=int(os.environ["WORLD_SIZE"]),
+                                 device=device)
+    try:
+        if ranks > 1 and dist.get_world_size() != ranks:
+            raise SystemExit(f"--dp x --tp = {ranks} ranks, the process "
+                             f"group has {dist.get_world_size()}")
+        return _serve(args, device)
+    finally:
+        if own_group:
+            pdist.destroy_process_group()
+
+
+def _serve(args, device) -> int:
     from pytorch_distributed_tpu_torch.models import GPT2, GPT2Config
     from pytorch_distributed_tpu_torch.serving import (
         InferenceEngine,
         Request,
         SamplingParams,
         Scheduler,
+        kv_cache_sharding,
+        load_gpt2_params,
+        paged_kv_cache_sharding,
+        serving_mesh,
+        shard_gpt2_params,
     )
 
-    device = resolve_device(args.device)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
     cfg = GPT2Config(
         vocab_size=args.vocab,
         n_positions=args.seq_len,
@@ -132,7 +169,19 @@ def main(argv=None) -> int:
         dtype=torch.bfloat16 if device.type == "cuda" else torch.float32,
     )
     model = GPT2(cfg, device=device, seed=args.seed)
-    print("serving RANDOM weights (no --ckpt-dir)", flush=True)
+    mesh = cache_sharding = None
+    if args.dp * args.tp > 1:
+        mesh = serving_mesh(dp=args.dp, tp=args.tp)
+        shard_gpt2_params(model, mesh)
+        cache_sharding = (paged_kv_cache_sharding(mesh)
+                          if args.cache == "paged"
+                          else kv_cache_sharding(mesh))
+    if args.ckpt_dir:
+        step = load_gpt2_params(args.ckpt_dir, model, mesh, step=args.step)
+        say(f"loaded params from {args.ckpt_dir} (step {step}"
+            + (f", tp={args.tp}" if mesh else "") + ")", flush=True)
+    else:
+        say("serving RANDOM weights (no --ckpt-dir)", flush=True)
 
     if args.spec_k > 0 and args.draft_layers is None:
         # default self-draft: the cheaper half of the stack
@@ -161,15 +210,20 @@ def main(argv=None) -> int:
         spec_k=args.spec_k,
         draft_layers=args.draft_layers if args.spec_k > 0 else None,
         device=device,
+        cache_sharding=cache_sharding,
         **paged_kw,
     )
+    if mesh is not None:
+        say(f"serving mesh {mesh.shape}: {args.heads // args.tp} heads a "
+            f"rank, steps as {'graphs' if engine.graphs else 'eager bodies'}",
+            flush=True)
     if args.cache == "paged":
-        print(f"paged KV cache: page_size={engine.page_size}, "
-              f"{engine.n_pages} pages "
-              f"({engine.n_pages - 1} allocatable + trash)", flush=True)
+        say(f"paged KV cache: page_size={engine.page_size}, "
+            f"{engine.n_pages} pages "
+            f"({engine.n_pages - 1} allocatable + trash)", flush=True)
     if args.spec_k > 0:
-        print(f"speculative decoding: k={args.spec_k}, self-draft "
-              f"{args.draft_layers}/{args.layers} layers", flush=True)
+        say(f"speculative decoding: k={args.spec_k}, self-draft "
+            f"{args.draft_layers}/{args.layers} layers", flush=True)
     sched = Scheduler(engine)
 
     rng = np.random.default_rng(args.seed)
@@ -192,35 +246,35 @@ def main(argv=None) -> int:
             served += 1
             tail = " ".join(map(str, fin.tokens[:12]))
             more = "..." if len(fin.tokens) > 12 else ""
-            print(f"req {fin.request_id}: prompt {len(fin.prompt)} tok "
-                  f"-> +{len(fin.tokens)} [{fin.reason}] "
-                  f"ttft {fin.ttft_s * 1e3:.1f}ms "
-                  f"total {fin.total_s * 1e3:.1f}ms | {tail}{more}",
-                  flush=True)
+            say(f"req {fin.request_id}: prompt {len(fin.prompt)} tok "
+                f"-> +{len(fin.tokens)} [{fin.reason}] "
+                f"ttft {fin.ttft_s * 1e3:.1f}ms "
+                f"total {fin.total_s * 1e3:.1f}ms | {tail}{more}",
+                flush=True)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
 
     s = sched.stats()
-    print(f"\nserved {served} requests, "
-          f"{int(s['tokens_generated'])} tokens in {wall:.2f}s "
-          f"({s['tokens_generated'] / wall:.1f} tok/s)")
-    print(f"decode step p50 {s['decode_step_p50_s'] * 1e3:.2f}ms "
-          f"p99 {s['decode_step_p99_s'] * 1e3:.2f}ms | "
-          f"ttft p50 {s['ttft_p50_s'] * 1e3:.1f}ms")
+    say(f"\nserved {served} requests, "
+        f"{int(s['tokens_generated'])} tokens in {wall:.2f}s "
+        f"({s['tokens_generated'] / wall:.1f} tok/s)")
+    say(f"decode step p50 {s['decode_step_p50_s'] * 1e3:.2f}ms "
+        f"p99 {s['decode_step_p99_s'] * 1e3:.2f}ms | "
+        f"ttft p50 {s['ttft_p50_s'] * 1e3:.1f}ms")
     if args.cache == "paged":
         total = int(s["prefill_tokens_total"])
         cached = int(s["prefill_tokens_cached"])
         frac = cached / total if total else 0.0
-        print(f"paged cache: radix hits {int(s['radix_hits'])} / "
-              f"misses {int(s['radix_misses'])}, "
-              f"{cached}/{total} prefill tokens served from cache "
-              f"({frac:.0%}), {int(s['free_pages'])} pages free")
+        say(f"paged cache: radix hits {int(s['radix_hits'])} / "
+            f"misses {int(s['radix_misses'])}, "
+            f"{cached}/{total} prefill tokens served from cache "
+            f"({frac:.0%}), {int(s['free_pages'])} pages free")
     if args.spec_k > 0:
-        print(f"spec k={int(s['spec_k'])}: accept-rate "
-              f"{s['accept_rate']:.1%}, "
-              f"{s['tokens_per_target_forward']:.2f} tokens per target "
-              f"forward (batch-wide)")
+        say(f"spec k={int(s['spec_k'])}: accept-rate "
+            f"{s['accept_rate']:.1%}, "
+            f"{s['tokens_per_target_forward']:.2f} tokens per target "
+            f"forward (batch-wide)")
     return 0
 
 

@@ -29,8 +29,17 @@ and wall-clock marks of its start, of the model being ready, of the
 restore and of its first step), so a caller can drive it
 in-process; a caller that made the process group already keeps it.
 Run as a script, it prints them as its last line, in JSON. MoE
-(``--moe-experts``) and the token-file corpus (``--data-bin``) are not
-ported yet and raise, naming their ROADMAP items.
+(``--moe-experts``) is not ported yet and raises, naming its ROADMAP
+item.
+
+The data are synthetic WikiText-shaped windows made from ``--seed``, or
+with ``--data-bin F`` the windows of a binary token corpus
+(``data.TokenBinDataset``: raw little-endian uint16 tokens, window ``i``
+the tokens ``[i T, (i + 1) T]``; every id is checked against ``--vocab``),
+memory-mapped in each of the ``--num-workers`` loader processes::
+
+    python -m pytorch_distributed_tpu_torch.examples.train_gpt2 \\
+        --data-bin wikitext103.bin --num-workers 2
 
 ``--ckpt-dir D`` saves the sharded state (each rank its blocks, through
 ``checkpoint.CheckpointManager``) every ``--ckpt-every`` steps and at the
@@ -78,8 +87,8 @@ def parse_args(argv=None):
     p.add_argument("--ckpt-every", type=int, default=50)
     p.add_argument("--dataset-size", type=int, default=2048)
     p.add_argument("--data-bin", default=None,
-                   help="binary token corpus (not ported: ROADMAP A.8); "
-                        "default synthetic")
+                   help="binary token corpus (TokenBinDataset format: raw "
+                        "little-endian uint16 tokens); default synthetic")
     p.add_argument("--num-workers", type=int, default=0,
                    help="DataLoader worker processes")
     p.add_argument("--mp-context", default="fork", choices=["fork", "spawn"],
@@ -107,8 +116,6 @@ def parse_args(argv=None):
 def _not_ported(args) -> Optional[str]:
     if args.moe_experts or args.ep > 1:
         return "--moe-experts/--ep (mixture of experts): ROADMAP A.14"
-    if args.data_bin:
-        return "--data-bin (the token-file dataset): ROADMAP A.8"
     return None
 
 
@@ -156,6 +163,7 @@ def _train(args, marks) -> Dict:
     from pytorch_distributed_tpu_torch.data import (
         DistributedSampler,
         SyntheticLMDataset,
+        TokenBinDataset,
         make_loader,
         shard_batch_for_mesh,
     )
@@ -204,9 +212,14 @@ def _train(args, marks) -> Dict:
     shards = strategy.data_shard_count
     if args.global_batch % shards:
         raise SystemExit("--global-batch must divide by the process count")
-    dataset = SyntheticLMDataset(args.dataset_size, seq_len=args.seq_len,
-                                 seed=args.seed)
-    dataset.vocab_size = min(args.vocab, dataset.vocab_size)
+    if args.data_bin:
+        # vocab_size makes the dataset check every id against the model's
+        dataset = TokenBinDataset(args.data_bin, seq_len=args.seq_len,
+                                  vocab_size=args.vocab)
+    else:
+        dataset = SyntheticLMDataset(args.dataset_size, seq_len=args.seq_len,
+                                     seed=args.seed)
+        dataset.vocab_size = min(args.vocab, dataset.vocab_size)
     sampler = DistributedSampler(dataset, num_replicas=shards,
                                  rank=strategy.data_shard_index,
                                  shuffle=True, seed=args.seed)
@@ -279,6 +292,7 @@ def _train(args, marks) -> Dict:
         "world": nproc,
         "mesh": mesh.shape,
         "strategy": type(strategy).__name__,
+        "data": args.data_bin or "synthetic",
         "first_step": first_step,
         "resumed_from": resumed,
         "marks": marks,

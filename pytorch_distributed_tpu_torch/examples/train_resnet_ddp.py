@@ -19,8 +19,15 @@ AMP and accumulation (config #3): ``--policy fp16 --grad-accum 2``. On the
 card the model computes in the policy's dtype (bf16, or fp16 with the loss
 scaler, as ``torch.amp`` does); on the CPU it computes in fp32, as the JAX
 script does off the TPU. The data are the synthetic CIFAR-10 / ImageNet
-datasets, made from ``--seed``. The JPEG ImageFolder path
-(``--data-dir``) is not ported yet and raises, naming its ROADMAP item.
+datasets, made from ``--seed``, or with ``--data-dir D`` the JPEGs of an
+ImageFolder tree (``D/<class>/*.jpg``, ``data.ImageFolderDataset``),
+decoded, cropped to 32 (``--dataset cifar10``) or 224 px and flipped in
+the ``--num-workers`` loader processes, with as many classes as ``D`` has
+subdirectories::
+
+    python -m pytorch_distributed_tpu_torch.examples.train_resnet_ddp \\
+        --model resnet50 --dataset imagenet --data-dir imagenet/train \\
+        --num-workers 6 --policy bf16
 
 ``--comm-hook`` (``allreduce``, ``bf16_compress``, ``fp16_compress``,
 ``reduce_scatter``, ``ring_allreduce``) trains under ``DataParallel`` with
@@ -58,7 +65,7 @@ import os
 import socket
 import sys
 import time
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -85,8 +92,8 @@ def parse_args(argv=None):
     p.add_argument("--ckpt-every", type=int, default=50)
     p.add_argument("--dataset-size", type=int, default=512)
     p.add_argument("--data-dir", default=None,
-                   help="ImageFolder root of JPEGs (not ported: ROADMAP "
-                        "A.8); default synthetic")
+                   help="ImageFolder root of JPEGs (<dir>/<class>/*.jpg); "
+                        "default synthetic")
     p.add_argument("--num-workers", type=int, default=0,
                    help="DataLoader worker processes")
     p.add_argument("--mp-context", default="fork", choices=["fork", "spawn"],
@@ -106,18 +113,9 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _not_ported(args) -> Optional[str]:
-    if args.data_dir:
-        return "--data-dir (the JPEG ImageFolder dataset): ROADMAP A.8"
-    return None
-
-
 def main(argv=None) -> Dict:
     marks = {"start": time.time()}
     args = parse_args(argv)
-    missing = _not_ported(args)
-    if missing:
-        raise NotImplementedError(f"not ported yet: {missing}")
 
     from pytorch_distributed_tpu_torch import distributed as pdist
     from pytorch_distributed_tpu_torch import models, resolve_device
@@ -129,8 +127,10 @@ def main(argv=None) -> Dict:
     )
     from pytorch_distributed_tpu_torch.data import (
         DistributedSampler,
+        ImageFolderDataset,
         SyntheticCIFAR10,
         SyntheticImageNet,
+        make_image_transform,
         make_loader,
         prefetch_to_device,
         shard_batch_for_mesh,
@@ -171,12 +171,20 @@ def main(argv=None) -> Dict:
     try:
         dtype = (get_policy(args.policy).compute_dtype if on_card
                  else torch.float32)
-        if args.dataset == "cifar10":
+        if args.data_dir:
+            size = 32 if args.dataset == "cifar10" else 224
+            dataset = ImageFolderDataset(
+                args.data_dir, transform=make_image_transform(
+                    size, train=True, seed=args.seed))
+            n_classes = len(dataset.classes)
+        elif args.dataset == "cifar10":
             dataset = SyntheticCIFAR10(args.dataset_size, seed=args.seed)
+            n_classes = dataset.num_classes
         else:
             dataset = SyntheticImageNet(args.dataset_size, seed=args.seed)
+            n_classes = dataset.num_classes
         model = getattr(models, args.model)(
-            num_classes=dataset.num_classes,
+            num_classes=n_classes,
             cifar_stem=args.dataset == "cifar10", dtype=dtype, device=device,
             seed=args.seed)
         trainer = Trainer(
@@ -229,6 +237,8 @@ def main(argv=None) -> Dict:
         losses = []
         for epoch in range(state.step // steps_per_epoch, args.epochs):
             sampler.set_epoch(epoch)
+            if args.data_dir:
+                dataset.set_epoch(epoch)
             batches = (prefetch_to_device(loader, device, args.prefetch)
                        if args.prefetch else loader)
             for i, batch in enumerate(batches):
@@ -270,6 +280,7 @@ def main(argv=None) -> Dict:
         "dtype": str(dtype).removeprefix("torch."),
         "world": nproc,
         "comm_hook": args.comm_hook,
+        "data": args.data_dir or "synthetic",
         "first_step": first_step,
         "resumed_from": resumed,
         "marks": marks,

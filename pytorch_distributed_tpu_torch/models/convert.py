@@ -67,17 +67,29 @@ def _local(full: torch.Tensor, spec) -> torch.Tensor:
                                                  spec.size)
 
 
+def _whole(t: torch.Tensor, spec, p) -> torch.Tensor:
+    """``t`` (a tensor shaped like the block ``p`` holds) whole: its FSDP
+    shard gathered over ``spec``, then its tensor-parallel block over
+    ``p.tp``."""
+    from pytorch_distributed_tpu_torch.parallel.fsdp import full_tensor
+    from pytorch_distributed_tpu_torch.parallel.tensor_parallel import (
+        tp_full_tensor,
+    )
+
+    t = full_tensor(t, spec)
+    return t if getattr(p, "tp", None) is None else tp_full_tensor(t, p.tp)
+
+
 @torch.no_grad()
 def full_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """``model.state_dict()`` with every parameter that FSDP holds as its
-    shard gathered back into the whole tensor (a copy; collective)."""
-    from pytorch_distributed_tpu_torch.parallel.fsdp import full_tensor
-
+    """``model.state_dict()`` with every parameter that FSDP or tensor
+    parallelism holds as a block gathered back into the whole tensor (a
+    copy; collective)."""
     params = dict(model.named_parameters())
     out = {}
     for name, t in model.state_dict().items():
         p = params.get(name)
-        out[name] = full_tensor(t, getattr(p, "fsdp", None))
+        out[name] = _whole(t, getattr(p, "fsdp", None), p)
     return out
 
 
@@ -88,12 +100,10 @@ def full_optimizer_state(optimizer: torch.optim.Optimizer,
     """``{parameter name: {state key: whole tensor}}`` of ``optimizer``,
     its sharded state gathered through the trainer's ``layout`` (None:
     held whole; collective)."""
-    from pytorch_distributed_tpu_torch.parallel.fsdp import full_tensor
-
     out = {}
     for name, spec, p, _ in _opt_tensors(optimizer, model, layout):
-        out[name] = {k: full_tensor(v, spec if v.shape == p.shape and v.dim()
-                                    else None)
+        out[name] = {k: (_whole(v, spec, p) if v.shape == p.shape and v.dim()
+                         else v.detach().clone())
                      for k, v in optimizer.state[p].items()
                      if isinstance(v, torch.Tensor)}
     return out

@@ -26,6 +26,17 @@ cache runs ``cached_attention``. After ``cast_weights()`` (the serving
 engine calls it) the cached forward reads compute-dtype copies of the
 weights made once, where the training forward casts them on every call
 (autograd needs the casts).
+
+``parallel.TensorParallel.parallelize`` cuts the parameters to a rank's
+tensor-parallel blocks and sets ``tp`` (a ``TPContext``) on the model and
+its blocks; the forward then runs Megatron's collectives: ``H/tp`` local
+heads from the rank's rows of each of q, k and v, the block's input
+entering through ``tp.enter`` and the rowwise projections' partial sums
+leaving through ``tp.exit`` (the bias added after), the tied ``wte`` and
+``wpe`` gathered whole (``tp.features``), and under sequence parallelism
+the residual stream on ``T/tp`` rows (``tp.split_seq``/``tp.join_seq``).
+The cached forward reads whole tables gathered once by
+``cast_weights``.
 """
 
 from __future__ import annotations
@@ -122,6 +133,20 @@ def _linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype,
                     _cast(lin.bias, dtype, copies))
 
 
+def _row_linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype,
+                copies, tp) -> torch.Tensor:
+    """A rowwise projection: the partial sums over this rank's input
+    features, reduced over tp, plus the whole bias. On one tp rank the
+    reduction is the identity and the bias goes into the GEMM, as in the
+    unsharded model (so its result is the unsharded one, bit for bit)."""
+    if tp is None:
+        return _linear(x, lin, dtype, copies)
+    w, b = _cast(lin.weight, dtype, copies), _cast(lin.bias, dtype, copies)
+    if tp.size == 1:
+        return tp.exit(F.linear(x.to(dtype), w, b))
+    return tp.exit(F.linear(x.to(dtype), w)) + b
+
+
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, cfg: GPT2Config) -> torch.Tensor:
     y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
                      ln.bias.float(), cfg.layer_norm_eps)
@@ -129,6 +154,8 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, cfg: GPT2Config) -> torch.Ten
 
 
 class SelfAttention(nn.Module):
+    tp = None   # the tensor-parallel context (TensorParallel.parallelize)
+
     def __init__(self, cfg: GPT2Config, device=None):
         super().__init__()
         self.cfg = cfg
@@ -139,8 +166,11 @@ class SelfAttention(nn.Module):
     def forward(self, x, *, layer_cache=None, position_offset=None,
                 copies=None):
         cfg = self.cfg
-        B, T, C = x.shape
-        H, D = cfg.n_head, C // cfg.n_head
+        B, T, _ = x.shape
+        D = cfg.n_embd // cfg.n_head
+        # the local heads: a tp rank holds its rows of each of q, k and v
+        H = cfg.n_head if self.tp is None else cfg.n_head // self.tp.size
+        C = H * D
         q, k, v = _linear(x, self.c_attn, cfg.dtype, copies).split(C, dim=-1)
         q = q.view(B, T, H, D)
         k = k.view(B, T, H, D)
@@ -163,10 +193,13 @@ class SelfAttention(nn.Module):
         else:
             y, _, _ = cached_attention(q, k, v, layer_cache[0],
                                        layer_cache[1], position_offset)
-        return _linear(y.reshape(B, T, C), self.c_proj, cfg.dtype, copies)
+        return _row_linear(y.reshape(B, T, C), self.c_proj, cfg.dtype,
+                           copies, self.tp)
 
 
 class MLP(nn.Module):
+    tp = None
+
     def __init__(self, cfg: GPT2Config, device=None):
         super().__init__()
         self.cfg = cfg
@@ -177,10 +210,12 @@ class MLP(nn.Module):
     def forward(self, x, copies=None):
         dtype = self.cfg.dtype
         y = F.gelu(_linear(x, self.c_fc, dtype, copies), approximate="tanh")
-        return _linear(y, self.c_proj, dtype, copies)
+        return _row_linear(y, self.c_proj, dtype, copies, self.tp)
 
 
 class Block(nn.Module):
+    tp = None
+
     def __init__(self, cfg: GPT2Config, device=None):
         super().__init__()
         self.cfg = cfg
@@ -192,10 +227,12 @@ class Block(nn.Module):
 
     def forward(self, x, *, layer_cache=None, position_offset=None,
                 copies=None):
-        x = x + self.attn(_layer_norm(x, self.ln_1, self.cfg),
+        enter = (lambda h: h) if self.tp is None else self.tp.enter
+        x = x + self.attn(enter(_layer_norm(x, self.ln_1, self.cfg)),
                           layer_cache=layer_cache,
                           position_offset=position_offset, copies=copies)
-        return x + self.mlp(_layer_norm(x, self.ln_2, self.cfg), copies)
+        return x + self.mlp(enter(_layer_norm(x, self.ln_2, self.cfg)),
+                            copies)
 
 
 class HeadMatmul(torch.autograd.Function):
@@ -253,6 +290,8 @@ class GPT2(nn.Module):
     parameters, and it refreshes the copies in place.
     """
 
+    tp = None
+
     def __init__(self, cfg: GPT2Config, *, device=None, seed: int = 0):
         super().__init__()
         _check_config(cfg)
@@ -265,20 +304,47 @@ class GPT2(nn.Module):
         self.ln_f = nn.LayerNorm(cfg.n_embd, eps=cfg.layer_norm_eps, **kw)
         self.reset_parameters(torch.Generator(device=device).manual_seed(seed))
         self._copies: Optional[dict] = None
+        self._whole: dict = {}
 
     @torch.no_grad()
     def cast_weights(self) -> None:
         """Make, or refresh in place, the compute-dtype copy of every
         parameter (keyed by the parameter) for the cached forward; each
-        copy keeps its storage, and so its ``data_ptr``, across refreshes."""
+        copy keeps its storage, and so its ``data_ptr``, across refreshes.
+        Under tensor parallelism the copies of ``wte`` and ``wpe`` are the
+        whole tables, gathered here (and ``_whole`` keeps them in the
+        parameter dtype for the fp32 head)."""
         dtype = self.cfg.dtype
+        tables = ({} if self.tp is None else
+                  {p: self.tp.features(p.detach())
+                   for p in (self.wte, self.wpe)})
         if self._copies is None:
-            self._copies = {p: p if p.dtype == dtype else p.detach().to(dtype)
-                            for p in self.parameters()}
+            self._whole = tables
+            self._copies = {}
+            for p in self.parameters():
+                src = tables.get(p, p)
+                self._copies[p] = src if src.dtype == dtype else src.to(dtype)
             return
+        for p, t in tables.items():
+            self._whole[p].copy_(t)
         for p, c in self._copies.items():
-            if c is not p:
-                c.copy_(p)
+            src = self._whole.get(p, p)
+            if c is not src:
+                c.copy_(src)
+
+    def tied_weight(self) -> torch.Tensor:
+        """The whole ``wte`` (the tied LM head's weight; under tensor
+        parallelism gathered from its feature blocks)."""
+        return self._table("wte")
+
+    def _table(self, name: str, copies=None) -> torch.Tensor:
+        """The whole ``wte`` or ``wpe`` in the parameter dtype: gathered
+        over tp (the cached forward's, once by ``cast_weights``)."""
+        if self.tp is None:
+            return getattr(self, name)
+        if copies is not None:
+            return self._whole[self._parameters[name]]
+        return self.tp.features(getattr(self, name))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -303,12 +369,16 @@ class GPT2(nn.Module):
             ln.weight.fill_(1.0)
             ln.bias.zero_()
 
-    def _head(self, x: torch.Tensor, copies=None) -> torch.Tensor:
-        # weight-tied LM head; logits in fp32 for a stable softmax
+    def _head(self, x: torch.Tensor, wte: Optional[torch.Tensor] = None,
+              copies=None) -> torch.Tensor:
+        # weight-tied LM head over the whole ``wte`` (the parameter dtype);
+        # logits in fp32 for a stable softmax
+        if wte is None:
+            wte = self._table("wte", copies)
         if self.cfg.head_in_fp32:
-            return torch.matmul(x.float(), self.wte.float().t())
+            return torch.matmul(x.float(), wte.float().t())
         # the compute-dtype operands, fp32 out (``matmul_f32``)
-        w = _cast(self.wte, self.cfg.dtype, copies)
+        w = wte.to(self.cfg.dtype) if copies is None else copies[self.wte]
         logits = HeadMatmul.apply(x.reshape(-1, x.shape[-1]), w)
         return logits.reshape(*x.shape[:-1], w.shape[0])
 
@@ -327,7 +397,11 @@ class GPT2(nn.Module):
             raise ValueError(
                 f"sequence length {T} exceeds n_positions {cfg.n_positions}"
             )
-        x = self.wte[tokens.long()].to(cfg.dtype) + self.wpe[:T].to(cfg.dtype)
+        wte = self._table("wte")
+        x = wte[tokens.long()].to(cfg.dtype) + self._table("wpe")[:T].to(
+            cfg.dtype)
+        if self.tp is not None:
+            x = self.tp.split_seq(x)
         for block in self.h:
             if cfg.remat and torch.is_grad_enabled():
                 x = torch.utils.checkpoint.checkpoint(block, x,
@@ -335,9 +409,11 @@ class GPT2(nn.Module):
             else:
                 x = block(x)
         x = _layer_norm(x, self.ln_f, cfg)
+        if self.tp is not None:
+            x = self.tp.join_seq(x)
         if return_hidden:
             return x
-        return self._head(x)
+        return self._head(x, wte)
 
     def _cached_forward(self, tokens, kv_cache, position_offset, *,
                         n_layers=None, verify=False
@@ -362,9 +438,12 @@ class GPT2(nn.Module):
         # rows are discarded by the engine)
         pos = position_offset.long()[:, None] + torch.arange(
             T, device=tokens.device)
+        if self.tp is not None and self.tp.sequence_parallel:
+            raise ValueError("the cached forward runs without sequence "
+                             "parallelism")
         copies = self._copies
-        wte = self.wte if copies is None else copies[self.wte]
-        wpe = self.wpe if copies is None else copies[self.wpe]
+        wte = self._table("wte") if copies is None else copies[self.wte]
+        wpe = self._table("wpe") if copies is None else copies[self.wpe]
         x = (wte[tokens.long()].to(cfg.dtype)
              + wpe[pos.clamp(max=cfg.n_positions - 1)].to(cfg.dtype))
         # duck-typed cache dispatch: a paged cache carries block tables
@@ -387,7 +466,8 @@ class GPT2(nn.Module):
             )
             x = block(x, layer_cache=layer_cache,
                       position_offset=position_offset, copies=copies)
-        return self._head(_layer_norm(x, self.ln_f, cfg), copies), kv_cache
+        return self._head(_layer_norm(x, self.ln_f, cfg), copies=copies), \
+            kv_cache
 
 
 def gpt2_125m(*, device=None, seed: int = 0, **overrides) -> GPT2:

@@ -10,7 +10,9 @@ update as shards); the sharded weight update is
 ``parallel.context_parallel``. The gradient communication hooks
 (``comm_hooks``: allreduce, bf16/fp16 compression, bucketed
 reduce-scatter, ring all-reduce; ``powersgd.PowerSGD``) and model
-averaging (``averagers``) run on the data-parallel group.
+averaging (``averagers``) run on the data-parallel group. Tensor and
+sequence parallelism (``TensorParallel`` and its styles; TP x DP and TP x
+FSDP) is ``parallel.tensor_parallel``.
 """
 
 from pytorch_distributed_tpu_torch.parallel.averagers import (
@@ -41,6 +43,15 @@ from pytorch_distributed_tpu_torch.parallel.state import (
     TrainState,
     make_state_specs,
 )
+from pytorch_distributed_tpu_torch.parallel.tensor_parallel import (
+    ColwiseParallel,
+    ParallelStyle,
+    Replicated,
+    RowwiseParallel,
+    SequenceParallel,
+    TensorParallel,
+    gpt2_tp_plan,
+)
 from pytorch_distributed_tpu_torch.parallel.strategies import (
     SHARD_REASONS,
     CPStrategy,
@@ -54,6 +65,13 @@ from pytorch_distributed_tpu_torch.parallel.strategies import (
 )
 
 __all__ = [
+    "ColwiseParallel",
+    "ParallelStyle",
+    "Replicated",
+    "RowwiseParallel",
+    "SequenceParallel",
+    "TensorParallel",
+    "gpt2_tp_plan",
     "SHARD_REASONS",
     "CPStrategy",
     "DataParallel",

@@ -163,7 +163,9 @@ def shard_module(model: torch.nn.Module, strategy) -> Dict[str, Shard]:
         names = []
         for name, p in mod.named_parameters(recurse=False):
             full = f"{mod_name}.{name}" if mod_name else name
-            dim = strategy.param_pspec(full, tuple(p.shape))
+            # a tensor-parallel block is placed by its whole tensor's shape
+            shape = p.tp.whole if hasattr(p, "tp") else tuple(p.shape)
+            dim = strategy.param_pspec(full, shape)
             if dim is None:
                 continue
             if hasattr(p, "fsdp"):

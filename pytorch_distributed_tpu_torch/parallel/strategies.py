@@ -37,8 +37,8 @@ the product and which sizes divide.
 Where the reference answers with a ``PartitionSpec``, the port answers
 with the dim that shards (``None``: the whole tensor): ``param_pspec``,
 ``opt_pspec``, ``update_pspec`` and ``model_state_pspec`` take a
-parameter's name and torch shape. Gradient communication hooks are
-ROADMAP A.14.
+parameter's name and torch shape. Tensor parallelism
+(``TensorParallel``) is ``parallel.tensor_parallel``.
 """
 
 from __future__ import annotations
@@ -62,6 +62,7 @@ __all__ = [
     "FullyShardedDataParallel",
     "HybridShard",
     "ZeRO1",
+    "broadcast_tensors",
     "shard_spec_with_reason",
 ]
 
@@ -114,6 +115,18 @@ def _to_device(x, device: torch.device):
     if isinstance(x, dict):
         return {k: _to_device(v, device) for k, v in x.items()}
     return x
+
+
+@torch.no_grad()
+def broadcast_tensors(tensors: List[torch.Tensor], group) -> None:
+    """Every rank of ``group`` takes its first rank's values of
+    ``tensors``, in place: one broadcast of one flat buffer per dtype."""
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        same = [t for t in tensors if t.dtype == dtype]
+        flat = torch.cat([t.reshape(-1) for t in same])
+        comm.broadcast(flat, group)
+        for t, new in zip(same, flat.split([t.numel() for t in same])):
+            t.copy_(new.view_as(t))
 
 
 class ShardingStrategy:
@@ -271,14 +284,8 @@ class _Replicas(ShardingStrategy):
         broadcast of one flat buffer per dtype), and each BatchNorm (a
         module with a ``stats_group`` attribute) takes its statistics over
         the group of the batch axes when the batch is split."""
-        tensors = list(model.parameters()) + [
-            b for b in model.buffers() if b.is_floating_point()]
-        for dtype in dict.fromkeys(t.dtype for t in tensors):
-            same = [t for t in tensors if t.dtype == dtype]
-            flat = torch.cat([t.reshape(-1) for t in same])
-            comm.broadcast(flat, self.group)
-            for t, new in zip(same, flat.split([t.numel() for t in same])):
-                t.copy_(new.view_as(t))
+        broadcast_tensors(list(model.parameters()) + [
+            b for b in model.buffers() if b.is_floating_point()], self.group)
         axes = self._batch_axes
         stats_group = self.mesh.get_group(axes) if axes else None
         for m in model.modules():

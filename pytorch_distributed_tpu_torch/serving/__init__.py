@@ -1,5 +1,7 @@
 """Serving: slotted and paged KV caches, inference engine, continuous
-batching scheduler, speculative decoding."""
+batching scheduler, speculative decoding, and the tensor-parallel serving
+layout (``sharding``: the mesh, the weights' and the caches' placements,
+``load_gpt2_params``)."""
 
 from pytorch_distributed_tpu_torch.serving.engine import (  # noqa: F401
     InferenceEngine,
@@ -14,6 +16,17 @@ from pytorch_distributed_tpu_torch.serving.scheduler import (  # noqa: F401
     Request,
     Scheduler,
 )
+from pytorch_distributed_tpu_torch.serving.sharding import (  # noqa: F401
+    CacheSharding,
+    draft_param_shardings,
+    gpt2_param_shardings,
+    kv_cache_sharding,
+    load_gpt2_params,
+    paged_kv_cache_sharding,
+    reshard_gpt2_params,
+    serving_mesh,
+    shard_gpt2_params,
+)
 from pytorch_distributed_tpu_torch.serving.speculative import (  # noqa: F401
     DraftConfig,
     greedy_accept,
@@ -21,6 +34,7 @@ from pytorch_distributed_tpu_torch.serving.speculative import (  # noqa: F401
 )
 
 __all__ = [
+    "CacheSharding",
     "DraftConfig",
     "FinishedRequest",
     "InferenceEngine",
@@ -30,7 +44,15 @@ __all__ = [
     "SamplingParams",
     "Scheduler",
     "SwapCost",
+    "draft_param_shardings",
+    "gpt2_param_shardings",
     "greedy_accept",
+    "kv_cache_sharding",
+    "load_gpt2_params",
+    "paged_kv_cache_sharding",
     "rejection_accept",
+    "reshard_gpt2_params",
     "sample_tokens",
+    "serving_mesh",
+    "shard_gpt2_params",
 ]

@@ -1,8 +1,7 @@
 """Inference engine: prefill, decode and speculative steps over the port's
 GPT-2.
 
-Port of ``pytorch_distributed_tpu/serving/engine.py`` without TP cache
-sharding (ROADMAP A.15c):
+Port of ``pytorch_distributed_tpu/serving/engine.py``:
 
   * ``prefill`` -- one request's padded prompt ``[1, bucket]`` runs through
     the cache-aware forward into ONE slot of the shared cache, and the first
@@ -39,6 +38,16 @@ The engine warms each body up on a scratch cache when it is built, and
 casts the weights to the compute dtype once (``GPT2.cast_weights``). Only
 sampled token ids cross to the host each step. Prefill runs eagerly.
 
+Tensor-parallel serving (``cache_sharding``, from
+``serving.sharding.kv_cache_sharding`` or ``paged_kv_cache_sharding``):
+the model holds this rank's blocks of the weights
+(``serving.sharding.shard_gpt2_params`` or ``load_gpt2_params``), the
+cache holds its ``H/tp`` heads, and every rank runs the same steps on the
+same requests (the all-reduces closing each block keep their hidden
+states equal). A step is one graph where every collective in its body can
+be captured: on a ``tp`` group over NCCL. Over gloo the same bodies run
+eagerly; ``graphs`` says which, decided here from the group's backend.
+
 Parity anchor: with ``SamplingParams(temperature=0)`` the engine, with or
 without speculation, emits exactly the argmax of the full uncached forward
 at every step.
@@ -52,6 +61,7 @@ from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pytorch_distributed_tpu_torch._device import resolve_device
 from pytorch_distributed_tpu_torch._graphs import Program, warm_stream
@@ -177,7 +187,8 @@ class InferenceEngine:
     or paged cache.
 
     ``replays`` counts the graph replays of the decode and spec steps (one
-    per call on the card, none on the CPU).
+    per call on the card, none on the CPU), and ``graphs`` (read-only) is
+    whether the steps run as graphs.
 
     Args:
       model: a ``models.GPT2`` whose parameters live on ``device``; the
@@ -208,8 +219,9 @@ class InferenceEngine:
         slotted-equivalent capacity + the trash page.
       device: ``None`` means the CUDA card (raises without one); pass
         ``"cpu"`` to run the plain versions on the CPU.
-      cache_sharding: TP serving, not ported yet; anything but ``None``
-        raises NotImplementedError.
+      cache_sharding: TP serving: a ``serving.sharding.CacheSharding``
+        with the heads on the tp axis of the mesh that ``model`` (and a
+        draft model) was cut over; the caches hold ``H/tp`` heads.
     """
 
     def __init__(
@@ -234,11 +246,8 @@ class InferenceEngine:
         device=None,
     ):
         self.device = resolve_device(device)
-        if cache_sharding is not None:
-            raise NotImplementedError(
-                "cache_sharding is not ported yet (TP serving, ROADMAP "
-                "A.15c)"
-            )
+        self.cache_sharding = cache_sharding
+        tp = self._check_tp(cache_sharding, model, draft_model)
         for m in (model, draft_model):
             if m is None:
                 continue
@@ -330,23 +339,72 @@ class InferenceEngine:
                           if sampling.temperature > 0 and self.spec_k else None)
         self._programs: dict = {}
         self.replays = 0
+        # a step's collectives (the tp all-reduces) can be captured only on
+        # NCCL; a gloo group runs the bodies eagerly
+        self._graphs = self.device.type == "cuda" and (
+            tp is None or dist.get_backend(tp.group) == "nccl")
         self._pool = self._stream = None
         if self.device.type == "cuda":
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = warm_stream(self.device)
             self._warm_up()
 
+    @property
+    def graphs(self) -> bool:
+        """Whether the decode and spec steps run as CUDA graph replays (on
+        the card, unless a tp group's collectives cannot be captured)."""
+        return self._graphs
+
+    @staticmethod
+    def _check_tp(cache_sharding, model, draft_model):
+        """The models' tp context, checked against ``cache_sharding``."""
+        tp = getattr(model, "tp", None)
+        if cache_sharding is None:
+            if tp is not None:
+                raise ValueError("a tensor-parallel model needs "
+                                 "cache_sharding (its caches hold H/tp "
+                                 "heads)")
+            return None
+        from pytorch_distributed_tpu_torch.serving.sharding import HEAD_DIM
+
+        if set(cache_sharding.dims) != {HEAD_DIM}:
+            raise NotImplementedError(
+                "cache_sharding: only the heads shard (the dp replicas "
+                "serve the same requests); slots on dp are ROADMAP A.15d")
+        size = cache_sharding.mesh.size(cache_sharding.tp_axis)
+        for m in (model, draft_model):
+            if m is None:
+                continue
+            mtp = getattr(m, "tp", None)
+            if mtp is None or mtp.size != size:
+                raise ValueError(
+                    f"cache_sharding puts the heads on {size} tp ranks: cut "
+                    "the model to its blocks first "
+                    "(serving.sharding.shard_gpt2_params)")
+            if mtp.sequence_parallel:
+                raise ValueError("serving runs without sequence parallelism")
+        return tp
+
+    def _cache_cfg(self, cfg):
+        """``cfg`` with this rank's heads (the cache's shape)."""
+        tp = getattr(self.model, "tp", None)
+        if tp is None:
+            return cfg
+        return dataclasses.replace(cfg, n_head=cfg.n_head // tp.size,
+                                   n_embd=cfg.n_embd // tp.size)
+
     # -- state -------------------------------------------------------------
     def init_cache(self):
         """Fresh resident cache of the configured kind."""
+        cfg = self._cache_cfg(self.cfg)
         if self.cache_kind == "paged":
             return PagedKVCache.create(
-                self.cfg, n_slots=self.n_slots, max_len=self.max_len,
+                cfg, n_slots=self.n_slots, max_len=self.max_len,
                 page_size=self.page_size, n_pages=self.n_pages,
                 dtype=self.cache_dtype, device=self.device,
             )
         return KVCache.create(
-            self.cfg, n_slots=self.n_slots, max_len=self.max_len,
+            cfg, n_slots=self.n_slots, max_len=self.max_len,
             dtype=self.cache_dtype, device=self.device,
         )
 
@@ -357,7 +415,8 @@ class InferenceEngine:
         if self.draft_model is None:
             return None
         return KVCache.create(
-            self.draft_model.cfg, n_slots=self.n_slots, max_len=self.max_len,
+            self._cache_cfg(self.draft_model.cfg), n_slots=self.n_slots,
+            max_len=self.max_len,
             dtype=self.cache_dtype, device=self.device,
         )
 
@@ -554,7 +613,8 @@ class InferenceEngine:
                 self._gen if kind == "decode" else self._spec_gen,)
             prog = Program(self._body(kind, cache, dcache),
                            device=self.device, pool=self._pool,
-                           generators=gens, stream=self._stream)
+                           generators=gens, stream=self._stream,
+                           capture=self._graphs)
             self._programs[key] = prog
             for c in (cache, dcache):
                 if c is not None:

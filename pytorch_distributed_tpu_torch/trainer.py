@@ -2,7 +2,8 @@
 
 Port of ``pytorch_distributed_tpu/trainer.py`` (``NoShard`` on one
 device; ``DataParallel``, ``CPStrategy``, ``ZeRO1``,
-``FullyShardedDataParallel`` and ``HybridShard``, one process per rank).
+``FullyShardedDataParallel``, ``HybridShard`` and ``TensorParallel``, one
+process per rank).
 The JAX step is one jitted program over an immutable state; here the model
 holds the parameters and the optimizer its state, and ``step`` updates
 both in place. The step keeps the JAX step's order:
@@ -61,6 +62,14 @@ groups at the tensors it steps on, before its state is created, so the
 state is made on the shards. ``trainer.layout`` is that layout (None under
 a replicated strategy), and ``models.convert.full_state_dict`` gathers the
 shards back into the whole ``state_dict``.
+
+Under ``TensorParallel`` ``init`` cuts the model to the rank's tp blocks
+(``strategy.parallelize``: the module surgery, after every rank took the
+first rank's whole weights); the gradients are averaged over dp (or, with
+``fsdp_axis``, put into the update layout as under FSDP), the
+sequence-parallel partial gradients summed over tp, and the norm and
+finite flag reduced over the ``(fsdp, tp)`` group
+(``strategy.grad_norm_and_finite``).
 
 A loss function is ``loss_fn(model, batch, train) -> (loss, metrics)``.
 
@@ -175,7 +184,7 @@ def make_chunked_lm_loss(n_chunks: int = 8) -> Callable:
         tokens, targets, mask = _lm_batch(batch)
         hidden = model(tokens, return_hidden=True)
         B, T, C = hidden.shape
-        W = model.wte.to(hidden.dtype)
+        W = model.tied_weight().to(hidden.dtype)
         per_tok = chunked_cross_entropy(
             hidden.reshape(B * T, C), W, targets.reshape(-1), n_chunks
         ).reshape(B, T)
@@ -244,7 +253,8 @@ class Trainer:
       optimizer: a ``torch.optim`` optimizer over ``model``'s parameters.
       strategy: placement (``NoShard``: the single card; ``DataParallel``
         or ``CPStrategy``: replicas over a mesh axis; ``ZeRO1``,
-        ``FullyShardedDataParallel``, ``HybridShard``: sharded).
+        ``FullyShardedDataParallel``, ``HybridShard``: sharded;
+        ``TensorParallel``: Megatron TP, with DP or FSDP).
       loss_fn: ``(model, batch, train) -> (loss, metrics)``; see
         ``classification_loss`` / ``lm_loss`` / ``make_chunked_lm_loss``.
       policy: 'fp32' | 'bf16' | 'fp16' | Policy -- batch cast and scaler
@@ -298,6 +308,7 @@ class Trainer:
         #: the sharded layout (``init`` makes it), or None
         self.layout: Optional[ShardedParams] = None
         self._fsdp = False   # parameters held as shards: regather_saved
+        self._tp = bool(getattr(strategy, "tensor_parallel", False))
 
     @property
     def _scaling(self) -> bool:
@@ -322,6 +333,8 @@ class Trainer:
             for group in self.optimizer.param_groups:
                 group["capturable"] = True
         self.strategy.sync_params(self.model)
+        if self._tp:
+            self.strategy.parallelize(self.model)
         if getattr(self.strategy, "update_axis", None) is not None:
             self.layout = ShardedParams(self.strategy, self.model,
                                         self.optimizer)
@@ -381,6 +394,8 @@ class Trainer:
             grads = [g / accum for g in grads]
         if layout is not None:
             grads = shard_grads(layout, grads)
+            if self._tp:
+                grads = self.strategy.reduce_sequence_grads(grads)
         elif self._hook is not None:
             grads, state = self._hooked(state, grads)
         else:
@@ -393,7 +408,10 @@ class Trainer:
             grads, all_finite = self.scaler.unscale(grads, state.scaler)
         else:
             all_finite = torch.ones((), dtype=torch.bool, device=loss.device)
-        if layout is not None:
+        if self._tp:
+            grad_norm, all_finite = self.strategy.grad_norm_and_finite(
+                params, grads, all_finite)
+        elif layout is not None:
             grad_norm, all_finite = grad_norm_and_finite(layout, grads,
                                                          all_finite)
         else:

@@ -304,10 +304,22 @@ def test_greedy_stream_independent_of_prefill_bucket(models, buckets):
 
 
 @pytest.mark.parametrize("kwargs", [dict(cache_sharding=object())])
-def test_unported_options_raise(models, kwargs):
+def test_unported_options_raise(models, kwargs, tmp_path):
+    """``cache_sharding`` (ported by ROADMAP A.15c) is accepted: a model
+    cut over a one-rank ``(dp, tp)`` mesh, its cache on tp, emits the
+    whole model's greedy stream (in a process of its own with its gloo
+    group; multi-rank streams: ``tests/test_torch_port_tp_serving.py``); a
+    value that is not a ``CacheSharding`` is refused."""
+    from tests import _torch_port_ranks as ranks
+    from tests import _torch_port_tp as tph
+
     _, _, model = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(AttributeError):
         InferenceEngine(model, device="cpu", **kwargs)
+    ranks.finish(ranks.start(tph.cut_stream_body, tmp_path,
+                             model.state_dict(), TINY, world=1))
+    out = torch.load(tmp_path / "cut_stream.pt")
+    assert out[True] == out[False] and len(out[True]) == 8
 
 
 def test_entry_points_default_to_the_card(models):

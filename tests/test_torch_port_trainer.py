@@ -323,7 +323,7 @@ def test_config_and_trainer_options_not_ported_raise():
     assert set(metrics) == {"loss", "perplexity"}
 
 
-def test_entry_point_trains_on_cpu():
+def test_entry_point_trains_on_cpu(tmp_path):
     common = ["--device", "cpu", "--layers", "2", "--embd", "48", "--heads",
               "4", "--seq-len", "32", "--vocab", "97", "--global-batch", "4",
               "--dataset-size", "8", "--log-every", "100"]
@@ -341,10 +341,21 @@ def test_entry_point_trains_on_cpu():
     # divide the process count, as in the JAX script
     with pytest.raises(SystemExit, match="--dp must divide"):
         train_main(common + ["--dp", "2"])
-    for flags, item in ((["--moe-experts", "4"], "A.14"),
-                        (["--data-bin", "x"], "A.8")):
-        with pytest.raises(NotImplementedError, match=item):
-            train_main(common + flags)
+    with pytest.raises(NotImplementedError, match="A.14"):
+        train_main(common + ["--moe-experts", "4"])
+    # --data-bin (ported): the windows of a token file; a repeating corpus
+    # is learnt, and an id past --vocab is refused
+    from pytorch_distributed_tpu_torch.data import write_token_bin
+
+    corpus = tmp_path / "corpus.bin"
+    write_token_bin(str(corpus), np.tile(np.arange(24), 40))
+    out = train_main(common + ["--steps", "8", "--lr", "3e-3", "--data-bin",
+                               str(corpus)])
+    assert out["data"] == str(corpus)
+    assert out["losses"][-1] < out["losses"][0] - 0.5
+    with pytest.raises(ValueError, match="vocab_size"):
+        train_main(common[:-2] + ["--vocab", "16", "--steps", "1",
+                                  "--data-bin", str(corpus)])
 
 
 @pytest.mark.parametrize("strategy", ["fsdp", "zero1", "zero1_state",
