@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA H100::
 
 It builds the port's CUDA kernels from the sources in the checkout (one
 ``nvcc`` per source, all at once) and drives the main paths of the port,
-serving (and tensor-parallel serving), GPT-2 training (FSDP, ZeRO1,
+serving (tensor-parallel and multihost serving too), GPT-2 training (FSDP, ZeRO1,
 DataParallel, TensorParallel), context-parallel training, ResNet training
 (also from JPEG files), and checkpointed training that the elastic
 launcher restarts (its checkpoints go under the gitignored build
@@ -145,7 +145,10 @@ capture records; what the replays launched is counted in device traces
                 step, the hook's device time against the allreduce
                 hook's, the wire elements against ``wire_elements``
                 (521,890 of 124,439,808), the error buffers' bytes, step
-                time against sharded_runner's DataParallel runner;
+                time against sharded_runner's DataParallel runner; then a
+                checkpoint of the whole state (Q and the error buffers
+                too) saved, 3 runner steps, a restore into the live
+                runner, the same 3 steps bit for bit;
   ckpt_gpt2     checkpoints of GPT-2 125M (bf16, AdamW): the entry point
                 (FSDP, its own one-rank NCCL group) saves with
                 ``--ckpt-dir`` and a second run resumes (steps numbered on);
@@ -184,7 +187,28 @@ capture records; what the replays launched is counted in device traces
                 steps within 1% of NoShard's losses, the collectives and
                 bytes a rank the plan's, B1-B3 on every rank; then fp32
                 TP serving at tp 4 through the eager bodies (gloo), its
-                greedy streams against the one-rank engine's;
+                greedy streams against the one-rank engine's; the (1, 4)
+                job saves its state (``CheckpointManager``), a fresh TP
+                trainer restored from it takes one more step bit for bit
+                with the continued one, and every rank loads the
+                checkpoint whole through ``load_gpt2_params`` at tp = 1:
+                the gathered live weights;
+  multihost     multihost serving: two worker processes (a ``HostWorker``
+                each around the serve phase's paged engine, GPT-2 125M in
+                fp32 with TF32 off, the decode step captured with B7 12
+                times) on a ``TCPStore`` whose master is here, behind a
+                ``Router`` with a 2 s heartbeat TTL: 32 requests, worker 0
+                SIGKILLed mid-decode, every request finished once with the
+                uninterrupted engine's stream (or a departure at a top-2
+                gap under 1e-5), one eviction; a third process rejoins on a
+                fresh channel and takes traffic while ``push_weights``
+                swaps a checkpoint of the same weights into every live
+                worker during 16 more requests; the seconds from the kill
+                to the eviction and to the first refed token, p50/p99,
+                TTFT, tokens/s (processes sharing one card);
+  multihost_example  ``examples/serve_multihost.py``'s ``main`` at GPT-2
+                125M's shape in bf16, two host threads, host0 killed: 16
+                of 16 served, one eviction;
   resnet_parity ResNet-18 (CIFAR stem, B=16) and ResNet-50 (ImageNet stem
                 at 64 px, B=8), fp32 with TF32 off: the port on the card
                 against the port on the CPU (train and eval logits with
@@ -291,6 +315,7 @@ from pytorch_distributed_tpu_torch.data import (
 )
 from pytorch_distributed_tpu_torch.examples import (
     serve_gpt2,
+    serve_multihost,
     train_gpt2,
     train_resnet_ddp,
 )
@@ -779,16 +804,16 @@ def parity_phase():
           f"B7 device launches {device} != n_layer x decode steps {expected}")
 
 
-def _serve_requests(vocab: int):
+def _serve_requests(vocab: int, n: int = 16):
     """The serve phases' requests (seed 2): a warm-up prompt of 40 tokens,
-    then 16 prompts of one 32-token shared prefix plus 8-64 random
-    tokens."""
+    then ``n`` prompts of one 32-token shared prefix plus 8-64 random
+    tokens (the first 16 are the serve phase's at any ``n``)."""
     rng = np.random.default_rng(2)
     warm = rng.integers(0, vocab, 40)
     shared = rng.integers(0, vocab, 32)
     prompts = [np.concatenate([shared, rng.integers(0, vocab,
                                                     int(rng.integers(8, 65)))])
-               for _ in range(16)]
+               for _ in range(n)]
     return warm, shared, prompts
 
 
@@ -2857,6 +2882,7 @@ HOOKS = ("allreduce", "bf16_compress", "fp16_compress", "reduce_scatter",
 HOOK_STEPS = 10
 HOOK_LOSS_TOL = 5e-2      # the 16-bit hooks against the hookless losses
 PSGD_STEPS = 8
+PSGD_RESUME_STEPS = 3     # the runner's steps after a save and a restore
 PSGD = dict(rank=2, start_iter=3)
 RESNET_HOOK_ARGS = ("--model", "resnet50", "--dataset", "imagenet",
                     "--policy", "bf16", "--global-batch", "128",
@@ -2974,6 +3000,54 @@ def _hook_device_ms(hook, grads, group, step, comm_state=None, reps=3):
                             for e in top]}
 
 
+def _psgd_resume(runner, trainer, state, batches):
+    """PowerSGD's checkpoint on the runner: a ``CheckpointManager`` save
+    of the whole state (the model, AdamW, each leaf's Q and the error
+    buffers as one tensor over dp), ``batches`` through the runner, a
+    restore in place into the live runner, the same batches again: the
+    losses and every state tensor (checksums) must be bit for bit the
+    same, with the same programs replayed on the same addresses."""
+    root = _fresh_dir("powersgd")
+    sd = get_state_dict(trainer, state)
+    state_bytes = sum((v.to_local() if hasattr(v, "to_local") else v).nbytes
+                      for v in sd.values())
+    comm_bytes = sum((v.to_local() if hasattr(v, "to_local") else v).nbytes
+                     for k, v in sd.items() if k.startswith("train/comm/"))
+    programs = dict(runner.programs)
+    torch.cuda.synchronize()
+    with CheckpointManager(str(root)) as mgr:
+        t0 = time.perf_counter()
+        mgr.save(state.step, sd)
+        save_s = time.perf_counter() - t0
+        at = state.step
+        state, first = runner.run(state, batches)
+        want = _checksums(trainer, state)
+        ptrs = [t.data_ptr() for t in _step_tensors(trainer, state)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = set_state_dict(trainer, state,
+                               mgr.restore(get_state_dict(trainer, state)))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored_step = state.step
+        same_ptrs = [t.data_ptr() for t in _step_tensors(trainer, state)
+                     ] == ptrs
+        state, again = runner.run(state, batches)
+        got = _checksums(trainer, state)
+    shutil.rmtree(root, ignore_errors=True)
+    first, again = ([float(v) for v in h["loss"]] for h in (first, again))
+    return {"saved_at_step": at, "restored_step": restored_step,
+            "steps": len(batches), "state_bytes": state_bytes,
+            "comm_state_bytes": comm_bytes, "save_s": save_s,
+            "restore_s": restore_s, "losses": first,
+            "resumed_losses": again,
+            "bit_for_bit": first == again and torch.equal(got, want)
+            and restored_step == at,
+            "restore_keeps_addresses": same_ptrs,
+            "same_programs": all(runner.programs.get(k) is p
+                                 for k, p in programs.items())}
+
+
 def powersgd_phase(dp_runner_step_s):
     """GPT-2 125M at full width and depth, the train cell's step (B = 8,
     T = 1024, bf16, flash B1-B3, capturable AdamW), under DataParallel on
@@ -3020,6 +3094,7 @@ def powersgd_phase(dp_runner_step_s):
         runner.submit(batch)
     state, _ = runner.finish()
     compressed_step_s = (time.perf_counter() - t0) / len(batches)
+    resume = _psgd_resume(runner, trainer, state, batches[:PSGD_RESUME_STEPS])
     grads = [torch.randn_like(p) for p in trainer._params]
     timing = {"powersgd": _hook_device_ms(hook, grads, group,
                                           hook.start_iter, state.comm_state),
@@ -3049,8 +3124,12 @@ def powersgd_phase(dp_runner_step_s):
             compressed_step_s / dp_runner_step_s,
         "max_memory_allocated_bytes": {
             k: runs[k]["max_memory_allocated_bytes"] for k in runs},
-        "losses": {k: runs[k]["losses"] for k in runs}}
+        "losses": {k: runs[k]["losses"] for k in runs},
+        "checkpoint_resume": resume}
     emit(line)
+    check(resume["bit_for_bit"] and resume["same_programs"]
+          and resume["restore_keeps_addresses"],
+          f"powersgd: the resume on the runner after a restore {resume}")
     check(runs["runner"]["programs"] == 2
           and sorted(runner.programs) == [False, True],
           f"powersgd: programs {sorted(runner.programs)}")
@@ -3895,6 +3974,7 @@ TP_RANKS_JOBS = (("dp1_tp4", (1, 4), False), ("dp1_tp4_sp", (1, 4), True),
 TP_SERVE_REQUESTS = 8
 TP_SERVE_NEW_TOKENS = 24
 TP_GAP_RTOL = 1e-5            # a departing greedy stream's top-2 gap
+TP_CKPT_JOB = "dp1_tp4"       # the job whose state is saved and resumed
 DISK_ROOT = Path(__file__).resolve().parent / "pytorch_distributed_tpu_torch" \
     / "_build" / "disk_smoke"
 DISK_STEPS = 10
@@ -4086,6 +4166,69 @@ def serve_ckpt_phase(ckpt_dir: Path):
           f"serve_ckpt returned {rc}, printed {lines[:2]} ... {lines[-3:]}")
 
 
+def _tp_rank_trainer(shape, sp: bool, device, seed: int):
+    """GPT-2 125M (bf16, flash attention, AdamW) under ``TensorParallel``
+    on a ``shape`` ``(dp, tp)`` mesh of the ranks' group."""
+    strategy = TensorParallel(init_device_mesh(shape, ("dp", "tp")),
+                              gpt2_tp_plan(), sequence_parallel=sp)
+    model = gpt2_125m(device=device, seed=seed, dtype=torch.bfloat16,
+                      attn_impl=fa.flash_attention)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
+                            eps=1e-8)
+    trainer = Trainer(model, opt, strategy, loss_fn=lm_loss, policy="bf16")
+    return trainer, trainer.init()
+
+
+def _tp_ckpt_round(trainer, state, batch, shape, sp, device, ckpt_dir):
+    """On the ranks, after the job's steps: a ``CheckpointManager`` save of
+    the TP trainer's state; one more step; a fresh TP trainer (other
+    weights) restored from the checkpoint takes the same step, which must
+    be bit for bit the continued one (loss, every gathered parameter);
+    then every rank loads the checkpoint whole through
+    ``load_gpt2_params`` at tp = 1 (the manager's group is collective),
+    and the weights must equal the gathered live ones at the save."""
+    from pytorch_distributed_tpu_torch.models import full_state_dict
+    from pytorch_distributed_tpu_torch.serving import load_gpt2_params
+
+    live = full_state_dict(trainer.model)
+    sd = get_state_dict(trainer, state)
+    state_bytes = sum((v.to_local() if hasattr(v, "to_local") else v).nbytes
+                      for v in sd.values())
+    torch.cuda.synchronize(device)
+    with CheckpointManager(ckpt_dir) as mgr:
+        t0 = time.perf_counter()
+        mgr.save(state.step, sd)
+        save_s = time.perf_counter() - t0
+    _, m = trainer.step(state, batch)
+    continued = (float(m["loss"]), full_state_dict(trainer.model))
+    fresh, fresh_state = _tp_rank_trainer(shape, sp, device, seed=8)
+    torch.cuda.synchronize(device)
+    with CheckpointManager(ckpt_dir) as mgr:
+        t0 = time.perf_counter()
+        fresh_state = set_state_dict(fresh, fresh_state, mgr.restore(
+            get_state_dict(fresh, fresh_state)))
+        torch.cuda.synchronize(device)
+        restore_s = time.perf_counter() - t0
+    restored_step = fresh_state.step
+    _, m = fresh.step(fresh_state, batch)
+    resumed = (float(m["loss"]), full_state_dict(fresh.model))
+    del fresh, fresh_state
+    whole = gpt2_125m(device=device, seed=9)
+    t0 = time.perf_counter()
+    load_step = load_gpt2_params(ckpt_dir, whole)
+    load_s = time.perf_counter() - t0
+    return {
+        "step": state.step, "restored_step": restored_step,
+        "save_s": save_s, "restore_s": restore_s, "state_bytes": state_bytes,
+        "disk_bytes": _dir_bytes(Path(ckpt_dir)),
+        "losses": [continued[0], resumed[0]],
+        "resume_bit_for_bit": continued[0] == resumed[0] and all(
+            torch.equal(resumed[1][n], t) for n, t in continued[1].items()),
+        "tp1_load_step": load_step, "tp1_load_s": load_s,
+        "tp1_equals_live": all(torch.equal(t, live[n]) for n, t in
+                               whole.state_dict().items())}
+
+
 def _tp_rank(rank, port, out_dir, batches, prompts):
     """One of TP_RANKS ranks sharing the card over gloo: GPT-2 125M (bf16,
     flash attention, AdamW, seed 7) for TP_RANKS_STEPS eager steps under
@@ -4100,15 +4243,8 @@ def _tp_rank(rank, port, out_dir, batches, prompts):
         for tag, shape, sp in TP_RANKS_JOBS:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(device)
-            strategy = TensorParallel(init_device_mesh(shape, ("dp", "tp")),
-                                      gpt2_tp_plan(), sequence_parallel=sp)
-            model = gpt2_125m(device=device, seed=7, dtype=torch.bfloat16,
-                              attn_impl=fa.flash_attention)
-            opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
-                                    weight_decay=0.01, eps=1e-8)
-            trainer = Trainer(model, opt, strategy, loss_fn=lm_loss,
-                              policy="bf16")
-            state = trainer.init()
+            trainer, state = _tp_rank_trainer(shape, sp, device, seed=7)
+            model = trainer.model
             _reset_flash_counts()
             losses, step_s = [], []
             for i, batch in enumerate(batches):
@@ -4129,7 +4265,11 @@ def _tp_rank(rank, port, out_dir, batches, prompts):
                          for n, p in model.named_parameters()},
                 "max_memory_allocated_bytes":
                     torch.cuda.max_memory_allocated(device)}
-            del trainer, state, model, opt
+            if tag == TP_CKPT_JOB:
+                result["ckpt"] = _tp_ckpt_round(
+                    trainer, state, batches[-1], shape, sp, device,
+                    f"{out_dir}/ckpt")
+            del trainer, state, model
         torch.cuda.empty_cache()
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -4295,8 +4435,17 @@ def tp_ranks_phase():
         "streams_equal_to_one_rank": sum(
             serve["streams"][r] == ref_streams[r] for r in ref_streams),
         "departures": departures}
+    line["ckpt"] = {"job": TP_CKPT_JOB, "per_rank": [r["ckpt"]
+                                                     for r in ranks]}
     line["phase_s"] = time.perf_counter() - t_phase
     emit(line)
+    check(all(r["ckpt"]["resume_bit_for_bit"]
+              and r["ckpt"]["restored_step"] == TP_RANKS_STEPS
+              and r["ckpt"]["tp1_equals_live"]
+              and r["ckpt"]["tp1_load_step"] == TP_RANKS_STEPS
+              for r in ranks),
+          f"tp_ranks: the TP checkpoint's resume or its tp = 1 load "
+          f"{line['ckpt']}")
     check(not any(line["serve"]["graphs"]) and serve["replays"] == 0,
           "tp_ranks: the engine on a gloo tp group did not run eagerly")
     check(all(r["serve"]["streams"] == serve["streams"] for r in ranks),
@@ -4414,6 +4563,411 @@ def disk_data_phase(train_result, resnet_example):
           and gpt2["losses"][-1] < gpt2["losses"][0],
           f"disk_data: the GPT-2 loss from the token file did not fall: "
           f"{gpt2['losses']}")
+    torch.cuda.empty_cache()
+
+
+MH_HOSTS = 2              # worker processes from the start; one more rejoins
+MH_REQUESTS = 32          # the first batch, across the SIGKILL
+MH_PUSH_REQUESTS = 16     # the second batch, across the weight push
+MH_NEW_TOKENS = 64
+MH_TTL_S = 2.0
+MH_NS = "mh_smoke"
+
+
+#: what a multihost worker process builds: GPT-2 125M (``cfg``: overrides
+#: of ``GPT2Config``, none) from seed 1 in fp32, the serve phase's engine
+MH_SPEC = {"device": "cuda", "cfg": {}, "seed": 1, "serve_kw": SERVE_KW,
+           "hosts": MH_HOSTS}
+
+
+def _mh_worker(index, port, out_dir, spec):
+    """One multihost host: loads the parent's kernel build (no ``nvcc``),
+    builds the model and its engine in fp32 with TF32 off, has the
+    ``Scheduler`` capture the decode step (B7's wrapper launches counted
+    over the capture), drains a warm-up request, then serves behind a
+    ``HostWorker`` on the parent's ``TCPStore`` until the router's stop key
+    (or a SIGKILL). Worker ``spec["hosts"]`` is the rejoiner: warm, it
+    waits for the parent's go key before it registers. Its checkpoint
+    loader reads the pushed weights into a second model on the card and
+    hands its state dict to ``swap_params``."""
+    from datetime import timedelta
+
+    from pytorch_distributed_tpu_torch.serving import (
+        HostWorker,
+        load_gpt2_params,
+    )
+
+    device = torch.device(spec["device"])
+    torch.set_num_threads(1)       # the host processes share the cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device.type == "cuda":
+        _build.load_all(LIBRARIES)
+    model = gpt2_125m(device=device, seed=spec["seed"], **spec["cfg"])
+    scratch = gpt2_125m(device=device, seed=spec["seed"] + 1, **spec["cfg"])
+    engine = InferenceEngine(model, device=device, **spec["serve_kw"])
+    pa.launches = 0
+    sched = Scheduler(engine, emit_events=False)
+    capture_launches = pa.launches
+    sched.submit(Request(prompt=np.arange(8) + 5, max_new_tokens=4))
+    sched.run()
+    steps0, replays0 = sched.decode_steps, engine.replays
+
+    def loader(ckpt_dir, step):
+        load_gpt2_params(ckpt_dir, scratch, step=step)
+        return scratch.state_dict()
+
+    active_at_swap = []
+    swap = sched.swap_params
+
+    def counted_swap(params, **kw):
+        active_at_swap.append(sched.n_active)
+        return swap(params, **kw)
+
+    sched.swap_params = counted_swap
+
+    store = TCPStore("127.0.0.1", port, timeout=timedelta(seconds=600))
+    store.set(f"{MH_NS}/capture/{index}", json.dumps(
+        {"b7_capture_launches": capture_launches,
+         "graphs": engine.graphs}))
+    if index == spec["hosts"]:
+        store.wait([f"{MH_NS}/rejoin"])
+    worker = HostWorker(store, sched, host_id=f"host{index}",
+                        param_loader=loader, emit_events=False)
+    worker.register()
+    worker.serve_forever()
+    torch.save({"host": worker.host_id, "chan": worker.chan,
+                "weights_version": worker.weights_version,
+                "weight_swaps": sched.weight_swaps,
+                "active_at_swap": active_at_swap,
+                "decode_steps": sched.decode_steps - steps0,
+                "replays": engine.replays - replays0,
+                "capture_launches": capture_launches},
+               f"{out_dir}/mh_worker{index}.pt")
+
+
+def _mh_drive(router, finished, until, procs, what, timeout_s=240.0,
+              step_s=None):
+    """Step the router until ``until()``; a worker process that dies (other
+    than a killed one: ``procs`` lists the ones expected alive) or the
+    deadline fails the phase. ``step_s`` collects each step's seconds."""
+    deadline = time.monotonic() + timeout_s
+    while not until():
+        t0 = time.perf_counter()
+        finished.extend(router.step())
+        if step_s is not None:
+            step_s.append(time.perf_counter() - t0)
+        dead = [p.pid for p in procs if not p.is_alive()]
+        check(not dead, f"multihost: worker process(es) {dead} died ({what})")
+        check(time.monotonic() < deadline,
+              f"multihost: {what} did not happen in {timeout_s} s "
+              f"({router.stats()})")
+        time.sleep(0.001)
+
+
+def _mh_departures(got, want, model, prompts):
+    """Where a stream departs from the uninterrupted engine's: its index
+    and the reference's top-2 logit gap there."""
+    out = []
+    for rid, tokens in got.items():
+        ref = want[rid]
+        if tokens != ref:
+            i = next((j for j, (a, b) in enumerate(zip(tokens, ref))
+                      if a != b), min(len(tokens), len(ref)))
+            out.append({"request": rid, "at": i, "top2_rel_gap": _top2_gap(
+                model, prompts[rid], ref, i) if i < len(ref) else 0.0})
+    return out
+
+
+def _mh_latency(finished, wall_s) -> dict:
+    lat = {"request": observability.LatencyTracker(),
+           "ttft": observability.LatencyTracker()}
+    for f in finished:
+        lat["request"].add(f.total_s)
+        lat["ttft"].add(f.ttft_s)
+    tokens = sum(len(f.tokens) for f in finished)
+    return {"requests": len(finished), "tokens": tokens, "wall_s": wall_s,
+            "tokens_per_s": tokens / wall_s,
+            "request_p50_s": lat["request"].percentile(50),
+            "request_p99_s": lat["request"].percentile(99),
+            "ttft_p50_s": lat["ttft"].percentile(50),
+            "ttft_p99_s": lat["ttft"].percentile(99)}
+
+
+def multihost_phase(spec=None):
+    """Multihost serving through the port's ``Router`` and ``HostWorker``s:
+    two worker processes (``_mh_worker``) on one ``TCPStore`` with its
+    master in this process, GPT-2 125M at full width in fp32 with TF32 off,
+    paged (the serve phase's engine: 8 slots, page 16, prefill_len 128,
+    graphs on), ``Router(heartbeat_ttl_s=2)``. 32 of the serve phase's
+    prompts (the 16 and 16 more from its recipe), 64 greedy tokens each;
+    worker 0 SIGKILLed once it has committed a strict prefix of a stream:
+    every request finishes exactly once, every stream equals this
+    process's uninterrupted fp32 engine's (or departs at a top-2 gap
+    under TP_GAP_RTOL), one eviction, and the rebalanced requests are the
+    victim's unfinished ones. Then a third worker process rejoins (a fresh
+    channel) and 16 more requests run while ``push_weights`` sends a
+    ``CheckpointManager`` checkpoint of the same weights: every live
+    worker swaps it in (``weights_version`` 1), the rejoiner takes
+    traffic, and the streams are the uninterrupted engine's. Reports the
+    seconds from the SIGKILL to the eviction and to the first refed
+    token, request and TTFT p50/p99, tokens/s and routes per host (two
+    processes share one card: this measures the control plane and the
+    contexts' time-slicing, not multi-host scaling), and each worker's
+    replays per decode step and the B7 launches its capture recorded
+    (n_layer)."""
+    import tempfile
+
+    from pytorch_distributed_tpu_torch.checkpoint import model_state_dict
+    from pytorch_distributed_tpu_torch.serving import Keys, Router
+
+    t_phase = time.perf_counter()
+    spec = spec or MH_SPEC
+    device = torch.device(spec["device"])
+    cfg = GPT2Config(**spec["cfg"])
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, _, prompts = _serve_requests(cfg.vocab_size,
+                                    MH_REQUESTS + MH_PUSH_REQUESTS)
+    master = TCPStore("127.0.0.1", 0, is_master=True)
+    ckpt = _fresh_dir("multihost")
+    _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = tempfile.mkdtemp(dir=_build._BUILD_DIR)
+    ctx = torch.multiprocessing.start_processes(
+        _mh_worker, args=(master.port, out_dir, spec),
+        nprocs=spec["hosts"] + 1, join=False, start_method="spawn")
+    procs = ctx.processes
+    try:
+        # meanwhile: the uninterrupted reference and the checkpoint to push
+        ref_model = gpt2_125m(device=device, seed=spec["seed"], **spec["cfg"])
+        sched = Scheduler(InferenceEngine(ref_model, device=device,
+                                          **spec["serve_kw"]),
+                          emit_events=False)
+        for p in prompts:
+            sched.submit(Request(prompt=p, max_new_tokens=MH_NEW_TOKENS))
+        want = {f.request_id: f.tokens for f in sched.run()}
+        del sched
+        with CheckpointManager(str(ckpt)) as mgr:
+            t0 = time.perf_counter()
+            mgr.save(1, model_state_dict(ref_model))
+            ckpt_save_s = time.perf_counter() - t0
+
+        router = Router(master, heartbeat_ttl_s=MH_TTL_S)
+        finished = []
+        t0 = time.perf_counter()
+        _mh_drive(router, finished, lambda: len(router.hosts) == spec["hosts"],
+                  procs, "the workers' registration", timeout_s=300)
+        ready_s = time.perf_counter() - t_phase
+        chan0 = next(hv.chan for hv in router.hosts.values()
+                     if hv.host == "host0")
+        mark = len(observability.recent_events(10_000))
+        ids = [router.submit(Request(prompt=p, max_new_tokens=MH_NEW_TOKENS))
+               for p in prompts[:MH_REQUESTS]]
+        t_batch = time.perf_counter()
+        step_s = []
+        _mh_drive(router, finished, lambda: not router._pending
+                  or all(hv.outstanding for hv in router.hosts.values()),
+                  procs, "the first routes", step_s=step_s)
+        victims = sorted(rid for rid, inf in router._inflight.items()
+                         if inf.chan == chan0)
+        # worker 0's own snapshot says when its first step with requests is
+        # done (each admitted stream has its first tokens out, a strict
+        # prefix): the router's view lags while it drains the outboxes
+        load_key = Keys().load(chan0)
+        deadline = time.monotonic() + 120
+        while True:
+            raw = master.get_nowait(load_key)
+            if raw is not None and json.loads(raw)["active"] > 0:
+                break
+            check(time.monotonic() < deadline and procs[0].is_alive(),
+                  "multihost: worker 0 never started decoding")
+            time.sleep(0.0005)
+        os.kill(procs[0].pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        alive = procs[1:spec["hosts"]]
+        _mh_drive(router, finished, lambda: router.evictions >= 1, alive,
+                  "the eviction", step_s=step_s)
+        t_evict = time.perf_counter()
+        done_before = {f.request_id for f in finished}
+        readmitted = {rid: len(inf.committed)
+                      for rid, inf in router._inflight.items()
+                      if inf.rebalances}
+        done_ids = set()
+
+        def refed():
+            done_ids.update(f.request_id for f in finished)
+            return any(rid in done_ids
+                       or len(router._inflight[rid].committed) > n
+                       for rid, n in readmitted.items())
+
+        _mh_drive(router, finished, refed, alive, "the first refed token",
+                  step_s=step_s)
+        t_refeed = time.perf_counter()
+        _mh_drive(router, finished, lambda: not router.has_work, alive,
+                  "the first batch", step_s=step_s)
+        wall1 = time.perf_counter() - t_batch
+        batch1 = list(finished)
+        stats1 = router.stats()
+        rebalanced = sorted(
+            e.metadata["request_id"] for e in observability.recent_events(
+                10_000)[mark:] if e.name == "serving.rebalance")
+
+        # a recovered host rejoins, then a push during a second batch
+        master.set(f"{MH_NS}/rejoin", b"1")
+        alive = procs[1:]
+        _mh_drive(router, finished,
+                  lambda: len(router.hosts) == spec["hosts"] + 1, alive,
+                  "the rejoin", timeout_s=120)
+        rejoined = next(hv for hv in router.hosts.values()
+                        if hv.host == f"host{spec['hosts']}")
+        finished = []
+        ids2 = [router.submit(Request(prompt=p, max_new_tokens=MH_NEW_TOKENS))
+                for p in prompts[MH_REQUESTS:]]
+        t_batch = time.perf_counter()
+        _mh_drive(router, finished, lambda: not router._pending, alive,
+                  "the second batch's routes")
+        # a worker reads the push at the top of its next loop: after the
+        # loop that admitted its requests, so mid-stream
+        t_push = time.perf_counter()
+        router.push_weights(str(ckpt), step=1)
+        _mh_drive(router, finished, lambda: not router.has_work, alive,
+                  "the second batch")
+        wall2 = time.perf_counter() - t_batch
+        _mh_drive(router, finished,
+                  lambda: router.stats()["weights_version_min"] == 1, alive,
+                  "the weight push", timeout_s=120)
+        push_s = time.perf_counter() - t_push
+        stats2 = router.stats()
+        router.stop_hosts()
+        for p in alive:
+            p.join(timeout=120)
+        exits = [p.exitcode for p in procs]
+        workers = [torch.load(f"{out_dir}/mh_worker{i}.pt",
+                              weights_only=False)
+                   for i in range(1, spec["hosts"] + 1)]
+        captures = [json.loads(master.get(f"{MH_NS}/capture/{i}"))
+                    for i in range(spec["hosts"] + 1)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+        master.close()
+        shutil.rmtree(ckpt, ignore_errors=True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+
+    got1 = {f.request_id: f.tokens for f in batch1}
+    got2 = {f.request_id: f.tokens for f in finished}
+    dep1 = _mh_departures(got1, want, ref_model, prompts)
+    dep2 = _mh_departures(got2, want, ref_model, prompts)
+    expected_rebalanced = sorted(set(victims) - done_before)
+    check(all(rid in victims for rid in readmitted),
+          f"multihost: re-admitted {readmitted} beyond worker 0's {victims}")
+    n_layer = cfg.n_layer
+    line = {
+        "phase": "multihost", "model": "gpt2-125m", "dtype": "float32",
+        "tf32": False, "hosts": spec["hosts"], "store": "TCPStore",
+        "worker_processes": spec["hosts"] + 1,
+        "heartbeat_ttl_s": MH_TTL_S, "new_tokens": MH_NEW_TOKENS,
+        "serve_kw": {k: v for k, v in spec["serve_kw"].items()},
+        "workers_ready_s": ready_s, "checkpoint_save_s": ckpt_save_s,
+        "victims": victims, "readmitted_committed": readmitted,
+        "router_steps": len(step_s), "router_step_p50_s": float(
+            np.median(step_s)), "router_step_max_s": max(step_s),
+        "kill_to_evict_s": t_evict - t_kill,
+        "kill_to_first_refed_token_s": t_refeed - t_kill,
+        "batch1": dict(_mh_latency(batch1, wall1), **{
+            k: stats1[k] for k in ("routed", "rebalances", "evictions",
+                                   "stale_chunks", "per_host_routed",
+                                   "request_p50_s", "request_p99_s",
+                                   "ttft_p50_s", "ttft_p99_s")}),
+        "batch2": dict(_mh_latency(finished, wall2),
+                       per_host_routed=stats2["per_host_routed"],
+                       weights_version_min=stats2["weights_version_min"],
+                       push_to_all_swapped_s=push_s),
+        "rejoined_chan": rejoined.chan,
+        "rejoined_routed": rejoined.routed_total,
+        "rebalanced": rebalanced, "departures": dep1 + dep2,
+        "exit_codes": exits, "workers": workers, "captures": captures,
+        "note": "the worker processes share one card: time-sliced CUDA "
+                "contexts, not multi-host scaling",
+        "phase_s": time.perf_counter() - t_phase}
+    emit(line)
+    check(sorted(got1) == ids and len(batch1) == len(ids)
+          and sorted(got2) == ids2 and len(finished) == len(ids2),
+          "multihost: not every request finished exactly once")
+    check(all(len(t) == MH_NEW_TOKENS for t in list(got1.values())
+              + list(got2.values())),
+          "multihost: a stream is short")
+    check(all(d["top2_rel_gap"] < TP_GAP_RTOL for d in dep1 + dep2),
+          f"multihost: streams depart from the uninterrupted engine's at a "
+          f"clear argmax: {dep1 + dep2}")
+    check(stats1["evictions"] == 1 and rebalanced == expected_rebalanced
+          and stats1["rebalances"] == len(rebalanced) > 0,
+          f"multihost: evictions {stats1['evictions']}, rebalanced "
+          f"{rebalanced}, victims {victims}, finished before the eviction "
+          f"{sorted(done_before)}")
+    check(rejoined.chan == spec["hosts"] and rejoined.routed_total > 0,
+          f"multihost: the rejoin's channel {rejoined.chan} or its routes "
+          f"{rejoined.routed_total}")
+    check(stats2["weights_version_min"] == 1 and stats2["evictions"] == 1
+          and all(w["weights_version"] == 1 and w["weight_swaps"] == 1
+                  for w in workers)
+          and any(n > 0 for w in workers for n in w["active_at_swap"]),
+          f"multihost: the weight push (swapped while serving?) {stats2} "
+          f"{workers}")
+    check(exits[0] == -signal.SIGKILL and all(e == 0 for e in exits[1:]),
+          f"multihost: exit codes {exits}")
+    check(all(c["b7_capture_launches"] == n_layer and c["graphs"]
+              == (device.type == "cuda") for c in captures)
+          and all(w["replays"] == (w["decode_steps"]
+                                   if device.type == "cuda" else 0)
+                  and w["decode_steps"] > 0 for w in workers),
+          f"multihost: B7 in the captures {captures}, replays {workers}")
+    del ref_model
+    torch.cuda.empty_cache()
+    return line
+
+
+MH_EXAMPLE_ARGS = ("--layers", "12", "--embd", "768", "--heads", "12",
+                   "--vocab", "50257", "--seq-len", "1024", "--hosts", "2",
+                   "--slots", "8", "--prefill-len", "128", "--requests",
+                   "16", "--max-new-tokens", "64", "--evict")
+
+
+def multihost_example_phase():
+    """The entry point ``examples.serve_multihost``'s ``main`` at GPT-2
+    125M's shape in bf16: two host threads over a ``HashStore``, host0
+    killed mid-decode; it returns 0, serves 16 of 16 and evicts once."""
+    argv = list(MH_EXAMPLE_ARGS)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_multihost.main(argv)
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    served = re.search(
+        r"served (\d+)/(\d+) requests in ([\d.]+)s \| request p50 "
+        r"([\d.]+)ms p99 ([\d.]+)ms \| ttft p50 ([\d.]+)ms", out)
+    hosts = re.search(r"evictions (\d+)", out)
+    lines = out.splitlines()
+    emit({"phase": "multihost_example", "argv": argv, "returned": rc,
+          "dtype": "bfloat16", "wall_s": wall,
+          "served": served and [int(served.group(1)), int(served.group(2))],
+          "serve_wall_s": served and float(served.group(3)),
+          "request_p50_ms": served and float(served.group(4)),
+          "request_p99_ms": served and float(served.group(5)),
+          "ttft_p50_ms": served and float(served.group(6)),
+          "evictions": hosts and int(hosts.group(1)),
+          "summary": lines[-3:]})
+    check(rc == 0 and served is not None and served.group(1) == "16"
+          and served.group(2) == "16" and hosts is not None
+          and hosts.group(1) == "1",
+          f"multihost_example returned {rc}, printed {lines[-4:]}")
     torch.cuda.empty_cache()
 
 
@@ -4537,6 +5091,8 @@ def main() -> int:
     fsdp = fsdp_ranks_phase()
     hooks_ranks_phase(fsdp["noshard"]["losses"])
     tp_ranks_phase()
+    multihost_phase()
+    multihost_example_phase()
 
     torch.cuda.empty_cache()
     resnet_parity_phase()

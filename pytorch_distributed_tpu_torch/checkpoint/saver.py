@@ -37,7 +37,7 @@ from typing import Any, Dict, List, Optional
 import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
 
-from pytorch_distributed_tpu_torch.checkpoint.state_dict import model_state_dict
+from pytorch_distributed_tpu_torch.checkpoint.state_dict import load_model_state
 
 __all__ = [
     "save_checkpoint",
@@ -264,8 +264,9 @@ class CheckpointManager:
         """Load only the model's entries of ``step`` (default: the newest)
         into ``model`` in place; returns the step."""
         step = self._step_or_latest(step)
-        _load(self._path(step), model_state_dict(model, strategy),
-              self._group)
+        path = self._path(step)
+        load_model_state(model, strategy,
+                         lambda sd: _load(path, sd, self._group))
         return step
 
     def close(self) -> None:

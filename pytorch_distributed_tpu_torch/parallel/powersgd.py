@@ -126,6 +126,9 @@ class PowerSGD:
     """
 
     stateful = True
+    #: the comm_state keys each rank holds its own of (the checkpoint saves
+    #: them as blocks over dp; Q is the same on every rank)
+    per_rank_keys = ("e",)
 
     def __init__(self, rank: int = 2, *, start_iter: int = 10,
                  min_compression_rate: float = 2.0,

@@ -172,7 +172,8 @@ def tp_full_tensor(t: torch.Tensor, spec: Optional[TPShard]) -> torch.Tensor:
     blocks = gather(t.detach(), d, spec.group, spec.size)  # rank-major
     r = blocks.shape[d] // (spec.size * n)
     parts = blocks.reshape(*t.shape[:d], spec.size, n, r, *t.shape[d + 1:])
-    return parts.transpose(d, d + 1).reshape(spec.whole).clone()
+    # whole on tp: ``spec.whole``, or its fsdp block under TP x FSDP
+    return parts.transpose(d, d + 1).reshape(blocks.shape).clone()
 
 
 # -- the forward's collectives ----------------------------------------------

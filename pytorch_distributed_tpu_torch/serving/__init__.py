@@ -1,7 +1,8 @@
 """Serving: slotted and paged KV caches, inference engine, continuous
 batching scheduler, speculative decoding, and the tensor-parallel serving
 layout (``sharding``: the mesh, the weights' and the caches' placements,
-``load_gpt2_params``)."""
+``load_gpt2_params``), and multihost serving (``multihost``: a router over
+one scheduler a host)."""
 
 from pytorch_distributed_tpu_torch.serving.engine import (  # noqa: F401
     InferenceEngine,
@@ -15,6 +16,11 @@ from pytorch_distributed_tpu_torch.serving.scheduler import (  # noqa: F401
     FinishedRequest,
     Request,
     Scheduler,
+)
+from pytorch_distributed_tpu_torch.serving.multihost import (  # noqa: F401
+    HostWorker,
+    Keys,
+    Router,
 )
 from pytorch_distributed_tpu_torch.serving.sharding import (  # noqa: F401
     CacheSharding,
@@ -37,10 +43,13 @@ __all__ = [
     "CacheSharding",
     "DraftConfig",
     "FinishedRequest",
+    "HostWorker",
     "InferenceEngine",
     "KVCache",
+    "Keys",
     "PagedKVCache",
     "Request",
+    "Router",
     "SamplingParams",
     "Scheduler",
     "SwapCost",

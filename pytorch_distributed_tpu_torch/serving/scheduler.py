@@ -144,6 +144,17 @@ class Scheduler:
         return int(self.active.sum())
 
     @property
+    def free_pages(self) -> int:
+        """Admission capacity in pages, the multihost load snapshot's
+        occupancy signal. Paged: the free pages net of outstanding
+        reservations. Slotted: the free slots in page-equivalents (each
+        slot is ``max_len`` worth of pages), so a router compares the two
+        cache kinds on one scale."""
+        if self.allocator is not None:
+            return int(self.allocator.available_pages)
+        return (self.engine.n_slots - self.n_active) * self.engine.max_pages
+
+    @property
     def has_work(self) -> bool:
         return bool(self.queue) or self.n_active > 0
 
@@ -493,7 +504,7 @@ class Scheduler:
             out["spec_proposed"] = float(self.accept_rate.den)
             out["spec_accepted"] = float(self.accept_rate.num)
         if self.allocator is not None:
-            out["free_pages"] = float(self.allocator.available_pages)
+            out["free_pages"] = float(self.free_pages)
             out["page_size"] = float(self.allocator.page_size)
             out["n_pages"] = float(self.allocator.n_pages)
             out["radix_hits"] = float(self.radix.hits)

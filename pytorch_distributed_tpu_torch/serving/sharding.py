@@ -156,7 +156,10 @@ def load_gpt2_params(ckpt_dir: str, model, mesh: Optional[DeviceMesh] = None,
         CheckpointManager,
         load_checkpoint,
     )
-    from pytorch_distributed_tpu_torch.checkpoint.state_dict import _view
+    from pytorch_distributed_tpu_torch.checkpoint.state_dict import (
+        _Entry,
+        _view,
+    )
 
     if mesh is not None and getattr(model, "tp", None) is None:
         shard_gpt2_params(model, mesh, tp_axis=tp_axis, dp_axis=dp_axis)
@@ -174,7 +177,7 @@ def load_gpt2_params(ckpt_dir: str, model, mesh: Optional[DeviceMesh] = None,
         if spec is None:
             state[key] = t
         elif spec.chunks == 1:
-            state[key] = _view((t, tp_axis, spec.dim), placed)
+            state[key] = _view(_Entry(t, {tp_axis: spec.dim}), placed)
         else:
             whole = torch.empty(spec.whole, dtype=t.dtype, device=t.device)
             state[key] = whole

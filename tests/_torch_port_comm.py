@@ -371,3 +371,93 @@ def powersgd_rank(rank, store_dir, state_dict, batch, q_by_param, width, lr,
     out["runner"] = run(PowerSGD(**across), 5, runner=True)
     out["cold"] = run(PowerSGD(**dict(psgd, warm_start=False)), 3)
     _save(out, store_dir, "powersgd", rank)
+
+
+def powersgd_ckpt_rank(rank, store_dir, state_dict, batch, q_by_param, width,
+                       lr, momentum, psgd, steps, at):
+    """ResNet-18 under PowerSGD (``psgd``) with the JAX run's Q carried in:
+    ``steps`` steps straight through; ``at`` steps, a ``CheckpointManager``
+    save, a fresh trainer from other weights (and its own Q) restored from
+    it, the rest; and on the runner, a save after ``at`` steps, the rest,
+    a restore into the live runner, the rest again. Records losses, the
+    model's state, the comm state, and whether the restore kept the comm
+    state's tensors in place."""
+    from pytorch_distributed_tpu_torch.checkpoint import (
+        CheckpointManager,
+        get_state_dict,
+        set_state_dict,
+    )
+    from pytorch_distributed_tpu_torch.mesh import init_device_mesh
+    from pytorch_distributed_tpu_torch.models import resnet18
+    from pytorch_distributed_tpu_torch.parallel import PowerSGD
+    from pytorch_distributed_tpu_torch.pipeline_exec import AsyncRunner
+
+    mesh = init_device_mesh((WS,), ("dp",))
+    other = resnet18(10, cifar_stem=True, num_filters=width, device="cpu",
+                     seed=123).state_dict()
+
+    def fresh(sd, carry):
+        trainer, state = resnet_trainer(rank, mesh, sd, PowerSGD(**psgd),
+                                        None, width, lr, momentum)
+        if carry:
+            for idx, value in q_by_param.items():
+                state.comm_state[str(idx)]["q"].copy_(torch.tensor(value))
+        return trainer, state
+
+    def snapshot(trainer, state, losses):
+        return {"losses": losses, "step": state.step,
+                "state": {k: v.detach().clone() for k, v in
+                          trainer.model.state_dict().items()},
+                "comm_state": {k: {n: t.clone() for n, t in e.items()}
+                               for k, e in state.comm_state.items()}}
+
+    def steps_of(trainer, state, n):
+        losses = []
+        for _ in range(n):
+            state, m = trainer.step(state, batch)
+            losses.append(float(m["loss"]))
+        return state, losses
+
+    out = {}
+    trainer, state = fresh(state_dict, True)
+    state, losses = steps_of(trainer, state, steps)
+    out["straight"] = snapshot(trainer, state, losses)
+
+    ckpt = f"{store_dir}/psgd_ckpt"
+    trainer, state = fresh(state_dict, True)
+    state, first = steps_of(trainer, state, at)
+    with CheckpointManager(ckpt) as mgr:
+        mgr.save(state.step, get_state_dict(trainer, state))
+    trainer, state = fresh(other, False)
+    ptrs = [t.data_ptr() for e in state.comm_state.values()
+            for t in e.values()]
+    with CheckpointManager(ckpt) as mgr:
+        state = set_state_dict(trainer, state,
+                               mgr.restore(get_state_dict(trainer, state)))
+    in_place = ptrs == [t.data_ptr() for e in state.comm_state.values()
+                        for t in e.values()]
+    restored = snapshot(trainer, state, [])
+    state, rest = steps_of(trainer, state, steps - at)
+    out["resumed"] = snapshot(trainer, state, first + rest)
+    out["resumed"].update(in_place=in_place, restored=restored)
+
+    trainer, state = fresh(state_dict, True)
+    runner = AsyncRunner(trainer, depth=2, drain_every=at)
+    state, h = runner.run(state, [batch] * at)
+    programs = dict(runner.programs)
+    with CheckpointManager(f"{ckpt}_runner") as mgr:
+        mgr.save(state.step, get_state_dict(trainer, state))
+        state, h_first = runner.run(state, [batch] * (steps - at))
+        after = snapshot(trainer, state, [float(v) for v in h_first["loss"]])
+        state = set_state_dict(trainer, state,
+                               mgr.restore(get_state_dict(trainer, state)))
+    state, h_again = runner.run(state, [batch] * (steps - at))
+    out["runner"] = {
+        "first": after,
+        "again": snapshot(trainer, state, [float(v) for v in
+                                           h_again["loss"]]),
+        "losses_before": [float(v) for v in h["loss"]],
+        "same_programs": all(runner.programs[k] is p
+                             for k, p in programs.items()),
+    }
+    _save(out, store_dir, "psgd_ckpt", rank)

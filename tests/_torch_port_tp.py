@@ -290,3 +290,122 @@ def cut_stream_body(rank, store_dir, state_dict, cfg):
             kw = dict(cache_sharding=kv_cache_sharding(mesh))
         out[cut] = stream(model, **kw)
     torch.save(out, f"{store_dir}/cut_stream.pt")
+
+
+# -- checkpoints of a TP trainer's state --------------------------------------
+CKPT_JOBS = [("tp4_sp1", "tp4", True), ("tp4_sp0", "tp4", False),
+             ("dp2tp2_sp0", "dp2tp2", False),
+             ("fsdp2tp2_sp0", "fsdp2tp2", False)]
+CKPT_AT = 2
+
+
+def ckpt_requests(seed=3, n=4):
+    """Greedy requests in the tiny training model's vocab."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, TINY["vocab_size"], int(rng.integers(3, 9))),
+             int(rng.integers(4, 9))) for _ in range(n)]
+
+
+def ckpt_streams(model, cache_sharding=None):
+    from pytorch_distributed_tpu_torch.serving import (
+        InferenceEngine,
+        Request,
+        Scheduler,
+    )
+
+    engine = InferenceEngine(model, n_slots=2, max_len=TINY["n_positions"],
+                             prefill_len=16, device="cpu",
+                             cache_sharding=cache_sharding)
+    sched = Scheduler(engine, emit_events=False)
+    for prompt, n_new in ckpt_requests():
+        sched.submit(Request(prompt=prompt, max_new_tokens=n_new))
+    return {f.request_id: list(f.tokens) for f in sched.run()}
+
+
+def _tp_trainer(strategy, state_dict, seed=0):
+    from pytorch_distributed_tpu_torch.models import GPT2, GPT2Config
+    from pytorch_distributed_tpu_torch.trainer import Trainer, lm_loss
+
+    model = GPT2(GPT2Config(**TINY), device="cpu", seed=seed)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    opt = torch.optim.AdamW(model.parameters(), lr=LR, weight_decay=WD,
+                            eps=1e-8)
+    trainer = Trainer(model, opt, strategy, loss_fn=lm_loss)
+    return trainer, trainer.init()
+
+
+def ckpt_resume_body(rank, store_dir, jobs, state_dict):
+    """Per job: ``STEPS`` steps straight through; and ``CKPT_AT`` steps, a
+    ``CheckpointManager`` save, a fresh trainer (other random weights)
+    restored from it, and the remaining steps. Records both runs' losses,
+    whole parameters and AdamW state, what the checkpoint's metadata
+    holds, and (dp2tp2) the streams of ``load_gpt2_params`` onto the
+    ``(dp 2, tp 2)`` serving mesh."""
+    from pytorch_distributed_tpu_torch.checkpoint import (
+        CheckpointManager,
+        get_state_dict,
+        set_state_dict,
+    )
+    from pytorch_distributed_tpu_torch.models import (
+        GPT2,
+        GPT2Config,
+        full_optimizer_state,
+        full_state_dict,
+    )
+    from pytorch_distributed_tpu_torch.serving import (
+        kv_cache_sharding,
+        load_gpt2_params,
+        serving_mesh,
+    )
+
+    batch = lm_batch()
+    out = {}
+    for tag, kind, sp in jobs:
+        trainer, state = _tp_trainer(make_strategy(kind, sp), state_dict)
+        straight = []
+        for _ in range(STEPS):
+            state, m = trainer.step(state, batch)
+            straight.append(float(m["loss"]))
+        want = (full_state_dict(trainer.model),
+                full_optimizer_state(trainer.optimizer, trainer.model,
+                                     trainer.layout))
+
+        ckpt = f"{store_dir}/ckpt_{tag}"
+        trainer, state = _tp_trainer(make_strategy(kind, sp), state_dict)
+        resumed = []
+        for _ in range(CKPT_AT):
+            state, m = trainer.step(state, batch)
+            resumed.append(float(m["loss"]))
+        at_save = full_state_dict(trainer.model)
+        with CheckpointManager(ckpt) as mgr:
+            mgr.save(state.step, get_state_dict(trainer, state))
+        trainer, state = _tp_trainer(make_strategy(kind, sp), None, seed=11)
+        with CheckpointManager(ckpt) as mgr:
+            state = set_state_dict(trainer, state,
+                                   mgr.restore(get_state_dict(trainer,
+                                                              state)))
+        restored_step = state.step
+        for _ in range(STEPS - CKPT_AT):
+            state, m = trainer.step(state, batch)
+            resumed.append(float(m["loss"]))
+        got = (full_state_dict(trainer.model),
+               full_optimizer_state(trainer.optimizer, trainer.model,
+                                    trainer.layout))
+        out[tag] = {"straight": straight, "resumed": resumed,
+                    "restored_step": restored_step,
+                    "same_params": all(torch.equal(got[0][n], t)
+                                       for n, t in want[0].items()),
+                    "same_opt": all(torch.equal(got[1][n][k], v)
+                                    for n, st in want[1].items()
+                                    for k, v in st.items()),
+                    "at_save": at_save}
+        if kind == "dp2tp2":
+            mesh = serving_mesh(dp=2, tp=2)
+            model = GPT2(GPT2Config(**TINY), device="cpu", seed=5)
+            out[tag]["load_step"] = load_gpt2_params(ckpt, model, mesh)
+            out[tag]["tp2_streams"] = ckpt_streams(model,
+                                                   kv_cache_sharding(mesh))
+            out[tag]["tp2_held"] = tuple(
+                model.h[0].attn.c_attn.weight.shape)
+    torch.save(out, f"{store_dir}/ckpt.rank{rank}.pt")
