@@ -166,6 +166,15 @@ capture records; what the replays launched is counted in device traces
                 tp all-reduces in the capture): streams equal serve's, one
                 replay and B7 12 times a decode step; tokens/s and decode
                 p50 against serve's;
+  redistribute  A.16 on the same group: ``reshard_gpt2_params`` of a 498 MB
+                fp32 host state onto the (dp 1, tp 1) serving layout, bit
+                for bit, staged through 16 MiB and not; mid-stream
+                ``swap_params`` of host weights of equal value into serve's
+                bf16 paged engine (staged and not) and into an fp32 engine:
+                seconds, the card's allocation above its resident bytes
+                beside the plan's peak and naive gather, every ``data_ptr``
+                kept, no new capture, one replay a decode step either side,
+                streams equal the uninterrupted run's;
   serve_ckpt    ``examples/serve_gpt2.py``'s ``main`` with ``--ckpt-dir`` on
                 ckpt_gpt2's checkpoint (run inside that phase);
   fsdp_ranks    four spawned ranks sharing the card over gloo (where gloo
@@ -193,6 +202,18 @@ capture records; what the replays launched is counted in device traces
                 with the continued one, and every rank loads the
                 checkpoint whole through ``load_gpt2_params`` at tp = 1:
                 the gathered live weights;
+  redistribute_ranks  at the end of tp_ranks' ranks: GPT-2 125M (fp32)
+                laid out FSDP over the 4 ranks moves to the (1, 4) serving
+                layout through ``reshard_gpt2_params`` and serves tp_ranks'
+                prompts (streams equal the TP engine cut from the same
+                weights); a dp-4 FSDP AdamW state (one bf16 step) is saved,
+                moved to dp 2 on ranks 0 and 1 by ``reshard_state`` under a
+                16 MiB staging bound (ranks 2 and 3 only send), equal bit
+                for bit to ``resume_from_checkpoint``'s at dp 2, and the
+                resized trainer's step runs B1-B3; per rank the plan's
+                bytes, peak and naive gather, the bytes sent and staged
+                through the host, and the measured peak (below the naive
+                gather's);
   multihost     multihost serving: two worker processes (a ``HostWorker``
                 each around the serve phase's paged engine, GPT-2 125M in
                 fp32 with TF32 off, the decode step captured with B7 12
@@ -266,6 +287,7 @@ that line; without a CUDA device it exits 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import io
 import json
@@ -304,6 +326,8 @@ from pytorch_distributed_tpu_torch.elastic import (
     DynamicRendezvous,
     LocalElasticAgent,
     WorkerSpec,
+    reshard_state,
+    resume_from_checkpoint,
 )
 from pytorch_distributed_tpu_torch.data import (
     DistributedSampler,
@@ -326,6 +350,8 @@ from pytorch_distributed_tpu_torch.ops import chunked_xent
 from pytorch_distributed_tpu_torch.ops import paged_attention as pa
 from pytorch_distributed_tpu_torch.pipeline_exec import AsyncRunner
 from pytorch_distributed_tpu_torch.pipeline_exec.runner import _step_tensors
+from pytorch_distributed_tpu_torch.redistribute import Sharding, plan_tree
+from pytorch_distributed_tpu_torch.redistribute import executor as rdx
 from pytorch_distributed_tpu_torch.parallel import (
     CPStrategy,
     DataParallel,
@@ -345,6 +371,7 @@ from pytorch_distributed_tpu_torch.serving import (
     SamplingParams,
     Scheduler,
     paged_kv_cache_sharding,
+    reshard_gpt2_params,
     serving_mesh,
     shard_gpt2_params,
 )
@@ -4144,6 +4171,161 @@ def tp_serve_phase(serve_streams, serve_latency):
     torch.cuda.empty_cache()
 
 
+REDIST_STAGING = 16 * 2**20   # max_staging_bytes of the staged moves
+REDIST_REQUESTS = 8
+REDIST_NEW_TOKENS = 32
+REDIST_SWAP_AT = 8            # decode steps before a mid-stream swap
+
+
+def _host_state(model):
+    """A state dict of ``model``'s whole weights on the host (equal values,
+    other tensors): what a file read hands a server."""
+    return {n: t.detach().cpu().clone() for n, t in model.state_dict().items()}
+
+
+def _swap_run(engine, prompts, host=None, staging=None):
+    """The prompts on a fresh scheduler of ``engine`` (its capture made when
+    it is built); with ``host``, a ``swap_params`` of it after
+    REDIST_SWAP_AT steps. Returns the streams and, for a swap: seconds,
+    the plan's cost, ``max_memory_allocated`` above what the card held
+    just before, whether every parameter kept its ``data_ptr``, whether the
+    engine captured no new program, and the replays per decode step
+    before and after the swap."""
+    sched = Scheduler(engine, emit_events=False)
+    for p in prompts:
+        sched.submit(Request(prompt=p, max_new_tokens=REDIST_NEW_TOKENS))
+    out = {}
+    marks = [(engine.replays, sched.decode_steps)]
+    if host is not None:
+        for _ in range(REDIST_SWAP_AT):
+            sched.step()
+        marks.append((engine.replays, sched.decode_steps))
+        ptrs = [p.data_ptr() for p in engine.model.parameters()]
+        programs = set(engine._programs)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rdx.reset_counts()
+        t0 = time.perf_counter()
+        cost = sched.swap_params(host, max_staging_bytes=staging)
+        torch.cuda.synchronize()
+        out.update(
+            swap_s=time.perf_counter() - t0, cost=dataclasses.asdict(cost),
+            counts=dict(rdx.counts),
+            max_allocated_above_resident_bytes=(
+                torch.cuda.max_memory_allocated() - resident),
+            data_ptrs_kept=ptrs == [p.data_ptr()
+                                   for p in engine.model.parameters()],
+            no_new_capture=set(engine._programs) <= programs)
+    finished = sched.run()
+    torch.cuda.synchronize()
+    marks.append((engine.replays, sched.decode_steps))
+    out["replays_per_decode_step"] = [
+        (r1 - r0) / max(1, s1 - s0)
+        for (r0, s0), (r1, s1) in zip(marks, marks[1:])]
+    out["streams"] = {f.request_id: list(f.tokens) for f in finished}
+    check(len(finished) == len(prompts), "redistribute: requests lost")
+    return out
+
+
+def redistribute_phase(smi):
+    """A.16 on the one-rank NCCL group, GPT-2 125M: ``reshard_gpt2_params``
+    of a host state dict (fp32) onto the ``(dp 1, tp 1)`` serving layout,
+    bit for bit, with and without staging; on the serve phase's bf16 paged
+    engine a mid-stream ``swap_params`` of host weights of equal value
+    with ``max_staging_bytes`` REDIST_STAGING and with None: the swap's
+    seconds, the card's allocation above its resident bytes beside the
+    plan's ``peak_bytes`` and ``naive_gather_bytes``, every ``data_ptr``
+    kept, no new capture, one replay a decode step on both sides of the
+    swap, the streams those of an uninterrupted run; and an fp32 engine's
+    greedy streams across a staged swap equal to the uninterrupted
+    engine's."""
+    t_phase = time.perf_counter()
+    cfg = GPT2Config()
+    _, _, prompts = _serve_requests(cfg.vocab_size, REDIST_REQUESTS)
+    mesh = serving_mesh(dp=1, tp=pdist.get_world_size())
+    line = {"phase": "redistribute", "nvidia_smi": smi, "model": "gpt2-125m",
+            "mesh": mesh.shape, "max_staging_bytes": REDIST_STAGING,
+            "requests": len(prompts), "new_tokens": REDIST_NEW_TOKENS,
+            "swap_after_steps": REDIST_SWAP_AT}
+
+    # reshard_gpt2_params: a state dict on the host -> the serving layout
+    # (the card's generator draws the weights: copy them from a card model)
+    model = gpt2_125m(device="cuda", seed=1, dtype=torch.bfloat16)
+    host = _host_state(model)
+    line["host_state_bytes"] = sum(t.nbytes for t in host.values())
+    line["reshard_gpt2_params"] = {}
+    for tag, staging in (("staged", REDIST_STAGING), ("unstaged", None)):
+        torch.cuda.synchronize()
+        rdx.reset_counts()
+        t0 = time.perf_counter()
+        blocks, cost = reshard_gpt2_params(host, mesh, with_cost=True,
+                                           max_staging_bytes=staging)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        exact = all(blocks[n].device.type == mesh.device.type
+                    and torch.equal(blocks[n].cpu(), t)
+                    for n, t in host.items())
+        line["reshard_gpt2_params"][tag] = {
+            "s": seconds, "cost": dataclasses.asdict(cost),
+            "counts": dict(rdx.counts), "bit_exact": exact}
+        check(exact, f"redistribute: reshard_gpt2_params ({tag}) is not "
+                     "the host state bit for bit")
+        del blocks
+
+    # serve's bf16 paged engine: swaps mid-stream, staged and not
+    engine = InferenceEngine(model, **SERVE_KW)
+    line["engine_resident_bytes"] = torch.cuda.memory_allocated()
+    plain = _swap_run(engine, prompts)
+    line["bf16"] = {}
+    for tag, staging in (("staged", REDIST_STAGING), ("unstaged", None)):
+        run = _swap_run(engine, prompts, host, staging)
+        run["streams_equal_uninterrupted"] = run.pop("streams") == \
+            plain["streams"]
+        line["bf16"][tag] = run
+    line["bf16"]["uninterrupted_replays_per_decode_step"] = \
+        plain["replays_per_decode_step"]
+    del engine, model
+    torch.cuda.empty_cache()
+
+    # fp32: greedy streams across a staged swap of equal values
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = gpt2_125m(device="cuda", seed=1)
+    host = _host_state(model)
+    engine = InferenceEngine(model, **SERVE_KW)
+    plain = _swap_run(engine, prompts)
+    run = _swap_run(engine, prompts, host, REDIST_STAGING)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+        tf32
+    equal = sum(run["streams"][r] == plain["streams"][r]
+                for r in plain["streams"])
+    line["fp32"] = {k: v for k, v in run.items() if k != "streams"}
+    line["fp32"]["streams_equal_uninterrupted"] = equal
+    line["phase_s"] = time.perf_counter() - t_phase
+    emit(line)
+    for tag, run in (*line["bf16"].items(), ("fp32", line["fp32"])):
+        if not isinstance(run, dict):
+            continue
+        check(run["data_ptrs_kept"] and run["no_new_capture"],
+              f"redistribute {tag}: the swap moved a parameter or captured "
+              "anew")
+        check(all(r == 1.0 for r in run["replays_per_decode_step"]),
+              f"redistribute {tag}: replays a decode step "
+              f"{run['replays_per_decode_step']}")
+    check(all(line["bf16"][t]["streams_equal_uninterrupted"]
+              for t in ("staged", "unstaged")),
+          "redistribute: bf16 streams across a swap of equal weights differ")
+    check(line["bf16"]["staged"]["counts"]["staging_bytes_max"]
+          <= REDIST_STAGING, "redistribute: staging over its bound")
+    check(equal == len(prompts), f"redistribute: {equal} of {len(prompts)} "
+          "fp32 streams across the swap equal the uninterrupted engine's")
+    del engine, model, host
+    torch.cuda.empty_cache()
+
+
 def serve_ckpt_phase(ckpt_dir: Path):
     """``examples.serve_gpt2``'s ``main`` at GPT-2 125M's shape on the
     checkpoint ``train_gpt2.py --ckpt-dir`` wrote (ckpt_gpt2's, step 4):
@@ -4229,6 +4411,147 @@ def _tp_ckpt_round(trainer, state, batch, shape, sp, device, ckpt_dir):
                                whole.state_dict().items())}
 
 
+def _fsdp_rank_trainer(mesh, device, seed: int):
+    """GPT-2 125M (bf16, flash attention, AdamW) under FSDP on ``mesh``."""
+    model = gpt2_125m(device=device, seed=seed, dtype=torch.bfloat16,
+                      attn_impl=fa.flash_attention)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
+                            eps=1e-8)
+    trainer = Trainer(model, opt, FullyShardedDataParallel(mesh),
+                      loss_fn=lm_loss, policy="bf16")
+    return trainer, trainer.init()
+
+
+def _leaf_report(counts, leaves, cost):
+    """The executor's counts beside the plan's tree cost: the rank's
+    measured peak (the largest leaf's resident source and destination
+    blocks plus the transient above them) against the naive gather's,
+    the largest leaf, the two c_proj weights, and the leaves with a
+    sharded destination whose measured peak is not below their naive
+    gather's (a whole destination's copy is the naive gather's size)."""
+    return {"counts": counts, "leaves": len(leaves),
+            "measured_peak_bytes": counts["measured_peak_bytes"],
+            "measured_below_naive": 0 < counts["measured_peak_bytes"]
+            < cost.naive_gather_bytes,
+            "largest": max(leaves, key=lambda x: x["naive_gather_bytes"],
+                           default=None),
+            "c_proj": [x for x in leaves if x["name"] in (
+                "h.0.attn.c_proj.weight", "h.0.mlp.c_proj.weight")],
+            "sharded_not_below_naive": [
+                x["name"] for x in leaves if x["dst_sharded"]
+                and x["measured_peak_bytes"] >= x["naive_gather_bytes"]]}
+
+
+def _redistribute_rank(rank, device, smesh, prompts, batch, ckpt_dir):
+    """redistribute_ranks on one of the TP_RANKS gloo ranks sharing the
+    card: GPT-2 125M fp32 (the serve model's seed) laid out FSDP over the
+    4 ranks moves to the ``(1, 4)`` serving layout through
+    ``reshard_gpt2_params`` and serves the tp serve prompts; then a dp-4
+    FSDP AdamW state (bf16 training, one step) is saved and moved to dp 2
+    on ranks 0 and 1 through ``reshard_state`` (max_staging_bytes
+    REDIST_STAGING; ranks 2 and 3 only send), loaded through
+    ``set_state_dict``, set beside a trainer that ``resume_from_checkpoint``
+    restored at dp 2, and the resized trainer takes one step."""
+    from pytorch_distributed_tpu_torch.parallel.fsdp import shard_module
+    from pytorch_distributed_tpu_torch.parallel.strategies import (
+        shard_spec_with_reason,
+    )
+
+    out = {}
+    fmesh = init_device_mesh((TP_RANKS,), ("fsdp",))
+    mesh2 = init_device_mesh((2,), ("fsdp",), ranks=(0, 1))
+    src = gpt2_125m(device=device, seed=1)
+    fsdp = FullyShardedDataParallel(fmesh)
+    shard_module(src, fsdp)
+    torch.cuda.synchronize(device)
+    rdx.reset_counts()
+    rdx.measure_peaks = True
+    t0 = time.perf_counter()
+    blocks, cost = reshard_gpt2_params(src, smesh, strategy=fsdp,
+                                       with_cost=True)
+    torch.cuda.synchronize(device)
+    move_s = time.perf_counter() - t0
+    rdx.measure_peaks = False
+    out["fsdp_to_tp"] = {"s": move_s, "cost": dataclasses.asdict(cost),
+                         **_leaf_report(dict(rdx.counts), rdx.leaf_peaks,
+                                        cost)}
+    del src
+    model = gpt2_125m(device=device, seed=2)
+    shard_gpt2_params(model, smesh)
+    model.load_state_dict(blocks)
+    del blocks
+    sched = Scheduler(InferenceEngine(
+        model, cache_sharding=paged_kv_cache_sharding(smesh), **SERVE_KW),
+        emit_events=False)
+    for p in prompts:
+        sched.submit(Request(prompt=p, max_new_tokens=TP_SERVE_NEW_TOKENS))
+    out["streams"] = {f.request_id: f.tokens for f in sched.run()}
+    del sched, model
+    torch.cuda.empty_cache()
+
+    # reshard_state: a dp-4 FSDP AdamW state to dp 2 on ranks 0 and 1
+    trainer, state = _fsdp_rank_trainer(fmesh, device, seed=7)
+    state, _ = trainer.step(state, batch)
+    sd = get_state_dict(trainer, state)
+    with CheckpointManager(ckpt_dir) as mgr:
+        mgr.save(state.step, sd)
+    shardings = {}
+    for k, v in sd.items():
+        dim = (shard_spec_with_reason(tuple(v.shape), "fsdp", 2, 1024)[0]
+               if hasattr(v, "to_local") else None)
+        shardings[k] = Sharding.from_placement(
+            mesh2, {} if dim is None else {"fsdp": dim}, v.dim())
+    plan = plan_tree(sd, shardings, max_staging_bytes=REDIST_STAGING)
+    torch.cuda.synchronize(device)
+    rdx.reset_counts()
+    rdx.measure_peaks = True
+    t0 = time.perf_counter()
+    moved = reshard_state(sd, shardings, max_staging_bytes=REDIST_STAGING)
+    torch.cuda.synchronize(device)
+    move_s = time.perf_counter() - t0
+    rdx.measure_peaks = False
+    step = state.step
+    out["state"] = {"s": move_s, "cost": dataclasses.asdict(plan.cost),
+                    "state_bytes_a_rank": sum(
+                        (v.to_local() if hasattr(v, "to_local") else v).nbytes
+                        for v in sd.values()),
+                    "received_none": all(v is None for v in moved.values()),
+                    **_leaf_report(dict(rdx.counts), rdx.leaf_peaks,
+                                   plan.cost)}
+    del trainer, state, sd
+    torch.cuda.empty_cache()
+    if rank < 2:
+        resized, rstate = _fsdp_rank_trainer(mesh2, device, seed=8)
+        rstate = set_state_dict(resized, rstate, moved)
+        del moved
+        fresh, fstate = _fsdp_rank_trainer(mesh2, device, seed=9)
+        fstate = resume_from_checkpoint(ckpt_dir, fresh, fstate)
+        a, b = get_state_dict(resized, rstate), get_state_dict(fresh, fstate)
+        out["state"]["equal_to_resume"] = (rstate.step == fstate.step == step
+                                           and all(torch.equal(
+                                               _to_local(a[k]), _to_local(b[k]))
+                                               for k in b))
+        del fresh, fstate, a, b
+        torch.cuda.empty_cache()
+        _reset_flash_counts()
+        rstate, m = resized.step(rstate, batch)
+        out["state"]["resized_loss"] = float(m["loss"])
+        out["state"]["launches"] = dict(fa.launches)
+        del resized, rstate
+    else:
+        # ranks outside the new mesh take part in the checkpoint's
+        # collectives, reading nothing
+        with CheckpointManager(ckpt_dir) as mgr:
+            mgr.restore({}, step=step)
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _to_local(v):
+    return v.to_local() if hasattr(v, "to_local") else v
+
+
 def _tp_rank(rank, port, out_dir, batches, prompts):
     """One of TP_RANKS ranks sharing the card over gloo: GPT-2 125M (bf16,
     flash attention, AdamW, seed 7) for TP_RANKS_STEPS eager steps under
@@ -4289,6 +4612,12 @@ def _tp_rank(rank, port, out_dir, batches, prompts):
             "decode_steps": sched.decode_steps,
             "heads_a_rank": sched.cache.k.shape[3],
             "streams": {f.request_id: f.tokens for f in finished}}
+        del sched, engine, model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        result["redistribute"] = _redistribute_rank(
+            rank, device, mesh, prompts, batches[-1], f"{out_dir}/rs_ckpt")
+        result["redistribute"]["wall_s"] = time.perf_counter() - t0
     finally:
         torch.save(result, f"{out_dir}/tp_rank{rank}.pt")
         pdist.destroy_process_group()
@@ -4314,7 +4643,7 @@ def _top2_gap(model, prompt, tokens, i) -> float:
     return float((top[0] - top[1]) / top[0].abs())
 
 
-def tp_ranks_phase():
+def tp_ranks_phase(smi=None):
     """TP_RANKS spawned ranks sharing the card over gloo: training under
     ``TensorParallel`` at ``(dp 1, tp 4)`` (3 heads a rank), with and
     without sequence parallelism, and at ``(dp 2, tp 2)``, GPT-2 125M,
@@ -4456,8 +4785,63 @@ def tp_ranks_phase():
     check(all(d["top2_rel_gap"] < TP_GAP_RTOL for d in departures),
           f"tp_ranks: streams depart from the one-rank engine's at a clear "
           f"argmax: {departures}")
+    _redistribute_ranks_report(smi, ranks, serve["streams"], ref_streams,
+                               departures, n_layer)
     del ref_model
     torch.cuda.empty_cache()
+
+
+def _redistribute_ranks_report(smi, ranks, tp_streams, ref_streams,
+                               departures, n_layer):
+    """The redistribute_ranks line from tp_ranks' ranks, and its checks:
+    the resharded TP engine's streams equal to the TP engine cut from the
+    same weights (and so to the one-rank engine's, but for tp_ranks'
+    departures), every leaf's measured peak below its naive gather's, the
+    4 -> 2 state bit for bit the checkpoint's resume, B1-B3 in the resized
+    step, the staging bound kept, ranks 2 and 3 only sending."""
+    per_rank = [r["redistribute"] for r in ranks]
+    line = {"phase": "redistribute_ranks", "nvidia_smi": smi,
+            "ranks": TP_RANKS, "backend": "gloo", "model": "gpt2-125m",
+            "max_staging_bytes": REDIST_STAGING,
+            "fsdp_to_tp": {"dtype": "float32", "from": {"fsdp": TP_RANKS},
+                           "to": {"dp": 1, "tp": TP_RANKS},
+                           "streams_equal_to_tp_cut": sum(
+                               per_rank[0]["streams"][i] == tp_streams[i]
+                               for i in tp_streams),
+                           "streams_equal_to_one_rank": sum(
+                               per_rank[0]["streams"][i] == ref_streams[i]
+                               for i in ref_streams),
+                           "one_rank_departures": departures,
+                           "per_rank": [r["fsdp_to_tp"] for r in per_rank]},
+            "state": {"dtype": "bfloat16 compute, fp32 state", "optimizer":
+                      "AdamW", "from": {"fsdp": TP_RANKS}, "to": {"fsdp": 2},
+                      "per_rank": [r["state"] for r in per_rank]},
+            "wall_s": [r["wall_s"] for r in per_rank]}
+    emit(line)
+    check(all(r["streams"] == tp_streams for r in per_rank),
+          "redistribute_ranks: the resharded engine's streams differ from "
+          "the TP engine cut from the same weights")
+    for what in ("fsdp_to_tp", "state"):
+        bad = [(i, r[what]["measured_peak_bytes"],
+                r[what]["sharded_not_below_naive"])
+               for i, r in enumerate(per_rank)
+               if not r[what]["measured_below_naive"]
+               or r[what]["sharded_not_below_naive"]]
+        check(not bad, f"redistribute_ranks {what}: measured peaks not below "
+              f"the naive gather's: {bad}")
+    for i, r in enumerate(per_rank):
+        st = r["state"]
+        check(st["counts"]["staging_bytes_max"] <= REDIST_STAGING,
+              f"redistribute_ranks: rank {i} staged over the bound")
+        if i < 2:
+            check(st["equal_to_resume"] and math.isfinite(st["resized_loss"])
+                  and all(st["launches"][k] == n_layer for k in CAUSAL_KEYS),
+                  f"redistribute_ranks: rank {i}: resize against resume "
+                  f"{st.get('equal_to_resume')}, loss {st['resized_loss']}, "
+                  f"launches {st['launches']}")
+        else:
+            check(st["received_none"] and st["counts"]["sent_bytes"] > 0,
+                  f"redistribute_ranks: rank {i} should only send")
 
 
 def _images_per_s(loader, batches: int) -> float:
@@ -5023,6 +5407,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -5084,13 +5469,14 @@ def main() -> int:
         del noshard_final
         torch.cuda.empty_cache()
         tp_serve_phase(serve_streams, serve_latency)
+        redistribute_phase(smi)
     finally:
         pdist.destroy_process_group()
     torch.cuda.empty_cache()
     ckpt_gpt2_phase(smi)
     fsdp = fsdp_ranks_phase()
     hooks_ranks_phase(fsdp["noshard"]["losses"])
-    tp_ranks_phase()
+    tp_ranks_phase(smi)
     multihost_phase()
     multihost_example_phase()
 
@@ -5185,6 +5571,8 @@ def main() -> int:
             "train_cp_profile_ms_per_launch": cp_split[key] / n_layer,
             "tflops": r["tflops"],
         })
+    emit({"phase": "total", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t_start})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

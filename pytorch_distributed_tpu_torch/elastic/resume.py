@@ -8,8 +8,9 @@ restores that checkpoint into the new trainer's live tensors in place,
 resharding through ``torch.distributed.checkpoint`` (each rank reads its
 own slice of whatever layout was saved).
 
-:func:`reshard_state`, the no-disk move of a live state onto a new layout,
-needs the redistribution planner (ROADMAP A.16) and raises.
+:func:`reshard_state` is the no-disk variant: it moves a live state (the
+survivors of a resize) onto the new layout through the ``redistribute``
+planner, every leaf in one planned transfer.
 """
 
 from __future__ import annotations
@@ -44,7 +45,23 @@ def resume_from_checkpoint(directory: str, trainer, state: TrainState, *,
 
 
 def reshard_state(state, shardings, *, max_staging_bytes=None):
-    """Move a live state onto new shardings without a checkpoint."""
-    raise NotImplementedError(
-        "not ported yet: reshard_state (planned transfers of a live state "
-        "onto a new layout): ROADMAP A.16")
+    """Move a live state onto ``shardings`` without a checkpoint.
+
+    ``state`` is a flat ``{fqn: value}`` dict in the checkpoint's names
+    (``checkpoint.get_state_dict``): a ``DTensor`` (a rank's block and its
+    placement), a whole tensor every rank holds, or None where this rank
+    holds nothing. ``shardings`` maps the same names to a
+    ``redistribute.Sharding`` on the new mesh (a mesh over the surviving
+    ranks, ``init_device_mesh(..., ranks=...)``) or None, which leaves the
+    value as it is. Every rank of the old and the new mesh calls it.
+    Returns ``{fqn: this rank's block}`` (None outside the new mesh),
+    which loads into a trainer built on the new mesh through
+    ``checkpoint.set_state_dict``. Each leaf is one all-gather /
+    all-to-all / dynamic-slice / device_put step, its peak a source block
+    plus a destination block (and one staging chunk of at most
+    ``max_staging_bytes`` across rank sets), never a gathered replica.
+    """
+    from pytorch_distributed_tpu_torch.redistribute import redistribute_tree
+
+    return redistribute_tree(state, shardings,
+                             max_staging_bytes=max_staging_bytes)

@@ -7,16 +7,20 @@ default process group (``distributed.init_process_group``), with one
 process group per axis: the group that a collective over that axis runs
 on, and one per tuple of axes that a strategy splits the batch over.
 ``init_hybrid_mesh`` lays the ranks out node-major, the DCN axes
-outermost (the reference's multi-slice mesh).
+outermost (the reference's multi-slice mesh). A mesh may also span a
+subset of the ranks (``init_device_mesh(..., ranks=...)``: the target of
+a resize); every rank of the world builds it, and the ranks outside it
+hold no coordinate on it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh as _TorchMesh
 from torch.distributed.device_mesh import init_device_mesh as _torch_mesh
 
 from pytorch_distributed_tpu_torch import distributed as pdist
@@ -30,7 +34,8 @@ class DeviceMesh:
     ``mesh.axis_names``, ``mesh.shape`` (``{axis: size}``),
     ``mesh.size(axis)``, ``mesh.get_group(axis)`` (the process group of
     this rank's line along ``axis``), ``mesh.get_local_rank(axis)`` (this
-    rank's coordinate on it) and ``mesh.device`` (the card, or the CPU).
+    rank's coordinate on it), ``mesh.ranks`` (the global ranks it spans,
+    row-major) and ``mesh.device`` (the card, or the CPU).
     ``axis`` may also be a tuple of axes: its size is the product, its
     coordinate is row-major over the axes in the order given (the order
     in which the reference's ``P(('dp', 'fsdp'))`` splits a dim), and its
@@ -51,6 +56,10 @@ class DeviceMesh:
     @property
     def shape(self) -> dict:
         return dict(zip(self.axis_names, self._mesh.mesh.shape))
+
+    @property
+    def ranks(self) -> tuple:
+        return tuple(int(r) for r in self._mesh.mesh.flatten().tolist())
 
     def size(self, axis) -> int:
         return math.prod(self._mesh.size(self._dim(a)) for a in _axes(axis))
@@ -92,20 +101,35 @@ def _axes(axis) -> tuple:
 def init_device_mesh(
     mesh_shape: Sequence[int],
     axis_names: Sequence[str],
+    *,
+    ranks: Optional[Sequence[int]] = None,
 ) -> DeviceMesh:
     """A mesh over every rank of the default process group, in rank order
-    (torch ``init_device_mesh``). The mesh runs on the group's device: the
-    card unless the group was initialised with ``device="cpu"``."""
+    (torch ``init_device_mesh``), or over ``ranks`` (row-major), a subset
+    of them: every rank of the world calls it, in the same order as its
+    other group creations. The mesh runs on the group's device: the card
+    unless the group was initialised with ``device="cpu"``."""
     device = pdist.get_device()
     n = dist.get_world_size()
     shape = tuple(mesh_shape)
     if len(shape) != len(axis_names):
         raise ValueError(f"{len(shape)} mesh dims but {len(axis_names)} names")
-    if math.prod(shape) != n:
+    want = n if ranks is None else len(ranks)
+    if math.prod(shape) != want:
         raise ValueError(f"mesh_shape {tuple(shape)} needs {math.prod(shape)} "
-                         f"ranks, the group has {n}")
-    torch_mesh = _torch_mesh(device.type, shape,
-                             mesh_dim_names=tuple(axis_names))
+                         f"ranks, {'the group has' if ranks is None else 'got'}"
+                         f" {want}")
+    if ranks is None:
+        torch_mesh = _torch_mesh(device.type, shape,
+                                 mesh_dim_names=tuple(axis_names))
+    else:
+        if len(set(ranks)) != len(ranks) or not all(
+                0 <= int(r) < n for r in ranks):
+            raise ValueError(f"ranks {list(ranks)} are not distinct ranks of "
+                             f"a world of {n}")
+        torch_mesh = _TorchMesh(device.type, torch.tensor(
+            [int(r) for r in ranks]).reshape(shape),
+            mesh_dim_names=tuple(axis_names))
     return DeviceMesh(torch_mesh, device)
 
 

@@ -23,7 +23,9 @@ Port of ``pytorch_distributed_tpu/serving/engine.py``:
     rejected positions keep their K/V bytes, masked and overwritten by the
     next step. On the paged cache the self-draft's one-token forwards and
     the verify window both run the paged-decode kernel.
-  * ``swap_params`` -- new weights, copied in place between steps.
+  * ``swap_params`` -- new weights from any layout, each parameter moved
+    onto the engine's own placement by a planned transfer
+    (``redistribute``) and written in place between steps.
 
 The JAX engine jits its decode step and both spec steps, one program each.
 Here each is a step body over static buffers (``last_tokens``, ``active``
@@ -65,6 +67,11 @@ import torch.distributed as dist
 
 from pytorch_distributed_tpu_torch._device import resolve_device
 from pytorch_distributed_tpu_torch._graphs import Program, warm_stream
+from pytorch_distributed_tpu_torch.redistribute.plan import (
+    LocalMesh,
+    Sharding,
+    TransferCost,
+)
 from pytorch_distributed_tpu_torch.serving.kv_cache import KVCache
 from pytorch_distributed_tpu_torch.serving.paging import PagedKVCache
 from pytorch_distributed_tpu_torch.serving.speculative import (
@@ -120,47 +127,8 @@ def _sample(logits, generator, sp: SamplingParams):
     return draw(probs, generator), probs
 
 
-@dataclasses.dataclass(frozen=True)
-class SwapCost:
-    """What ``swap_params`` moved: the bytes copied into the parameters."""
-
-    bytes_moved: int
-
-
-def _check_state(model, state, what: str):
-    """``(parameter, new value)`` pairs of ``state`` (the model's own names;
-    torch tensors on any device, or numpy arrays) for ``model``: the same
-    names, shapes and dtypes as its parameters, or ``ValueError``."""
-    own = model.state_dict(keep_vars=True)
-    if set(own) != set(state):
-        missing = sorted(set(own) - set(state))
-        extra = sorted(set(state) - set(own))
-        raise ValueError(
-            f"swap_params: {what} structure mismatch -- missing "
-            f"{missing[:4]}, unexpected {extra[:4]}"
-        )
-    pairs = []
-    for name, cur in own.items():
-        new = torch.as_tensor(state[name])
-        if new.shape != cur.shape or new.dtype != cur.dtype:
-            raise ValueError(
-                f"swap_params: leaf mismatch at {what} {name!r} -- have "
-                f"{tuple(cur.shape)}/{cur.dtype}, got "
-                f"{tuple(new.shape)}/{new.dtype}"
-            )
-        pairs.append((cur, new))
-    return pairs
-
-
-@torch.no_grad()
-def _copy_state(pairs) -> int:
-    """Copy each new value into its parameter in place (storage and
-    ``data_ptr`` stay); returns the bytes copied."""
-    moved = 0
-    for cur, new in pairs:
-        cur.copy_(new)
-        moved += new.numel() * new.element_size()
-    return moved
+#: what ``swap_params`` returns: the planner's cost of the move
+SwapCost = TransferCost
 
 
 def _state_tensors(*caches) -> Tuple[torch.Tensor, ...]:
@@ -316,7 +284,8 @@ class InferenceEngine:
                         f"target vocab {cfg.vocab_size} -- the draft must "
                         f"share the tokenizer"
                     )
-                _copy_state(_check_state(draft_model, draft_params, "draft"))
+                self._apply([self._moves(draft_model, draft_params,
+                                         "draft")])
             if self.spec_k + 1 >= self.max_len:
                 raise ValueError(
                     f"spec_k {self.spec_k} leaves no room in max_len "
@@ -420,26 +389,80 @@ class InferenceEngine:
             dtype=self.cache_dtype, device=self.device,
         )
 
-    def swap_params(self, params, *, draft_params=None) -> SwapCost:
-        """Install new weights between steps, copied in place.
+    def _moves(self, model, state, what: str):
+        """The planned move of ``state`` onto ``model``'s parameters, checked
+        (see :meth:`swap_params`): ``(sources, targets, outs)``."""
+        from pytorch_distributed_tpu_torch.serving.sharding import (
+            _check_sources,
+            _Dst,
+            _sources,
+            _Src,
+        )
+
+        sharding = self.cache_sharding
+        mesh = sharding.mesh if sharding is not None else LocalMesh(
+            self.device)
+        tp_axis = sharding.tp_axis if sharding is not None else None
+        sources = _sources(state)
+        targets, outs = {}, {}
+        for name, t in model.state_dict(keep_vars=True).items():
+            tp = getattr(t, "tp", None)
+            placement = {tp_axis: tp.dim} if tp is not None else {}
+            whole = tp.whole if tp is not None else tuple(t.shape)
+            targets[name] = _Dst(whole, t.dtype, mesh, placement,
+                                 tp.chunks if tp is not None else 1)
+            outs[name] = t.detach()
+            src = sources.get(name)
+            if (tp is not None and src is not None and src.sharding is None
+                    and src.shape == tuple(t.shape) != tuple(whole)):
+                # a block of the engine's own placement
+                sources[name] = _Src(src.x, Sharding.from_placement(
+                    mesh, placement, t.dim()), tuple(whole), src.dtype,
+                    tp.chunks > 1)
+        _check_sources(sources, targets, what)
+        return sources, targets, outs
+
+    @staticmethod
+    def _apply(moves, max_staging_bytes=None) -> TransferCost:
+        from pytorch_distributed_tpu_torch.serving.sharding import (
+            _move_params,
+        )
+
+        cost = TransferCost(0, 0, 0)
+        for sources, targets, outs in moves:
+            cost = cost + _move_params(sources, targets, outs=outs,
+                                       max_staging_bytes=max_staging_bytes)[1]
+        return cost
+
+    def swap_params(self, params, *, draft_params=None,
+                    max_staging_bytes: Optional[int] = None) -> TransferCost:
+        """Install new weights between steps (reshard-while-serving).
 
         ``params`` (and ``draft_params`` for a separate draft model) is a
-        state dict in the model's own names: torch tensors on any device,
-        or numpy arrays. Names, shapes and dtypes must match the current
-        parameters, and everything is checked before anything is copied.
-        Each parameter keeps its storage and ``data_ptr``, so a greedy
-        stream continues token-identically when the new values equal the
-        old. Safe whenever no step call is running.
+        state dict in the model's own names whose values may have any
+        layout: DTensors on any mesh (a trainer's blocks), whole tensors
+        or numpy arrays every rank holds, or tensors shaped like this
+        rank's blocks (the engine's own placement). Names, whole shapes
+        and dtypes must match, and everything is checked before anything
+        is copied. Each leaf is moved by the ``redistribute`` planner onto
+        the current parameter's placement (its tp block, or whole; the
+        fused ``c_attn`` as three leaves) and written into its storage,
+        through one staging buffer of at most ``max_staging_bytes`` where
+        a leaf crosses rank sets or comes from the host to the card: every
+        ``data_ptr`` stays, so the captured step programs stay valid and a
+        greedy stream continues token-identically when the new values
+        equal the old. Every rank of a tp group calls it, between steps.
+        Returns the planner's :class:`TransferCost` of the move.
         """
         if draft_params is not None and self.draft_model is None:
             raise ValueError(
                 "swap_params: draft_params given but engine has no separate "
                 "draft model"
             )
-        pairs = _check_state(self.model, params, "target")
+        moves = [self._moves(self.model, params, "target")]
         if draft_params is not None:
-            pairs += _check_state(self.draft_model, draft_params, "draft")
-        cost = SwapCost(bytes_moved=_copy_state(pairs))
+            moves.append(self._moves(self.draft_model, draft_params, "draft"))
+        cost = self._apply(moves, max_staging_bytes)
         self.model.cast_weights()
         if draft_params is not None:
             self.draft_model.cast_weights()

@@ -53,9 +53,11 @@ class HostWorker:
         (0 picks a free port) and beat it every loop.
       param_loader: ``loader(ckpt_dir, step) -> state dict`` for live
         weight pushes (``Router.push_weights``): called when the channel's
-        weights key moves past the version served; the model's own state
-        dict it returns goes into ``Scheduler.swap_params`` between decode
-        steps (an in-place copy). None ignores pushes.
+        weights key moves past the version served; the state dict it
+        returns, in the model's names and on any layout (whole tensors,
+        DTensors), goes into ``Scheduler.swap_params`` between decode
+        steps, which moves it onto this host's placement in place.
+        None ignores pushes.
     """
 
     def __init__(
@@ -191,7 +193,8 @@ class HostWorker:
                 "serving.weight_push", source="multihost",
                 host=self.host_id, chan=self.chan, version=version,
                 ckpt_dir=msg["ckpt_dir"], step=msg["step"],
-                bytes_moved=cost.bytes_moved,
+                bytes_moved=cost.bytes_moved, peak_bytes=cost.peak_bytes,
+                naive_gather_bytes=cost.naive_gather_bytes,
             )
 
     def _stop_requested(self) -> bool:

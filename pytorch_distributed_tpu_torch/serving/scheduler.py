@@ -268,21 +268,28 @@ class Scheduler:
             )
         return finished
 
-    def swap_params(self, params, *, draft_params=None):
-        """Install new weights between decode steps (see
-        :meth:`InferenceEngine.swap_params`: an in-place copy, so in-flight
-        sequences continue, token-identically for equal values).
-        ``step()`` is synchronous, so any moment outside it is a safe swap
-        point. Returns the engine's ``SwapCost``."""
+    def swap_params(self, params, *, draft_params=None,
+                    max_staging_bytes: Optional[int] = None):
+        """Reshard-while-serving weight swap, between decode steps.
+
+        Delegates to :meth:`InferenceEngine.swap_params`: the new weights,
+        on any layout, are moved by the ``redistribute`` planner onto the
+        engine's placement and written in place, so in-flight sequences
+        continue without a new capture (token-identically for equal
+        values). ``step()`` is synchronous, so any moment outside it is a
+        safe swap point. Returns the planner's ``TransferCost``.
+        """
         t0 = time.perf_counter()
-        cost = self.engine.swap_params(params, draft_params=draft_params)
+        cost = self.engine.swap_params(params, draft_params=draft_params,
+                                       max_staging_bytes=max_staging_bytes)
         dt = time.perf_counter() - t0
         self.weight_swaps += 1
         if self.emit_events:
             record_event(
                 "serving.weight_swap", source="scheduler",
-                bytes_moved=cost.bytes_moved, duration_s=dt,
-                n_active=self.n_active,
+                bytes_moved=cost.bytes_moved, peak_bytes=cost.peak_bytes,
+                naive_gather_bytes=cost.naive_gather_bytes,
+                duration_s=dt, n_active=self.n_active,
             )
         put_metric("serving.weight_swaps")
         return cost

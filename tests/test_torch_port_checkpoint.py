@@ -272,5 +272,21 @@ def test_torn_save_is_never_returned(tmp_path):
 
 
 def test_reshard_state_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A.16"):
-        reshard_state(None, None)
+    """A.16 is ported: ``reshard_state`` moves a state dict onto new
+    shardings; a whole tensor lands as this rank's block (no collective),
+    a ``None`` sharding leaves its value as it is."""
+    from pytorch_distributed_tpu_torch.redistribute import Sharding
+    from tests._torch_port_tp import StubMesh
+
+    w = torch.arange(96, dtype=torch.float32).reshape(8, 12)
+    step = torch.tensor(3)
+    for r in range(4):
+        mesh = StubMesh((4,), ("dp",), coords={"dp": r})
+        out = reshard_state({"model/w": w, "train/step": step},
+                            {"model/w": Sharding(mesh, (None, "dp")),
+                             "train/step": None})
+        assert torch.equal(out["model/w"], w[:, 3 * r:3 * r + 3])
+        assert out["train/step"] is step
+    with pytest.raises(ValueError, match="model/w: dim 0"):
+        reshard_state({"model/w": w}, {"model/w": Sharding(
+            StubMesh((3,), ("dp",)), ("dp",))})

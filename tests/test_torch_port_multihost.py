@@ -608,6 +608,10 @@ def test_push_weights_propagates_with_parity(tiny, tmp_path):
               if e.source == "multihost"]
     assert len(pushes) == 2
     assert all(e.metadata["bytes_moved"] > 0 for e in pushes)
+    # the planner's cost of the push: the whole host state onto each
+    # host's parameters, each leaf a copy from the host (no rank set)
+    assert all(0 < e.metadata["naive_gather_bytes"] <= e.metadata[
+        "peak_bytes"] for e in pushes)
     late = make_worker(store, tiny, "host2", param_loader=loader)
     late.register()
     router.step()                          # discovery forwards the push

@@ -37,6 +37,7 @@ from pytorch_distributed_tpu_torch.serving import (
     kv_cache_sharding,
     paged_kv_cache_sharding,
     reshard_gpt2_params,
+    shard_gpt2_params,
 )
 from tests import _torch_port_ranks as ranks
 from tests import _torch_port_tp as tph
@@ -89,8 +90,23 @@ def test_engine_checks_the_models_cut():
 
 
 def test_reshard_raises_naming_a16():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.16"):
-        reshard_gpt2_params({}, None)
+    """A.16 is ported: ``reshard_gpt2_params`` moves a state dict on the
+    host onto a tp rank's serving blocks (each rank narrows its own, no
+    collective), the blocks ``shard_gpt2_params`` cuts, c_attn's per-head
+    rows of q, k and v included."""
+    model = GPT2(GPT2Config(**tph.SERVE), device="cpu")
+    whole = {n: t.clone() for n, t in model.state_dict().items()}
+    for r in range(2):
+        mesh = StubMesh((1, 2), ("dp", "tp"), coords={"dp": 0, "tp": r})
+        blocks = reshard_gpt2_params(whole, mesh)
+        cut = GPT2(GPT2Config(**tph.SERVE), device="cpu")
+        cut.load_state_dict(whole)
+        shard_gpt2_params(cut, mesh)
+        want = cut.state_dict()
+        assert set(blocks) == set(want)
+        for name, t in want.items():
+            assert torch.equal(blocks[name], t), (r, name)
+        assert blocks["h.0.attn.c_attn.weight"].shape == (72, 48)
 
 
 def jax_streams(variables):
