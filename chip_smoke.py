@@ -8,7 +8,9 @@ Run from the repository root on a machine with one NVIDIA H100::
 It builds the port's CUDA kernels from the sources in the checkout (one
 ``nvcc`` per source, all at once) and drives the main paths of the port,
 serving (tensor-parallel and multihost serving too), GPT-2 training (FSDP, ZeRO1,
-DataParallel, TensorParallel), context-parallel training, ResNet training
+DataParallel, TensorParallel; the mixture-of-experts model under FSDP and
+ExpertDataParallel; selective recomputation and dropout),
+context-parallel training, ResNet training
 (also from JPEG files), and checkpointed training that the elastic
 launcher restarts (its checkpoints go under the gitignored build
 directory and are deleted), printing one JSON line per phase. The
@@ -120,6 +122,32 @@ capture records; what the replays launched is counted in device traces
                 attention (B4-B6) under ``CPStrategy`` on a one-rank NCCL
                 group (one card: cp = 1), each against dense attention,
                 losses within 1% at every step;
+  moe_train     the mixture-of-experts path: ``examples/train_gpt2.py
+                --moe-experts 8 --moe-top-k 2`` at GPT-2 125M's full width
+                and depth (MoE in blocks 1, 3, ..., 11: 322,634,544
+                parameters, 152,765,232 a token runs through), B = 8 x
+                1024, bf16, B1-B3, AdamW: step time, tokens/s, MFU over the
+                active parameters, peak memory, ``moe_aux`` a step, B1-B3
+                n_layer a step; then the same step on one repeated batch
+                through ``AsyncRunner`` against the eager loop (losses
+                fall, bit for bit or within the loop's spread, one replay
+                a step, B1-B3 n_layer a replayed step in a device trace),
+                and one MoE block's forward and backward split into the
+                router and masks, the one-hot einsums and the experts
+                (device traces) beside the replayed step's busy time;
+  moe_parity    a 2-layer MoE GPT-2 at full width (E = 4, k = 2), fp32 with
+                TF32 off, card against CPU from the same weights: routes
+                equal, logits, ``moe_aux`` and one backward's gradients
+                within 1e-5 of the CPU's largest value;
+  remat_dropout GPT-2 125M, B = 8 x 1024, bf16: one forward and backward
+                with recomputation off (twice: its spread), full, and the
+                ``dots_with_no_batch_dims_saveable``, ``dots_saveable`` and
+                ``nothing_saveable`` policies, bit for bit with remat off,
+                with peak memory and step time each; then dropout 0.1
+                through the runner against the eager loop, a mask's keep
+                share within 5 sigma of 0.9, and a resume from an
+                in-memory checkpoint drawing the masks of the run it
+                resumes;
   train_cp_parity  the same model, batches and limits as train_parity, with
                 ring flash attention (B4-B6) under ``CPStrategy`` on a
                 one-rank NCCL group (one card: cp = 1) against
@@ -214,6 +242,14 @@ capture records; what the replays launched is counted in device traces
                 bytes, peak and naive gather, the bytes sent and staged
                 through the host, and the measured peak (below the naive
                 gather's);
+  ep_ranks      four spawned ranks sharing the card over gloo: the MoE
+                GPT-2 at full width, 4 layers (E = 8, k = 2), bf16, 2 x 1024
+                tokens a dp row, 3 steps under ``ExpertDataParallel`` on
+                (dp 1, ep 4) and (dp 2, ep 2) against NoShard in this
+                process (losses within 1%): E/ep experts a rank, the other
+                parameters bit for bit on every rank, the all-reduces and
+                bytes a step the design's, the (1, 4) checkpoint resumed
+                bit for bit, step time and peak memory a rank;
   multihost     multihost serving: two worker processes (a ``HostWorker``
                 each around the serve phase's paged engine, GPT-2 125M in
                 fp32 with TF32 off, the decode step captured with B7 12
@@ -355,12 +391,15 @@ from pytorch_distributed_tpu_torch.redistribute import executor as rdx
 from pytorch_distributed_tpu_torch.parallel import (
     CPStrategy,
     DataParallel,
+    ExpertDataParallel,
     FullyShardedDataParallel,
+    MoEMLP,
     NoShard,
     TensorParallel,
     ZeRO1,
     comm,
     gpt2_tp_plan,
+    make_dispatch_masks,
     make_ring_attention,
     zigzag_reorder,
     zigzag_restore,
@@ -5355,6 +5394,688 @@ def multihost_example_phase():
     torch.cuda.empty_cache()
 
 
+# -- mixture of experts, selective remat and dropout (slice 17) -------------
+MOE_CFG = dict(moe_experts=8, moe_top_k=2)
+MOE_BATCH, MOE_SEQ = 8, 1024  # the train cell's batch
+MOE_DEVICE = torch.device("cuda", 0)
+MOE_WARM, MOE_TIMED = 3, 10
+MOE_FIXED_STEPS = 8          # the runner against the eager loop, one batch
+MOE_PARITY = dict(n_layer=2, moe_experts=4, moe_top_k=2)
+MOE_PARITY_BT = (2, 256)
+MOE_PARITY_TOL = 1e-5        # of the reference's largest value
+MOE_GAP = 1e-6               # a route may depart only at a top-k gap below
+REMAT_RUNS = ("full", "dots_with_no_batch_dims_saveable", "dots_saveable",
+              "nothing_saveable")
+REMAT_REPS = 3
+DROPOUT_RATE = 0.1
+DROPOUT_STEPS = 6
+EP_RANKS = 4
+EP_RANKS_STEPS = 3
+EP_RANKS_LAYERS = 4          # full width; depth cut to two MoE blocks
+EP_ROW = 2                   # sequences of 1024 a dp row (a routing group)
+EP_RANKS_LOSS_RTOL = 1e-2    # bf16, as fsdp_ranks' limit
+EP_JOBS = {"dp1_ep4": (1, 4), "dp2_ep2": (2, 2)}
+EP_CKPT_JOB = "dp1_ep4"      # saved after 2 steps, resumed for the third
+
+
+def _moe_counts(cfg: GPT2Config) -> dict:
+    """Parameters of an MoE GPT-2 (the whole model, the expert stacks, the
+    ones a token runs through) and the MoE blocks' shapes."""
+    C, E, k = cfg.n_embd, cfg.moe_experts, cfg.moe_top_k
+    n_moe = sum((i + 1) % cfg.moe_every == 0 for i in range(cfg.n_layer))
+    dense_mlp = 2 * C * 4 * C + 4 * C + C
+    per_block_total = 12 * C * C + 13 * C           # attention, MLP, LNs
+    n_params = (cfg.vocab_size * C + cfg.n_positions * C + 2 * C
+                + cfg.n_layer * per_block_total
+                + n_moe * (2 * E * C * 4 * C + E * C + E - dense_mlp))
+    experts = n_moe * 2 * E * C * 4 * C
+    return {"n_params": n_params, "expert_params": experts,
+            "active_params": n_params - experts + experts * k // E,
+            "n_moe": n_moe}
+
+
+def _onehot_flops(n_tokens: int, cfg: GPT2Config, cap: int) -> float:
+    """FLOPs a step of the one-hot einsums of one MoE block: dispatch
+    (forward, and the tokens' gradient) and combine (forward, and the
+    gradients of the expert outputs and of the gates' mask), each product
+    ``2 n E cap C``."""
+    one = 2.0 * n_tokens * cfg.moe_experts * cap * cfg.n_embd
+    return 5 * one
+
+
+def _card_trainer(seed=2, **cfg):
+    """GPT-2 125M (``cfg`` on top), bf16, flash attention, AdamW built
+    ``capturable`` (the runner's and the eager loop's update arithmetic
+    alike), NoShard."""
+    model = gpt2_125m(device=MOE_DEVICE, seed=seed, dtype=torch.bfloat16,
+                      attn_impl=fa.flash_attention, **cfg)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
+                            eps=1e-8, capturable=True)
+    trainer = Trainer(model, opt, NoShard(MOE_DEVICE), loss_fn=lm_loss,
+                      policy="bf16")
+    return trainer, trainer.init()
+
+
+def _segment_ms(fn, reps: int = 3) -> float:
+    """Device busy time of ``fn()`` (a forward and backward) in a traced
+    window, per call."""
+    with traced(fn) as prof:
+        for _ in range(reps):
+            fn()
+    return sum(e.self_device_time_total
+               for e in _device_kernels(prof)) / 1e3 / reps
+
+
+def _moe_split(cfg: GPT2Config, n_tokens: int, device) -> dict:
+    """One MoE block's forward and backward at the main path's shapes,
+    split: the router, top-k and masks; the one-hot einsums (dispatch and
+    combine); the expert MLPs. Device time of each from a trace."""
+    g = torch.Generator(device=device).manual_seed(3)
+    C, E, k, dt = cfg.n_embd, cfg.moe_experts, cfg.moe_top_k, torch.bfloat16
+    layer = MoEMLP(E, 4 * C, C, k=k, dtype=dt, device=device)
+    layer.reset_parameters(g)
+    cap = layer.capacity(n_tokens)
+
+    def rand(*shape, dtype=dt, grad=False):
+        t = torch.randn(*shape, device=device, generator=g).to(dtype)
+        return t.requires_grad_(grad)
+
+    x = rand(1, n_tokens, C, grad=True)
+    r = layer.router
+
+    def masks():
+        probs = torch.softmax(F.linear(x.float(), r.weight, r.bias), -1)
+        gates, idx = torch.topk(probs, k, dim=-1)
+        d, c = make_dispatch_masks(idx, gates, E, cap, dt)
+        torch.autograd.backward([c], [g_c])
+        return d, c
+
+    g_c = rand(1, n_tokens, E, cap, dtype=torch.float32)
+    d, c = masks()
+    d, c = d.detach(), c.detach().requires_grad_()
+    e_out = rand(1, E, cap, C, grad=True)
+    g_in, g_out = rand(1, E, cap, C), rand(1, n_tokens, C)
+
+    def onehot():
+        e_in = torch.einsum("gnec,gnd->gecd", d, x)
+        out = torch.einsum("gnec,gecd->gnd", c.to(dt), e_out)
+        torch.autograd.backward([e_in, out], [g_in, g_out])
+
+    e_in = rand(1, E, cap, C, grad=True)
+
+    def experts():
+        h = F.gelu(torch.einsum("gecd,edf->gecf", e_in,
+                                layer.experts_up.to(dt)), approximate="tanh")
+        y = torch.einsum("gecf,efd->gecd", h, layer.experts_down.to(dt))
+        torch.autograd.backward([y], [g_in])
+
+    out = {"capacity": cap, "masks_ms": _segment_ms(masks),
+           "onehot_ms": _segment_ms(onehot),
+           "experts_ms": _segment_ms(experts)}
+    del layer, x, d, c, e_out, e_in, g_c, g_in, g_out
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_train_phase():
+    """The MoE path: ``examples/train_gpt2.py --moe-experts 8 --moe-top-k
+    2`` at GPT-2 125M's full width and depth (MoE in blocks 1, 3, ..., 11),
+    B = 8 x 1024, bf16, flash attention, AdamW, its one-rank group: 3
+    warm-up and MOE_TIMED timed steps (step time, tokens/s, MFU over the
+    parameters a token runs through, peak memory, B1-B3 n_layer a step,
+    ``moe_aux`` a step). Then the same step, NoShard, on one repeated batch
+    through ``AsyncRunner`` against the eager loop (losses fall; runner
+    equal to the eager loop within the loop's own spread; one replay a
+    step), 3 replayed steps under a device trace (B1-B3 n_layer each a
+    step), and one MoE block's forward and backward split into the masks,
+    the one-hot einsums and the experts (device traces), against the
+    replayed step's busy time."""
+    bf16_peak, _, _ = peaks()
+    cfg = GPT2Config(**MOE_CFG)
+    counts = _moe_counts(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_counts()
+    steps = MOE_WARM + MOE_TIMED
+    out = train_gpt2.main(["--steps", str(steps), "--log-every", "100",
+                           "--moe-experts", str(cfg.moe_experts),
+                           "--moe-top-k", str(cfg.moe_top_k)])
+    launches = dict(fa.launches)
+    peak_mem = torch.cuda.max_memory_allocated()
+    step_s = out["step_s"][MOE_WARM:]
+    tokens = out["tokens_per_step"]
+    tokens_per_s = tokens * len(step_s) / sum(step_s)
+    cap = max(1, int(cfg.moe_capacity_factor * tokens * cfg.moe_top_k
+                     / cfg.moe_experts))
+    onehot = counts["n_moe"] * _onehot_flops(tokens, cfg, cap)
+    n_layer = cfg.n_layer
+    expected = n_layer * steps
+    line = {"phase": "moe_train", "model": "gpt2-125m-moe", **MOE_CFG,
+            "moe_blocks": counts["n_moe"], "dtype": out["dtype"],
+            "attn": out["attn"], "global_batch": MOE_BATCH,
+            "seq_len": MOE_SEQ,
+            "n_params": out["n_params"],
+            "active_params": counts["active_params"],
+            "capacity": cap, "warmup_steps": MOE_WARM,
+            "timed_steps": MOE_TIMED,
+            "step_p50_s": statistics.median(step_s),
+            "tokens_per_s": tokens_per_s,
+            "mfu_active": 6 * counts["active_params"] * tokens_per_s
+            / bf16_peak,
+            "mfu_note": "6 x active parameters x tokens/s over the bf16 "
+                        "peak; the one-hot einsums are not in it",
+            "onehot_tflop_per_step": onehot / 1e12,
+            "mfu_with_onehot": (6 * counts["active_params"] * tokens
+                                + onehot) * len(step_s) / sum(step_s)
+            / bf16_peak,
+            "max_memory_allocated_bytes": peak_mem,
+            "param_bytes": out["n_params"] * 4,
+            "adamw_state_bytes": 2 * out["n_params"] * 4,
+            "losses": out["losses"], "moe_aux": out["moe_aux"],
+            "kernel_launches": launches, "expected_launches": expected,
+            "strategy": out["strategy"]}
+    check(out["n_params"] == counts["n_params"],
+          f"moe_train: {out['n_params']} parameters, the config's "
+          f"{counts['n_params']}")
+    check(all(np.isfinite(out["losses"] + out["moe_aux"]))
+          and len(out["moe_aux"]) == steps and min(out["moe_aux"]) > 0,
+          f"moe_train: losses {out['losses']} moe_aux {out['moe_aux']}")
+    check(all(launches[k] == expected for k in CAUSAL_KEYS)
+          and not any(launches[k] for k in MASKED_KEYS),
+          f"moe_train: flash launches {launches} != n_layer x steps "
+          f"{expected} of B1-B3 and none of B4-B6")
+
+    # one repeated batch: the runner against the eager loop
+    batches = _lm_batches(1, MOE_BATCH, MOE_SEQ, seed=51) * MOE_FIXED_STEPS
+    runs, spread, got = _runner_runs(lambda: _card_trainer(**MOE_CFG),
+                                     batches, "moe_train")
+    runner, trainer, state = runs["runner"].pop("_runner")
+    losses = runs["runner"]["losses"]
+    check(losses[-1] < losses[0], f"moe_train: runner losses {losses} do "
+                                  "not fall on a repeated batch")
+    warm = n_layer * (AsyncRunner.warmup_steps + 1)
+    check(all(runs["runner"]["launches"][k] == warm for k in CAUSAL_KEYS),
+          f"moe_train: runner wrapper launches {runs['runner']['launches']}")
+    prof_steps = 3
+    expect_calls = {name: n_layer for name in SM90_KERNELS}
+    expect_calls.update({name: 0 for name in MASKED_SM90_KERNELS})
+
+    def window():
+        return _replay_window(runner, state, batches, prof_steps,
+                              expect_calls)
+
+    (device, calls, spans, wall_ms), first = recounted(
+        window, lambda r: r[1] == expect_calls)
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / prof_steps
+    del runner, trainer, state
+    torch.cuda.empty_cache()
+    split = _moe_split(cfg, tokens, MOE_DEVICE)
+    moe_ms = counts["n_moe"] * (split["masks_ms"] + split["onehot_ms"]
+                                + split["experts_ms"])
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:6]
+    line.update(
+        fixed_batch={"eager_spread": spread, "runner_vs_eager": got,
+                     **{k: {kk: v[kk] for kk in (
+                         "losses", "step_s", "max_memory_allocated_bytes",
+                         "replays", "captured") if kk in v}
+                        for k, v in runs.items()}},
+        replayed={"steps": prof_steps, "flash_calls_per_step": calls,
+                  "first_window_flash_calls_per_step": first and first[1],
+                  "device_busy_ms_per_step": busy_ms,
+                  "wall_ms_per_step": wall_ms / prof_steps,
+                  "replay_ms_per_step": _spans_ms(spans) / prof_steps,
+                  "top_kernels": [{"name": e.key[:80],
+                                   "ms_per_step": e.self_device_time_total
+                                   / 1e3 / prof_steps,
+                                   "calls_per_step": e.count / prof_steps}
+                                  for e in top]},
+        split_per_block_ms=split,
+        split_per_step_ms={
+            "masks": counts["n_moe"] * split["masks_ms"],
+            "onehot_einsums": counts["n_moe"] * split["onehot_ms"],
+            "experts": counts["n_moe"] * split["experts_ms"],
+            "dense_remainder": busy_ms - moe_ms,
+            "replayed_step_busy": busy_ms})
+    emit(line)
+    check(calls == expect_calls,
+          f"moe_train: flash calls per replayed step {calls}, expected "
+          f"{expect_calls}")
+    return line
+
+
+def _moe_parity_run(model, batch, dev):
+    """Logits, weighted aux, one backward's gradients (on the host) and
+    each MoE block's routes: top-k expert indices and the smallest gap
+    among the k + 1 largest router probabilities."""
+    seen = []
+    hooks = [b.moe.register_forward_pre_hook(
+        lambda m, args: seen.append((m, args[0].detach())))
+        for b in model.h if b.use_moe]
+    tokens, targets = (torch.from_numpy(t).to(dev) for t in batch)
+    logits, aux = model(tokens)
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1).long()) + aux
+    loss.backward()
+    for h in hooks:
+        h.remove()
+    routes = []
+    with torch.no_grad():
+        for m, x in seen:
+            probs = torch.softmax(F.linear(
+                x.reshape(-1, x.shape[-1]).float(), m.router.weight.float(),
+                m.router.bias.float()), -1)
+            top, idx = torch.topk(probs, m.k + 1, dim=-1)
+            routes.append((idx[:, :m.k].cpu(),
+                           (top[:, :-1] - top[:, 1:]).min(-1).values.cpu()))
+    return (logits.detach().cpu(), float(aux.detach()),
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            routes)
+
+
+def moe_parity_phase():
+    """A 2-layer MoE GPT-2 at full width (E = 4, k = 2), fp32 with TF32
+    off, on the card (B1-B3's fp32 route) and on the CPU (their plain
+    versions) from the same weights and batch: the routes equal (a
+    departure only at a top-k gap below MOE_GAP, counted), the logits,
+    ``moe_aux`` and one backward's gradients within MOE_PARITY_TOL of the
+    CPU's largest value (per tensor)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, T = MOE_PARITY_BT
+    batch = _lm_batches(1, B, T, seed=31)[0]
+    card = gpt2_125m(device=MOE_DEVICE, seed=4, attn_impl=fa.flash_attention,
+                     **MOE_PARITY)
+    cpu = gpt2_125m(device="cpu", seed=4, attn_impl=fa.flash_attention,
+                    **MOE_PARITY)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    _reset_flash_counts()
+    got = _moe_parity_run(card, batch, card.wte.device)
+    launches = dict(fa.launches)
+    want = _moe_parity_run(cpu, batch, "cpu")
+    departed, at_gap = 0, True
+    for (gi, _), (wi, gap) in zip(got[3], want[3]):
+        differ = (gi != wi).any(-1)
+        departed += int(differ.sum())
+        at_gap = at_gap and bool((gap[differ] < MOE_GAP).all())
+
+    def err(g, w):
+        return float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+
+    grad_err = {n: err(got[2][n], w) for n, w in want[2].items()}
+    worst = max(grad_err, key=grad_err.get)
+    line = {"phase": "moe_parity", "dtype": "float32", "tf32": False,
+            "B": B, "T": T, **MOE_PARITY, "tol": MOE_PARITY_TOL,
+            "tokens_routed": sum(len(r[0]) for r in want[3]),
+            "route_departures": departed, "departures_at_near_ties": at_gap,
+            "logits_rel_err": err(got[0], want[0]),
+            "moe_aux": [got[1], want[1]],
+            "moe_aux_rel_err": abs(got[1] - want[1]) / abs(want[1]),
+            "grad_worst_rel_err": grad_err[worst], "grad_worst_param": worst,
+            "launches": launches}
+    emit(line)
+    check(at_gap, "moe_parity: a route departs at a clear top-k gap")
+    check(departed == 0, f"moe_parity: {departed} near-tie route departures "
+                         "(they move their group's outputs)")
+    check(line["logits_rel_err"] <= MOE_PARITY_TOL
+          and line["moe_aux_rel_err"] <= MOE_PARITY_TOL
+          and grad_err[worst] <= MOE_PARITY_TOL,
+          f"moe_parity: logits {line['logits_rel_err']}, aux "
+          f"{line['moe_aux_rel_err']}, gradient of {worst} "
+          f"{grad_err[worst]} over {MOE_PARITY_TOL}")
+    check(all(launches[k] == MOE_PARITY["n_layer"] for k in CAUSAL_KEYS),
+          f"moe_parity: flash launches {launches}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return line
+
+
+def _remat_run(name, batch):
+    """GPT-2 125M, bf16, flash attention, with the recomputation ``name``
+    (``off``, ``full``, or a policy): one forward and backward kept (loss
+    and gradients on the card), then REMAT_REPS timed, and the peak memory
+    above the weights and gradients."""
+    policy = None if name in ("off", "off_again", "full") else name
+    model = gpt2_125m(device=MOE_DEVICE, seed=6, dtype=torch.bfloat16,
+                      attn_impl=fa.flash_attention,
+                      remat=name not in ("off", "off_again"),
+                      remat_policy=policy)
+    tokens, targets = (torch.from_numpy(t).to(model.wte.device)
+                       for t in batch)
+
+    def fwd_bwd():
+        for p in model.parameters():
+            p.grad = None
+        loss, _ = lm_loss(model, (tokens, targets), True)
+        loss.backward()
+        return loss.detach()
+
+    loss = fwd_bwd()
+    grads = [p.grad for p in model.parameters()]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(REMAT_REPS):
+        fwd_bwd()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / REMAT_REPS
+    peak = torch.cuda.max_memory_allocated() - base
+    names = [n for n, _ in model.named_parameters()]
+    del model
+    return loss, dict(zip(names, grads)), {"step_ms": step_ms,
+                                           "peak_above_weights_bytes": peak}
+
+
+def remat_dropout_phase():
+    """GPT-2 125M at full width, B = 8 x 1024, bf16, flash attention: one
+    forward and backward with recomputation off (twice: its run-to-run
+    spread, per tensor) and with each of REMAT_RUNS, whose loss and
+    gradients must equal remat off's within that spread (0 where the card
+    is deterministic; a tensor with a spread is named), with peak memory
+    and step time each. Then ``dropout=DROPOUT_RATE`` through
+    ``AsyncRunner`` against the eager loop (equal within the loop's own
+    spread), the keep share of a mask within 5 sigma of ``1 - rate``, and
+    a resume from an in-memory checkpoint after 2 steps drawing the masks
+    of the run it resumes (the next 2 losses equal)."""
+    batch = _lm_batches(1, MOE_BATCH, MOE_SEQ, seed=41)[0]
+    ref_loss, ref, off = _remat_run("off", batch)
+    runs = {"off": off}
+    diffs = {}
+    for name in ("off_again",) + REMAT_RUNS:
+        loss, grads, runs[name] = _remat_run(name, batch)
+        diffs[name] = {"loss": float((loss - ref_loss).abs()),
+                       "grads": {n: float((g - ref[n]).abs().max())
+                                 for n, g in grads.items()}}
+        del grads
+    torch.cuda.empty_cache()
+    spread = diffs.pop("off_again")
+    noisy = sorted(n for n, d in spread["grads"].items() if d > 0)
+    beyond = {name: [n for n, dd in d["grads"].items()
+                     if dd > spread["grads"][n]]
+              for name, d in diffs.items()}
+    beyond = {k: v for k, v in beyond.items() if v}
+    loss_beyond = {k: d["loss"] for k, d in diffs.items()
+                   if d["loss"] > spread["loss"]}
+    del ref
+
+    # dropout on the runner
+    batches = _lm_batches(DROPOUT_STEPS, MOE_BATCH, MOE_SEQ, seed=43)
+    druns, dspread, dgot = _runner_runs(
+        lambda: _card_trainer(dropout=DROPOUT_RATE), batches, "dropout")
+    runner, trainer, _ = druns["runner"].pop("_runner")
+    trainer.seed_dropout(7)
+    shape = (MOE_BATCH, MOE_SEQ, trainer.model.cfg.n_embd)
+    keep = trainer.model._mask_drawer(shape)()
+    share = float(keep.float().mean())
+    sigma = math.sqrt(DROPOUT_RATE * (1 - DROPOUT_RATE) / keep.numel())
+    del runner, trainer, keep
+    torch.cuda.empty_cache()
+
+    # a resume draws the masks of the run it resumes
+    trainer, state = _card_trainer(dropout=DROPOUT_RATE)
+    for b in batches[:2]:
+        state, _ = trainer.step(state, b)
+    saved = {k: v.clone() for k, v in get_state_dict(trainer, state).items()}
+    want = []
+    for b in batches[2:4]:
+        state, m = trainer.step(state, b)
+        want.append(float(m["loss"]))
+    del trainer, state
+    fresh, fstate = _card_trainer(seed=9, dropout=DROPOUT_RATE)
+    fstate = set_state_dict(fresh, fstate, saved)
+    resumed = []
+    for b in batches[2:4]:
+        fstate, m = fresh.step(fstate, b)
+        resumed.append(float(m["loss"]))
+    del fresh, fstate, saved
+    torch.cuda.empty_cache()
+    line = {"phase": "remat_dropout", "model": "gpt2-125m",
+            "dtype": "bfloat16", "global_batch": MOE_BATCH,
+            "seq_len": MOE_SEQ,
+            "remat": runs, "loss_off": float(ref_loss),
+            "off_spread": {"loss": spread["loss"],
+                           "nondeterministic_grads": noisy},
+            "grads_beyond_spread": beyond, "loss_beyond_spread": loss_beyond,
+            "dropout": {"rate": DROPOUT_RATE, "steps": DROPOUT_STEPS,
+                        "eager_spread": dspread, "runner_vs_eager": dgot,
+                        "losses": druns["runner"]["losses"],
+                        "runner_step_s": druns["runner"]["step_s"],
+                        "eager_step_s": druns["eager_a"]["step_s"],
+                        "keep_share": share, "keep_sigma": sigma,
+                        "resume_losses": resumed,
+                        "uninterrupted_losses": want}}
+    emit(line)
+    check(not beyond and not loss_beyond,
+          f"remat_dropout: gradients {beyond} / losses {loss_beyond} beyond "
+          "remat off's run-to-run spread")
+    check(runs["nothing_saveable"]["peak_above_weights_bytes"]
+          < runs["off"]["peak_above_weights_bytes"],
+          "remat_dropout: recomputing everything saves no memory")
+    check(abs(share - (1 - DROPOUT_RATE)) <= 5 * sigma,
+          f"remat_dropout: keep share {share} not within 5 sigma of "
+          f"{1 - DROPOUT_RATE}")
+    check(max(abs(a - b) for a, b in zip(resumed, want))
+          <= dspread["losses"],
+          f"remat_dropout: resumed losses {resumed} vs {want}")
+    return line
+
+
+def _ep_trainer(mesh, device, seed=7):
+    model = gpt2_125m(device=device, seed=seed, dtype=torch.bfloat16,
+                      attn_impl=fa.flash_attention, n_layer=EP_RANKS_LAYERS,
+                      moe_group_size=EP_ROW * MOE_SEQ, **MOE_CFG)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
+                            eps=1e-8)
+    strategy = (ExpertDataParallel(mesh) if mesh is not None
+                else NoShard(device))
+    trainer = Trainer(model, opt, strategy, loss_fn=lm_loss, policy="bf16")
+    return trainer, trainer.init()
+
+
+def _param_hash(params) -> int:
+    """An exact integer digest of the parameters' bits (equal digests:
+    equal bits, but for a collision)."""
+    total = 0
+    for p in params:
+        bits = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        weights = torch.arange(1, bits.numel() + 1, device=bits.device) \
+            % 1000003
+        total += int((bits * weights).sum())
+    return total
+
+
+def _ep_steps(trainer, state, batches, timed=True):
+    out = {"losses": [], "moe_aux": [], "step_s": []}
+    for i, batch in enumerate(batches):
+        if i == len(batches) - 1:
+            comm.reset_counts()
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, batch)
+        out["losses"].append(float(m["loss"]))
+        out["moe_aux"].append(float(m["moe_aux"]))
+        out["step_s"].append(time.perf_counter() - t0)
+    out["counts"] = dict(comm.counts)
+    out["wire"] = dict(comm.wire_bytes)
+    return state, out
+
+
+def _ep_rank(rank, port, out_dir, job_batches, device):
+    """One of EP_RANKS ranks sharing the card over gloo: each EP_JOBS mesh,
+    EP_RANKS_STEPS eager steps; EP_CKPT_JOB saves after 2 steps and a fresh
+    trainer restored from it takes the third again."""
+    pdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                             rank=rank, world_size=EP_RANKS, device=device)
+    result = {"rank": rank}
+    try:
+        _build.load_all(LIBRARIES)
+        for tag, shape in EP_JOBS.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            mesh = init_device_mesh(shape, ("dp", "ep"))
+            trainer, state = _ep_trainer(mesh, device)
+            batches = job_batches[tag]
+            model, opt = trainer.model, trainer.optimizer
+            r = {"dp": trainer.strategy.data_shard_index,
+                 "held": {n: tuple(p.shape) for n, p in
+                          model.named_parameters() if "experts" in n},
+                 "param_bytes": sum(p.numel() * p.element_size()
+                                    for p in model.parameters()),
+                 "opt_bytes": sum(v.numel() * v.element_size()
+                                  for st in opt.state.values()
+                                  for v in st.values())}
+            if tag == EP_CKPT_JOB:
+                state, first = _ep_steps(trainer, state, batches[:2])
+                ckpt = f"{out_dir}/ckpt"
+                with CheckpointManager(ckpt) as mgr:
+                    mgr.save(state.step, get_state_dict(trainer, state))
+                state, last = _ep_steps(trainer, state, batches[2:])
+                steps = {k: first[k] + last[k] if isinstance(first[k], list)
+                         else last[k] for k in first}
+                fresh, fstate = _ep_trainer(mesh, device, seed=8)
+                with CheckpointManager(ckpt) as mgr:
+                    fstate = set_state_dict(fresh, fstate, mgr.restore(
+                        get_state_dict(fresh, fstate)))
+                fstate, again = _ep_steps(fresh, fstate, batches[2:])
+                r["resumed_losses"] = again["losses"]
+                r["resumed_hash"] = _param_hash(fresh.model.parameters())
+                del fresh, fstate
+            else:
+                state, steps = _ep_steps(trainer, state, batches)
+            r.update(steps)
+            r["replica_hash"] = _param_hash(
+                p for p in model.parameters() if not hasattr(p, "ep"))
+            r["hash"] = _param_hash(model.parameters())
+            r["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(
+                device)
+            result[tag] = r
+            del trainer, state, model, opt
+    finally:
+        torch.save(result, f"{out_dir}/ep_rank{rank}.pt")
+        pdist.destroy_process_group()
+
+
+def _ep_wire(cfg: GPT2Config, dp: int, held_params: int) -> dict:
+    """The design's all-reduces and bytes a rank a step (see
+    ``parallel/expert.py``): per MoE block g (fp32 [n, C]) forward and the
+    two f's backward (the tokens' gradient in bf16, the gates' in fp32),
+    with dp > 1 the aux statistics (``2 E`` fp32) each way; then the dp
+    gradient all-reduce (fp32, the held parameters) and the norm's (2
+    fp32)."""
+    n_moe = _moe_counts(cfg)["n_moe"]
+    n, C, k, E = EP_ROW * MOE_SEQ, cfg.n_embd, cfg.moe_top_k, cfg.moe_experts
+    stats = 2 * 2 * E * 4 if dp > 1 else 0
+    return {"all_reduce": n_moe * (3 + (2 if dp > 1 else 0)) + 2,
+            "all_reduce.bfloat16": n_moe * n * C * 2,
+            "all_reduce.float32": n_moe * (n * C * 4 + n * k * 4 + stats)
+            + held_params * 4 + 8}
+
+
+def ep_ranks_phase():
+    """EP_RANKS spawned ranks on the one card over gloo: GPT-2 125M at full
+    width, EP_RANKS_LAYERS deep (MoE in blocks 1 and 3, E = 8, k = 2,
+    routing groups of one dp row), bf16, flash attention, EP_ROW x 1024
+    tokens a dp row, EP_RANKS_STEPS eager steps under
+    ``ExpertDataParallel`` on (dp 1, ep 4) and (dp 2, ep 2), against
+    NoShard in this process on the same global batches (the mean of the dp
+    rows' losses within EP_RANKS_LOSS_RTOL): E/ep experts a rank (parameter
+    bytes), the parameters outside the expert stacks bit for bit equal on
+    every rank (digests), the all-reduces and bytes a step against the
+    design's, the (1, 4) checkpoint resumed bit for bit, step time and
+    peak memory a rank."""
+    import tempfile
+
+    cfg = GPT2Config(n_layer=EP_RANKS_LAYERS,
+                     moe_group_size=EP_ROW * MOE_SEQ, **MOE_CFG)
+    job_batches = {tag: _lm_batches(EP_RANKS_STEPS, dp * EP_ROW, MOE_SEQ,
+                                    seed=61 + dp)
+                   for tag, (dp, _) in EP_JOBS.items()}
+    want = {}
+    for tag, batches in job_batches.items():
+        trainer, state = _ep_trainer(None, MOE_DEVICE)
+        _, want[tag] = _ep_steps(trainer, state, batches)
+        del trainer, state
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as out_dir:
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(
+            _ep_rank, args=(port, out_dir, job_batches, MOE_DEVICE),
+            nprocs=EP_RANKS,
+            join=False, start_method="spawn")
+        deadline = time.monotonic() + 300
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                check(False, "ep_ranks: the ranks did not finish in 300 s")
+        wall_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{out_dir}/ep_rank{r}.pt", weights_only=False)
+                 for r in range(EP_RANKS)]
+    counts = _moe_counts(cfg)
+    line = {"phase": "ep_ranks", "ranks": EP_RANKS, "backend": "gloo",
+            "wall_s": wall_s, "model": "gpt2-125m-moe",
+            "n_layer": EP_RANKS_LAYERS, **MOE_CFG, "dtype": "bfloat16",
+            "row_tokens": EP_ROW * MOE_SEQ, "steps": EP_RANKS_STEPS,
+            "loss_rtol": EP_RANKS_LOSS_RTOL,
+            "n_params": counts["n_params"]}
+    for tag, (dp, ep) in EP_JOBS.items():
+        rs = [r[tag] for r in ranks]
+        mean = [float(np.mean([rs[d * ep]["losses"][i] for d in range(dp)]))
+                for i in range(EP_RANKS_STEPS)]
+        rel = [abs(a - b) / abs(b) for a, b in zip(mean, want[tag]["losses"])]
+        held = (counts["n_params"] - counts["expert_params"]
+                + counts["expert_params"] // ep)
+        design = _ep_wire(cfg, dp, held)
+        got = {"all_reduce": rs[0]["counts"]["all_reduce"],
+               **{k: rs[0]["wire"].get(k, 0) for k in design if "." in k}}
+        line[tag] = {
+            "mean_losses": mean, "noshard_losses": want[tag]["losses"],
+            "loss_rel_err": rel,
+            "moe_aux": [r["moe_aux"] for r in rs[::ep]],
+            "noshard_moe_aux": want[tag]["moe_aux"],
+            "experts_held": rs[0]["held"],
+            "param_bytes_a_rank": rs[0]["param_bytes"],
+            "design_param_bytes": held * 4,
+            "param_bytes_whole": counts["n_params"] * 4,
+            "opt_bytes_a_rank": rs[0]["opt_bytes"],
+            "collectives_a_step": got, "design": design,
+            "replicas_equal": len({r["replica_hash"] for r in rs}) == 1,
+            "step_s": [r["step_s"] for r in rs],
+            "max_memory_allocated_bytes": [r["max_memory_allocated_bytes"]
+                                           for r in rs]}
+        if tag == EP_CKPT_JOB:
+            line[tag]["resumed_losses"] = [r["resumed_losses"] for r in rs]
+            line[tag]["resume_bit_equal"] = all(
+                r["resumed_losses"] == r["losses"][2:]
+                and r["resumed_hash"] == r["hash"] for r in rs)
+    emit(line)
+    for tag, (dp, ep) in EP_JOBS.items():
+        r = line[tag]
+        check(max(r["loss_rel_err"]) <= EP_RANKS_LOSS_RTOL,
+              f"ep_ranks {tag}: losses {r['mean_losses']} vs NoShard "
+              f"{r['noshard_losses']}")
+        check(r["experts_held"]["h.1.moe.experts_up"][0]
+              == cfg.moe_experts // ep,
+              f"ep_ranks {tag}: experts held {r['experts_held']}")
+        check(r["param_bytes_a_rank"] == r["design_param_bytes"],
+              f"ep_ranks {tag}: {r['param_bytes_a_rank']} parameter bytes "
+              f"a rank, the design's {r['design_param_bytes']}")
+        check(r["replicas_equal"],
+              f"ep_ranks {tag}: replicas differ across ranks")
+        check(r["collectives_a_step"] == r["design"],
+              f"ep_ranks {tag}: collectives {r['collectives_a_step']}, the "
+              f"design's {r['design']}")
+        check(all(x["held"] == r["experts_held"] for x in
+                  (rk[tag] for rk in ranks)),
+              f"ep_ranks {tag}: ranks hold different expert shapes")
+    check(line[EP_CKPT_JOB]["resume_bit_equal"],
+          f"ep_ranks: resumed {line[EP_CKPT_JOB]['resumed_losses']}")
+    return line
+
+
 def kernel_resources():
     """Registers, stack bytes and HGMMA (wgmma) instructions of each
     Hopper-route kernel, read from the built B1-B3 and B4-B6 libraries with
@@ -5448,6 +6169,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     head_phase(train_result)
     noshard_runs, noshard_final = runner_train_phase()
+    moe_train_phase()
+    moe_parity_phase()
+    remat_dropout_phase()
+    torch.cuda.empty_cache()
 
     # context parallelism and the sharded strategies' runner over a
     # one-rank NCCL group: one card, cp = dp = fsdp = 1
@@ -5477,6 +6202,7 @@ def main() -> int:
     fsdp = fsdp_ranks_phase()
     hooks_ranks_phase(fsdp["noshard"]["losses"])
     tp_ranks_phase(smi)
+    ep_ranks_phase()
     multihost_phase()
     multihost_example_phase()
 

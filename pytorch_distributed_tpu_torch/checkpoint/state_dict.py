@@ -17,7 +17,9 @@ The keys and the saved shapes are those of the unsharded model under
 every strategy, so a checkpoint moves between them. A tensor held sharded
 (FSDP's parameter blocks and their optimizer state, ZeRO1's state blocks,
 a tensor-parallel parameter's tp block and its moments, both under TP x
-FSDP; ``parallel.fsdp.local_block`` cuts as ``torch.chunk`` does) enters
+FSDP, an expert stack's ep block and its moments under
+``ExpertDataParallel``; ``parallel.fsdp.local_block`` cuts as
+``torch.chunk`` does) enters
 as a ``DTensor`` view of the live block over the strategy's mesh,
 ``Shard(dim)`` on each axis it is cut over and ``Replicate()`` on the
 others: ``torch.distributed.checkpoint`` then writes each rank's block and
@@ -125,6 +127,9 @@ def _placed(t: torch.Tensor, p: torch.Tensor, strategy) -> _Entry:
     fsdp = getattr(p, "fsdp", None)
     if fsdp is not None:
         dims[strategy.param_axis] = fsdp.dim
+    ep = getattr(p, "ep", None)
+    if ep is not None:
+        dims[strategy.ep_axis] = ep.dim
     tp = getattr(p, "tp", None)
     if tp is None:
         return _Entry(t, dims)
@@ -137,6 +142,7 @@ def _placed(t: torch.Tensor, p: torch.Tensor, strategy) -> _Entry:
 
 def _check_strategy(model: torch.nn.Module, strategy) -> None:
     if strategy is None and any(hasattr(p, "tp") or hasattr(p, "fsdp")
+                                or hasattr(p, "ep")
                                 for p in model.parameters()):
         raise ValueError("a sharded model's state dict needs its strategy "
                          "(the mesh its blocks are placed over)")

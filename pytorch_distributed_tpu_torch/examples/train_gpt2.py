@@ -28,9 +28,23 @@ the ranks, the same on every rank; step times; the step it started from
 and wall-clock marks of its start, of the model being ready, of the
 restore and of its first step), so a caller can drive it
 in-process; a caller that made the process group already keeps it.
-Run as a script, it prints them as its last line, in JSON. MoE
-(``--moe-experts``) is not ported yet and raises, naming its ROADMAP
-item.
+Run as a script, it prints them as its last line, in JSON.
+
+``--moe-experts E --moe-top-k k`` trains the mixture-of-experts GPT-2
+(every second block routed over E experts; the losses include the
+router's weighted aux term, reported as ``moe_aux`` a step). With ``--ep
+N > 1`` the ranks form the mesh ``(world // N, N)`` over ``("dp", "ep")``
+and train under ``ExpertDataParallel`` (E/N experts a rank, the batch
+split over dp), with the JAX script's rules: ``--moe-top-k`` at most
+``--moe-experts``, ``--ep`` only with ``--moe-experts``, ``--ep`` dividing
+the world and ``--moe-experts`` dividing by it, ``--dp`` 1 or
+``world // ep``. Otherwise an MoE model trains under the FSDP twin as a
+dense one does (its expert stacks placed by the same rule)::
+
+    torchrun --standalone --nproc-per-node 4 -m \\
+        pytorch_distributed_tpu_torch.examples.train_gpt2 --moe-experts 4 \\
+        --moe-top-k 2 --ep 2 --device cpu --layers 2 --embd 64 --heads 4 \\
+        --seq-len 64 --steps 5
 
 The data are synthetic WikiText-shaped windows made from ``--seed``, or
 with ``--data-bin F`` the windows of a binary token corpus
@@ -100,11 +114,11 @@ def parse_args(argv=None):
     p.add_argument("--prefetch", type=int, default=2,
                    help="batches each loader worker prefetches")
     p.add_argument("--moe-experts", type=int, default=0,
-                   help="routed experts per MoE block (not ported: ROADMAP "
-                        "A.14)")
+                   help="routed experts per MoE block (0 = dense); expert "
+                        "params shard over an 'ep' axis when --ep > 1")
     p.add_argument("--moe-top-k", type=int, default=2)
     p.add_argument("--ep", type=int, default=1,
-                   help="expert-parallel size (MoE only; not ported)")
+                   help="expert-parallel axis size (MoE only)")
     p.add_argument("--attn", default="flash", choices=["flash", "dense"],
                    help="flash: the causal flash kernels; dense: the "
                         "reference softmax attention")
@@ -113,18 +127,9 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _not_ported(args) -> Optional[str]:
-    if args.moe_experts or args.ep > 1:
-        return "--moe-experts/--ep (mixture of experts): ROADMAP A.14"
-    return None
-
-
 def main(argv=None) -> Dict:
     marks = {"start": time.time()}
     args = parse_args(argv)
-    missing = _not_ported(args)
-    if missing:
-        raise NotImplementedError(f"not ported yet: {missing}")
 
     from pytorch_distributed_tpu_torch import distributed as pdist
     from pytorch_distributed_tpu_torch import resolve_device
@@ -173,6 +178,7 @@ def _train(args, marks) -> Dict:
         flash_attention,
     )
     from pytorch_distributed_tpu_torch.parallel import (
+        ExpertDataParallel,
         FullyShardedDataParallel,
     )
     from pytorch_distributed_tpu_torch.trainer import (
@@ -182,11 +188,16 @@ def _train(args, marks) -> Dict:
     )
 
     nproc, pid = pdist.get_world_size(), pdist.get_rank()
-    if nproc % args.dp:
-        raise SystemExit("--dp must divide the process count")
-    mesh = init_device_mesh((args.dp, nproc // args.dp), ("dp", "fsdp"))
-    strategy = FullyShardedDataParallel(
-        mesh, dp_axis="dp" if args.dp > 1 else None, min_shard_size=8)
+    expert_parallel = _check_moe(args, nproc)
+    if expert_parallel:
+        mesh = init_device_mesh((nproc // args.ep, args.ep), ("dp", "ep"))
+        strategy = ExpertDataParallel(mesh)
+    else:
+        if nproc % args.dp:
+            raise SystemExit("--dp must divide the process count")
+        mesh = init_device_mesh((args.dp, nproc // args.dp), ("dp", "fsdp"))
+        strategy = FullyShardedDataParallel(
+            mesh, dp_axis="dp" if args.dp > 1 else None, min_shard_size=8)
     device = strategy.device
     on_card = device.type == "cuda"
     cfg = GPT2Config(
@@ -198,6 +209,8 @@ def _train(args, marks) -> Dict:
         dtype=torch.bfloat16 if (on_card and args.policy == "bf16")
         else torch.float32,
         remat=args.remat,
+        moe_experts=args.moe_experts,
+        moe_top_k=args.moe_top_k,
         attn_impl=flash_attention if args.attn == "flash" else None,
     )
     model = GPT2(cfg, device=device, seed=args.seed)
@@ -248,6 +261,7 @@ def _train(args, marks) -> Dict:
     first_step = state.step + 1
 
     losses: List[torch.Tensor] = []
+    auxes: List[torch.Tensor] = []
     step_s: List[float] = []
     epoch = 0
     while state.step < args.steps:
@@ -263,6 +277,8 @@ def _train(args, marks) -> Dict:
                 torch.cuda.synchronize(device)
             step_s.append(time.perf_counter() - t0)
             losses.append(metrics["loss"].detach())
+            if "moe_aux" in metrics:
+                auxes.append(metrics["moe_aux"].detach())
             marks.setdefault("first_step_done", time.time())
             if state.step % args.log_every == 0 and pid == 0:
                 print(f"step {state.step} loss {float(metrics['loss']):.4f} "
@@ -274,17 +290,22 @@ def _train(args, marks) -> Dict:
         ckpt.save(state.step, get_state_dict(trainer, state))
         ckpt.close()                 # waits for the save to finish
 
-    # each rank's loss is its shard's: the mean over the ranks is the
-    # global batch's
-    mean = (torch.stack(losses).float() if losses
-            else torch.zeros(0, device=device))
-    if shards > 1:
-        dist.all_reduce(mean, group=strategy.group)
-        mean /= shards
-    return {
+    # each rank's loss (and aux) is its shard's: the mean over the data
+    # shards is the global batch's
+    def shard_mean(series):
+        mean = (torch.stack(series).float() if series
+                else torch.zeros(0, device=device))
+        if shards > 1:
+            dist.all_reduce(mean, group=strategy.group)
+            mean /= shards
+        return mean.tolist()
+
+    mean = shard_mean(losses)
+    out = {"moe_aux": shard_mean(auxes)} if args.moe_experts else {}
+    return {**out,
         "n_params": n_params,
         "tokens_per_step": args.global_batch * args.seq_len,
-        "losses": mean.tolist(),
+        "losses": mean,
         "step_s": step_s,
         "device": str(device),
         "dtype": str(cfg.dtype).removeprefix("torch."),
@@ -297,6 +318,29 @@ def _train(args, marks) -> Dict:
         "resumed_from": resumed,
         "marks": marks,
     }
+
+
+def _check_moe(args, nproc: int) -> bool:
+    """The JAX script's rules for the MoE flags; True when the run is
+    expert-parallel."""
+    if args.moe_experts:
+        if args.moe_top_k > args.moe_experts:
+            raise SystemExit(f"--moe-top-k {args.moe_top_k} > --moe-experts "
+                             f"{args.moe_experts}")
+    elif args.ep > 1:
+        raise SystemExit("--ep needs --moe-experts > 0 (dense model)")
+    if not (args.moe_experts and args.ep > 1):
+        return False
+    if nproc % args.ep:
+        raise SystemExit("--ep must divide the process count")
+    if args.moe_experts % args.ep:
+        raise SystemExit(f"--moe-experts {args.moe_experts} must divide by "
+                         f"--ep {args.ep} (expert dim shards over the ep "
+                         f"axis)")
+    if args.dp not in (1, nproc // args.ep):
+        raise SystemExit(f"--dp {args.dp} conflicts with the MoE mesh: dp "
+                         f"axis is process count/ep = {nproc // args.ep}")
+    return True
 
 
 if __name__ == "__main__":

@@ -50,8 +50,9 @@ def _t(a: Any) -> torch.Tensor:
 def _opt_tensors(optimizer, model, layout):
     """(name, the optimizer's tensor, its Shard or None) for every tensor
     in ``optimizer``'s groups."""
-    if layout is None:
-        name_of = {id(p): (n, None) for n, p in model.named_parameters()}
+    if layout is None:   # an expert stack under EP: its ep block
+        name_of = {id(p): (n, getattr(p, "ep", None))
+                   for n, p in model.named_parameters()}
     else:
         name_of = {id(leaf.tensor): (leaf.name, layout.spec(leaf.name))
                    for leaf in layout.leaves}
@@ -82,14 +83,15 @@ def _whole(t: torch.Tensor, spec, p) -> torch.Tensor:
 
 @torch.no_grad()
 def full_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """``model.state_dict()`` with every parameter that FSDP or tensor
-    parallelism holds as a block gathered back into the whole tensor (a
-    copy; collective)."""
+    """``model.state_dict()`` with every parameter that FSDP, tensor or
+    expert parallelism holds as a block gathered back into the whole
+    tensor (a copy; collective)."""
     params = dict(model.named_parameters())
     out = {}
     for name, t in model.state_dict().items():
         p = params.get(name)
-        out[name] = _whole(t, getattr(p, "fsdp", None), p)
+        spec = getattr(p, "fsdp", None) or getattr(p, "ep", None)
+        out[name] = _whole(t, spec, p)
     return out
 
 
@@ -109,8 +111,11 @@ def full_optimizer_state(optimizer: torch.optim.Optimizer,
     return out
 
 
-def _pairs(n_layer: int) -> Iterator[Tuple[Tuple[str, ...], str, bool]]:
-    """(flax path, torch name, transposed) for every GPT-2 parameter."""
+def _pairs(n_layer: int, moe=frozenset()
+           ) -> Iterator[Tuple[Tuple[str, ...], str, bool]]:
+    """(flax path, torch name, transposed) for every GPT-2 parameter;
+    ``moe`` holds the indices of the MoE blocks (a routed ``moe`` in place
+    of the ``mlp``: the router a Dense, the expert stacks as they are)."""
     yield ("wte",), "wte", False
     yield ("wpe",), "wpe", False
     yield ("ln_f", "scale"), "ln_f.weight", False
@@ -119,10 +124,15 @@ def _pairs(n_layer: int) -> Iterator[Tuple[Tuple[str, ...], str, bool]]:
         for ln in ("ln_1", "ln_2"):
             yield (f"h_{i}", ln, "scale"), f"h.{i}.{ln}.weight", False
             yield (f"h_{i}", ln, "bias"), f"h.{i}.{ln}.bias", False
-        for mod, lin in (("attn", "c_attn"), ("attn", "c_proj"),
-                         ("mlp", "c_fc"), ("mlp", "c_proj")):
+        linears = (("attn", "c_attn"), ("attn", "c_proj"))
+        linears += ((("moe", "router"),) if i in moe else
+                    (("mlp", "c_fc"), ("mlp", "c_proj")))
+        for mod, lin in linears:
             yield (f"h_{i}", mod, lin, "kernel"), f"h.{i}.{mod}.{lin}.weight", True
             yield (f"h_{i}", mod, lin, "bias"), f"h.{i}.{mod}.{lin}.bias", False
+        if i in moe:
+            for stack in ("experts_up", "experts_down"):
+                yield (f"h_{i}", "moe", stack), f"h.{i}.moe.{stack}", False
 
 
 def _get(tree, path):
@@ -135,12 +145,18 @@ def _n_layer_flax(params) -> int:
     return sum(1 for k in params if k.startswith("h_"))
 
 
+def _moe_flax(params) -> frozenset:
+    return frozenset(int(k[2:]) for k in params
+                     if k.startswith("h_") and "moe" in params[k])
+
+
 def gpt2_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
     """The flax param tree (``variables["params"]``, numpy or jax leaves,
     paths ``h_<i>/attn/c_attn/kernel`` ...) as a ``GPT2.load_state_dict``
     dict. Also maps any tree of the same structure (optax's mu/nu)."""
     sd = {}
-    for path, name, transposed in _pairs(_n_layer_flax(params)):
+    for path, name, transposed in _pairs(_n_layer_flax(params),
+                                         _moe_flax(params)):
         t = _t(_get(params, path))
         sd[name] = t.t().contiguous() if transposed else t
     return sd
@@ -150,8 +166,10 @@ def gpt2_flax_from_state_dict(state_dict) -> Dict[str, Any]:
     """The port's ``GPT2.state_dict()`` as a flax param tree of numpy
     arrays (the inverse of :func:`gpt2_state_dict_from_flax`)."""
     n_layer = len({k.split(".")[1] for k in state_dict if k.startswith("h.")})
+    moe = frozenset(int(k.split(".")[1]) for k in state_dict
+                    if k.startswith("h.") and k.split(".")[2] == "moe")
     tree: Dict[str, Any] = {}
-    for path, name, transposed in _pairs(n_layer):
+    for path, name, transposed in _pairs(n_layer, moe):
         a = state_dict[name].detach().cpu().float().numpy()
         node = tree
         for key in path[:-1]:

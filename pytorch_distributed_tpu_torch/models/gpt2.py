@@ -1,8 +1,9 @@
 """GPT-2 language model in PyTorch: the training and the serving forward.
 
-Port of ``pytorch_distributed_tpu/models/gpt2.py`` (dense GPT-2 only):
-learned positional embeddings, pre-LN blocks, GELU(tanh), causal
-self-attention, weight-tied LM head. Parameters are kept in
+Port of ``pytorch_distributed_tpu/models/gpt2.py``: learned positional
+embeddings, pre-LN blocks, GELU(tanh), causal self-attention, weight-tied
+LM head; mixture-of-experts blocks (``moe_experts > 0``), selective
+recomputation (``remat_policy``) and dropout. Parameters are kept in
 ``cfg.param_dtype`` and the compute runs in ``cfg.dtype``, as the flax
 model's Dense/LayerNorm ``dtype``/``param_dtype`` split does; LayerNorm
 statistics are taken in fp32.
@@ -14,7 +15,27 @@ The training forward calls ``cfg.attn_impl`` (``f(q, k, v, causal) ->
 out`` over ``[B, T, H, D]``; ``None`` means ``default_attention``), so
 ``ops.flash_attention`` -- the CUDA causal kernels on the card -- plugs in
 without touching the module tree. ``remat=True`` recomputes each block in
-the backward (``torch.utils.checkpoint``, full per-block remat).
+the backward (``torch.utils.checkpoint``); ``remat_policy`` names what the
+recomputation keeps instead (:data:`REMAT_POLICIES`, the names of
+``jax.checkpoint_policies`` that take no argument), as a selective
+checkpoint policy over aten ops. The hand-written flash kernels are opaque
+to a policy and are recomputed, as a Pallas call is under a dots policy.
+
+With ``moe_experts > 0`` every ``moe_every``-th block (``(i + 1) %
+moe_every == 0``) swaps its MLP for ``parallel.expert.MoEMLP``, and the
+forward returns ``(logits, moe_aux_weight * sum of the blocks' aux
+losses)`` (``(hidden, aux)`` under ``return_hidden``); the cached forward
+refuses such a model.
+
+Dropout (``dropout > 0``, in train mode only) sits where the reference's
+does: after the embeddings and after each block's attention and MLP output
+projections (none on the attention probabilities, none on the MoE output).
+It is flax's arithmetic, ``where(keep, x / (1 - rate), 0)`` in ``x``'s
+dtype, ``keep`` drawn by ``bernoulli_`` from ``dropout_generator`` (made
+from ``seed``; ``Trainer`` sets it a state for each step). A block's masks
+are drawn before the block runs and passed in, so a recomputation reuses
+them; under sequence parallelism a rank draws the whole mask and keeps its
+rows, so the masks are those of the unsharded model.
 
 The cached forward (``kv_cache=...``) updates the cache in place. On the
 paged cache, a one-token step (decode) scatters the new K/V through the
@@ -42,6 +63,7 @@ The cached forward reads whole tables gathered once by
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional, Tuple
 
@@ -58,8 +80,24 @@ from pytorch_distributed_tpu_torch.ops.paged_attention import (
     paged_cached_attention,
     paged_decode_attention,
 )
+from pytorch_distributed_tpu_torch.parallel.expert import MoEMLP
 
-__all__ = ["GPT2Config", "GPT2", "default_attention", "gpt2_125m"]
+__all__ = ["GPT2Config", "GPT2", "REMAT_POLICIES", "default_attention",
+           "gpt2_125m"]
+
+_DOTS = ("mm", "addmm", "bmm", "baddbmm")
+#: the supported ``remat_policy`` names: the aten ops whose outputs the
+#: recomputation keeps. None keeps what the backward needs, as no
+#: recomputation does (the block runs without a checkpoint). A batched
+#: ``bmm`` is a dot with batch dims.
+REMAT_POLICIES = {
+    "everything_saveable": None,
+    "nothing_saveable": (),
+    "dots_saveable": _DOTS,
+    "checkpoint_dots": _DOTS,
+    "dots_with_no_batch_dims_saveable": ("mm", "addmm"),
+    "checkpoint_dots_with_no_batch_dims": ("mm", "addmm"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,10 +113,18 @@ class GPT2Config:
     param_dtype: torch.dtype = torch.float32
     # full per-block activation recomputation in the backward
     remat: bool = False
-    # selective recomputation policy (a jax.checkpoint_policies name in the
-    # JAX package); needs remat=True
+    # selective recomputation: a name of REMAT_POLICIES (what the
+    # recomputation keeps); needs remat=True
     remat_policy: Optional[str] = None
+    # mixture of experts: every moe_every-th block swaps its MLP for a
+    # top-k routed MoEMLP; the router's aux loss, weighted, is returned
+    # beside the logits
     moe_experts: int = 0          # 0 = dense model
+    moe_top_k: int = 1
+    moe_every: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 1e-2
+    moe_group_size: Optional[int] = None
     # pluggable attention: f(q, k, v, causal) -> out, shapes [B, T, H, D]
     attn_impl: Optional[Callable] = None
     # LM-head inputs in fp32 (the default), or in the compute dtype with
@@ -96,17 +142,37 @@ def _check_config(cfg: GPT2Config) -> None:
             "remat_policy set but remat=False -- the policy only selects "
             "WHAT the recomputation saves; enable remat=True"
         )
-    if cfg.remat_policy is not None:
-        raise NotImplementedError(
-            "selective remat policies are not ported yet (ROADMAP A.9); "
-            "remat=True recomputes whole blocks"
+    if cfg.remat_policy is not None and cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(
+            f"remat_policy {cfg.remat_policy!r} is not supported; the "
+            f"policies are {sorted(REMAT_POLICIES)}"
         )
-    if cfg.dropout > 0:
-        raise NotImplementedError("dropout is not ported yet (ROADMAP A.9)")
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "mixture-of-experts blocks are not ported yet (ROADMAP A.14)"
-        )
+
+
+def _remat_context(policy: str):
+    """``checkpoint``'s ``context_fn`` for a :data:`REMAT_POLICIES` name."""
+    from torch.utils.checkpoint import (
+        CheckpointPolicy,
+        create_selective_checkpoint_contexts,
+    )
+
+    keep = {getattr(torch.ops.aten, n).default
+            for n in REMAT_POLICIES[policy]}
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        if op in keep:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
+
+
+def _dropout(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float
+             ) -> torch.Tensor:
+    """flax's dropout of ``x`` under the mask ``keep`` (None: off)."""
+    if keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 def default_attention(q, k, v, *, causal: bool = True):
@@ -214,25 +280,45 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
+    """A pre-LN block: attention, then the MLP, or with ``use_moe`` the
+    routed ``moe`` (``forward`` then returns ``(x, aux_loss)``). ``drop``
+    is the dropout masks of the attention's and the MLP's outputs, or
+    None."""
+
     tp = None
 
-    def __init__(self, cfg: GPT2Config, device=None):
+    def __init__(self, cfg: GPT2Config, device=None, use_moe: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.use_moe = use_moe
         kw = dict(eps=cfg.layer_norm_eps, dtype=cfg.param_dtype, device=device)
         self.ln_1 = nn.LayerNorm(cfg.n_embd, **kw)
         self.attn = SelfAttention(cfg, device)
         self.ln_2 = nn.LayerNorm(cfg.n_embd, **kw)
-        self.mlp = MLP(cfg, device)
+        if use_moe:
+            self.moe = MoEMLP(
+                cfg.moe_experts, 4 * cfg.n_embd, cfg.n_embd,
+                k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+                group_size=cfg.moe_group_size, dtype=cfg.dtype,
+                param_dtype=cfg.param_dtype, device=device)
+        else:
+            self.mlp = MLP(cfg, device)
 
-    def forward(self, x, *, layer_cache=None, position_offset=None,
-                copies=None):
+    def forward(self, x, drop=None, *, layer_cache=None,
+                position_offset=None, copies=None):
+        cfg = self.cfg
         enter = (lambda h: h) if self.tp is None else self.tp.enter
-        x = x + self.attn(enter(_layer_norm(x, self.ln_1, self.cfg)),
-                          layer_cache=layer_cache,
-                          position_offset=position_offset, copies=copies)
-        return x + self.mlp(enter(_layer_norm(x, self.ln_2, self.cfg)),
-                            copies)
+        attn_keep, mlp_keep = drop or (None, None)
+        x = x + _dropout(
+            self.attn(enter(_layer_norm(x, self.ln_1, cfg)),
+                      layer_cache=layer_cache,
+                      position_offset=position_offset, copies=copies),
+            attn_keep, cfg.dropout)
+        if self.use_moe:
+            y, aux = self.moe(_layer_norm(x, self.ln_2, cfg))
+            return x + y, aux["aux_loss"]
+        return x + _dropout(self.mlp(enter(_layer_norm(x, self.ln_2, cfg)),
+                                     copies), mlp_keep, cfg.dropout)
 
 
 class HeadMatmul(torch.autograd.Function):
@@ -282,7 +368,9 @@ class GPT2(nn.Module):
     the first N layers' K/V.
 
     ``device=None`` means the CUDA card (and raises without one); weights
-    are drawn from a ``torch.Generator`` seeded with ``seed`` on that device.
+    are drawn from a ``torch.Generator`` seeded with ``seed`` on that device,
+    and with ``dropout > 0`` the masks from ``dropout_generator`` (seeded
+    with ``seed`` on that device too).
 
     ``cast_weights()`` makes compute-dtype copies of the parameters that
     the cached forward reads from then on (aliases where a parameter is
@@ -300,9 +388,15 @@ class GPT2(nn.Module):
         kw = dict(dtype=cfg.param_dtype, device=device)
         self.wte = nn.Parameter(torch.empty(cfg.vocab_size, cfg.n_embd, **kw))
         self.wpe = nn.Parameter(torch.empty(cfg.n_positions, cfg.n_embd, **kw))
-        self.h = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layer))
+        self.h = nn.ModuleList(
+            Block(cfg, device, cfg.moe_experts > 0
+                  and (i + 1) % cfg.moe_every == 0)
+            for i in range(cfg.n_layer))
         self.ln_f = nn.LayerNorm(cfg.n_embd, eps=cfg.layer_norm_eps, **kw)
         self.reset_parameters(torch.Generator(device=device).manual_seed(seed))
+        self.dropout_generator = (
+            torch.Generator(device=device).manual_seed(seed)
+            if cfg.dropout > 0 else None)
         self._copies: Optional[dict] = None
         self._whole: dict = {}
 
@@ -350,21 +444,26 @@ class GPT2(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The flax model's initializers: normal(0.02) token and normal(0.01)
         position tables, LeCun-normal projections, normal(0.02/sqrt(2L))
-        residual outputs, zero biases, unit LayerNorm scales."""
+        residual outputs, zero biases, unit LayerNorm scales; an MoE
+        block's router and expert stacks as ``MoEMLP.reset_parameters``."""
         proj_std = 0.02 / math.sqrt(2 * self.cfg.n_layer)
         self.wte.normal_(0.0, 0.02, generator=generator)
         self.wpe.normal_(0.0, 0.01, generator=generator)
         for block in self.h:
-            for lin in (block.attn.c_attn, block.mlp.c_fc):
+            attn, mlp = block.attn, getattr(block, "mlp", None)
+            fan_in = (attn.c_attn,) if mlp is None else (attn.c_attn, mlp.c_fc)
+            proj = (attn.c_proj,) if mlp is None else (attn.c_proj, mlp.c_proj)
+            for lin in fan_in:
                 # truncated at two sigma; 0.8796 restores unit variance
                 std = lin.in_features ** -0.5 / 0.87962566103423978
                 nn.init.trunc_normal_(lin.weight, std=std, a=-2 * std,
                                       b=2 * std, generator=generator)
-            for lin in (block.attn.c_proj, block.mlp.c_proj):
+            for lin in proj:
                 lin.weight.normal_(0.0, proj_std, generator=generator)
-            for lin in (block.attn.c_attn, block.attn.c_proj,
-                        block.mlp.c_fc, block.mlp.c_proj):
+            for lin in fan_in + proj:
                 lin.bias.zero_()
+            if mlp is None:
+                block.moe.reset_parameters(generator)
         for ln in [self.ln_f] + [m for b in self.h for m in (b.ln_1, b.ln_2)]:
             ln.weight.fill_(1.0)
             ln.bias.zero_()
@@ -400,26 +499,64 @@ class GPT2(nn.Module):
         wte = self._table("wte")
         x = wte[tokens.long()].to(cfg.dtype) + self._table("wpe")[:T].to(
             cfg.dtype)
+        keep = self._mask_drawer(x.shape)
+        x = _dropout(x, keep(), cfg.dropout)
         if self.tp is not None:
             x = self.tp.split_seq(x)
+        # everything_saveable keeps what the backward needs: no checkpoint
+        checkpoint = (cfg.remat and torch.is_grad_enabled()
+                      and REMAT_POLICIES.get(cfg.remat_policy, ()) is not None)
+        remat = {}
+        if checkpoint and cfg.remat_policy is not None:
+            remat["context_fn"] = _remat_context(cfg.remat_policy)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.h:
-            if cfg.remat and torch.is_grad_enabled():
-                x = torch.utils.checkpoint.checkpoint(block, x,
-                                                      use_reentrant=False)
+            drop = (keep(True), None if block.use_moe else keep(True))
+            if checkpoint:
+                out = torch.utils.checkpoint.checkpoint(
+                    block, x, drop, use_reentrant=False, **remat)
             else:
-                x = block(x)
+                out = block(x, drop)
+            if block.use_moe:
+                x, block_aux = out
+                aux = aux + block_aux
+            else:
+                x = out
         x = _layer_norm(x, self.ln_f, cfg)
         if self.tp is not None:
             x = self.tp.join_seq(x)
-        if return_hidden:
-            return x
-        return self._head(x, wte)
+        out = x if return_hidden else self._head(x, wte)
+        if cfg.moe_experts > 0:
+            # the weighted router load-balance loss, consumed by lm_loss
+            return out, cfg.moe_aux_weight * aux
+        return out
+
+    def _mask_drawer(self, shape):
+        """``keep(rows=False)``: the next dropout mask of the whole
+        ``[B, T, C]`` activation (None when dropout is off); ``rows`` keeps
+        a sequence-parallel rank's T rows of it."""
+        g, rate = self.dropout_generator, self.cfg.dropout
+        if not (self.training and rate > 0):
+            return lambda rows=False: None
+        tp = self.tp
+
+        def keep(rows=False):
+            m = torch.empty(shape, dtype=torch.bool, device=g.device)
+            m.bernoulli_(1.0 - rate, generator=g)
+            if rows and tp is not None and tp.sequence_parallel:
+                m = m.chunk(tp.size, 1)[tp.rank]
+            return m
+
+        return keep
 
     def _cached_forward(self, tokens, kv_cache, position_offset, *,
                         n_layers=None, verify=False
                         ) -> Tuple[torch.Tensor, object]:
         cfg = self.cfg
         B, T = tokens.shape
+        if cfg.moe_experts > 0:
+            raise ValueError("kv_cache forward supports dense GPT-2 only "
+                             "(moe_experts must be 0)")
         if kv_cache.k.shape[0] != cfg.n_layer:
             raise ValueError(
                 f"kv_cache has {kv_cache.k.shape[0]} layers, model has "

@@ -12,7 +12,8 @@ update as shards); the sharded weight update is
 reduce-scatter, ring all-reduce; ``powersgd.PowerSGD``) and model
 averaging (``averagers``) run on the data-parallel group. Tensor and
 sequence parallelism (``TensorParallel`` and its styles; TP x DP and TP x
-FSDP) is ``parallel.tensor_parallel``.
+FSDP) is ``parallel.tensor_parallel``; expert parallelism (the MoE layer,
+``ExpertParallel``, ``ExpertDataParallel``) ``parallel.expert``.
 """
 
 from pytorch_distributed_tpu_torch.parallel.averagers import (
@@ -37,6 +38,12 @@ from pytorch_distributed_tpu_torch.parallel.context_parallel import (
     ulysses_attention,
     zigzag_reorder,
     zigzag_restore,
+)
+from pytorch_distributed_tpu_torch.parallel.expert import (
+    ExpertDataParallel,
+    ExpertParallel,
+    MoEMLP,
+    make_dispatch_masks,
 )
 from pytorch_distributed_tpu_torch.parallel.powersgd import PowerSGD
 from pytorch_distributed_tpu_torch.parallel.state import (
@@ -65,6 +72,10 @@ from pytorch_distributed_tpu_torch.parallel.strategies import (
 )
 
 __all__ = [
+    "ExpertDataParallel",
+    "ExpertParallel",
+    "MoEMLP",
+    "make_dispatch_masks",
     "ColwiseParallel",
     "ParallelStyle",
     "Replicated",

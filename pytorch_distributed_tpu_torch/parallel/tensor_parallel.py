@@ -428,6 +428,10 @@ class TensorParallel(_Replicas):
         place (the same ``nn.Parameter``, ``p.tp`` a :class:`TPShard`), and
         hand the forward its :class:`TPContext` (every module with a
         ``tp`` attribute: GPT-2's). Returns ``{name: TPShard}``."""
+        if getattr(getattr(model, "cfg", None), "moe_experts", 0) > 0:
+            raise NotImplementedError(
+                "TensorParallel runs dense GPT-2 only: tensor parallelism of "
+                "a mixture-of-experts model (TP x MoE) is ROADMAP A.14b")
         if not any(hasattr(m, "tp") for m in model.modules()):
             raise NotImplementedError(
                 f"{type(model).__name__}'s forward issues no tensor-parallel "

@@ -27,8 +27,12 @@ steps on the capture stream (cuDNN's algorithm search, cuBLAS, the first
 build of the port's kernels) and then puts back every tensor they changed:
 the parameters (FSDP's shards among them), the model's buffers, the
 tensors the optimizer steps on (ZeRO1's blocks), the optimizer state, the
-scaler state and the ring. So the runner's steps are the steps sequential
-``Trainer.step`` calls would take. On the card, Adam's parameter groups are
+scaler state, the ring and the dropout generators' states. So the
+runner's steps are the steps sequential ``Trainer.step`` calls would take.
+The dropout generators (``Trainer.generators``) are registered with the
+program, and before each replay the host sets them for the step
+(``Trainer.seed_dropout``: the card's Philox offset, which a replay
+reads), so a replay draws the masks an eager step draws. On the card, Adam's parameter groups are
 made ``capturable`` (their step counts move to the card), which graph
 capture requires.
 
@@ -150,6 +154,7 @@ def _snapshot(trainer, state, extra=()) -> Callable[[], None]:
     keys = {p: tuple(st) for p, st in opt.state.items() if st}
     tensors = _step_tensors(trainer, state) + list(extra)
     saved = [t.detach().clone() for t in tensors]
+    rngs = [(g, g.get_state()) for g in trainer.generators]
 
     @torch.no_grad()
     def restore() -> None:
@@ -160,6 +165,8 @@ def _snapshot(trainer, state, extra=()) -> Callable[[], None]:
                 "SGD)")
         for t, s in zip(tensors, saved):
             t.copy_(s)
+        for g, rng in rngs:
+            g.set_state(rng)
 
     return restore
 
@@ -233,7 +240,7 @@ class AsyncRunner:
         trainer = self.trainer
 
         def body():
-            new_state, metrics = trainer.step(state, inputs)
+            new_state, metrics = trainer.step_body(state, inputs)
             ring.push(metrics)
             if trainer._scaling:   # the next step reads the new scale
                 state.scaler.scale.copy_(new_state.scaler.scale)
@@ -278,7 +285,8 @@ class AsyncRunner:
             ring.reset()
             self._inputs, self._ring = inputs, ring
         self.programs[key] = Program(body, device=device, stream=side,
-                                     pool=self._pool)
+                                     pool=self._pool,
+                                     generators=trainer.generators)
 
     def start(self, state, sample_batch) -> "AsyncRunner":
         """Bind the runner to ``state`` and build the pipelined step:
@@ -337,6 +345,7 @@ class AsyncRunner:
         key = self.trainer.program_key(step)
         if key not in self.programs:
             self._build(self._state.replace(step=step), None, key)
+        self.trainer.seed_dropout(step)
         self.programs[key]()
         self._n += 1
         self._dispatches += 1

@@ -213,6 +213,9 @@ class InferenceEngine:
         n_pages: Optional[int] = None,
         device=None,
     ):
+        if model.cfg.moe_experts > 0:
+            raise ValueError("serving supports dense GPT-2 only (MoE "
+                             "blocks have no KV-cache story yet)")
         self.device = resolve_device(device)
         self.cache_sharding = cache_sharding
         tp = self._check_tp(cache_sharding, model, draft_model)
@@ -284,6 +287,8 @@ class InferenceEngine:
                         f"target vocab {cfg.vocab_size} -- the draft must "
                         f"share the tokenizer"
                     )
+                if draft_model.cfg.moe_experts > 0:
+                    raise ValueError("draft model must be dense")
                 self._apply([self._moves(draft_model, draft_params,
                                          "draft")])
             if self.spec_k + 1 >= self.max_len:

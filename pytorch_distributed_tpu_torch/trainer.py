@@ -2,8 +2,8 @@
 
 Port of ``pytorch_distributed_tpu/trainer.py`` (``NoShard`` on one
 device; ``DataParallel``, ``CPStrategy``, ``ZeRO1``,
-``FullyShardedDataParallel``, ``HybridShard`` and ``TensorParallel``, one
-process per rank).
+``FullyShardedDataParallel``, ``HybridShard``, ``TensorParallel`` and
+``ExpertDataParallel``, one process per rank).
 The JAX step is one jitted program over an immutable state; here the model
 holds the parameters and the optimizer its state, and ``step`` updates
 both in place. The step keeps the JAX step's order:
@@ -71,6 +71,22 @@ sequence-parallel partial gradients summed over tp, and the norm and
 finite flag reduced over the ``(fsdp, tp)`` group
 (``strategy.grad_norm_and_finite``).
 
+Under ``ExpertDataParallel`` ``init`` cuts the expert stacks to the
+rank's experts (``strategy.parallelize``); the gradients are averaged over
+dp, and the norm adds the expert blocks' squares over ep.
+
+Dropout: the model's ``dropout_generator`` (GPT-2's, with ``dropout >
+0``) is set before each step to a state made from the trainer's ``seed``,
+the step and the rank's data shard (``strategy.data_shard_index``); the
+microbatches and the model's dropout sites draw from it in order. So a
+mask is a function of (seed, step, microbatch, data shard, site): a resume
+from a checkpoint draws the same masks, two data shards draw different
+ones, and the ranks of one data shard (tp, cp, ep) draw the same. On the
+card the generator keeps one seed (seed and shard) and its Philox offset
+is set from the step, which a CUDA graph replay reads
+(``pipeline_exec.AsyncRunner`` registers the generator with its program);
+the CPU generator has no offset and is reseeded from all three.
+
 A loss function is ``loss_fn(model, batch, train) -> (loss, metrics)``.
 
 Typical use::
@@ -88,6 +104,7 @@ from __future__ import annotations
 import contextlib
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -141,9 +158,11 @@ def classification_loss(model, batch, train: bool):
     return (per_ex * mask).sum() / n, {"accuracy": (hit * mask).sum() / n}
 
 
-def _reduce_lm_loss(per_tok, mask):
-    """Shared tail of the LM losses: mask-aware mean and perplexity. A
-    ``[B]`` mask weighs whole sequences, a ``[B, T]`` mask single tokens."""
+def _reduce_lm_loss(per_tok, mask, moe_aux, train: bool):
+    """Shared tail of the LM losses: mask-aware mean, perplexity, and the
+    MoE router's aux term (added to the loss in training only; reported
+    as ``moe_aux`` either way). A ``[B]`` mask weighs whole sequences, a
+    ``[B, T]`` mask single tokens."""
     if mask is None:
         loss = per_tok.mean()
     else:
@@ -151,7 +170,12 @@ def _reduce_lm_loss(per_tok, mask):
             mask = mask[:, None] * torch.ones_like(per_tok)
         n = torch.clamp(mask.sum(), min=1.0)
         loss = (per_tok * mask).sum() / n
-    return loss, {"perplexity": torch.exp(loss)}
+    metrics = {"perplexity": torch.exp(loss)}
+    if moe_aux is not None:
+        if train:
+            loss = loss + moe_aux
+        metrics["moe_aux"] = moe_aux
+    return loss, metrics
 
 
 def _lm_batch(batch):
@@ -164,14 +188,17 @@ def _lm_batch(batch):
 
 def lm_loss(model, batch, train: bool):
     """Next-token cross-entropy on ``(tokens, targets)`` over fp32 logits.
-    Optional third element: per-example or per-token validity mask."""
+    Optional third element: per-example or per-token validity mask. An MoE
+    model returns ``(logits, weighted router aux loss)``."""
     tokens, targets, mask = _lm_batch(batch)
-    logits = model(tokens).float()
+    out = model(tokens)
+    logits, moe_aux = out if isinstance(out, tuple) else (out, None)
+    logits = logits.float()
     B, T, V = logits.shape
     per_tok = F.cross_entropy(logits.reshape(B * T, V),
                               targets.reshape(-1).long(),
                               reduction="none").reshape(B, T)
-    return _reduce_lm_loss(per_tok, mask)
+    return _reduce_lm_loss(per_tok, mask, moe_aux, train)
 
 
 def make_chunked_lm_loss(n_chunks: int = 8) -> Callable:
@@ -182,13 +209,14 @@ def make_chunked_lm_loss(n_chunks: int = 8) -> Callable:
 
     def lm_loss_chunked(model, batch, train: bool):
         tokens, targets, mask = _lm_batch(batch)
-        hidden = model(tokens, return_hidden=True)
+        out = model(tokens, return_hidden=True)
+        hidden, moe_aux = out if isinstance(out, tuple) else (out, None)
         B, T, C = hidden.shape
         W = model.tied_weight().to(hidden.dtype)
         per_tok = chunked_cross_entropy(
             hidden.reshape(B * T, C), W, targets.reshape(-1), n_chunks
         ).reshape(B, T)
-        return _reduce_lm_loss(per_tok, mask)
+        return _reduce_lm_loss(per_tok, mask, moe_aux, train)
 
     return lm_loss_chunked
 
@@ -266,7 +294,13 @@ class Trainer:
         ``bf16_compress``, ``fp16_compress``, ``reduce_scatter``,
         ``ring_allreduce``), a callable ``hook(grads, group)``, or a
         stateful hook (``parallel.PowerSGD``); ``DataParallel`` only.
+      seed: the dropout masks' seed (the reference's step rng).
     """
+
+    #: the Philox offsets of one step's dropout draws start at
+    #: ``step * DROPOUT_OFFSET_STRIDE`` (a multiple of 4, far above what a
+    #: step draws)
+    DROPOUT_OFFSET_STRIDE = 2 ** 32
 
     def __init__(
         self,
@@ -280,6 +314,7 @@ class Trainer:
         scaler: Optional[GradScaler] = None,
         clip_norm: Optional[float] = None,
         comm_hook=None,
+        seed: int = 0,
     ):
         self.comm_hook = comm_hook
         #: a stateful hook (PowerSGD) carries state in TrainState.comm_state
@@ -309,6 +344,14 @@ class Trainer:
         self.layout: Optional[ShardedParams] = None
         self._fsdp = False   # parameters held as shards: regather_saved
         self._tp = bool(getattr(strategy, "tensor_parallel", False))
+        # TP and EP cut the model in ``init`` and reduce the norm themselves
+        self._cut = self._tp or bool(getattr(strategy, "expert_parallel",
+                                             False))
+        self.seed = int(seed)
+        #: the generators the model's dropout draws from
+        self.generators = [m.dropout_generator for m in model.modules()
+                           if getattr(m, "dropout_generator", None)
+                           is not None]
 
     @property
     def _scaling(self) -> bool:
@@ -333,7 +376,7 @@ class Trainer:
             for group in self.optimizer.param_groups:
                 group["capturable"] = True
         self.strategy.sync_params(self.model)
-        if self._tp:
+        if self._cut:
             self.strategy.parallelize(self.model)
         if getattr(self.strategy, "update_axis", None) is not None:
             self.layout = ShardedParams(self.strategy, self.model,
@@ -351,11 +394,28 @@ class Trainer:
                     m.stats_group = mesh.get_group(axis) if axis else None
             if self.comm_hook_stateful:
                 comm_state = self.comm_hook.init(self.model)
+        for g in self.generators:
+            if g.device.type == "cuda":
+                g.manual_seed(self._dropout_seed())
         return TrainState(
             step=0,
             scaler=self.scaler.init(dev) if self.scaler else None,
             comm_state=comm_state,
         )
+
+    def _dropout_seed(self, *more: int) -> int:
+        shard = getattr(self.strategy, "data_shard_index", 0)
+        return int(np.random.SeedSequence(
+            [self.seed, shard, *more]).generate_state(1, np.uint64)[0])
+
+    def seed_dropout(self, step: int) -> None:
+        """Set the dropout generators for step ``step`` (host work, outside
+        a graph capture: the card's Philox offset, the CPU's seed)."""
+        for g in self.generators:
+            if g.device.type == "cuda":
+                g.set_offset(step * self.DROPOUT_OFFSET_STRIDE)
+            else:
+                g.manual_seed(self._dropout_seed(step))
 
     def program_key(self, step: int):
         """What the step's program depends on besides its tensors: a
@@ -369,6 +429,13 @@ class Trainer:
     def step(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
         """One optimizer step. ``batch`` is a tuple of numpy arrays or
         tensors (placed on the strategy's device)."""
+        self.seed_dropout(state.step)
+        return self.step_body(state, batch)
+
+    def step_body(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        """:meth:`step` without setting the dropout generators: the
+        runner's captured body, whose caller sets them before each
+        replay."""
         model, params = self.model, self._params
         model.train(True)
         accum = self.grad_accum_steps
@@ -408,7 +475,7 @@ class Trainer:
             grads, all_finite = self.scaler.unscale(grads, state.scaler)
         else:
             all_finite = torch.ones((), dtype=torch.bool, device=loss.device)
-        if self._tp:
+        if self._cut:
             grad_norm, all_finite = self.strategy.grad_norm_and_finite(
                 params, grads, all_finite)
         elif layout is not None:

@@ -307,10 +307,16 @@ def test_grad_scaler_matches_torch_constants_and_state_machine():
 def test_config_and_trainer_options_not_ported_raise():
     with pytest.raises(ValueError, match="remat=False"):
         GPT2(GPT2Config(remat_policy="dots_saveable", **TINY), device="cpu")
-    for kw, item in ((dict(remat=True, remat_policy="dots_saveable"), "A.9"),
-                     (dict(dropout=0.1), "A.9"), (dict(moe_experts=4), "A.14")):
-        with pytest.raises(NotImplementedError, match=item):
-            GPT2(GPT2Config(**{**TINY, **kw}), device="cpu")
+    # A.9's selective remat and dropout and A.14's MoE blocks are ported:
+    # each builds and takes a training step
+    for kw in (dict(remat=True, remat_policy="dots_saveable"),
+               dict(dropout=0.1), dict(moe_experts=4, moe_top_k=2)):
+        m = GPT2(GPT2Config(**{**TINY, **kw}), device="cpu")
+        o = torch.optim.AdamW(m.parameters(), lr=LR)
+        t = Trainer(m, o, NoShard("cpu"), loss_fn=lm_loss)
+        _, metrics = t.step(t.init(), _batches(1)[0])
+        assert np.isfinite(float(metrics["loss"]))
+        assert ("moe_aux" in metrics) == ("moe_experts" in kw)
     model, opt = _fresh_port()
     # gradient hooks are ported; as in the reference, DataParallel only
     with pytest.raises(ValueError, match="dp_axis"):
@@ -341,8 +347,10 @@ def test_entry_point_trains_on_cpu(tmp_path):
     # divide the process count, as in the JAX script
     with pytest.raises(SystemExit, match="--dp must divide"):
         train_main(common + ["--dp", "2"])
-    with pytest.raises(NotImplementedError, match="A.14"):
-        train_main(common + ["--moe-experts", "4"])
+    # --moe-experts is ported: an MoE model trains, reporting moe_aux
+    out = train_main(common + ["--steps", "2", "--moe-experts", "4"])
+    assert len(out["losses"]) == len(out["moe_aux"]) == 2
+    assert all(np.isfinite(out["losses"] + out["moe_aux"]))
     # --data-bin (ported): the windows of a token file; a repeating corpus
     # is learnt, and an id past --vocab is refused
     from pytorch_distributed_tpu_torch.data import write_token_bin
