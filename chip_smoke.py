@@ -189,6 +189,18 @@ capture records; what the replays launched is counted in device traces
                 and on: the runner equals NoShard's runner bit for bit,
                 B1-B3 12 each a replayed step, the collectives counted a
                 step; step time against NoShard's runner;
+  pp_train      (in the one-rank NCCL group) GPT2Pipe under
+                ``PipelineParallel`` at pp 1: GPT-2 125M, bf16, flash
+                attention, B = 8 x 1024 in 4 microbatches, with remat on
+                and off: the losses against runner_train's NoShard eager
+                losses (within 1e-4), each parameter group's first-step
+                gradient norm against NoShard's (within 1e-2),
+                ``Trainer.run`` (one replay a step) against the eager loop
+                (within its spread), B1-B3's launches a step exactly the
+                count the code gives (B1 twice a block and microbatch under
+                remat), also in a device trace of the replays; step time,
+                tokens/s, MFU, peak memory; then dropout 0.1 on the runner
+                (captured, equal to the eager loop);
   tp_serve      the serve phase through a model cut over a (dp 1, tp 1)
                 serving mesh with its paged cache on tp (NCCL: graphs, the
                 tp all-reduces in the capture): streams equal serve's, one
@@ -250,6 +262,20 @@ capture records; what the replays launched is counted in device traces
                 parameters bit for bit on every rank, the all-reduces and
                 bytes a step the design's, the (1, 4) checkpoint resumed
                 bit for bit, step time and peak memory a rank;
+  pp_ranks      four spawned ranks sharing the card over gloo: GPT2Pipe
+                (GPT-2 125M at full width and depth, bf16, flash
+                attention, 4 microbatches) under ``PipelineParallel`` at
+                pp 4 (3 layers a stage) and (dp 2, pp 2), 8 x 1024 global,
+                3 eager steps against NoShard in this process (losses
+                within 1e-4, each group's first-step gradient norm within
+                1e-2): each rank's layers plus the replicated tables
+                (parameter bytes), the host-staged link bytes a step and
+                B1-B3's launches a step against the shapes' count, the pp 4
+                checkpoint resumed bit for bit; then the eager executor
+                with 8 of GPT-2 125M's blocks (fp32, TF32 off) as stages
+                under all eight schedules, the loss and every gradient
+                against plain autograd of the same blocks here; step time
+                and peak memory a rank, each schedule's step time;
   multihost     multihost serving: two worker processes (a ``HostWorker``
                 each around the serve phase's paged engine, GPT-2 125M in
                 fp32 with TF32 off, the decode step captured with B7 12
@@ -391,16 +417,20 @@ from pytorch_distributed_tpu_torch.redistribute import executor as rdx
 from pytorch_distributed_tpu_torch.parallel import (
     CPStrategy,
     DataParallel,
+    EagerPipelineExecutor,
     ExpertDataParallel,
     FullyShardedDataParallel,
+    GPT2Pipe,
     MoEMLP,
     NoShard,
+    PipelineParallel,
     TensorParallel,
     ZeRO1,
     comm,
     gpt2_tp_plan,
     make_dispatch_masks,
     make_ring_attention,
+    stage_links,
     zigzag_reorder,
     zigzag_restore,
 )
@@ -6076,6 +6106,570 @@ def ep_ranks_phase():
     return line
 
 
+# -- pipeline parallelism ----------------------------------------------------
+PP_MICRO = 4                 # GPT2Pipe's microbatches (B = 8: 2 rows each)
+PP_TRAIN_STEPS = 6           # runner_train's first 6 batches
+PP_LOSS_RTOL = 1e-4          # bf16 against NoShard: the losses move ~1e-3
+#                              over the steps, so a broken stage shows
+PP_GRAD_NORM_RTOL = 1e-2     # bf16: each group's first-step gradient norm
+#                              (a block, wte, wpe, ln_f) against NoShard's
+PP_RANKS = 4
+PP_RANKS_STEPS = 3
+PP_JOBS = {"pp4": (1, 4), "dp2_pp2": (2, 2)}
+PP_CKPT_JOB = "pp4"          # saved after 2 steps, resumed for the third
+PP_EXEC_LAYERS = 8           # 4 stages of 2 blocks, or 8 virtual stages of 1
+PP_EXEC_MICRO = 8            # DualPipeV needs 2 x 4; interleaved 4 | 8
+PP_EXEC_ROWS = (1, 256)      # a microbatch: 1 sequence of 256 tokens
+PP_EXEC_LOSS_RTOL = 1e-5     # fp32, TF32 off: sums in another order only
+PP_EXEC_GRAD_TOL = 1e-4      # of each gradient tensor's largest element
+PP_SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("zb", 1), ("interleaved", 2),
+                ("interleaved_zb", 2), ("looped_bfs", 2), ("zbv", 2),
+                ("dualpipev", 2))
+
+
+def _pp_launches(n_layer: int, remat: bool, n_micro: int = PP_MICRO) -> dict:
+    """B1-B3's launches a step on a stage of ``n_layer`` blocks: one B1, B2
+    and B3 a block and microbatch, and B1 once more under remat (the
+    backward recomputes each stage application)."""
+    per = n_layer * n_micro
+    return {"fwd": per * (2 if remat else 1), "dq": per, "dkv": per}
+
+
+def _pp_card_trainer(mesh, remat, seed=2, dp_axis=None, capturable=True,
+                     dropout=0.0):
+    """GPT2Pipe over ``mesh`` with runner_train's model and step: GPT-2
+    125M, bf16, flash attention, AdamW (weights drawn as
+    ``gpt2_125m(seed=seed)`` draws them)."""
+    model = GPT2Pipe(GPT2Config(dtype=torch.bfloat16,
+                                attn_impl=fa.flash_attention,
+                                dropout=dropout), mesh,
+                     dp_axis=dp_axis, n_microbatches=PP_MICRO, remat=remat,
+                     seed=seed)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
+                            eps=1e-8, capturable=capturable)
+    trainer = Trainer(model, opt, PipelineParallel(mesh, dp_axis=dp_axis),
+                      loss_fn=lm_loss, policy="bf16")
+    return trainer, trainer.init()
+
+
+def _record_grad_norms(trainer) -> dict:
+    """Make ``trainer``'s next step record, into the dict returned, the
+    norm of each parameter group's reduced gradient (a block ``h.{i}``,
+    ``wte``, ``wpe``, ``ln_f``) as a tensor; later steps record nothing."""
+    names = [n for n, p in trainer.model.named_parameters()
+             if p.requires_grad]
+    strategy = trainer.strategy
+    reduce = strategy.reduce_grads
+    out = {}
+
+    def recording(grads):
+        grads = reduce(grads)
+        del strategy.reduce_grads          # the class's method again
+        sq = {}
+        for name, g in zip(names, grads):
+            parts = name.split(".")
+            key = ".".join(parts[:2]) if parts[0] == "h" else parts[0]
+            sq[key] = sq.get(key, 0) + (g.float() ** 2).sum()
+        out.update({k: v.sqrt() for k, v in sq.items()})
+        return grads
+
+    strategy.reduce_grads = recording
+    return out
+
+
+def _grad_norm_errs(got: dict, want: dict) -> dict:
+    """Each group's relative difference of gradient norms (floats)."""
+    return {k: abs(got[k] - want[k]) / want[k] for k in got}
+
+
+def _noshard_grad_norms(batch, **cfg) -> dict:
+    """NoShard's first-step gradient norm of each group on ``batch``, from
+    the weights every pp phase draws (``gpt2_125m(seed=2)``)."""
+    trainer, state = _trainer(seed=2, dtype=torch.bfloat16,
+                              attn_impl=fa.flash_attention, **cfg)
+    norms = _record_grad_norms(trainer)
+    trainer.step(state, batch)
+    out = {k: float(v) for k, v in norms.items()}
+    del trainer, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_train_phase(noshard_runs):
+    """GPT2Pipe at pp 1 on the one-rank NCCL group, remat on and off:
+    runner_train's first PP_TRAIN_STEPS batches, the eager loop twice and
+    ``Trainer.run`` (``_runner_runs``), the losses against runner_train's
+    NoShard eager losses (within PP_LOSS_RTOL), each group's first-step
+    gradient norm against NoShard's (within PP_GRAD_NORM_RTOL), B1-B3's
+    wrapper launches exactly ``_pp_launches`` a step (eager) and at the
+    warm-up and capture (runner), and in a device trace of 3 replays.
+    Then with dropout DROPOUT_RATE (remat on): the runner captures the
+    step (the masks come from the card generator) and equals the eager
+    loop within its spread. Returns B1-B3's launches a step as measured:
+    the eager loop's wrapper counts and the replays' device trace."""
+    mesh = init_device_mesh((1,), ("pp",))
+    n_layer = GPT2Config().n_layer
+    batches = _lm_batches(10, 8, 1024, seed=12)[:PP_TRAIN_STEPS]
+    noshard = noshard_runs["eager_a"]["losses"][:PP_TRAIN_STEPS]
+    ref_norms = _noshard_grad_norms(batches[0])
+    bf16_peak, _, _ = peaks()
+    line = {"phase": "pp_train", "model": "gpt2-125m", "dtype": "bfloat16",
+            "global_batch": 8, "seq_len": 1024, "pp": 1,
+            "n_microbatches": PP_MICRO, "steps": PP_TRAIN_STEPS,
+            "noshard_losses": noshard, "loss_rtol": PP_LOSS_RTOL,
+            "grad_norm_rtol": PP_GRAD_NORM_RTOL,
+            "noshard_grad_norms": ref_norms}
+    per_step = {}
+    for remat in (True, False):
+        tag = "remat" if remat else "no_remat"
+        recorded = []
+
+        def build():
+            trainer, state = _pp_card_trainer(mesh, remat)
+            if not recorded:                    # eager_a's first step
+                recorded.append(_record_grad_norms(trainer))
+            return trainer, state
+
+        runs, spread, got = _runner_runs(build, batches, f"pp_train {tag}")
+        norms = {k: float(v) for k, v in recorded[0].items()}
+        norm_err = _grad_norm_errs(norms, ref_norms)
+        runner, trainer, state = runs["runner"].pop("_runner")
+        check(runner.graphs, f"pp_train {tag}: the NCCL pipeline was not "
+                             "captured")
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        for run in runs.values():
+            run["tokens_per_s"] = 8 * 1024 / run["step_s"]
+            run["mfu"] = 6 * n_params * run["tokens_per_s"] / bf16_peak
+        want = _pp_launches(n_layer, remat)
+        warm = {k: v * (AsyncRunner.warmup_steps + 1) for k, v in want.items()}
+        expect_calls = {name: want[key] for name, key in
+                        zip(SM90_KERNELS, CAUSAL_KEYS)}
+        expect_calls.update({name: 0 for name in MASKED_SM90_KERNELS})
+        (device, calls, spans, wall_ms), first = recounted(
+            lambda: _replay_window(runner, state, batches, 3, expect_calls),
+            lambda r: r[1] == expect_calls)
+        busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+        rel = [abs(a - b) / abs(b) for a, b in zip(runs["eager_a"]["losses"],
+                                                   noshard)]
+        per_step[tag] = {
+            "eager": {k: runs["eager_a"]["launches"][k] / PP_TRAIN_STEPS
+                      for k in CAUSAL_KEYS},
+            "replayed": {key: calls[name] for name, key in
+                         zip(SM90_KERNELS, CAUSAL_KEYS)}}
+        line[tag] = {
+            "eager_spread": spread, "runner_vs_eager": got,
+            "loss_rel_err": rel, "grad_norms": norms,
+            "grad_norm_rel_err": norm_err,
+            "launches_per_step": per_step[tag],
+            "launches_per_step_expected": want,
+            "runner_launches_expected": warm, "n_params": n_params,
+            "replayed": {"calls_per_step": calls, "first_window": first
+                         and first[1], "replays": len(spans),
+                         "replay_ms_per_step": _spans_ms(spans) / 3,
+                         "device_busy_ms_per_step": busy_ms / 3,
+                         "wall_ms_per_step": wall_ms / 3},
+            **runs}
+        check(max(rel) <= PP_LOSS_RTOL,
+              f"pp_train {tag}: losses {runs['eager_a']['losses']} vs "
+              f"NoShard {noshard}")
+        check(sorted(norms) == sorted(ref_norms)
+              and max(norm_err.values()) <= PP_GRAD_NORM_RTOL,
+              f"pp_train {tag}: gradient norms {norms} vs NoShard "
+              f"{ref_norms}")
+        for run in ("eager_a", "eager_b"):
+            check(runs[run]["launches"] == {
+                **{k: v * PP_TRAIN_STEPS for k, v in want.items()},
+                **{k: 0 for k in MASKED_KEYS}},
+                f"pp_train {tag} {run}: launches {runs[run]['launches']}, "
+                f"{want} a step expected")
+        check(all(runs["runner"]["launches"][k] == warm[k]
+                  for k in CAUSAL_KEYS),
+              f"pp_train {tag}: runner launches {runs['runner']['launches']}"
+              f", expected {warm}")
+        check(len(spans) == 3 and calls == expect_calls,
+              f"pp_train {tag}: replayed calls {calls}, expected "
+              f"{expect_calls}")
+        del runner, trainer, state, runs
+        torch.cuda.empty_cache()
+    # dropout: the card generator's masks, captured with the step
+    druns, dspread, dgot = _runner_runs(
+        lambda: _pp_card_trainer(mesh, True, dropout=DROPOUT_RATE),
+        batches, "pp_train dropout")
+    runner = druns["runner"].pop("_runner")[0]
+    line["dropout"] = {
+        "rate": DROPOUT_RATE, "remat": True, "captured": runner.graphs,
+        "eager_spread": dspread, "runner_vs_eager": dgot,
+        "losses": druns["runner"]["losses"],
+        "runner_step_s": druns["runner"]["step_s"],
+        "eager_step_s": druns["eager_a"]["step_s"]}
+    del runner, druns
+    torch.cuda.empty_cache()
+    emit(line)
+    check(line["dropout"]["captured"],
+          "pp_train dropout: the step with dropout was not captured")
+    check(all(a != b for a, b in zip(line["dropout"]["losses"],
+                                     line["remat"]["eager_a"]["losses"])),
+          "pp_train dropout: the losses are those without dropout")
+    return per_step
+
+
+def _pp_steps(trainer, state, batches):
+    out = {"losses": [], "step_s": [], "launches": []}
+    for i, batch in enumerate(batches):
+        if i == len(batches) - 1:
+            comm.reset_counts()
+            stage_links.reset_counts()
+        _reset_flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.step(state, batch)
+        out["losses"].append(float(m["loss"]))
+        out["step_s"].append(time.perf_counter() - t0)
+        out["launches"].append({k: fa.launches[k] for k in CAUSAL_KEYS})
+    out["links"] = dict(stage_links.counts)
+    out["counts"] = dict(comm.counts)
+    return state, out
+
+
+def _exec_blocks(device):
+    """The executor's model: GPT-2 125M's first PP_EXEC_LAYERS blocks
+    (fp32, flash attention on its CUDA-core kernels), seed 5."""
+    return GPT2(GPT2Config(n_layer=PP_EXEC_LAYERS,
+                           attn_impl=fa.flash_attention),
+                device=device, seed=5).h
+
+
+def _exec_data(device):
+    g = torch.Generator(device="cpu").manual_seed(17)
+    shape = (*PP_EXEC_ROWS, GPT2Config().n_embd)
+    mbs = [torch.randn(shape, generator=g).to(device)
+           for _ in range(PP_EXEC_MICRO)]
+    tgts = [torch.randn(shape, generator=g).to(device)
+            for _ in range(PP_EXEC_MICRO)]
+    return mbs, tgts
+
+
+def _exec_loss(y, t):
+    return ((y.float() - t) ** 2).mean()
+
+
+def _exec_stages(schedule, n_chunks, rank):
+    """The virtual stages rank ``rank`` hosts, by chunk, and the blocks of
+    each (every virtual stage runs PP_EXEC_LAYERS / virtual stages)."""
+    n_virtual = PP_RANKS * n_chunks
+    if schedule in ("zbv", "dualpipev"):
+        vs = [rank, 2 * PP_RANKS - 1 - rank]
+    else:
+        vs = [c * PP_RANKS + rank for c in range(n_chunks)]
+    per = PP_EXEC_LAYERS // n_virtual
+    return vs, [list(range(v * per, (v + 1) * per)) for v in vs]
+
+
+def _pp_exec_rank(rank, device, ref_path):
+    """Every schedule twice on the four ranks: the loss on the rank of the
+    last virtual stage, each hosted block's gradients against the
+    parent's plain autograd (``ref_path``: the worst error over the
+    gradient's largest element, and how many were held), whether the two
+    runs agree bit for bit, the second run's time."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = torch.load(ref_path, map_location="cpu", mmap=True,
+                     weights_only=True)
+    blocks = _exec_blocks(device)
+    mbs, tgts = _exec_data(device)
+    out = {}
+    for schedule, n_chunks in PP_SCHEDULES:
+        vs, layers = _exec_stages(schedule, n_chunks, rank)
+        chunks = [[p for i in ls for p in blocks[i].parameters()]
+                  for ls in layers]
+        by_first = {id(c[0]): [blocks[i] for i in ls]
+                    for c, ls in zip(chunks, layers)}
+
+        def stage_fn(params, x):
+            for block in by_first[id(params[0])]:
+                x = block(x)
+            return x
+
+        last = PP_RANKS * n_chunks - 1
+        ex = EagerPipelineExecutor(
+            stage_fn, chunks if n_chunks > 1 else chunks[0],
+            dist.group.WORLD, loss_fn=_exec_loss if last in vs else None,
+            schedule=schedule, n_chunks=n_chunks)
+        kwargs = {}
+        if 0 in vs:
+            kwargs["microbatches"] = mbs
+        if last in vs:
+            kwargs["targets"] = tgts
+        if not kwargs:
+            kwargs["n_microbatches"] = PP_EXEC_MICRO
+        runs = []
+        for _ in range(2):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = ex.run(**kwargs)
+            torch.cuda.synchronize()
+            runs.append((loss, grads, time.perf_counter() - t0))
+        (loss, grads, _), (loss2, grads2, step_s) = runs
+        grads = grads if n_chunks > 1 else [grads]
+        grads2 = grads2 if n_chunks > 1 else [grads2]
+        names = [[f"h.{i}.{n}" for i in ls for n, _ in
+                  blocks[i].named_parameters()] for ls in layers]
+        errs = [float((g.detach().cpu() - ref[n]).abs().max())
+                / float(ref[n].abs().max())
+                for ns, gs in zip(names, grads) for n, g in zip(ns, gs)]
+        out[schedule] = {
+            "stages": vs, "step_s": step_s,
+            "loss": None if loss is None else float(loss),
+            "repeat_equal": (loss is None or float(loss) == float(loss2))
+            and all(torch.equal(a, b) for c1, c2 in zip(grads, grads2)
+                    for a, b in zip(c1, c2)),
+            "worst_grad_err_of_max": max(errs), "grads_held": len(errs)}
+    return out
+
+
+def _pp_rank(rank, port, out_dir, batches, device):
+    """One of PP_RANKS ranks sharing the card over gloo: each PP_JOBS
+    mesh, PP_RANKS_STEPS eager steps of GPT2Pipe (PP_CKPT_JOB saves after
+    2 steps and a fresh trainer restored from it takes the third again);
+    then every executor schedule, held against the reference the parent
+    wrote to ``exec_ref.pt``. ``timing_s``: seconds from the start of the
+    rank's work to each part."""
+    pdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                             rank=rank, world_size=PP_RANKS, device=device)
+    result = {"rank": rank, "timing_s": {}}
+    t0 = time.perf_counter()
+    try:
+        _build.load_all(LIBRARIES)
+        for tag, shape in PP_JOBS.items():
+            result["timing_s"][f"before_{tag}"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            mesh = init_device_mesh(shape, ("dp", "pp"))
+            trainer, state = _pp_card_trainer(mesh, True, dp_axis="dp",
+                                              capturable=False)
+            norms = _record_grad_norms(trainer)
+            model, opt = trainer.model, trainer.optimizer
+            r = {"stage": trainer.strategy.stage_index,
+                 "dp": trainer.strategy.data_shard_index,
+                 "layers": list(model.layers),
+                 "param_bytes": sum(p.numel() * p.element_size()
+                                    for p in model.parameters()),
+                 "opt_bytes": sum(v.numel() * v.element_size()
+                                  for st in opt.state.values()
+                                  for v in st.values())}
+            if tag == PP_CKPT_JOB:
+                state, first = _pp_steps(trainer, state, batches[:2])
+                ckpt = f"{out_dir}/ckpt"
+                ts = time.perf_counter()
+                with CheckpointManager(ckpt) as mgr:
+                    mgr.save(state.step, get_state_dict(trainer, state))
+                r["save_s"] = time.perf_counter() - ts
+                state, last = _pp_steps(trainer, state, batches[2:])
+                steps = {k: first[k] + last[k] if isinstance(first[k], list)
+                         else last[k] for k in first}
+                fresh, fstate = _pp_card_trainer(mesh, True, seed=8,
+                                                 dp_axis="dp",
+                                                 capturable=False)
+                ts = time.perf_counter()
+                with CheckpointManager(ckpt) as mgr:
+                    fstate = set_state_dict(fresh, fstate, mgr.restore(
+                        get_state_dict(fresh, fstate)))
+                r["restore_s"] = time.perf_counter() - ts
+                fstate, again = _pp_steps(fresh, fstate, batches[2:])
+                r["resumed_losses"] = again["losses"]
+                r["resumed_hash"] = _param_hash(fresh.model.parameters())
+                del fresh, fstate
+            else:
+                state, steps = _pp_steps(trainer, state, batches)
+            r.update(steps)
+            r["grad_norms"] = {k: float(v) for k, v in norms.items()}
+            r["hash"] = _param_hash(model.parameters())
+            r["table_hash"] = _param_hash(
+                p for n, p in model.named_parameters()
+                if not n.startswith("h."))
+            r["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(
+                device)
+            result[tag] = r
+            del trainer, state, model, opt
+        torch.cuda.empty_cache()
+        result["timing_s"]["before_executor"] = time.perf_counter() - t0
+        result["executor"] = _pp_exec_rank(rank, device,
+                                           f"{out_dir}/exec_ref.pt")
+        result["timing_s"]["end"] = time.perf_counter() - t0
+    finally:
+        torch.save(result, f"{out_dir}/pp_rank{rank}.pt")
+        pdist.destroy_process_group()
+
+
+def _pp_exec_reference(device):
+    """Plain autograd of the same blocks: the mean over the microbatches
+    of the loss, its gradient by parameter name."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    blocks = _exec_blocks(device)
+    mbs, tgts = _exec_data(device)
+    total = 0.0
+    for x, t in zip(mbs, tgts):
+        for block in blocks:
+            x = block(x)
+        total = total + _exec_loss(x, t)
+    loss = total / len(mbs)
+    loss.backward()
+    grads = {f"h.{i}.{n}": p.grad.detach().cpu()
+             for i, b in enumerate(blocks) for n, p in b.named_parameters()}
+    return float(loss), grads
+
+
+def pp_ranks_phase():
+    """PP_RANKS spawned ranks on the one card over gloo (see ``_pp_rank``),
+    against NoShard in this process on the same global batches (losses
+    within PP_LOSS_RTOL) and plain autograd of the executor's blocks (the
+    loss within PP_EXEC_LOSS_RTOL, each gradient within PP_EXEC_GRAD_TOL of
+    its largest element): each rank's layers and the replicated tables
+    (parameter bytes against the design's), the tables bit for bit on
+    every rank, the host-staged link bytes and messages a step and
+    B1-B3's launches a step against the shapes' count, the checkpoint
+    resumed bit for bit, step time and peak memory a rank."""
+    import tempfile
+
+    device = torch.device("cuda", 0)
+    batches = _lm_batches(PP_RANKS_STEPS, 8, 1024, seed=71)
+    trainer, state = _trainer(seed=2, dtype=torch.bfloat16,
+                              attn_impl=fa.flash_attention)
+    norms = _record_grad_norms(trainer)
+    noshard = []
+    for batch in batches:
+        state, m = trainer.step(state, batch)
+        noshard.append(float(m["loss"]))
+    ref_norms = {k: float(v) for k, v in norms.items()}
+    del trainer, state
+    ref_loss, ref_grads = _pp_exec_reference(device)
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as out_dir:
+        torch.save(ref_grads, f"{out_dir}/exec_ref.pt")
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(
+            _pp_rank, args=(port, out_dir, batches, device), nprocs=PP_RANKS,
+            join=False, start_method="spawn")
+        deadline = time.monotonic() + 300
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                check(False, "pp_ranks: the ranks did not finish in 300 s")
+        wall_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{out_dir}/pp_rank{r}.pt", weights_only=False)
+                 for r in range(PP_RANKS)]
+    cfg = GPT2Config()
+    C, T = cfg.n_embd, 1024
+    block = 12 * C * C + 13 * C
+    tables = cfg.vocab_size * C + cfg.n_positions * C + 2 * C
+    line = {"phase": "pp_ranks", "ranks": PP_RANKS, "backend": "gloo",
+            "wall_s": wall_s, "model": "gpt2-125m", "dtype": "bfloat16",
+            "global_batch": 8, "seq_len": T, "n_microbatches": PP_MICRO,
+            "remat": True, "steps": PP_RANKS_STEPS, "loss_rtol": PP_LOSS_RTOL,
+            "noshard_losses": noshard, "grad_norm_rtol": PP_GRAD_NORM_RTOL,
+            "noshard_grad_norms": ref_norms}
+    for tag, (dp, pp) in PP_JOBS.items():
+        rs = [r[tag] for r in ranks]
+        per = cfg.n_layer // pp
+        act = (8 // dp // PP_MICRO) * T * C * 2          # bf16 [mb, T, C]
+        mean = [float(np.mean([rs[d * pp]["losses"][i] for d in range(dp)]))
+                for i in range(PP_RANKS_STEPS)]
+        rel = [abs(a - b) / abs(b) for a, b in zip(mean, noshard)]
+        design = []
+        for r in rs:
+            s = r["stage"]
+            msgs = PP_MICRO * ((2 if s < pp - 1 else 0) + (2 if s > 0 else 0))
+            design.append({"messages": msgs, "host_staged_bytes": msgs * act,
+                           "launches": _pp_launches(per, True)})
+        got = [{"messages": r["links"]["sends"] + r["links"]["recvs"],
+                "host_staged_bytes": r["links"]["host_staged_bytes"],
+                "launches": r["launches"][-1]} for r in rs]
+        # each rank's groups: its stage's blocks and the tables (the same
+        # on every rank after the reduction)
+        norm_err = [_grad_norm_errs(r["grad_norms"], ref_norms) for r in rs]
+        line[tag] = {
+            "mean_losses": mean, "loss_rel_err": rel,
+            "grad_norm_rel_err": norm_err,
+            "groups_seen": sorted({k for r in rs for k in r["grad_norms"]}),
+            "layers": [r["layers"] for r in rs],
+            "param_bytes_a_rank": [r["param_bytes"] for r in rs],
+            "design_param_bytes": (per * block + tables) * 4,
+            "opt_bytes_a_rank": [r["opt_bytes"] for r in rs],
+            "link_bytes_each_way": PP_MICRO * act,
+            "bubble": (pp - 1) / (PP_MICRO + pp - 1),
+            "per_step": got, "design": design,
+            "collectives_last_step": rs[0]["counts"],
+            "tables_equal": len({r["table_hash"] for r in rs}) == 1,
+            "step_s": [r["step_s"] for r in rs],
+            "max_memory_allocated_bytes": [r["max_memory_allocated_bytes"]
+                                           for r in rs]}
+        if tag == PP_CKPT_JOB:
+            line[tag].update(
+                save_s=[r["save_s"] for r in rs],
+                restore_s=[r["restore_s"] for r in rs],
+                resumed_losses=[r["resumed_losses"] for r in rs],
+                resume_bit_equal=all(
+                    r["resumed_losses"] == r["losses"][2:]
+                    and r["resumed_hash"] == r["hash"] for r in rs))
+    execs = {}
+    for schedule, n_chunks in PP_SCHEDULES:
+        got = [r["executor"][schedule] for r in ranks]
+        losses = [g["loss"] for g in got if g["loss"] is not None]
+        execs[schedule] = {
+            "n_chunks": n_chunks, "stages": [g["stages"] for g in got],
+            "loss": losses, "loss_rel_err": [abs(x - ref_loss) / abs(ref_loss)
+                                             for x in losses],
+            "worst_grad_err_of_max": max(g["worst_grad_err_of_max"]
+                                         for g in got),
+            "grads_seen": sum(g["grads_held"] for g in got),
+            "repeat_equal": all(g["repeat_equal"] for g in got),
+            "step_s": [g["step_s"] for g in got]}
+    line["rank_timing_s"] = [r["timing_s"] for r in ranks]
+    line["executor"] = {"layers": PP_EXEC_LAYERS, "dtype": "float32",
+                        "tf32": False, "microbatches": PP_EXEC_MICRO,
+                        "rows": PP_EXEC_ROWS, "reference_loss": ref_loss,
+                        "loss_rtol": PP_EXEC_LOSS_RTOL,
+                        "grad_tol": PP_EXEC_GRAD_TOL, **execs}
+    emit(line)
+    for tag, (dp, pp) in PP_JOBS.items():
+        r = line[tag]
+        check(max(r["loss_rel_err"]) <= PP_LOSS_RTOL,
+              f"pp_ranks {tag}: losses {r['mean_losses']} vs NoShard "
+              f"{noshard}")
+        check(r["groups_seen"] == sorted(ref_norms)
+              and max(max(e.values()) for e in r["grad_norm_rel_err"])
+              <= PP_GRAD_NORM_RTOL,
+              f"pp_ranks {tag}: gradient norms' errors "
+              f"{r['grad_norm_rel_err']} (groups {r['groups_seen']})")
+        check(all(b == r["design_param_bytes"]
+                  for b in r["param_bytes_a_rank"]),
+              f"pp_ranks {tag}: parameter bytes {r['param_bytes_a_rank']}, "
+              f"the design's {r['design_param_bytes']}")
+        check(r["per_step"] == r["design"],
+              f"pp_ranks {tag}: links and launches a step {r['per_step']}, "
+              f"the design's {r['design']}")
+        check(r["tables_equal"], f"pp_ranks {tag}: tables differ")
+    check(line[PP_CKPT_JOB]["resume_bit_equal"],
+          f"pp_ranks: resumed {line[PP_CKPT_JOB]['resumed_losses']}")
+    for schedule, e in execs.items():
+        check(len(e["loss"]) == 1 and e["loss_rel_err"][0]
+              <= PP_EXEC_LOSS_RTOL,
+              f"pp_ranks executor {schedule}: loss {e['loss']} vs "
+              f"{ref_loss}")
+        check(e["grads_seen"] == len(ref_grads)
+              and e["worst_grad_err_of_max"] <= PP_EXEC_GRAD_TOL
+              and e["repeat_equal"],
+              f"pp_ranks executor {schedule}: {e['grads_seen']} gradients, "
+              f"worst {e['worst_grad_err_of_max']}, repeat "
+              f"{e['repeat_equal']}")
+    return line
+
+
 def kernel_resources():
     """Registers, stack bytes and HGMMA (wgmma) instructions of each
     Hopper-route kernel, read from the built B1-B3 and B4-B6 libraries with
@@ -6193,6 +6787,8 @@ def main() -> int:
         tp_train_phase(noshard_runs, noshard_final)
         del noshard_final
         torch.cuda.empty_cache()
+        pp_per_step = pp_train_phase(noshard_runs)
+        torch.cuda.empty_cache()
         tp_serve_phase(serve_streams, serve_latency)
         redistribute_phase(smi)
     finally:
@@ -6203,6 +6799,7 @@ def main() -> int:
     hooks_ranks_phase(fsdp["noshard"]["losses"])
     tp_ranks_phase(smi)
     ep_ranks_phase()
+    pp_ranks_phase()
     multihost_phase()
     multihost_example_phase()
 
@@ -6272,6 +6869,9 @@ def main() -> int:
             "device_ms": r["device_ms"],
             "train_profile_ms_per_launch": train_split[key] / n_layer,
             "tflops": r["tflops"],
+            "pp_train_launches_per_step": {
+                tag: {run: counts[key] for run, counts in launches.items()}
+                for tag, launches in pp_per_step.items()},
         })
     for name, key, replaces in MASKED_KERNELS:
         r = mres["bfloat16"][key]  # the train_cp phase runs in bf16

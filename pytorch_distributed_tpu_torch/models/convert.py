@@ -150,21 +150,55 @@ def _moe_flax(params) -> frozenset:
                      if k.startswith("h_") and "moe" in params[k])
 
 
-def gpt2_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _unstack_blocks(params) -> Dict[str, Any]:
+    """A GPT2Pipe tree (``blocks``: the per-block trees stacked ``[L,
+    ...]``) as the unsharded model's (``h_<i>``); any other tree as it
+    is."""
+    if "blocks" not in params:
+        return params
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    first = params["blocks"]
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    for i in range(np.asarray(first).shape[0]):
+        out[f"h_{i}"] = _map_tree(lambda a: np.asarray(a)[i],
+                                  params["blocks"])
+    return out
+
+
+def gpt2_state_dict_from_flax(params, layers=None) -> Dict[str, torch.Tensor]:
     """The flax param tree (``variables["params"]``, numpy or jax leaves,
     paths ``h_<i>/attn/c_attn/kernel`` ...) as a ``GPT2.load_state_dict``
-    dict. Also maps any tree of the same structure (optax's mu/nu)."""
+    dict. Also maps any tree of the same structure (optax's mu/nu), and
+    the reference ``GPT2Pipe``'s tree, whose ``blocks`` stack the blocks'
+    trees ``[L, ...]``. ``layers`` keeps the blocks of those indices only
+    (a pipeline stage's ``GPT2Pipe.layers``)."""
+    params = _unstack_blocks(params)
+    keep = None if layers is None else {f"h.{i}." for i in layers}
     sd = {}
     for path, name, transposed in _pairs(_n_layer_flax(params),
                                          _moe_flax(params)):
+        if (keep is not None and name.startswith("h.")
+                and name[:name.index(".", 2) + 1] not in keep):
+            continue
         t = _t(_get(params, path))
         sd[name] = t.t().contiguous() if transposed else t
     return sd
 
 
-def gpt2_flax_from_state_dict(state_dict) -> Dict[str, Any]:
+def gpt2_flax_from_state_dict(state_dict, *, stacked: bool = False
+                              ) -> Dict[str, Any]:
     """The port's ``GPT2.state_dict()`` as a flax param tree of numpy
-    arrays (the inverse of :func:`gpt2_state_dict_from_flax`)."""
+    arrays (the inverse of :func:`gpt2_state_dict_from_flax`); with
+    ``stacked`` the reference ``GPT2Pipe``'s tree, the blocks stacked
+    ``[L, ...]`` under ``blocks`` (every block's keys needed: the union of
+    the stages' state dicts)."""
     n_layer = len({k.split(".")[1] for k in state_dict if k.startswith("h.")})
     moe = frozenset(int(k.split(".")[1]) for k in state_dict
                     if k.startswith("h.") and k.split(".")[2] == "moe")
@@ -175,6 +209,15 @@ def gpt2_flax_from_state_dict(state_dict) -> Dict[str, Any]:
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = np.ascontiguousarray(a.T) if transposed else a
+    if stacked:
+        blocks = [tree.pop(f"h_{i}") for i in range(n_layer)]
+
+        def stack(*xs):
+            if isinstance(xs[0], dict):
+                return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+            return np.stack(xs)
+
+        tree["blocks"] = stack(*blocks)
     return tree
 
 

@@ -342,6 +342,21 @@ class HeadMatmul(torch.autograd.Function):
                 torch.mm(g.t(), x.float()).to(w.dtype))
 
 
+def tied_head(x: torch.Tensor, wte: torch.Tensor, cfg: GPT2Config,
+              w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The weight-tied LM head over the whole ``wte`` (the parameter
+    dtype): logits in fp32 for a stable softmax, from fp32 operands
+    (``head_in_fp32``) or from the compute-dtype ones with fp32 out
+    (``HeadMatmul``; ``w`` is ``wte`` in the compute dtype where the
+    caller holds it already)."""
+    if cfg.head_in_fp32:
+        return torch.matmul(x.float(), wte.float().t())
+    if w is None:
+        w = wte.to(cfg.dtype)
+    logits = HeadMatmul.apply(x.reshape(-1, x.shape[-1]), w)
+    return logits.reshape(*x.shape[:-1], w.shape[0])
+
+
 class GPT2(nn.Module):
     """GPT-2 LM. ``forward(tokens [B, T]) -> logits [B, T, V]`` (fp32).
 
@@ -470,16 +485,10 @@ class GPT2(nn.Module):
 
     def _head(self, x: torch.Tensor, wte: Optional[torch.Tensor] = None,
               copies=None) -> torch.Tensor:
-        # weight-tied LM head over the whole ``wte`` (the parameter dtype);
-        # logits in fp32 for a stable softmax
         if wte is None:
             wte = self._table("wte", copies)
-        if self.cfg.head_in_fp32:
-            return torch.matmul(x.float(), wte.float().t())
-        # the compute-dtype operands, fp32 out (``matmul_f32``)
-        w = wte.to(self.cfg.dtype) if copies is None else copies[self.wte]
-        logits = HeadMatmul.apply(x.reshape(-1, x.shape[-1]), w)
-        return logits.reshape(*x.shape[:-1], w.shape[0])
+        return tied_head(x, wte, self.cfg,
+                         None if copies is None else copies[self.wte])
 
     def forward(self, tokens, *, return_hidden: bool = False, kv_cache=None,
                 position_offset=None, n_layers=None, verify: bool = False):

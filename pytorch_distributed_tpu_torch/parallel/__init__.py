@@ -13,7 +13,10 @@ reduce-scatter, ring all-reduce; ``powersgd.PowerSGD``) and model
 averaging (``averagers``) run on the data-parallel group. Tensor and
 sequence parallelism (``TensorParallel`` and its styles; TP x DP and TP x
 FSDP) is ``parallel.tensor_parallel``; expert parallelism (the MoE layer,
-``ExpertParallel``, ``ExpertDataParallel``) ``parallel.expert``.
+``ExpertParallel``, ``ExpertDataParallel``) ``parallel.expert``;
+pipeline parallelism (``gpipe_spmd``, ``PipelineParallel`` and
+``GPT2Pipe``, the eager executor and its schedules) ``parallel.pipeline``,
+over the stage links of ``parallel.stage_links``.
 """
 
 from pytorch_distributed_tpu_torch.parallel.averagers import (
@@ -45,6 +48,21 @@ from pytorch_distributed_tpu_torch.parallel.expert import (
     MoEMLP,
     make_dispatch_masks,
 )
+from pytorch_distributed_tpu_torch.parallel.pipeline import (
+    EagerPipelineExecutor,
+    GPT2Pipe,
+    PipelineParallel,
+    Schedule1F1B,
+    ScheduleDualPipeV,
+    ScheduleGPipe,
+    ScheduleInterleaved1F1B,
+    ScheduleInterleavedZeroBubble,
+    ScheduleLoopedBFS,
+    ScheduleZBVZeroBubble,
+    ScheduleZeroBubble,
+    gpipe_spmd,
+    stack_stage_params,
+)
 from pytorch_distributed_tpu_torch.parallel.powersgd import PowerSGD
 from pytorch_distributed_tpu_torch.parallel.state import (
     TrainState,
@@ -72,6 +90,19 @@ from pytorch_distributed_tpu_torch.parallel.strategies import (
 )
 
 __all__ = [
+    "EagerPipelineExecutor",
+    "GPT2Pipe",
+    "PipelineParallel",
+    "Schedule1F1B",
+    "ScheduleDualPipeV",
+    "ScheduleGPipe",
+    "ScheduleInterleaved1F1B",
+    "ScheduleInterleavedZeroBubble",
+    "ScheduleLoopedBFS",
+    "ScheduleZBVZeroBubble",
+    "ScheduleZeroBubble",
+    "gpipe_spmd",
+    "stack_stage_params",
     "ExpertDataParallel",
     "ExpertParallel",
     "MoEMLP",

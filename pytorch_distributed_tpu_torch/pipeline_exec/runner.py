@@ -54,6 +54,13 @@ warmed up and captured when the first step that needs it is submitted,
 so a run across ``start_iter`` captures two programs, and neither warm-up
 runs the other's branch. The programs share one memory pool and replay
 in the order they were captured.
+
+Whether the step is captured is decided when the runner is built, from
+the trainer (``Trainer.graph_capturable``), never after a failed capture:
+a pipeline whose stages talk over gloo (ranks sharing a card) runs its
+body eagerly on the card, one body a submit; a pipeline on NCCL is
+captured. Only pp 1 (one card) has been captured and measured, as one
+replay a step; a captured step at pp > 1 is unverified (ROADMAP C).
 """
 
 from __future__ import annotations
@@ -209,6 +216,11 @@ class AsyncRunner:
         #: the step takes the sharded weight update (ZeRO1, FSDP)
         self.sharded_update = bool(getattr(trainer.strategy,
                                            "sharded_update", False))
+        #: the step is captured as a CUDA graph (the card, and a trainer
+        #: whose step can be: not a pipeline over gloo), else it runs
+        #: eagerly; chosen here, once
+        self.graphs = (self.device.type == "cuda"
+                       and trainer.graph_capturable)
         #: the captured step programs, by ``Trainer.program_key``
         self.programs: Dict = {}
         self._key = None
@@ -286,7 +298,8 @@ class AsyncRunner:
             self._inputs, self._ring = inputs, ring
         self.programs[key] = Program(body, device=device, stream=side,
                                      pool=self._pool,
-                                     generators=trainer.generators)
+                                     generators=trainer.generators,
+                                     capture=self.graphs)
 
     def start(self, state, sample_batch) -> "AsyncRunner":
         """Bind the runner to ``state`` and build the pipelined step:

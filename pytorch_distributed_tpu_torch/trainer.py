@@ -2,8 +2,8 @@
 
 Port of ``pytorch_distributed_tpu/trainer.py`` (``NoShard`` on one
 device; ``DataParallel``, ``CPStrategy``, ``ZeRO1``,
-``FullyShardedDataParallel``, ``HybridShard``, ``TensorParallel`` and
-``ExpertDataParallel``, one process per rank).
+``FullyShardedDataParallel``, ``HybridShard``, ``TensorParallel``,
+``ExpertDataParallel`` and ``PipelineParallel``, one process per rank).
 The JAX step is one jitted program over an immutable state; here the model
 holds the parameters and the optimizer its state, and ``step`` updates
 both in place. The step keeps the JAX step's order:
@@ -75,13 +75,27 @@ Under ``ExpertDataParallel`` ``init`` cuts the expert stacks to the
 rank's experts (``strategy.parallelize``); the gradients are averaged over
 dp, and the norm adds the expert blocks' squares over ep.
 
+Under ``PipelineParallel`` (the model a ``GPT2Pipe`` stage) every rank of
+the pp group runs the step: the last stage runs the loss function (the
+pipeline's forward, then the head and the loss on the whole batch) and
+its scaled loss's backward; every other stage runs its part of the
+pipeline and its backward as the strategy says (``stage_backward``). The
+gradients
+are then reduced by the strategy (the replicated leaves summed over pp,
+all averaged over dp), the norm and the finite flag reduced over pp, and
+the last stage's loss and metrics broadcast over pp, so every rank reports
+its dp shard's. AdamW steps each rank's own leaves: the global update,
+since the update is elementwise.
+
 Dropout: the model's ``dropout_generator`` (GPT-2's, with ``dropout >
 0``) is set before each step to a state made from the trainer's ``seed``,
 the step and the rank's data shard (``strategy.data_shard_index``); the
 microbatches and the model's dropout sites draw from it in order. So a
 mask is a function of (seed, step, microbatch, data shard, site): a resume
 from a checkpoint draws the same masks, two data shards draw different
-ones, and the ranks of one data shard (tp, cp, ep) draw the same. On the
+ones, and the ranks of one data shard (tp, cp, ep) draw the same; a
+strategy's ``dropout_stream`` enters the seed too (a pipeline's stage,
+whose sites are other layers). On the
 card the generator keeps one seed (seed and shard) and its Philox offset
 is set from the step, which a CUDA graph replay reads
 (``pipeline_exec.AsyncRunner`` registers the generator with its program);
@@ -282,7 +296,8 @@ class Trainer:
       strategy: placement (``NoShard``: the single card; ``DataParallel``
         or ``CPStrategy``: replicas over a mesh axis; ``ZeRO1``,
         ``FullyShardedDataParallel``, ``HybridShard``: sharded;
-        ``TensorParallel``: Megatron TP, with DP or FSDP).
+        ``TensorParallel``: Megatron TP, with DP or FSDP;
+        ``ExpertDataParallel``; ``PipelineParallel`` with a ``GPT2Pipe``).
       loss_fn: ``(model, batch, train) -> (loss, metrics)``; see
         ``classification_loss`` / ``lm_loss`` / ``make_chunked_lm_loss``.
       policy: 'fp32' | 'bf16' | 'fp16' | Policy -- batch cast and scaler
@@ -344,9 +359,11 @@ class Trainer:
         self.layout: Optional[ShardedParams] = None
         self._fsdp = False   # parameters held as shards: regather_saved
         self._tp = bool(getattr(strategy, "tensor_parallel", False))
-        # TP and EP cut the model in ``init`` and reduce the norm themselves
-        self._cut = self._tp or bool(getattr(strategy, "expert_parallel",
-                                             False))
+        self._pp = bool(getattr(strategy, "pipeline_parallel", False))
+        # TP, EP and PP cut the model (in ``init``, or PP's when it is
+        # built) and reduce the norm themselves
+        self._cut = self._tp or self._pp or bool(
+            getattr(strategy, "expert_parallel", False))
         self.seed = int(seed)
         #: the generators the model's dropout draws from
         self.generators = [m.dropout_generator for m in model.modules()
@@ -356,6 +373,19 @@ class Trainer:
     @property
     def _scaling(self) -> bool:
         return self.scaler is not None and self.scaler.enabled
+
+    @property
+    def graph_capturable(self) -> bool:
+        """Whether the runner may capture the step as a CUDA graph: the
+        strategy's collectives can be captured (a pipeline's on NCCL, not
+        on gloo)."""
+        return bool(getattr(self.strategy, "graph_capturable", True))
+
+    @property
+    def _runs_loss(self) -> bool:
+        """Whether this rank runs the loss function: every rank but a
+        pipeline stage before the last."""
+        return not self._pp or self.strategy.is_last_stage
 
     # -- init --------------------------------------------------------------
     def init(self) -> TrainState:
@@ -405,8 +435,10 @@ class Trainer:
 
     def _dropout_seed(self, *more: int) -> int:
         shard = getattr(self.strategy, "data_shard_index", 0)
+        stream = getattr(self.strategy, "dropout_stream", ())
         return int(np.random.SeedSequence(
-            [self.seed, shard, *more]).generate_state(1, np.uint64)[0])
+            [self.seed, shard, *stream, *more]).generate_state(
+                1, np.uint64)[0])
 
     def seed_dropout(self, step: int) -> None:
         """Set the dropout generators for step ``step`` (host work, outside
@@ -448,6 +480,9 @@ class Trainer:
         layout = self.layout
         losses, per_mb = [], []
         for mb in _microbatches(batch, accum):
+            if not self._runs_loss:
+                self.strategy.stage_backward(model, mb)
+                continue
             with (regather_saved() if self._fsdp
                   else contextlib.nullcontext()):
                 loss, metrics = self.loss_fn(model, mb, True)
@@ -467,9 +502,11 @@ class Trainer:
             grads, state = self._hooked(state, grads)
         else:
             grads = self.strategy.reduce_grads(grads)
-        loss = torch.stack(losses).mean()
-        metrics = {k: torch.stack([m[k] for m in per_mb]).mean()
-                   for k in per_mb[0]}
+        loss = torch.stack(losses).mean() if losses else None
+        metrics = ({k: torch.stack([m[k] for m in per_mb]).mean()
+                    for k in per_mb[0]} if per_mb else None)
+        if self._pp:
+            loss, metrics = self.strategy.share_metrics(loss, metrics)
 
         if scaling:
             grads, all_finite = self.scaler.unscale(grads, state.scaler)
@@ -566,7 +603,14 @@ class Trainer:
         try:
             batch = self.policy.cast_to_compute(
                 self.strategy.place_batch(batch))
-            loss, metrics = self.loss_fn(self.model, batch, False)
+            if self._runs_loss:
+                loss, metrics = self.loss_fn(self.model, batch, False)
+            else:
+                loss, metrics = None, None
+                self.strategy.stage_forward(self.model, batch)
+            if self._pp:
+                loss, metrics = self.strategy.share_metrics(loss, metrics,
+                                                            train=False)
         finally:
             self.model.train(True)
         return {"loss": loss, **metrics}
