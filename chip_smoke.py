@@ -8,8 +8,9 @@ Run from the repository root on a machine with one NVIDIA H100::
 It builds the port's CUDA kernels from the sources in the checkout (one
 ``nvcc`` per source, all at once) and drives the main paths of the port,
 serving (tensor-parallel and multihost serving too), GPT-2 training (FSDP, ZeRO1,
-DataParallel, TensorParallel; the mixture-of-experts model under FSDP and
-ExpertDataParallel; selective recomputation and dropout),
+DataParallel, TensorParallel; the mixture-of-experts model under FSDP,
+ExpertDataParallel, TensorParallel and context parallelism; selective
+recomputation and dropout; the dry-run grid of every family),
 context-parallel training, ResNet training
 (also from JPEG files), and checkpointed training that the elastic
 launcher restarts (its checkpoints go under the gitignored build
@@ -201,6 +202,21 @@ capture records; what the replays launched is counted in device traces
                 remat), also in a device trace of the replays; step time,
                 tokens/s, MFU, peak memory; then dropout 0.1 on the runner
                 (captured, equal to the eager loop);
+  tp_moe        (same group) TP x MoE: moe_train's repeated-batch run (GPT-2
+                125M, E = 8, top-2, B = 8 x 1024, bf16, B1-B3) under
+                ``TensorParallel`` at (dp 1, tp 1) with ``ExpertParallel``
+                in the plan (the MoE blocks' f and g over tp): the eager
+                loop twice and ``Trainer.run`` (one replay a step, equal to
+                the eager loop within its spread), the losses within 1e-2
+                of moe_train's NoShard eager losses (the EP route combines
+                in fp32), and with the stacks left whole bit for bit
+                NoShard's; B1-B3 n_layer a step from the wrappers and in a
+                device trace of 3 replays; step time, tokens/s, MFU over
+                the active parameters, peak memory, collectives;
+  cp_moe        (same group) CP x MoE: the same model and batches under
+                ``CPStrategy`` with ring flash attention at cp 1 (the
+                diagonal hop through B4-B6), within 1e-2 of the causal
+                route's losses, B4-B6 n_layer a step and no B1-B3;
   tp_serve      the serve phase through a model cut over a (dp 1, tp 1)
                 serving mesh with its paged cache on tp (NCCL: graphs, the
                 tp all-reduces in the capture): streams equal serve's, one
@@ -218,7 +234,10 @@ capture records; what the replays launched is counted in device traces
   serve_ckpt    ``examples/serve_gpt2.py``'s ``main`` with ``--ckpt-dir`` on
                 ckpt_gpt2's checkpoint (run inside that phase);
   fsdp_ranks    four spawned ranks sharing the card over gloo (where gloo
-                takes card tensors): GPT-2 125M, bf16, 2 rows a rank, 3
+                takes card tensors; the four processes start here once, a
+                pool whose one gloo group serves hooks_ranks, tp_ranks,
+                ep_ranks, pp_ranks and grid_ranks too): GPT-2 125M, bf16,
+                2 rows a rank, 3
                 steps under FSDP and ZeRO1 against NoShard in this process
                 (losses within 1%), each rank's parameter and
                 optimizer-state bytes (a quarter of NoShard's) and peak
@@ -254,7 +273,8 @@ capture records; what the replays launched is counted in device traces
                 bytes, peak and naive gather, the bytes sent and staged
                 through the host, and the measured peak (below the naive
                 gather's);
-  ep_ranks      four spawned ranks sharing the card over gloo: the MoE
+  ep_ranks      four ranks sharing the card over gloo (pp_ranks'
+                processes, which run it first): the MoE
                 GPT-2 at full width, 4 layers (E = 8, k = 2), bf16, 2 x 1024
                 tokens a dp row, 3 steps under ``ExpertDataParallel`` on
                 (dp 1, ep 4) and (dp 2, ep 2) against NoShard in this
@@ -276,6 +296,19 @@ capture records; what the replays launched is counted in device traces
                 under all eight schedules, the loss and every gradient
                 against plain autograd of the same blocks here; step time
                 and peak memory a rank, each schedule's step time;
+  grid_ranks    at the end of pp_ranks' ranks (no second start): the port's
+                ``dryrun.run_grid(4)`` (fsdp, hsdp, tp_sp, pp, cp, ep: each
+                mode's shard shapes, collectives and one-rank parity, fp32
+                tiny GPT-2s on the card); TP x MoE at (dp 2, tp 2) and
+                (dp 1, tp 4), sequence parallelism off and on, ep_ranks'
+                model (full width, 4 layers) in fp32 with TF32 off, 3
+                steps against NoShard here (losses and the router's, a
+                stack's and ``wte``'s first-step gradient norms within
+                1e-4); the EP reshard: an ``ExpertDataParallel`` state at
+                (dp 1, ep 4) after one step moved by ``reshard_state`` onto
+                ``state_shardings`` at (dp 2, ep 2), bit for bit the DCP
+                resume's, each expert leaf's measured peak within a source
+                plus a destination block plus one staging chunk;
   multihost     multihost serving: two worker processes (a ``HostWorker``
                 each around the serve phase's paged engine, GPT-2 125M in
                 fp32 with TF32 off, the decode step captured with B7 12
@@ -293,7 +326,8 @@ capture records; what the replays launched is counted in device traces
                 125M's shape in bf16, two host threads, host0 killed: 16
                 of 16 served, one eviction;
   resnet_parity ResNet-18 (CIFAR stem, B=16) and ResNet-50 (ImageNet stem
-                at 64 px, B=8), fp32 with TF32 off: the port on the card
+                at 64 px, B=8), fp32 with TF32 off and cuDNN's
+                deterministic algorithms: the port on the card
                 against the port on the CPU (train and eval logits with
                 random BN state; losses, parameters and BN buffers after 3
                 SGD steps from the BN init with random running statistics);
@@ -376,7 +410,7 @@ from torch.autograd import DeviceType
 from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.profiler import ProfilerActivity, profile, schedule
 
-from pytorch_distributed_tpu_torch import _graphs, bench, observability
+from pytorch_distributed_tpu_torch import _graphs, bench, dryrun, observability
 from pytorch_distributed_tpu_torch import distributed as pdist
 from pytorch_distributed_tpu_torch.checkpoint import (
     CheckpointManager,
@@ -390,6 +424,7 @@ from pytorch_distributed_tpu_torch.elastic import (
     WorkerSpec,
     reshard_state,
     resume_from_checkpoint,
+    state_shardings,
 )
 from pytorch_distributed_tpu_torch.data import (
     DistributedSampler,
@@ -419,6 +454,7 @@ from pytorch_distributed_tpu_torch.parallel import (
     DataParallel,
     EagerPipelineExecutor,
     ExpertDataParallel,
+    ExpertParallel,
     FullyShardedDataParallel,
     GPT2Pipe,
     MoEMLP,
@@ -545,7 +581,14 @@ def peaks():
     raise SystemExit(f"chip_smoke: no published peaks for {name!r}")
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's carries ``at_s``, the seconds since the
+    script started, so that each phase's share of the run shows."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -2803,6 +2846,94 @@ FSDP_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
                     "reduce_scatter_tensor")
 
 
+def _pool_worker(rank, port, world, device, jobs, results):
+    """A rank of ``_RankPool``: its gloo group made once, then each job's
+    rank body in turn (``fn(rank, *args)``, in that group), its outcome
+    put on ``results``; a body's exception ends the process (the other
+    ranks' collectives then fail too)."""
+    import traceback
+
+    pdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                             rank=rank, world_size=world, device=device)
+    try:
+        _build.load_all(LIBRARIES)
+        while True:
+            job = jobs.get()
+            if job is None:
+                break
+            fn, args = job
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            try:
+                fn(rank, *args)
+            except BaseException:
+                results.put((rank, traceback.format_exc()))
+                raise
+            results.put((rank, None))
+    finally:
+        pdist.destroy_process_group()
+
+
+class _RankPool:
+    """FSDP_RANKS processes sharing the card over one gloo group, started
+    once for every four-rank phase (fsdp_ranks, hooks_ranks, tp_ranks and
+    pp_ranks with ep_ranks and grid_ranks): a phase's rank body runs in
+    them (``run``), so four processes start once, not once a phase. A
+    body runs in the pool's process group and writes its results to its
+    phase's directory."""
+
+    def __init__(self, device, world: int = FSDP_RANKS):
+        ctx = torch.multiprocessing.get_context("spawn")
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            self.port = sock.getsockname()[1]
+        self.jobs = [ctx.Queue() for _ in range(world)]
+        self.results = ctx.Queue()
+        self.procs = [ctx.Process(target=_pool_worker, args=(
+            r, self.port, world, device, self.jobs[r], self.results))
+            for r in range(world)]
+        for proc in self.procs:
+            proc.start()
+
+    def run(self, fn, args, timeout_s: float, what: str) -> float:
+        """``fn(rank, *args)`` on every rank; the seconds it took.
+        A rank's error, a rank's death or the deadline fails the script."""
+        import queue
+
+        t0 = time.perf_counter()
+        for jobs in self.jobs:
+            jobs.put((fn, args))
+        deadline = time.monotonic() + timeout_s
+        done = 0
+        while done < len(self.procs):
+            try:
+                rank, error = self.results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [p.exitcode for p in self.procs if not p.is_alive()]
+                if dead or time.monotonic() > deadline:
+                    self.close(kill=True)
+                    check(False, f"{what}: the ranks did not finish in "
+                                 f"{timeout_s} s (exit codes {dead})")
+                continue
+            if error is not None:
+                self.close(kill=True)
+                check(False, f"{what}: rank {rank} failed:\n{error}")
+            done += 1
+        return time.perf_counter() - t0
+
+    def close(self, kill: bool = False) -> None:
+        for proc, jobs in zip(self.procs, self.jobs):
+            if kill:
+                proc.kill()
+            elif proc.is_alive():
+                jobs.put(None)
+        for proc in self.procs:
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+
+
 def _probe_gloo_cuda(device):
     """Which collectives a gloo group runs on card tensors here: True, or
     the error. Every rank calls every probe, in one order. Sends and
@@ -2827,13 +2958,11 @@ def _probe_gloo_cuda(device):
     return out
 
 
-def _fsdp_rank(rank, port, out_dir, batches):
+def _fsdp_rank(rank, out_dir, batches):
     """One of FSDP_RANKS ranks sharing the card over gloo: the probe, then
     GPT-2 125M (bf16, flash attention, AdamW) for FSDP_RANKS_STEPS eager
     steps under FSDP and under ZeRO1, each from the same seeded weights."""
     device = torch.device("cuda", 0)
-    pdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                             rank=rank, world_size=FSDP_RANKS, device=device)
     result = {"rank": rank}
     try:
         result["probe"] = _probe_gloo_cuda(device)
@@ -2877,10 +3006,9 @@ def _fsdp_rank(rank, port, out_dir, batches):
                 del trainer, state, model, opt
     finally:
         torch.save(result, f"{out_dir}/fsdp_rank{rank}.pt")
-        pdist.destroy_process_group()
 
 
-def fsdp_ranks_phase():
+def fsdp_ranks_phase(pool):
     """FSDP_RANKS spawned ranks on the one card over gloo (NCCL will not
     put two ranks on one GPU), with real sharding: first a probe of
     whether gloo takes card tensors for ``all_reduce``,
@@ -2913,23 +3041,10 @@ def fsdp_ranks_phase():
                          for st in opt.state.values() for v in st.values())}
     del trainer, state, model, opt
     torch.cuda.empty_cache()
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
     # the ranks' results go under the port's (gitignored) build directory
     _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as out_dir:
-        t0 = time.perf_counter()
-        ctx = torch.multiprocessing.start_processes(
-            _fsdp_rank, args=(port, out_dir, batches), nprocs=FSDP_RANKS,
-            join=False, start_method="spawn")
-        deadline = time.monotonic() + 240
-        while not ctx.join(timeout=1.0):
-            if time.monotonic() > deadline:
-                for proc in ctx.processes:
-                    proc.kill()
-                check(False, "fsdp_ranks: the ranks did not finish in 240 s")
-        wall_s = time.perf_counter() - t0
+        wall_s = pool.run(_fsdp_rank, (out_dir, batches), 240, "fsdp_ranks")
         ranks = [torch.load(f"{out_dir}/fsdp_rank{r}.pt", weights_only=False)
                  for r in range(FSDP_RANKS)]
     probe = ranks[0]["probe"]
@@ -3297,7 +3412,7 @@ def _probe_gloo_p2p(device):
     return True
 
 
-def _hooks_rank(rank, port, out_dir, batches, device, p2p):
+def _hooks_rank(rank, out_dir, batches, device, p2p):
     """One of FSDP_RANKS ranks sharing the card over gloo: the probe, then
     GPT-2 125M (bf16, flash attention, AdamW) for FSDP_RANKS_STEPS eager
     steps under DataParallel with each hook the probe allows, from the same
@@ -3311,8 +3426,6 @@ def _hooks_rank(rank, port, out_dir, batches, device, p2p):
         average_parameters,
     )
 
-    pdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                             rank=rank, world_size=FSDP_RANKS, device=device)
     result = {"rank": rank}
     try:
         probe = _probe_gloo_cuda(device)
@@ -3364,10 +3477,9 @@ def _hooks_rank(rank, port, out_dir, batches, device, p2p):
             - before}
     finally:
         torch.save(result, f"{out_dir}/hooks_rank{rank}.pt")
-        pdist.destroy_process_group()
 
 
-def hooks_ranks_phase(want, device=torch.device("cuda", 0)):
+def hooks_ranks_phase(pool, want, device=torch.device("cuda", 0)):
     """FSDP_RANKS spawned ranks on the one card over gloo (as fsdp_ranks),
     GPT-2 125M at full width and depth, 8 x 1024 global (2 rows a rank),
     bf16, FSDP_RANKS_STEPS steps under DataParallel with the allreduce,
@@ -3384,23 +3496,10 @@ def hooks_ranks_phase(want, device=torch.device("cuda", 0)):
 
     batches = _lm_batches(FSDP_RANKS_STEPS, 8, 1024, seed=21)
     p2p = _probe_gloo_p2p(device)
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
     _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as out_dir:
-        t0 = time.perf_counter()
-        ctx = torch.multiprocessing.start_processes(
-            _hooks_rank, args=(port, out_dir, batches, device, p2p),
-            nprocs=FSDP_RANKS,
-            join=False, start_method="spawn")
-        deadline = time.monotonic() + 300
-        while not ctx.join(timeout=1.0):
-            if time.monotonic() > deadline:
-                for proc in ctx.processes:
-                    proc.kill()
-                check(False, "hooks_ranks: the ranks did not finish in 300 s")
-        wall_s = time.perf_counter() - t0
+        wall_s = pool.run(_hooks_rank, (out_dir, batches, device, p2p), 300,
+                          "hooks_ranks")
         ranks = [torch.load(f"{out_dir}/hooks_rank{r}.pt", weights_only=False)
                  for r in range(FSDP_RANKS)]
     probe = ranks[0]["probe"]
@@ -3512,7 +3611,8 @@ def _rel(got, want) -> float:
 
 def resnet_parity_phase():
     """ResNet-18 (CIFAR stem, B=16, 32 px) and ResNet-50 (ImageNet stem at
-    64 px, B=8), 10 classes, fp32 with TF32 off: the port on the card
+    64 px, B=8), 10 classes, fp32 with TF32 off and cuDNN's deterministic
+    algorithms: the port on the card
     against the port on the CPU (the path the tests hold against flax).
     Train and eval logits with every BN scale, bias and running statistic
     drawn at random; then the losses of 3 ``SGD(0.01, momentum=0.9)``
@@ -3525,9 +3625,14 @@ def resnet_parity_phase():
     from pytorch_distributed_tpu_torch.models import resnet18, resnet50
 
     flags = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's deterministic algorithms: the default ones sum ResNet-50's
+    # stem weight gradient in a run-dependent order (card runs of this
+    # phase in one process read 1.9e-4 and 6.9e-6 of the largest step)
+    torch.backends.cudnn.deterministic = True
     out = {}
     try:
         for name, ctor, kw, shape in (
@@ -3578,8 +3683,10 @@ def resnet_parity_phase():
             torch.cuda.empty_cache()
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = flags
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
     emit({"phase": "resnet_parity", "dtype": "float32", "tf32": False,
+          "cudnn_deterministic": True,
           "logits_tol": RESNET_LOGITS_TOL, "loss_tol": RESNET_LOSS_TOL,
           "buffer_tol": RESNET_BUFFER_TOL, "param_tol": RESNET_PARAM_TOL,
           **out})
@@ -4621,14 +4728,12 @@ def _to_local(v):
     return v.to_local() if hasattr(v, "to_local") else v
 
 
-def _tp_rank(rank, port, out_dir, batches, prompts):
+def _tp_rank(rank, out_dir, batches, prompts):
     """One of TP_RANKS ranks sharing the card over gloo: GPT-2 125M (bf16,
     flash attention, AdamW, seed 7) for TP_RANKS_STEPS eager steps under
     each of TP_RANKS_JOBS, then TP serving at tp = TP_RANKS in fp32 (TF32
     off) through the eager bodies (a gloo group cannot be captured)."""
     device = torch.device("cuda", 0)
-    pdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                             rank=rank, world_size=TP_RANKS, device=device)
     result = {"rank": rank}
     try:
         _build.load_all(LIBRARIES)
@@ -4689,7 +4794,6 @@ def _tp_rank(rank, port, out_dir, batches, prompts):
         result["redistribute"]["wall_s"] = time.perf_counter() - t0
     finally:
         torch.save(result, f"{out_dir}/tp_rank{rank}.pt")
-        pdist.destroy_process_group()
 
 
 def _tp_held(name: str, shape, tp: int):
@@ -4712,7 +4816,7 @@ def _top2_gap(model, prompt, tokens, i) -> float:
     return float((top[0] - top[1]) / top[0].abs())
 
 
-def tp_ranks_phase(smi=None):
+def tp_ranks_phase(pool, smi=None):
     """TP_RANKS spawned ranks sharing the card over gloo: training under
     ``TensorParallel`` at ``(dp 1, tp 4)`` (3 heads a rank), with and
     without sequence parallelism, and at ``(dp 2, tp 2)``, GPT-2 125M,
@@ -4760,22 +4864,10 @@ def tp_ranks_phase(smi=None):
     ref_streams = {f.request_id: f.tokens for f in sched.run()}
     del sched
     torch.cuda.empty_cache()
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
     _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as out_dir:
-        t0 = time.perf_counter()
-        ctx = torch.multiprocessing.start_processes(
-            _tp_rank, args=(port, out_dir, batches, prompts), nprocs=TP_RANKS,
-            join=False, start_method="spawn")
-        deadline = time.monotonic() + 300
-        while not ctx.join(timeout=1.0):
-            if time.monotonic() > deadline:
-                for proc in ctx.processes:
-                    proc.kill()
-                check(False, "tp_ranks: the ranks did not finish in 300 s")
-        wall_s = time.perf_counter() - t0
+        wall_s = pool.run(_tp_rank, (out_dir, batches, prompts), 300,
+                          "tp_ranks")
         ranks = [torch.load(f"{out_dir}/tp_rank{r}.pt", weights_only=False)
                  for r in range(TP_RANKS)]
     line = {"phase": "tp_ranks", "ranks": TP_RANKS, "backend": "gloo",
@@ -5929,59 +6021,56 @@ def _ep_steps(trainer, state, batches, timed=True):
     return state, out
 
 
-def _ep_rank(rank, port, out_dir, job_batches, device):
-    """One of EP_RANKS ranks sharing the card over gloo: each EP_JOBS mesh,
+def _ep_rank(rank, out_dir, job_batches, device) -> dict:
+    """ep_ranks' work on one of the EP_RANKS ranks sharing the card over
+    gloo (pp_ranks' processes, their group made): each EP_JOBS mesh,
     EP_RANKS_STEPS eager steps; EP_CKPT_JOB saves after 2 steps and a fresh
     trainer restored from it takes the third again."""
-    pdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                             rank=rank, world_size=EP_RANKS, device=device)
     result = {"rank": rank}
-    try:
-        _build.load_all(LIBRARIES)
-        for tag, shape in EP_JOBS.items():
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(device)
-            mesh = init_device_mesh(shape, ("dp", "ep"))
-            trainer, state = _ep_trainer(mesh, device)
-            batches = job_batches[tag]
-            model, opt = trainer.model, trainer.optimizer
-            r = {"dp": trainer.strategy.data_shard_index,
-                 "held": {n: tuple(p.shape) for n, p in
-                          model.named_parameters() if "experts" in n},
-                 "param_bytes": sum(p.numel() * p.element_size()
-                                    for p in model.parameters()),
-                 "opt_bytes": sum(v.numel() * v.element_size()
-                                  for st in opt.state.values()
-                                  for v in st.values())}
-            if tag == EP_CKPT_JOB:
-                state, first = _ep_steps(trainer, state, batches[:2])
-                ckpt = f"{out_dir}/ckpt"
-                with CheckpointManager(ckpt) as mgr:
-                    mgr.save(state.step, get_state_dict(trainer, state))
-                state, last = _ep_steps(trainer, state, batches[2:])
-                steps = {k: first[k] + last[k] if isinstance(first[k], list)
-                         else last[k] for k in first}
-                fresh, fstate = _ep_trainer(mesh, device, seed=8)
-                with CheckpointManager(ckpt) as mgr:
-                    fstate = set_state_dict(fresh, fstate, mgr.restore(
-                        get_state_dict(fresh, fstate)))
-                fstate, again = _ep_steps(fresh, fstate, batches[2:])
-                r["resumed_losses"] = again["losses"]
-                r["resumed_hash"] = _param_hash(fresh.model.parameters())
-                del fresh, fstate
-            else:
-                state, steps = _ep_steps(trainer, state, batches)
-            r.update(steps)
-            r["replica_hash"] = _param_hash(
-                p for p in model.parameters() if not hasattr(p, "ep"))
-            r["hash"] = _param_hash(model.parameters())
-            r["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(
-                device)
-            result[tag] = r
-            del trainer, state, model, opt
-    finally:
-        torch.save(result, f"{out_dir}/ep_rank{rank}.pt")
-        pdist.destroy_process_group()
+    t0 = time.perf_counter()
+    for tag, shape in EP_JOBS.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        mesh = init_device_mesh(shape, ("dp", "ep"))
+        trainer, state = _ep_trainer(mesh, device)
+        batches = job_batches[tag]
+        model, opt = trainer.model, trainer.optimizer
+        r = {"dp": trainer.strategy.data_shard_index,
+             "held": {n: tuple(p.shape) for n, p in
+                      model.named_parameters() if "experts" in n},
+             "param_bytes": sum(p.numel() * p.element_size()
+                                for p in model.parameters()),
+             "opt_bytes": sum(v.numel() * v.element_size()
+                              for st in opt.state.values()
+                              for v in st.values())}
+        if tag == EP_CKPT_JOB:
+            state, first = _ep_steps(trainer, state, batches[:2])
+            ckpt = f"{out_dir}/ep_ckpt"
+            with CheckpointManager(ckpt) as mgr:
+                mgr.save(state.step, get_state_dict(trainer, state))
+            state, last = _ep_steps(trainer, state, batches[2:])
+            steps = {k: first[k] + last[k] if isinstance(first[k], list)
+                     else last[k] for k in first}
+            fresh, fstate = _ep_trainer(mesh, device, seed=8)
+            with CheckpointManager(ckpt) as mgr:
+                fstate = set_state_dict(fresh, fstate, mgr.restore(
+                    get_state_dict(fresh, fstate)))
+            fstate, again = _ep_steps(fresh, fstate, batches[2:])
+            r["resumed_losses"] = again["losses"]
+            r["resumed_hash"] = _param_hash(fresh.model.parameters())
+            del fresh, fstate
+        else:
+            state, steps = _ep_steps(trainer, state, batches)
+        r.update(steps)
+        r["replica_hash"] = _param_hash(
+            p for p in model.parameters() if not hasattr(p, "ep"))
+        r["hash"] = _param_hash(model.parameters())
+        r["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(
+            device)
+        result[tag] = r
+        del trainer, state, model, opt
+    result["work_s"] = time.perf_counter() - t0
+    return result
 
 
 def _ep_wire(cfg: GPT2Config, dp: int, held_params: int) -> dict:
@@ -6000,22 +6089,9 @@ def _ep_wire(cfg: GPT2Config, dp: int, held_params: int) -> dict:
             + held_params * 4 + 8}
 
 
-def ep_ranks_phase():
-    """EP_RANKS spawned ranks on the one card over gloo: GPT-2 125M at full
-    width, EP_RANKS_LAYERS deep (MoE in blocks 1 and 3, E = 8, k = 2,
-    routing groups of one dp row), bf16, flash attention, EP_ROW x 1024
-    tokens a dp row, EP_RANKS_STEPS eager steps under
-    ``ExpertDataParallel`` on (dp 1, ep 4) and (dp 2, ep 2), against
-    NoShard in this process on the same global batches (the mean of the dp
-    rows' losses within EP_RANKS_LOSS_RTOL): E/ep experts a rank (parameter
-    bytes), the parameters outside the expert stacks bit for bit equal on
-    every rank (digests), the all-reduces and bytes a step against the
-    design's, the (1, 4) checkpoint resumed bit for bit, step time and
-    peak memory a rank."""
-    import tempfile
-
-    cfg = GPT2Config(n_layer=EP_RANKS_LAYERS,
-                     moe_group_size=EP_ROW * MOE_SEQ, **MOE_CFG)
+def _ep_reference():
+    """ep_ranks' global batches and NoShard's run of each EP_JOBS job in
+    this process."""
     job_batches = {tag: _lm_batches(EP_RANKS_STEPS, dp * EP_ROW, MOE_SEQ,
                                     seed=61 + dp)
                    for tag, (dp, _) in EP_JOBS.items()}
@@ -6025,28 +6101,28 @@ def ep_ranks_phase():
         _, want[tag] = _ep_steps(trainer, state, batches)
         del trainer, state
     torch.cuda.empty_cache()
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as out_dir:
-        t0 = time.perf_counter()
-        ctx = torch.multiprocessing.start_processes(
-            _ep_rank, args=(port, out_dir, job_batches, MOE_DEVICE),
-            nprocs=EP_RANKS,
-            join=False, start_method="spawn")
-        deadline = time.monotonic() + 300
-        while not ctx.join(timeout=1.0):
-            if time.monotonic() > deadline:
-                for proc in ctx.processes:
-                    proc.kill()
-                check(False, "ep_ranks: the ranks did not finish in 300 s")
-        wall_s = time.perf_counter() - t0
-        ranks = [torch.load(f"{out_dir}/ep_rank{r}.pt", weights_only=False)
-                 for r in range(EP_RANKS)]
+    return {"batches": job_batches, "want": want}
+
+
+def _ep_ranks_report(ranks, ep_in):
+    """ep_ranks: EP_RANKS ranks on the one card over gloo (``_ep_rank``, in
+    pp_ranks' processes): GPT-2 125M at full width, EP_RANKS_LAYERS deep
+    (MoE in blocks 1 and 3, E = 8, k = 2, routing groups of one dp row),
+    bf16, flash attention, EP_ROW x 1024 tokens a dp row, EP_RANKS_STEPS
+    eager steps under ``ExpertDataParallel`` on (dp 1, ep 4) and (dp 2,
+    ep 2), against NoShard in this process on the same global batches (the
+    mean of the dp rows' losses within EP_RANKS_LOSS_RTOL): E/ep experts a
+    rank (parameter bytes), the parameters outside the expert stacks bit
+    for bit equal on every rank (digests), the all-reduces and bytes a
+    step against the design's, the (1, 4) checkpoint resumed bit for bit,
+    step time and peak memory a rank."""
+    cfg = GPT2Config(n_layer=EP_RANKS_LAYERS,
+                     moe_group_size=EP_ROW * MOE_SEQ, **MOE_CFG)
+    want = ep_in["want"]
     counts = _moe_counts(cfg)
     line = {"phase": "ep_ranks", "ranks": EP_RANKS, "backend": "gloo",
-            "wall_s": wall_s, "model": "gpt2-125m-moe",
+            "spawn": "pp_ranks' ranks",
+            "work_s": [r["work_s"] for r in ranks], "model": "gpt2-125m-moe",
             "n_layer": EP_RANKS_LAYERS, **MOE_CFG, "dtype": "bfloat16",
             "row_tokens": EP_ROW * MOE_SEQ, "steps": EP_RANKS_STEPS,
             "loss_rtol": EP_RANKS_LOSS_RTOL,
@@ -6427,19 +6503,21 @@ def _pp_exec_rank(rank, device, ref_path):
     return out
 
 
-def _pp_rank(rank, port, out_dir, batches, device):
-    """One of PP_RANKS ranks sharing the card over gloo: each PP_JOBS
+def _pp_rank(rank, out_dir, batches, device, grid_in, ep_in):
+    """One of PP_RANKS ranks sharing the card over gloo: first ep_ranks'
+    work (``_ep_rank``); each PP_JOBS
     mesh, PP_RANKS_STEPS eager steps of GPT2Pipe (PP_CKPT_JOB saves after
     2 steps and a fresh trainer restored from it takes the third again);
     then every executor schedule, held against the reference the parent
-    wrote to ``exec_ref.pt``. ``timing_s``: seconds from the start of the
-    rank's work to each part."""
-    pdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                             rank=rank, world_size=PP_RANKS, device=device)
+    wrote to ``exec_ref.pt``; then grid_ranks' work (``_grid_rank``: the
+    same four processes, so no second start). ``timing_s``: seconds from
+    the start of the rank's work to each part."""
     result = {"rank": rank, "timing_s": {}}
     t0 = time.perf_counter()
     try:
         _build.load_all(LIBRARIES)
+        result["ep"] = _ep_rank(rank, out_dir, ep_in["batches"], device)
+        result["timing_s"]["after_ep"] = time.perf_counter() - t0
         for tag, shape in PP_JOBS.items():
             result["timing_s"][f"before_{tag}"] = time.perf_counter() - t0
             torch.cuda.empty_cache()
@@ -6495,10 +6573,11 @@ def _pp_rank(rank, port, out_dir, batches, device):
         result["timing_s"]["before_executor"] = time.perf_counter() - t0
         result["executor"] = _pp_exec_rank(rank, device,
                                            f"{out_dir}/exec_ref.pt")
+        result["timing_s"]["before_grid"] = time.perf_counter() - t0
+        result["grid"] = _grid_rank(rank, device, out_dir, grid_in)
         result["timing_s"]["end"] = time.perf_counter() - t0
     finally:
         torch.save(result, f"{out_dir}/pp_rank{rank}.pt")
-        pdist.destroy_process_group()
 
 
 def _pp_exec_reference(device):
@@ -6519,7 +6598,7 @@ def _pp_exec_reference(device):
     return float(loss), grads
 
 
-def pp_ranks_phase():
+def pp_ranks_phase(pool, smi):
     """PP_RANKS spawned ranks on the one card over gloo (see ``_pp_rank``),
     against NoShard in this process on the same global batches (losses
     within PP_LOSS_RTOL) and plain autograd of the executor's blocks (the
@@ -6528,10 +6607,13 @@ def pp_ranks_phase():
     (parameter bytes against the design's), the tables bit for bit on
     every rank, the host-staged link bytes and messages a step and
     B1-B3's launches a step against the shapes' count, the checkpoint
-    resumed bit for bit, step time and peak memory a rank."""
+    resumed bit for bit, step time and peak memory a rank. Then, from the
+    same ranks, grid_ranks' line (``_grid_ranks_report``)."""
     import tempfile
 
     device = torch.device("cuda", 0)
+    ep_in = _ep_reference()
+    grid_in = _grid_reference(device)
     batches = _lm_batches(PP_RANKS_STEPS, 8, 1024, seed=71)
     trainer, state = _trainer(seed=2, dtype=torch.bfloat16,
                               attn_impl=fa.flash_attention)
@@ -6544,25 +6626,14 @@ def pp_ranks_phase():
     del trainer, state
     ref_loss, ref_grads = _pp_exec_reference(device)
     torch.cuda.empty_cache()
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
     _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as out_dir:
         torch.save(ref_grads, f"{out_dir}/exec_ref.pt")
-        t0 = time.perf_counter()
-        ctx = torch.multiprocessing.start_processes(
-            _pp_rank, args=(port, out_dir, batches, device), nprocs=PP_RANKS,
-            join=False, start_method="spawn")
-        deadline = time.monotonic() + 300
-        while not ctx.join(timeout=1.0):
-            if time.monotonic() > deadline:
-                for proc in ctx.processes:
-                    proc.kill()
-                check(False, "pp_ranks: the ranks did not finish in 300 s")
-        wall_s = time.perf_counter() - t0
+        wall_s = pool.run(_pp_rank, (out_dir, batches, device, grid_in,
+                                     ep_in), 480, "pp_ranks")
         ranks = [torch.load(f"{out_dir}/pp_rank{r}.pt", weights_only=False)
                  for r in range(PP_RANKS)]
+    _ep_ranks_report([r["ep"] for r in ranks], ep_in)
     cfg = GPT2Config()
     C, T = cfg.n_embd, 1024
     block = 12 * C * C + 13 * C
@@ -6667,6 +6738,453 @@ def pp_ranks_phase():
               f"pp_ranks executor {schedule}: {e['grads_seen']} gradients, "
               f"worst {e['worst_grad_err_of_max']}, repeat "
               f"{e['repeat_equal']}")
+    _grid_ranks_report(smi, ranks, grid_in)
+    return line
+
+
+# -- TP x MoE, CP x MoE, the dry-run grid and the EP reshard -----------------
+TP_MOE_LOSS_RTOL = 1e-2      # bf16, as the rank phases' limit: the EP
+#                              route combines with fp32 gates where NoShard
+#                              rounds them to bf16 (2^-8 relative), and the
+#                              repeated batch's steps grow the difference
+CP_MOE_LOSS_RTOL = 1e-2      # train_bf16_parity's limit: the ring (B4-B6)
+#                              against the causal route (B1-B3), bf16
+GRID_TP_JOBS = {"dp2_tp2": (2, 2), "dp1_tp4": (1, 4)}
+GRID_TP_STEPS = 3
+GRID_TP_ROWS = 2 * EP_ROW    # global batch: 4 x 1024, one routing group a
+#                              dp row at (2, 2), two at (1, 4)
+GRID_TP_LOSS_RTOL = 1e-4     # fp32, TF32 off: sums in another order, and
+#                              AdamW's noise-driven elements after step 1
+GRID_NORM_RTOL = 1e-4        # each named gradient's first-step norm (fp32)
+GRID_NORMS = ("h.1.moe.router.weight", "h.1.moe.experts_up", "wte")
+GRID_RESHARD = {"src": (1, 4), "dst": (2, 2)}
+
+
+def _tp_moe_plan(cut: bool) -> dict:
+    """GPT-2's Megatron plan, with ``ExpertParallel`` on the expert stacks
+    (``cut``: E split over tp) or without (the stacks whole)."""
+    plan = gpt2_tp_plan()
+    return {r"moe\.experts_": ExpertParallel(), **plan} if cut else plan
+
+
+def _tp_moe_trainer(cut: bool):
+    """moe_train's NoShard run (GPT-2 125M with MOE_CFG, bf16, flash
+    attention, capturable AdamW, seed 2) under ``TensorParallel`` on the
+    ``(dp 1, tp n)`` mesh of the process group."""
+    n = pdist.get_world_size()
+    strategy = TensorParallel(init_device_mesh((1, n), ("dp", "tp")),
+                              _tp_moe_plan(cut))
+    model = gpt2_125m(device=MOE_DEVICE, seed=2, dtype=torch.bfloat16,
+                      attn_impl=fa.flash_attention, **MOE_CFG)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
+                            eps=1e-8, capturable=True)
+    trainer = Trainer(model, opt, strategy, loss_fn=lm_loss, policy="bf16")
+    return trainer, trainer.init()
+
+
+def _moe_tokens_rate(step_s: float, bf16_peak: float, counts: dict) -> dict:
+    tokens_per_s = MOE_BATCH * MOE_SEQ / step_s
+    return {"step_s": step_s, "tokens_per_s": tokens_per_s,
+            "mfu_active": 6 * counts["active_params"] * tokens_per_s
+            / bf16_peak}
+
+
+def tp_moe_phase(moe_line):
+    """TP x MoE on the one-rank NCCL group (``(dp 1, tp 1)``): moe_train's
+    repeated-batch run (GPT-2 125M, E = 8, top-2, B = 8 x 1024, bf16, B1-B3)
+    under ``TensorParallel`` with ``ExpertParallel`` in the plan (the MoE
+    blocks' f and g over tp), the eager loop twice and ``Trainer.run`` (one
+    replay a step), against moe_train's NoShard eager losses (within
+    TP_MOE_LOSS_RTOL: the EP route sums the combine in fp32); the stacks
+    left whole (the dense route of the MoE, bit for bit NoShard's); B1-B3
+    n_layer a step from the wrappers (eager) and in a device trace of 3
+    replays; step time, tokens/s, MFU over the active parameters and peak
+    memory; the collectives a step."""
+    t_phase = time.perf_counter()
+    bf16_peak, _, _ = peaks()
+    cfg = GPT2Config(**MOE_CFG)
+    counts = _moe_counts(cfg)
+    n_layer = cfg.n_layer
+    steps = MOE_FIXED_STEPS
+    batches = _lm_batches(1, MOE_BATCH, MOE_SEQ, seed=51) * steps
+    noshard = moe_line["fixed_batch"]["eager_a"]["losses"]
+    # the stacks whole: every MoE block the NoShard one
+    trainer, state = _tp_moe_trainer(False)
+    whole = []
+    for batch in batches:
+        state, m = trainer.step(state, batch)
+        whole.append(float(m["loss"]))
+    del trainer, state
+    torch.cuda.empty_cache()
+    comm.reset_counts()
+    runs, spread, got = _runner_runs(lambda: _tp_moe_trainer(True), batches,
+                                     "tp_moe")
+    collectives = dict(comm.counts)
+    runner, trainer, state = runs["runner"].pop("_runner")
+    held = {n: tuple(p.shape) for n, p in trainer.model.named_parameters()
+            if "moe" in n and n.startswith("h.1.")}
+    ep_kind = type(trainer.model.h[1].moe.ep).__name__
+    expect_calls = {name: n_layer for name in SM90_KERNELS}
+    expect_calls.update({name: 0 for name in MASKED_SM90_KERNELS})
+    (device, calls, spans, wall_ms), first = recounted(
+        lambda: _replay_window(runner, state, batches, 3, expect_calls),
+        lambda r: r[1] == expect_calls)
+    del runner, trainer, state
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(runs["eager_a"]["losses"],
+                                               noshard)]
+    line = {"phase": "tp_moe", "model": "gpt2-125m-moe", **MOE_CFG,
+            "dtype": "bfloat16", "global_batch": MOE_BATCH,
+            "seq_len": MOE_SEQ, "steps": steps, "mesh": {"dp": 1, "tp":
+                                                       pdist.get_world_size()},
+            "plan": "gpt2_tp_plan + ExpertParallel on moe.experts_*",
+            "moe_context": ep_kind, "held_h1_moe": held,
+            "active_params": counts["active_params"],
+            "noshard_losses": noshard, "loss_rtol": TP_MOE_LOSS_RTOL,
+            "loss_rel_err": rel,
+            "whole_stacks_losses": whole,
+            "whole_stacks_equal_noshard": whole == noshard,
+            "eager_spread": spread, "runner_vs_eager": got,
+            "collectives_eager_warmup_capture": collectives,
+            "launches_per_step_eager": {
+                k: runs["eager_a"]["launches"][k] / steps
+                for k in CAUSAL_KEYS + MASKED_KEYS},
+            "replayed": {"calls_per_step": calls, "first_window":
+                         first and first[1], "replays": len(spans),
+                         "replay_ms_per_step": _spans_ms(spans) / 3,
+                         "device_busy_ms_per_step": sum(
+                             e.self_device_time_total for e in device)
+                         / 1e3 / 3, "wall_ms_per_step": wall_ms / 3},
+            "phase_s": time.perf_counter() - t_phase}
+    for run in runs.values():
+        run.update(_moe_tokens_rate(run["step_s"], bf16_peak, counts))
+    line.update(runs)
+    emit(line)
+    check(line["whole_stacks_equal_noshard"],
+          f"tp_moe: the stacks whole give {whole}, not NoShard's {noshard}")
+    check(max(rel) <= TP_MOE_LOSS_RTOL,
+          f"tp_moe: losses {runs['eager_a']['losses']} vs NoShard {noshard}")
+    check(ep_kind == "EPContext"
+          and held["h.1.moe.experts_up"][0] == MOE_CFG["moe_experts"]
+          // pdist.get_world_size(),
+          f"tp_moe: the MoE layer's context {ep_kind}, stacks {held}")
+    for run in ("eager_a", "eager_b"):
+        check(runs[run]["launches"] == {
+            **{k: n_layer * steps for k in CAUSAL_KEYS},
+            **{k: 0 for k in MASKED_KEYS}},
+            f"tp_moe {run}: launches {runs[run]['launches']}")
+    warm = n_layer * (AsyncRunner.warmup_steps + 1)
+    check(all(runs["runner"]["launches"][k] == warm for k in CAUSAL_KEYS),
+          f"tp_moe: runner wrapper launches {runs['runner']['launches']}")
+    check(len(spans) == 3 and calls == expect_calls,
+          f"tp_moe: replayed calls {calls}, expected {expect_calls}")
+    return line
+
+
+def cp_moe_phase(mesh, moe_line):
+    """CP x MoE on the one-rank NCCL group: the same model and batches as
+    tp_moe under ``CPStrategy`` with ring flash attention at cp 1 (every
+    block's attention the diagonal hop through B4-B6), eager, against
+    moe_train's NoShard losses (the causal route, B1-B3) within
+    CP_MOE_LOSS_RTOL; B4-B6 n_layer a step and no B1-B3; step time, tokens/s
+    and peak memory."""
+    bf16_peak, _, _ = peaks()
+    cfg = GPT2Config(**MOE_CFG)
+    counts = _moe_counts(cfg)
+    steps = MOE_FIXED_STEPS
+    batches = _lm_batches(1, MOE_BATCH, MOE_SEQ, seed=51) * steps
+    noshard = moe_line["fixed_batch"]["eager_a"]["losses"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = gpt2_125m(device=MOE_DEVICE, seed=2, dtype=torch.bfloat16,
+                      attn_impl=make_ring_attention(mesh, "cp"), **MOE_CFG)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
+                            eps=1e-8, capturable=True)
+    trainer = Trainer(model, opt, CPStrategy(mesh), loss_fn=lm_loss,
+                      policy="bf16")
+    state = trainer.init()
+    _reset_flash_counts()
+    losses = []
+    for i, batch in enumerate(batches):
+        state, m = trainer.step(state, batch)
+        losses.append(float(m["loss"]))
+        if i == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+    step_s = (time.perf_counter() - t0) / (steps - 1)
+    launches = dict(fa.launches)
+    del trainer, state, model, opt
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, noshard)]
+    n_layer = cfg.n_layer
+    line = {"phase": "cp_moe", "model": "gpt2-125m-moe", **MOE_CFG,
+            "dtype": "bfloat16", "attn": "ring flash (B4-B6)",
+            "cp": mesh.size("cp"), "global_batch": MOE_BATCH,
+            "seq_len": MOE_SEQ, "steps": steps, "losses": losses,
+            "noshard_losses": noshard, "loss_rtol": CP_MOE_LOSS_RTOL,
+            "loss_rel_err": rel, "launches": launches,
+            "launches_per_step": {k: launches[k] / steps
+                                  for k in CAUSAL_KEYS + MASKED_KEYS},
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            **_moe_tokens_rate(step_s, bf16_peak, counts)}
+    emit(line)
+    check(all(np.isfinite(losses)) and max(rel) <= CP_MOE_LOSS_RTOL,
+          f"cp_moe: losses {losses} vs the causal route's {noshard}")
+    check(all(launches[k] == n_layer * steps for k in MASKED_KEYS)
+          and not any(launches[k] for k in CAUSAL_KEYS),
+          f"cp_moe: launches {launches}, n_layer x steps of B4-B6 and none "
+          "of B1-B3 expected")
+    return line
+
+
+def _record_param_norms(trainer, names) -> dict:
+    """Make ``trainer``'s next step record, into the dict returned, the
+    whole norm of each named parameter's reduced gradient (a tp block's
+    squares summed over tp); later steps record nothing."""
+    params = [(n, p) for n, p in trainer.model.named_parameters()
+              if p.requires_grad]
+    strategy = trainer.strategy
+    reduce = strategy.reduce_grads
+    out = {}
+
+    def recording(grads):
+        grads = reduce(grads)
+        del strategy.reduce_grads          # the class's method again
+        for (name, p), g in zip(params, grads):
+            if name not in names:
+                continue
+            sq = (g.float() ** 2).sum()
+            spec = getattr(p, "tp", None)
+            if spec is not None and spec.size > 1:
+                dist.all_reduce(sq, group=spec.group)
+            out[name] = float(sq.sqrt())
+        return grads
+
+    strategy.reduce_grads = recording
+    return out
+
+
+def _grid_tp_trainer(mesh, device, sp=False):
+    """ep_ranks' model in fp32 (TF32 off) under ``TensorParallel`` with
+    ``ExpertParallel`` in the plan on ``mesh`` (NoShard without one)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = gpt2_125m(device=device, seed=7, attn_impl=fa.flash_attention,
+                      n_layer=EP_RANKS_LAYERS,
+                      moe_group_size=EP_ROW * MOE_SEQ, **MOE_CFG)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01,
+                            eps=1e-8)
+    strategy = (TensorParallel(mesh, _tp_moe_plan(True),
+                               sequence_parallel=sp)
+                if mesh is not None else NoShard(device))
+    trainer = Trainer(model, opt, strategy, loss_fn=lm_loss)
+    return trainer, trainer.init()
+
+
+def _grid_reference(device):
+    """NoShard in this process for the grid ranks' TP x MoE jobs:
+    GRID_TP_STEPS losses on the global batches and the first step's
+    GRID_NORMS gradient norms."""
+    batches = _lm_batches(GRID_TP_STEPS, GRID_TP_ROWS, MOE_SEQ, seed=81)
+    trainer, state = _grid_tp_trainer(None, device)
+    norms = _record_param_norms(trainer, GRID_NORMS)
+    losses = []
+    for batch in batches:
+        state, m = trainer.step(state, batch)
+        losses.append(float(m["loss"]))
+    del trainer, state
+    torch.cuda.empty_cache()
+    return {"batches": batches, "losses": losses, "norms": dict(norms)}
+
+
+def _grid_tp_rank(device, batches) -> dict:
+    """GRID_TP_JOBS, sequence parallelism off and on: ep_ranks' model in
+    fp32 under ``TensorParallel`` with ``ExpertParallel`` in the plan,
+    GRID_TP_STEPS eager steps: losses, the first step's GRID_NORMS norms,
+    the stacks a rank holds, the collectives of the last step, step time,
+    peak."""
+    out = {}
+    for tag, shape in GRID_TP_JOBS.items():
+        for sp in (False, True):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            mesh = init_device_mesh(shape, ("dp", "tp"))
+            trainer, state = _grid_tp_trainer(mesh, device, sp)
+            norms = _record_param_norms(trainer, GRID_NORMS)
+            state, steps = _ep_steps(trainer, state, batches)
+            steps.update(
+                norms=dict(norms), dp=trainer.strategy.data_shard_index,
+                held=tuple(trainer.model.h[1].moe.experts_up.shape),
+                moe_context=type(trainer.model.h[1].moe.ep).__name__,
+                max_memory_allocated_bytes=torch.cuda.max_memory_allocated(
+                    device))
+            out[f"{tag}_sp{int(sp)}"] = steps
+            del trainer, state
+    return out
+
+
+def _grid_reshard_rank(device, out_dir, batches) -> dict:
+    """The EP reshard: ep_ranks' model, one step under
+    ``ExpertDataParallel`` at (dp 1, ep 4), its state saved and moved by
+    ``reshard_state`` onto ``state_shardings`` at (dp 2, ep 2) (the card's
+    peak measured a leaf), loaded into a trainer there; against
+    ``resume_from_checkpoint`` of the saved state at (dp 2, ep 2): the
+    state bit for bit, and the next step's loss."""
+    src = init_device_mesh(GRID_RESHARD["src"], ("dp", "ep"))
+    dst = init_device_mesh(GRID_RESHARD["dst"], ("dp", "ep"))
+    trainer, state = _ep_trainer(src, device)
+    state, first = _ep_steps(trainer, state, batches[:1])
+    sd = get_state_dict(trainer, state)
+    ckpt = f"{out_dir}/grid_ckpt"
+    with CheckpointManager(ckpt) as mgr:
+        mgr.save(state.step, sd)
+    shardings = state_shardings(sd, ExpertDataParallel(dst))
+    rdx.reset_counts()
+    rdx.measure_peaks = True
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    moved = reshard_state(sd, shardings, max_staging_bytes=REDIST_STAGING)
+    torch.cuda.synchronize(device)
+    move_s = time.perf_counter() - t0
+    rdx.measure_peaks = False
+    nbytes = {k: (_to_local(v).numel() * _to_local(v).element_size(),
+                  moved[k].numel() * moved[k].element_size())
+              for k, v in sd.items() if "experts" in k and v.dim() == 3}
+    peaks_ = {p["name"]: p["measured_peak_bytes"] for p in rdx.leaf_peaks
+              if p["name"] in nbytes}
+    counts = dict(rdx.counts)
+    del trainer, state, sd
+    torch.cuda.empty_cache()
+    resized, rstate = _ep_trainer(dst, device, seed=8)
+    rstate = set_state_dict(resized, rstate, moved)
+    del moved
+    resumed, qstate = _ep_trainer(dst, device, seed=9)
+    qstate = resume_from_checkpoint(ckpt, resumed, qstate)
+    live = {k: _to_local(v) for k, v in
+            get_state_dict(resized, rstate).items()}
+    ref = {k: _to_local(v) for k, v in
+           get_state_dict(resumed, qstate).items()}
+    equal = live.keys() == ref.keys() and all(
+        torch.equal(live[k], ref[k]) for k in ref)
+    held = tuple(resized.model.h[1].moe.experts_up.shape)
+    del live, ref
+    _, a = _ep_steps(resized, rstate, batches[1:2])
+    _, b = _ep_steps(resumed, qstate, batches[1:2])
+    return {"move_s": move_s, "counts": counts, "leaf_bytes": nbytes,
+            "measured_peak_bytes": peaks_, "state_equal": equal,
+            "held": held, "first_loss": first["losses"],
+            "next_losses": (a["losses"], b["losses"])}
+
+
+def _grid_rank(rank, device, out_dir, grid_in) -> dict:
+    """The grid_ranks work on one of the four gloo ranks (inside pp_ranks'
+    spawn): ``dryrun.run_grid(4)``, the TP x MoE jobs, the EP reshard;
+    ``timing_s`` the seconds each took."""
+    out, timing = {}, {}
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out["grid"] = dryrun.run_grid(PP_RANKS, verbose=False)
+    timing["run_grid"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["tp_moe"] = _grid_tp_rank(device, grid_in["batches"])
+    timing["tp_moe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["reshard"] = _grid_reshard_rank(device, out_dir, grid_in["batches"])
+    timing["reshard"] = time.perf_counter() - t0
+    out["timing_s"] = timing
+    return out
+
+
+def _grid_ranks_report(smi, ranks, grid_in) -> dict:
+    """grid_ranks' line from the ranks' results, and its checks."""
+    cfg = GPT2Config(n_layer=EP_RANKS_LAYERS, **MOE_CFG)
+    E = cfg.moe_experts
+    grids = [r["grid"]["grid"] for r in ranks]
+    modes = {}
+    for i, res in enumerate(grids[0]):
+        every = [g[i] for g in grids]
+        modes[res["mode"]] = {
+            "mesh": res["mesh"], "loss": res["loss"],
+            "losses_equal_on_every_rank": len({g["loss"] for g in every})
+            == 1, "collectives": res["collectives"],
+            "parity_delta": max(g["parity_delta"] for g in every)}
+    tp = {}
+    for tag, (dp, tpn) in GRID_TP_JOBS.items():
+        for sp in (0, 1):
+            key = f"{tag}_sp{sp}"
+            rs = [r["grid"]["tp_moe"][key] for r in ranks]
+            mean = [float(np.mean([rs[d * tpn]["losses"][i]
+                                   for d in range(dp)]))
+                    for i in range(GRID_TP_STEPS)]
+            tp[key] = {
+                "mean_losses": mean,
+                "loss_rel_err": [abs(a - b) / abs(b) for a, b in
+                                 zip(mean, grid_in["losses"])],
+                "norm_rel_err": [{k: abs(r["norms"][k] - v) / v for k, v in
+                                  grid_in["norms"].items()} for r in rs],
+                "held": [r["held"] for r in rs],
+                "moe_context": rs[0]["moe_context"],
+                "collectives_last_step": rs[0]["counts"],
+                "wire_last_step": rs[0]["wire"],
+                "step_s": [r["step_s"] for r in rs],
+                "max_memory_allocated_bytes": [
+                    r["max_memory_allocated_bytes"] for r in rs]}
+    rsh = [r["grid"]["reshard"] for r in ranks]
+    excess = [max((peak - sum(r["leaf_bytes"][k]) for k, peak in
+                   r["measured_peak_bytes"].items()), default=0)
+              for r in rsh]
+    line = {"phase": "grid_ranks", "nvidia_smi": smi, "ranks": PP_RANKS,
+            "backend": "gloo", "spawn": "pp_ranks' ranks",
+            "run_grid": modes,
+            "tp_moe": {"model": "gpt2-125m-moe", "n_layer": EP_RANKS_LAYERS,
+                       **MOE_CFG, "dtype": "float32", "tf32": False,
+                       "global_batch": GRID_TP_ROWS, "seq_len": MOE_SEQ,
+                       "steps": GRID_TP_STEPS, "noshard_losses":
+                       grid_in["losses"], "noshard_norms": grid_in["norms"],
+                       "loss_rtol": GRID_TP_LOSS_RTOL,
+                       "norm_rtol": GRID_NORM_RTOL, **tp},
+            "reshard": {"src": GRID_RESHARD["src"],
+                        "dst": GRID_RESHARD["dst"],
+                        "move_s": [r["move_s"] for r in rsh],
+                        "counts": [r["counts"] for r in rsh],
+                        "expert_leaves": len(rsh[0]["leaf_bytes"]),
+                        "leaf_bytes": rsh[0]["leaf_bytes"],
+                        "measured_peak_bytes": [r["measured_peak_bytes"]
+                                                for r in rsh],
+                        "peak_over_src_plus_dst_bytes": excess,
+                        "staging_bound_bytes": REDIST_STAGING,
+                        "state_equal_to_resume": [r["state_equal"]
+                                                  for r in rsh],
+                        "held": [r["held"] for r in rsh],
+                        "next_losses": [r["next_losses"] for r in rsh]},
+            "rank_timing_s": [r["grid"]["timing_s"] for r in ranks]}
+    emit(line)
+    check(sorted(modes) == sorted(dryrun.MODES)
+          and all(m["losses_equal_on_every_rank"]
+                  and m["parity_delta"] < dryrun.PARITY_TOL
+                  for m in modes.values()),
+          f"grid_ranks: run_grid {modes}")
+    for key, r in tp.items():
+        tpn = GRID_TP_JOBS[key.rsplit("_", 1)[0]][1]
+        check(max(r["loss_rel_err"]) <= GRID_TP_LOSS_RTOL,
+              f"grid_ranks {key}: losses {r['mean_losses']} vs NoShard "
+              f"{grid_in['losses']}")
+        check(max(max(e.values()) for e in r["norm_rel_err"])
+              <= GRID_NORM_RTOL,
+              f"grid_ranks {key}: gradient norms' errors {r['norm_rel_err']}")
+        check(all(h[0] == E // tpn for h in r["held"])
+              and r["moe_context"] == ("SequenceEPContext" if key.endswith(
+                  "sp1") else "EPContext"),
+              f"grid_ranks {key}: stacks {r['held']}, {r['moe_context']}")
+    check(all(r["state_equal"] for r in rsh)
+          and all(a == b for a, b in (r["next_losses"] for r in rsh)),
+          "grid_ranks: the resharded EP state is not the checkpoint's "
+          f"resume ({[r['next_losses'] for r in rsh]})")
+    check(all(r["held"][0] == E // GRID_RESHARD["dst"][1] for r in rsh)
+          and all(len(r["measured_peak_bytes"]) == len(r["leaf_bytes"]) > 0
+                  for r in rsh)
+          and max(excess) <= REDIST_STAGING,
+          f"grid_ranks: reshard peaks over a source plus a destination "
+          f"block {excess}, experts held {[r['held'] for r in rsh]}")
     return line
 
 
@@ -6763,7 +7281,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     head_phase(train_result)
     noshard_runs, noshard_final = runner_train_phase()
-    moe_train_phase()
+    moe_line = moe_train_phase()
     moe_parity_phase()
     remat_dropout_phase()
     torch.cuda.empty_cache()
@@ -6789,17 +7307,24 @@ def main() -> int:
         torch.cuda.empty_cache()
         pp_per_step = pp_train_phase(noshard_runs)
         torch.cuda.empty_cache()
+        tp_moe = tp_moe_phase(moe_line)
+        cp_moe = cp_moe_phase(mesh, moe_line)
+        torch.cuda.empty_cache()
         tp_serve_phase(serve_streams, serve_latency)
         redistribute_phase(smi)
     finally:
         pdist.destroy_process_group()
     torch.cuda.empty_cache()
     ckpt_gpt2_phase(smi)
-    fsdp = fsdp_ranks_phase()
-    hooks_ranks_phase(fsdp["noshard"]["losses"])
-    tp_ranks_phase(smi)
-    ep_ranks_phase()
-    pp_ranks_phase()
+    # one start of the four rank processes for every four-rank phase
+    pool = _RankPool(torch.device("cuda", 0))
+    try:
+        fsdp = fsdp_ranks_phase(pool)
+        hooks_ranks_phase(pool, fsdp["noshard"]["losses"])
+        tp_ranks_phase(pool, smi)
+        pp_ranks_phase(pool, smi)
+    finally:
+        pool.close()
     multihost_phase()
     multihost_example_phase()
 
@@ -6872,6 +7397,10 @@ def main() -> int:
             "pp_train_launches_per_step": {
                 tag: {run: counts[key] for run, counts in launches.items()}
                 for tag, launches in pp_per_step.items()},
+            "tp_moe_launches_per_step": {
+                "eager": tp_moe["launches_per_step_eager"][key],
+                "replayed": tp_moe["replayed"]["calls_per_step"][
+                    SM90_KERNELS[CAUSAL_KEYS.index(key)]]},
         })
     for name, key, replaces in MASKED_KERNELS:
         r = mres["bfloat16"][key]  # the train_cp phase runs in bf16
@@ -6896,6 +7425,7 @@ def main() -> int:
             "device_ms": r["device_ms"],
             "train_cp_profile_ms_per_launch": cp_split[key] / n_layer,
             "tflops": r["tflops"],
+            "cp_moe_launches_per_step": cp_moe["launches_per_step"][key],
         })
     emit({"phase": "total", "nvidia_smi": smi,
           "seconds": time.perf_counter() - t_start})

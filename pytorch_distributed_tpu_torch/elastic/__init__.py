@@ -42,6 +42,7 @@ from pytorch_distributed_tpu_torch.elastic.rendezvous import DynamicRendezvous
 from pytorch_distributed_tpu_torch.elastic.resume import (
     reshard_state,
     resume_from_checkpoint,
+    state_shardings,
 )
 from pytorch_distributed_tpu_torch.elastic.timer import TimerReaper, WorkerTimer
 
@@ -60,4 +61,5 @@ __all__ = [
     "record",
     "resume_from_checkpoint",
     "reshard_state",
+    "state_shardings",
 ]

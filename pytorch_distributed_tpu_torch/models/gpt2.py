@@ -57,7 +57,9 @@ leaving through ``tp.exit`` (the bias added after), the tied ``wte`` and
 ``wpe`` gathered whole (``tp.features``), and under sequence parallelism
 the residual stream on ``T/tp`` rows (``tp.split_seq``/``tp.join_seq``).
 The cached forward reads whole tables gathered once by
-``cast_weights``.
+``cast_weights``. An MoE block under tensor parallelism routes the whole
+sequence of the rank's rows (``Block._routed``): its expert stacks whole
+on every tp rank or cut on the expert dim over tp, as the plan says.
 """
 
 from __future__ import annotations
@@ -315,10 +317,29 @@ class Block(nn.Module):
                       position_offset=position_offset, copies=copies),
             attn_keep, cfg.dropout)
         if self.use_moe:
-            y, aux = self.moe(_layer_norm(x, self.ln_2, cfg))
-            return x + y, aux["aux_loss"]
+            y, aux = self._routed(_layer_norm(x, self.ln_2, cfg))
+            return x + y, aux
         return x + _dropout(self.mlp(enter(_layer_norm(x, self.ln_2, cfg)),
                                      copies), mlp_keep, cfg.dropout)
+
+    def _routed(self, h):
+        """The routed MLP and its aux loss. Under tensor parallelism the
+        layer routes the whole sequence of the rank's rows, as the
+        unsharded model does: without sequence parallelism every tp rank
+        holds it already (and the layer's ``ep``, when the plan cut the
+        stacks, runs f and g over tp around the rank's experts); with it
+        the block gathers T in (``tp.enter``) and keeps its rows of the
+        output (its own rows' gradient), or the layer's ``ep``
+        reduce-scatters the rank's partial combine, and the aux loss,
+        computed whole on every tp rank, counts once."""
+        tp = self.tp
+        if tp is None or not tp.sequence_parallel:
+            y, aux = self.moe(h)
+            return y, aux["aux_loss"]
+        y, aux = self.moe(tp.enter(h))
+        if self.moe.ep is None:
+            y = tp.own_rows(y)
+        return y, tp.count_once(aux["aux_loss"])
 
 
 class HeadMatmul(torch.autograd.Function):

@@ -5,9 +5,11 @@ Every collective of a training step (the gradient reductions, the
 parameter gathers, the norm's reduction, the start-up broadcast, a hook's
 buckets and ring hops) goes through these functions, so a step's
 collective set is observable the way the kernel wrappers' launches are:
-``counts[name]`` adds one per call, and ``wire_bytes["<name>.<dtype>"]``
-adds the bytes this rank put into it (its input: the tensor reduced,
-gathered from or sent). The four strategy collectives are always in
+``counts[name]`` adds one per call, ``wire_bytes["<name>.<dtype>"]``
+the bytes this rank put into it (its input: the tensor reduced, gathered
+from or sent), and ``group_counts[name, group]`` the call on the group it
+ran on (a mesh axis's: the dry-run grid asks which axis a family's
+collectives span). The four strategy collectives are always in
 ``counts``; the others (``all_to_all``, ``send``, ``recv``, ``barrier``)
 appear at their first call after ``reset_counts``. The counts are what
 ``ShardingStrategy.collective_signature`` describes
@@ -21,7 +23,7 @@ the group's size.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -31,9 +33,9 @@ from pytorch_distributed_tpu_torch.distributed.batch_ops import (
     batch_isend_irecv,
 )
 
-__all__ = ["counts", "wire_bytes", "reset_counts", "all_reduce",
-           "reduce_scatter", "all_gather", "broadcast", "all_to_all",
-           "p2p", "barrier"]
+__all__ = ["counts", "wire_bytes", "group_counts", "reset_counts",
+           "all_reduce", "reduce_scatter", "all_gather", "broadcast",
+           "all_to_all", "p2p", "barrier"]
 
 _BASE = ("all_reduce", "reduce_scatter", "all_gather", "broadcast")
 
@@ -41,23 +43,30 @@ _BASE = ("all_reduce", "reduce_scatter", "all_gather", "broadcast")
 counts: Dict[str, int] = dict.fromkeys(_BASE, 0)
 #: bytes per ``"<collective>.<dtype>"`` since the last ``reset_counts``
 wire_bytes: Dict[str, int] = {}
+#: calls per ``(collective, group)`` since the last ``reset_counts`` (the
+#: group object a call was given; None is the default group)
+group_counts: Dict[Tuple[str, Any], int] = {}
 
 
 def reset_counts() -> None:
     counts.clear()
     counts.update(dict.fromkeys(_BASE, 0))
     wire_bytes.clear()
+    group_counts.clear()
 
 
-def _count(name: str, t: torch.Tensor) -> None:
+def _count(name: str, t: Optional[torch.Tensor], group) -> None:
     counts[name] = counts.get(name, 0) + 1
+    group_counts[name, group] = group_counts.get((name, group), 0) + 1
+    if t is None:
+        return
     key = f"{name}.{str(t.dtype).removeprefix('torch.')}"
     wire_bytes[key] = wire_bytes.get(key, 0) + t.numel() * t.element_size()
 
 
 def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``t`` summed (or ``op``-reduced) over ``group``, in place."""
-    _count("all_reduce", t)
+    _count("all_reduce", t, group)
     dist.all_reduce(t, op=op, group=group)
     return t
 
@@ -65,21 +74,21 @@ def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
 def reduce_scatter(out: torch.Tensor, inp: torch.Tensor, group) -> torch.Tensor:
     """Rank ``r`` of ``group`` gets block ``r`` (along dim 0) of the sum of
     every rank's ``inp`` in ``out``."""
-    _count("reduce_scatter", inp)
+    _count("reduce_scatter", inp, group)
     dist.reduce_scatter_tensor(out, inp, group=group)
     return out
 
 
 def all_gather(out: torch.Tensor, inp: torch.Tensor, group) -> torch.Tensor:
     """Every rank's ``inp`` stacked along dim 0 of ``out``, in rank order."""
-    _count("all_gather", inp)
+    _count("all_gather", inp, group)
     dist.all_gather_into_tensor(out, inp, group=group)
     return out
 
 
 def broadcast(t: torch.Tensor, group, group_src: int = 0) -> torch.Tensor:
     """``t`` of the group's rank ``group_src`` on every rank, in place."""
-    _count("broadcast", t)
+    _count("broadcast", t, group)
     dist.broadcast(t, dist.get_global_rank(group, group_src), group=group)
     return t
 
@@ -87,7 +96,7 @@ def broadcast(t: torch.Tensor, group, group_src: int = 0) -> torch.Tensor:
 def all_to_all(out: torch.Tensor, inp: torch.Tensor, group) -> torch.Tensor:
     """Block ``j`` (along dim 0) of rank ``i``'s ``inp`` lands in block
     ``i`` of rank ``j``'s ``out``."""
-    _count("all_to_all", inp)
+    _count("all_to_all", inp, group)
     dist.all_to_all_single(out, inp, group=group)
     return out
 
@@ -98,15 +107,15 @@ def p2p(group, sends=(), recvs=()) -> None:
     wait for all: a ring hop that cannot deadlock on the ranks' order."""
     ops: List = []
     for t, dst in sends:
-        _count("send", t)
+        _count("send", t, group)
         ops.append(P2POp("isend", t, dst))
     for t, src in recvs:
-        counts["recv"] = counts.get("recv", 0) + 1
+        _count("recv", None, group)
         ops.append(P2POp("irecv", t, src))
     for w in batch_isend_irecv(group, ops):
         w.wait()
 
 
 def barrier(group) -> None:
-    counts["barrier"] = counts.get("barrier", 0) + 1
+    _count("barrier", None, group)
     dist.barrier(group=group)

@@ -4,8 +4,9 @@ Port of ``pytorch_distributed_tpu/parallel/context_parallel.py``. The
 sequence is split over the ranks of a mesh axis inside the attention:
 
 * **ring attention**: each rank holds one chunk of Q, K and V; K/V chunks
-  travel one hop around the ring per step (``dist.batch_isend_irecv`` to
-  rank + 1 from rank - 1 on the axis's group; at a group size of 1 the
+  travel one hop around the ring per step (``comm.p2p``: a send to
+  rank + 1 and a receive from rank - 1 on the axis's group, through host
+  memory for a card tensor on gloo; at a group size of 1 the
   rotation is the identity and no P2P op is issued). ``impl="flash"`` (the
   default) runs each hop through the position-masked flash kernels
   (B4-B6, ``ops.flash_attention``) with the hop's global positions and
@@ -44,6 +45,7 @@ from pytorch_distributed_tpu_torch.ops.flash_attention import (
     flash_masked_fwd,
     tma_ready,
 )
+from pytorch_distributed_tpu_torch.parallel import comm
 
 __all__ = [
     "ring_attention",
@@ -60,20 +62,19 @@ _NEG_INF = -1e30
 # -- collectives on an axis's group ----------------------------------------
 def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
     """Send ``x`` to rank r + step of ``group`` and return the tensor that
-    rank r - step sent (ranks modulo the group size)."""
+    rank r - step sent (ranks modulo the group size), through
+    ``comm.p2p`` (counted). gloo sends host memory only: on a gloo group a
+    card tensor goes through a host copy each way."""
     n = dist.get_world_size(group)
     if n == 1:
         return x
     r = dist.get_rank(group)
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x, dist.get_global_rank(group, (r + step) % n),
-                      group),
-           dist.P2POp(dist.irecv, out,
-                      dist.get_global_rank(group, (r - step) % n), group)]
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    return out
+    staged = x.device.type != "cpu" and dist.get_backend(group) == "gloo"
+    src = x.to("cpu") if staged else x.contiguous()
+    out = torch.empty_like(src)
+    comm.p2p(group, sends=[(src, (r + step) % n)],
+             recvs=[(out, (r - step) % n)])
+    return out.to(x.device) if staged else out
 
 
 class _Rotate(torch.autograd.Function):

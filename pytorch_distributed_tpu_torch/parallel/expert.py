@@ -41,7 +41,10 @@ experts ``[e0, e1)`` and per MoE block runs Megatron's f/g pair
 So the gradient of every parameter outside the expert stacks is the same
 on every ep rank, and the strategy averages all gradients over ``dp``
 only. The wire a block is two f's in the backward and one g in the
-forward (ROADMAP C).
+forward (ROADMAP C). ``TensorParallel`` with ``ExpertParallel`` in its
+plan runs the same pair over the tp group, or inside a sequence-parallel
+region :class:`SequenceEPContext` (the reduce-scatter along T in place
+of g; the block's gather of the sequence in place of f).
 
 Under a data-parallel split (``DataParallel``, FSDP, this strategy) a
 rank routes its own rows: ``group_size`` None is the rank's tokens, and a
@@ -76,7 +79,7 @@ from pytorch_distributed_tpu_torch.parallel.tensor_parallel import (
 )
 
 __all__ = ["EPContext", "ExpertDataParallel", "ExpertParallel", "MoEMLP",
-           "make_dispatch_masks"]
+           "SequenceEPContext", "make_dispatch_masks"]
 
 #: flax's truncated normal: cut at two sigma, this restores unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -136,6 +139,26 @@ class EPContext:
         return _ReduceOut.apply(x, self.group)
 
 
+class SequenceEPContext(EPContext):
+    """Expert parallelism over the tp group inside a sequence-parallel
+    region (``TensorParallel`` with ``ExpertParallel`` in its plan): the
+    block hands the layer the sequence gathered along T (the gather's
+    backward reduce-scatters the tokens' partial gradients, so ``enter``
+    is the identity) and ``exit`` is the region's g, the reduce-scatter
+    along T of the partial combine ``[B, T, C]`` (its backward
+    all-gathers, so every rank's experts see every token's gradient)."""
+
+    def __init__(self, tp):
+        super().__init__(tp.group, tp.size, tp.rank)
+        self.tp = tp
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def exit(self, x: torch.Tensor) -> torch.Tensor:
+        return self.tp.exit(x)
+
+
 class _MeanOver(torch.autograd.Function):
     """The mean over ``group`` of every rank's ``x``, forward; the mean of
     the gradients, backward (each rank's loss holds the global statistic
@@ -178,10 +201,12 @@ class MoEMLP(nn.Module):
     kernel transposed) and the stacks ``experts_up [E, C, d_ff]`` and
     ``experts_down [E, d_ff, C]`` in flax's layout, so dim 0 is the expert
     dim that ep (and FSDP's rule) shards. ``ep`` (an :class:`EPContext`,
-    set by :meth:`ExpertDataParallel.parallelize`) switches on the
-    expert-parallel forward over the rank's experts. ``stats_group`` (set
-    by a data-parallel strategy) is the group the aux loss's statistics
-    are averaged over.
+    set by :meth:`ExpertDataParallel.parallelize`, or by
+    ``TensorParallel.parallelize`` when its plan cuts the stacks) switches
+    on the expert-parallel forward over the rank's experts; its ``exit``
+    may return this rank's T rows of the output (sequence parallelism).
+    ``stats_group`` (set by a data-parallel strategy) is the group the aux
+    loss's statistics are averaged over.
     """
 
     ep: Optional[EPContext] = None
@@ -255,11 +280,12 @@ class MoEMLP(nn.Module):
         expert_out = torch.einsum("gecf,efd->gecd", h, w_dn.to(dtype))
         if ep is None:
             out = torch.einsum("gnec,gecd->gnd", combine.to(dtype),
-                               expert_out)
+                               expert_out).reshape(B, T, C)
         else:
             # the rank's experts' share, summed over ep in fp32
-            out = ep.exit(torch.einsum("gnec,gecd->gnd", combine,
-                                       expert_out.float())).to(dtype)
+            out = ep.exit(torch.einsum(
+                "gnec,gecd->gnd", combine, expert_out.float()
+            ).reshape(B, T, C)).to(dtype)
 
         me = probs.reshape(n_tokens, E).mean(dim=0)
         ce = _one_hot(expert_idx[..., 0].reshape(-1), E).mean(dim=0)
@@ -268,8 +294,7 @@ class MoEMLP(nn.Module):
             me, ce = _MeanOver.apply(torch.stack([me, ce]), group,
                                      dist.get_world_size(group)).unbind(0)
         aux_loss = E * (me * ce).sum()
-        return out.reshape(B, T, C), {"aux_loss": aux_loss,
-                                      "expert_fraction": ce}
+        return out, {"aux_loss": aux_loss, "expert_fraction": ce}
 
 
 class ExpertParallel(ParallelStyle):

@@ -45,6 +45,24 @@ replicated over tp. Every collective goes through ``parallel.comm``.
 The reference's ``activation_constraint`` (``GPT2Config.act_constraint``)
 has no counterpart: the port's ``GPT2Config`` has no such field, and the
 strategy applies sequence parallelism to the model itself.
+
+A mixture-of-experts GPT-2 (``moe_experts > 0``) runs as the reference
+places it (TP x MoE). The router stays whole on every tp rank. The expert
+stacks stay whole too, unless the plan gives them ``ExpertParallel()``
+(``{r"moe\\.experts_": ExpertParallel(), **gpt2_tp_plan()}``): then they
+are cut on their expert dim over tp, and the MoE layer gets an
+``EPContext`` on the tp group (f on the tokens and the gates, g on the
+partial combine). With ``fsdp_axis`` a stack's largest dim that is still
+whole is cut over fsdp and gathered where it is read. Every tp rank routes
+the whole sequence of its rows, so the routes are those of the unsharded
+model. Under sequence parallelism the block gathers T in: with the stacks
+whole, each rank keeps its rows of the output, whose gradient is its own
+rows' part (summed over tp as a partial gradient); with the stacks cut,
+the layer's ``SequenceEPContext`` reduce-scatters the partial combine
+along T. The aux loss is computed whole on every tp rank there, so its
+gradient is divided by tp (``TPContext.count_once``) and counted once.
+The aux statistics are averaged over the data shards (``stats_group``),
+as under ``ExpertDataParallel``.
 """
 
 from __future__ import annotations
@@ -245,6 +263,37 @@ class _ScatterDim(torch.autograd.Function):
             None, None
 
 
+class _OwnRows(torch.autograd.Function):
+    """This rank's block along ``dim`` of a tensor every rank computed
+    whole; the backward puts the gradient into that block of zeros (each
+    rank's gradient is its own rows' part, summed over tp where it meets
+    the region's entry)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, ctx_tp):
+        ctx.dim, ctx.tp, ctx.shape = dim, ctx_tp, x.shape
+        return x.chunk(ctx_tp.size, dim)[ctx_tp.rank].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.new_zeros(ctx.shape)
+        out.chunk(ctx.tp.size, ctx.dim)[ctx.tp.rank].copy_(g)
+        return out, None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the gradient times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
 class TPContext:
     """What a parallelized model's forward reads: the tp group, its size
     and this rank's coordinate, and whether the residual stream is
@@ -285,6 +334,19 @@ class TPContext:
         if not self.sequence_parallel:
             return x
         return _GatherDim.apply(x, 1, self, False)
+
+    def own_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """SP: this rank's T rows of an activation every rank computed
+        whole (a routed MLP's output over the gathered sequence); the
+        gradient is the rank's rows' part."""
+        return _OwnRows.apply(x, 1, self)
+
+    def count_once(self, x: torch.Tensor) -> torch.Tensor:
+        """A term every tp rank computes whole from the gathered sequence
+        and adds to its (replicated) loss: its gradient divided by the tp
+        size, so that the sums over tp (the partial gradients' and the
+        entry's reduce-scatter) count it once."""
+        return _ScaleGrad.apply(x, 1.0 / self.size)
 
 
 # -- the strategy -----------------------------------------------------------
@@ -400,8 +462,9 @@ class TensorParallel(_Replicas):
     # -- the model -----------------------------------------------------------
     def _check_gpt2(self, model, cut) -> None:
         blocks = getattr(model, "h", ())
-        for i in range(len(blocks)):
-            for sub, kind in _GPT2_PAIRING:
+        for i, block in enumerate(blocks):
+            routed = getattr(block, "use_moe", False)
+            for sub, kind in _GPT2_PAIRING[:2] if routed else _GPT2_PAIRING:
                 name = f"h.{i}.{sub}.weight"
                 style = self.style_for(name)
                 if not isinstance(style, kind):
@@ -414,6 +477,8 @@ class TensorParallel(_Replicas):
                         "attn.c_attn is the fused q, k, v: "
                         "ColwiseParallel(chunks=3) gives each rank whole "
                         "heads")
+            if routed:
+                self._check_moe(f"h.{i}.moe", block.moe)
         cfg = model.cfg
         for what, n in (("n_head", cfg.n_head), ("n_embd", cfg.n_embd)):
             if n % self.tp_size:
@@ -422,16 +487,27 @@ class TensorParallel(_Replicas):
         if not cut:
             raise ValueError("the plan shards no parameter of the model")
 
+    def _check_moe(self, prefix: str, moe) -> None:
+        """A routed MLP's router stays whole on tp, and its two expert
+        stacks are both whole or both cut on their expert dim (the
+        reference's ``ExpertParallel`` in the plan)."""
+        for name, p in moe.router.named_parameters():
+            if self.tp_pspec(f"{prefix}.router.{name}", p.shape) is not None:
+                raise ValueError(f"{prefix}.router.{name}: the router runs "
+                                 "whole on every tp rank")
+        dims = {self.tp_pspec(f"{prefix}.{name}", getattr(moe, name).shape)
+                for name in ("experts_up", "experts_down")}
+        if dims not in ({None}, {0}):
+            raise ValueError(f"{prefix}: the expert stacks shard on their "
+                             "expert dim (ExpertParallel) or stay whole, "
+                             f"both alike; the plan gives dims {dims}")
+
     @torch.no_grad()
     def parallelize(self, model: torch.nn.Module) -> Dict[str, TPShard]:
         """Cut every parameter the plan shards to this rank's tp block, in
         place (the same ``nn.Parameter``, ``p.tp`` a :class:`TPShard`), and
         hand the forward its :class:`TPContext` (every module with a
         ``tp`` attribute: GPT-2's). Returns ``{name: TPShard}``."""
-        if getattr(getattr(model, "cfg", None), "moe_experts", 0) > 0:
-            raise NotImplementedError(
-                "TensorParallel runs dense GPT-2 only: tensor parallelism of "
-                "a mixture-of-experts model (TP x MoE) is ROADMAP A.14b")
         if not any(hasattr(m, "tp") for m in model.modules()):
             raise NotImplementedError(
                 f"{type(model).__name__}'s forward issues no tensor-parallel "
@@ -457,6 +533,7 @@ class TensorParallel(_Replicas):
         for m in model.modules():
             if hasattr(m, "tp"):
                 m.tp = self.context
+        self._route_experts(model)
         if getattr(model, "_copies", None) is not None:
             model._copies = None    # GPT-2's cached-forward copies: stale
         self._partial = [self.sequence_parallel and not hasattr(p, "tp")
@@ -464,6 +541,28 @@ class TensorParallel(_Replicas):
                          for n, p in model.named_parameters()
                          if p.requires_grad]
         return cut
+
+    def _route_experts(self, model) -> None:
+        """Each routed MLP takes its aux statistics over the data shards
+        (as under ``ExpertDataParallel``) and, where the plan cut its
+        stacks on the expert dim, the expert-parallel context on the tp
+        group: Megatron's f and g around the rank's experts, or inside a
+        sequence-parallel region the reduce-scatter of the partial
+        combine (the block gathers the sequence in)."""
+        from pytorch_distributed_tpu_torch.parallel.expert import (
+            EPContext,
+            MoEMLP,
+            SequenceEPContext,
+        )
+
+        for m in model.modules():
+            if not isinstance(m, MoEMLP):
+                continue
+            m.stats_group = self.group
+            if hasattr(m.experts_up, "tp"):
+                m.ep = (SequenceEPContext(self.context)
+                        if self.sequence_parallel else
+                        EPContext(self.tp_group, self.tp_size, self.tp_rank))
 
     @torch.no_grad()
     def sync_params(self, model: torch.nn.Module) -> None:

@@ -309,14 +309,29 @@ def _copy_local(leaf: _Leaf, x, out, me, moves) -> None:
 
 def _p2p(leaf: _Leaf, x, out, me, moves, staging=None) -> None:
     """Point-to-point pieces over the default group; ``staging`` is one
-    flat buffer that holds this rank's sends and receives of ``moves``."""
+    flat buffer that holds this rank's sends and receives of ``moves``.
+    Without a given buffer or host staging, a piece that is a contiguous
+    view of the source block is sent from it, and one that is a
+    contiguous view of the destination block is received into it (an
+    expert stack's experts along dim 0): only the others are staged."""
     dst_origin = _dst_origin(leaf, me)
     card = out if out is not None else x
     dtype, itemsize = card.dtype, card.element_size()
-    sends = [(q, box) for p, q, box in moves if p == me and q != me]
-    recvs = [(p, box) for p, q, box in moves if q == me and p != me]
-    n = sum(math.prod(_extent(b)) for _, b in sends + recvs)
     host = _stage_through_host(card)
+    direct = staging is None and not host
+    sends, recvs, n = [], [], 0
+    for p, q, box in moves:
+        if p == me and q != me:
+            peer, view, pieces = q, _take(x, _shift(box, leaf.origin[me])), \
+                sends
+        elif q == me and p != me:
+            peer, view, pieces = p, _take(out, _shift(box, dst_origin)), recvs
+        else:
+            continue
+        if not (direct and view.is_contiguous()):
+            view = None
+            n += math.prod(_extent(box))
+        pieces.append((peer, box, view))
     device = card.device
     if staging is None:
         staging = torch.empty(n, dtype=dtype,
@@ -324,23 +339,29 @@ def _p2p(leaf: _Leaf, x, out, me, moves, staging=None) -> None:
                               pin_memory=host)
         _note_buffer(n * itemsize)
     at, send_ops, recv_ops = 0, [], []
-    for q, box in sends:
+    for q, box, view in sends:
         k = math.prod(_extent(box))
-        buf = staging[at:at + k].view(_extent(box))
-        buf.copy_(_take(x, _shift(box, leaf.origin[me])))
-        send_ops.append((buf, q))
-        at += k
+        if view is None:
+            view = staging[at:at + k].view(_extent(box))
+            view.copy_(_take(x, _shift(box, leaf.origin[me])))
+            at += k
+            if host:
+                counts["host_staged_bytes"] += k * itemsize
+        send_ops.append((view, q))
         _record_sent(k * itemsize)
-        if host:
-            counts["host_staged_bytes"] += k * itemsize
-    for p, box in recvs:
+    for p, box, view in recvs:
         k = math.prod(_extent(box))
-        recv_ops.append((staging[at:at + k].view(_extent(box)), p, box))
-        at += k
+        if view is None:
+            recv_ops.append((staging[at:at + k].view(_extent(box)), p, box))
+            at += k
+        else:
+            recv_ops.append((view, p, None))
     if send_ops or recv_ops:
         comm.p2p(None, sends=send_ops,
                  recvs=[(buf, p) for buf, p, _ in recv_ops])
     for buf, _, box in recv_ops:
+        if box is None:         # received in place
+            continue
         _take(out, _shift(box, dst_origin)).copy_(buf, non_blocking=False)
         if host:
             counts["host_staged_bytes"] += buf.numel() * itemsize

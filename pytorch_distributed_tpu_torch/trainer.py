@@ -69,7 +69,9 @@ first rank's whole weights); the gradients are averaged over dp (or, with
 ``fsdp_axis``, put into the update layout as under FSDP), the
 sequence-parallel partial gradients summed over tp, and the norm and
 finite flag reduced over the ``(fsdp, tp)`` group
-(``strategy.grad_norm_and_finite``).
+(``strategy.grad_norm_and_finite``). An MoE model's aux loss enters the
+loss once, as without TP; under sequence parallelism every tp rank
+computes it whole and its gradient counts once (``models.gpt2``).
 
 Under ``ExpertDataParallel`` ``init`` cuts the expert stacks to the
 rank's experts (``strategy.parallelize``); the gradients are averaged over

@@ -14,7 +14,8 @@ mode, the port the plain versions of its flash kernels.
 * the eval loss leaves the aux term out and reports it;
 * the entry point with ``--moe-experts`` on the CPU, and its ``SystemExit``
   messages (the JAX script's);
-* the serving engine's and ``TensorParallel``'s refusals of an MoE model.
+* the serving engine's refusals of an MoE model, and ``TensorParallel``'s
+  cut of one (the expert stacks whole, or on their expert dim over tp).
 """
 
 import numpy as np
@@ -276,8 +277,14 @@ def test_entry_point_rules_on_a_world_of_four():
 
 def test_engine_and_tensor_parallel_refuse_moe():
     from pytorch_distributed_tpu_torch.parallel import (
+        ColwiseParallel,
+        ExpertParallel,
         TensorParallel,
         gpt2_tp_plan,
+    )
+    from pytorch_distributed_tpu_torch.parallel.expert import (
+        EPContext,
+        SequenceEPContext,
     )
     from pytorch_distributed_tpu_torch.serving import InferenceEngine
     from tests._torch_port_tp import StubMesh
@@ -291,6 +298,28 @@ def test_engine_and_tensor_parallel_refuse_moe():
                         draft_model=moe, draft_params=moe.state_dict())
     with pytest.raises(ValueError, match="dense GPT-2 only"):
         moe(torch.zeros(1, 4, dtype=torch.long), kv_cache=object())
-    tp = TensorParallel(StubMesh((1, 2), ("dp", "tp")), gpt2_tp_plan())
-    with pytest.raises(NotImplementedError, match="A.14b"):
-        tp.parallelize(moe)
+    # TP x MoE (A.14b) is ported: TensorParallel cuts the MoE model as its
+    # plan says, the expert stacks whole or on their expert dim
+    E, C = TINY["moe_experts"], TINY["n_embd"]
+    for plan, sp, e, ctx in (
+            (gpt2_tp_plan(), False, E, None),
+            ({r"moe\.experts_": ExpertParallel(), **gpt2_tp_plan()}, False,
+             E // 2, EPContext),
+            ({r"moe\.experts_": ExpertParallel(), **gpt2_tp_plan()}, True,
+             E // 2, SequenceEPContext)):
+        model = GPT2(GPT2Config(**TINY), device="cpu")
+        tp = TensorParallel(StubMesh((1, 2), ("dp", "tp")), plan,
+                            sequence_parallel=sp)
+        cut = tp.parallelize(model)
+        moe_layer = model.h[1].moe
+        assert tuple(moe_layer.experts_up.shape) == (e, C, 4 * C)
+        assert tuple(moe_layer.experts_down.shape) == (e, 4 * C, C)
+        assert tuple(moe_layer.router.weight.shape) == (E, C)
+        assert ("h.1.moe.experts_up" in cut) == (e < E)
+        assert tuple(model.h[1].attn.c_attn.weight.shape) == (3 * C // 2, C)
+        assert (type(moe_layer.ep) if ctx else moe_layer.ep) is ctx
+    with pytest.raises(ValueError, match="router runs whole"):
+        TensorParallel(StubMesh((1, 2), ("dp", "tp")),
+                       {r"moe\.router": ColwiseParallel(),
+                        **gpt2_tp_plan()}).parallelize(
+            GPT2(GPT2Config(**TINY), device="cpu"))
