@@ -231,6 +231,15 @@ capture records; what the replays launched is counted in device traces
                 beside the plan's peak and naive gather, every ``data_ptr``
                 kept, no new capture, one replay a decode step either side,
                 streams equal the uninterrupted run's;
+  observability  (same group) ``observability.StepProfiler`` (2 warm-up
+                steps, 3 captured) over runner_train's trainer replayed
+                through ``AsyncRunner``: its ``trace_op_breakdown`` counts
+                B1-B3 n_layer times each a captured step and its kernel
+                time lies between half the replays' CUDA-event span and
+                the span; ``memory_breakdown`` of one eager step (the
+                batch's bytes exactly, a positive temp); the eager process
+                group's NCCL collectives completed in the flight recorder
+                with their bytes; ``nan_check`` on a card inf;
   serve_ckpt    ``examples/serve_gpt2.py``'s ``main`` with ``--ckpt-dir`` on
                 ckpt_gpt2's checkpoint (run inside that phase);
   fsdp_ranks    four spawned ranks sharing the card over gloo (where gloo
@@ -261,6 +270,18 @@ capture records; what the replays launched is counted in device traces
                 with the continued one, and every rank loads the
                 checkpoint whole through ``load_gpt2_params`` at tp = 1:
                 the gathered live weights;
+  tp_reshard    (in tp_ranks' ranks) the same (1, 4) state moved to (dp 2,
+                tp 2) by ``reshard_state`` onto ``state_shardings`` (no
+                checkpoint), bit for bit the checkpoint's resume at (2, 2),
+                the next step's loss bit for bit, B1-B3 n_layer times, each
+                card leaf's measured peak within a source plus a
+                destination block plus one staging chunk;
+  dp_slots      (in tp_ranks' ranks) the fp32 TP serving on a slotted
+                cache of 8 slots with the slots on dp at (dp 2, tp 2),
+                eager (gloo), spec_k 0 (24 new tokens) and 3 (12, the
+                6-layer self-draft): every rank's streams equal, each the
+                one-rank engine's or departing at a top-2 gap under 1e-5;
+                each rank holds 4 slots and a quarter of the cache's bytes;
   redistribute_ranks  at the end of tp_ranks' ranks: GPT-2 125M (fp32)
                 laid out FSDP over the 4 ranks moves to the (1, 4) serving
                 layout through ``reshard_gpt2_params`` and serves tp_ranks'
@@ -296,6 +317,15 @@ capture records; what the replays launched is counted in device traces
                 under all eight schedules, the loss and every gradient
                 against plain autograd of the same blocks here; step time
                 and peak memory a rank, each schedule's step time;
+  pp_reshard    (in pp_ranks' ranks) the pp 4 state after its steps moved to
+                (dp 2, pp 2) by ``reshard_state`` onto ``state_shardings``
+                (``placed_state``: each layer whole on its stage's ranks),
+                bit for bit the DCP resume of the same state, the next
+                step's loss bit for bit and B1-B3's launches the shapes'
+                count, the bytes each rank sent exactly its layers' for
+                each new holder lacking them, each card leaf's measured
+                peak within a source plus a destination block plus one
+                staging chunk;
   grid_ranks    at the end of pp_ranks' ranks (no second start): the port's
                 ``dryrun.run_grid(4)`` (fsdp, hsdp, tp_sp, pp, cp, ep: each
                 mode's shard shapes, collectives and one-rank parity, fp32
@@ -309,6 +339,11 @@ capture records; what the replays launched is counted in device traces
                 ``state_shardings`` at (dp 2, ep 2), bit for bit the DCP
                 resume's, each expert leaf's measured peak within a source
                 plus a destination block plus one staging chunk;
+  fr_stall      the pool's four ranks: rank 0's eager ``all_reduce`` waits
+                under the flight recorder's 1 s watchdog for the others,
+                who join 2.5 s later: the dump exists, ``stalled()`` is
+                true, ``fr_trace`` of the dump names the all_reduce as the
+                hang suspect, and it then completes;
   multihost     multihost serving: two worker processes (a ``HostWorker``
                 each around the serve phase's paged engine, GPT-2 125M in
                 fp32 with TF32 off, the decode step captured with B7 12
@@ -422,6 +457,7 @@ from pytorch_distributed_tpu_torch.elastic import (
     DynamicRendezvous,
     LocalElasticAgent,
     WorkerSpec,
+    placed_state,
     reshard_state,
     resume_from_checkpoint,
     state_shardings,
@@ -447,8 +483,13 @@ from pytorch_distributed_tpu_torch.ops import chunked_xent
 from pytorch_distributed_tpu_torch.ops import paged_attention as pa
 from pytorch_distributed_tpu_torch.pipeline_exec import AsyncRunner
 from pytorch_distributed_tpu_torch.pipeline_exec.runner import _step_tensors
-from pytorch_distributed_tpu_torch.redistribute import Sharding, plan_tree
+from pytorch_distributed_tpu_torch.redistribute import (
+    Placed,
+    Sharding,
+    plan_tree,
+)
 from pytorch_distributed_tpu_torch.redistribute import executor as rdx
+from pytorch_distributed_tpu_torch.redistribute import plan as rplan
 from pytorch_distributed_tpu_torch.parallel import (
     CPStrategy,
     DataParallel,
@@ -475,6 +516,7 @@ from pytorch_distributed_tpu_torch.serving import (
     Request,
     SamplingParams,
     Scheduler,
+    kv_cache_sharding,
     paged_kv_cache_sharding,
     reshard_gpt2_params,
     serving_mesh,
@@ -4174,10 +4216,14 @@ TP_RANKS_LOSS_RTOL = 1e-2     # bf16, as fsdp_ranks' limit
 #: (tag, (dp, tp), sequence_parallel) of the ranks' training runs
 TP_RANKS_JOBS = (("dp1_tp4", (1, 4), False), ("dp1_tp4_sp", (1, 4), True),
                  ("dp2_tp2", (2, 2), False))
+TP_RANKS_JOBS_BY_TAG = tuple((tag, shape) for tag, shape, _ in TP_RANKS_JOBS)
 TP_SERVE_REQUESTS = 8
 TP_SERVE_NEW_TOKENS = 24
 TP_GAP_RTOL = 1e-5            # a departing greedy stream's top-2 gap
 TP_CKPT_JOB = "dp1_tp4"       # the job whose state is saved and resumed
+TP_RESHARD_DST = (2, 2)       # its state moved to (dp 2, tp 2) too
+DP_SLOTS = (2, 2)             # serving with the slots on dp: (dp, tp)
+DP_SLOTS_SPEC_NEW_TOKENS = 12  # spec_k 3's new tokens (spec_k 0: 24)
 DISK_ROOT = Path(__file__).resolve().parent / "pytorch_distributed_tpu_torch" \
     / "_build" / "disk_smoke"
 DISK_STEPS = 10
@@ -4557,6 +4603,15 @@ def _tp_ckpt_round(trainer, state, batch, shape, sp, device, ckpt_dir):
         t0 = time.perf_counter()
         mgr.save(state.step, sd)
         save_s = time.perf_counter() - t0
+    # the same state moved to (dp 2, tp 2) without a checkpoint (before the
+    # step below changes it)
+    t0 = time.perf_counter()
+    reshard = _reshard_round(
+        trainer, state, sd, TensorParallel(init_device_mesh(
+            TP_RESHARD_DST, ("dp", "tp")), gpt2_tp_plan()),
+        lambda seed: _tp_rank_trainer(TP_RESHARD_DST, sp, device, seed),
+        batch, device, ckpt_dir, save=False)
+    reshard["wall_s"] = time.perf_counter() - t0
     _, m = trainer.step(state, batch)
     continued = (float(m["loss"]), full_state_dict(trainer.model))
     fresh, fresh_state = _tp_rank_trainer(shape, sp, device, seed=8)
@@ -4584,7 +4639,8 @@ def _tp_ckpt_round(trainer, state, batch, shape, sp, device, ckpt_dir):
             torch.equal(resumed[1][n], t) for n, t in continued[1].items()),
         "tp1_load_step": load_step, "tp1_load_s": load_s,
         "tp1_equals_live": all(torch.equal(t, live[n]) for n, t in
-                               whole.state_dict().items())}
+                               whole.state_dict().items()),
+        "reshard": reshard}
 
 
 def _fsdp_rank_trainer(mesh, device, seed: int):
@@ -4728,6 +4784,108 @@ def _to_local(v):
     return v.to_local() if hasattr(v, "to_local") else v
 
 
+def _want_sent(sd, shardings, me):
+    """The bytes rank ``me`` must send to move ``sd`` onto ``shardings``,
+    from the shapes alone: each piece of a source block that a destination
+    rank needs and does not hold in its own source block, counted on its
+    one holder (a pipeline's layer lies on one stage's rank, a tp block on
+    one rank of a (1, tp) mesh; a piece with two holders raises, since the
+    sender is the planner's choice). A whole tensor lies on every rank and
+    moves no byte."""
+    total = 0
+    for k, v in sd.items():
+        src = v.sharding if isinstance(v, Placed) else rdx.dtensor_sharding(v)
+        dst = shardings.get(k)
+        if src is None or dst is None:
+            continue
+        shape = tuple(v.shape)
+        holders = {}
+        for r, box in rplan.boxes(shape, src).items():
+            holders.setdefault(box, []).append(r)
+        for box, have in holders.items():
+            for q, want in rplan.boxes(shape, dst).items():
+                piece = rplan.intersect(box, want)
+                if piece is None or q in have:
+                    continue
+                if len(have) > 1:
+                    raise ValueError(f"{k}: a piece on ranks {have}")
+                if have == [me]:
+                    total += math.prod(b - a for a, b in piece) * \
+                        v.dtype.itemsize
+    return total
+
+
+def _reshard_round(trainer, state, sd, strategy, make, batch, device,
+                   ckpt_dir, save=True):
+    """A live state moved without a checkpoint, against the checkpoint:
+    ``sd`` (``placed_state``/``get_state_dict`` of ``trainer``'s state) is
+    saved through DCP into ``ckpt_dir`` (unless ``save`` is False: it is
+    there already), then moved by ``reshard_state`` onto
+    ``state_shardings(sd, strategy)`` with each card leaf's peak measured;
+    ``make(seed)`` builds a trainer on the new mesh twice, one loaded from
+    the move (``set_state_dict``), one resumed from the checkpoint. Their
+    states must be equal bit for bit, and each takes one step on
+    ``batch`` (the losses must be equal bit for bit; B1-B3's launches of
+    the moved trainer's step are returned). ``want_sent``: the bytes this
+    rank must send, from the shapes (:func:`_want_sent`)."""
+    if save:
+        with CheckpointManager(ckpt_dir) as mgr:
+            mgr.save(state.step, get_state_dict(trainer, state))
+    shardings = state_shardings(sd, strategy)
+    want_sent = _want_sent(sd, shardings, dist.get_rank())
+    torch.cuda.synchronize(device)
+    rdx.reset_counts()
+    rdx.measure_peaks = True
+    t0 = time.perf_counter()
+    moved = reshard_state(sd, shardings)
+    torch.cuda.synchronize(device)
+    move_s = time.perf_counter() - t0
+    rdx.measure_peaks = False
+    counts, leaves = dict(rdx.counts), list(rdx.leaf_peaks)
+
+    def nbytes(v):
+        v = v.block if isinstance(v, Placed) else _to_local(v)
+        return 0 if v is None else v.numel() * v.element_size()
+
+    # a leaf's bound: its source and destination blocks here, and one
+    # staging chunk of at most a destination block (a host-staged piece's
+    # copy on the card, or the plan's unchunked staging across rank sets)
+    blocks = {k: nbytes(sd[k]) + nbytes(moved[k]) for k in sd}
+    bound = {k: blocks[k] + nbytes(moved[k]) for k in sd}
+    del sd
+    moved_tr, mstate = make(9)
+    mstate = set_state_dict(moved_tr, mstate, moved)
+    del moved
+    resumed, rstate = make(10)
+    rstate = resume_from_checkpoint(ckpt_dir, resumed, rstate)
+    a = get_state_dict(moved_tr, mstate)
+    b = get_state_dict(resumed, rstate)
+    equal = mstate.step == rstate.step == state.step and a.keys() == b.keys() \
+        and all(torch.equal(_to_local(a[k]), _to_local(b[k])) for k in b)
+    del a, b
+    _reset_flash_counts()
+    _, m1 = moved_tr.step(mstate, batch)
+    launches = {k: fa.launches[k] for k in CAUSAL_KEYS}
+    _, m2 = resumed.step(rstate, batch)
+    del moved_tr, mstate, resumed, rstate
+    torch.cuda.empty_cache()
+    # the bound holds the sizes asked of the allocator; the blocks it held
+    # (rounded up to its segments) are reported beside them
+    over = [dict(x, bound=bound[x["name"]]) for x in leaves
+            if x["requested_peak_bytes"] > bound[x["name"]]]
+    return {"move_s": move_s, "state_equal_to_resume": equal,
+            "losses": [float(m1["loss"]), float(m2["loss"])],
+            "launches": launches, "counts": counts, "want_sent": want_sent,
+            "leaves_measured": len(leaves),
+            "largest_leaf": max(leaves,
+                                key=lambda x: x["requested_peak_bytes"],
+                                default=None),
+            "leaves_within_src_dst": sum(
+                x["requested_peak_bytes"] <= blocks[x["name"]]
+                for x in leaves),
+            "leaves_over_bound": over}
+
+
 def _tp_rank(rank, out_dir, batches, prompts):
     """One of TP_RANKS ranks sharing the card over gloo: GPT-2 125M (bf16,
     flash attention, AdamW, seed 7) for TP_RANKS_STEPS eager steps under
@@ -4788,12 +4946,96 @@ def _tp_rank(rank, out_dir, batches, prompts):
             "streams": {f.request_id: f.tokens for f in finished}}
         del sched, engine, model
         torch.cuda.empty_cache()
+        result["dp_slots"] = _dp_slots_serving(device, prompts)
         t0 = time.perf_counter()
         result["redistribute"] = _redistribute_rank(
             rank, device, mesh, prompts, batches[-1], f"{out_dir}/rs_ckpt")
         result["redistribute"]["wall_s"] = time.perf_counter() - t0
     finally:
         torch.save(result, f"{out_dir}/tp_rank{rank}.pt")
+
+
+def _reshard_report(phase, rs, smi, src, dst, launches):
+    """The line of a reshard that ``_reshard_round`` ran on every rank, and
+    its checks: the moved state equal to the checkpoint's resume bit for
+    bit and the next step's losses equal bit for bit, B1-B3's launches of
+    that step the shapes' count, the bytes each rank sent the shapes'
+    count (:func:`_want_sent`), each card leaf's peak (the sizes asked of
+    the allocator; the blocks it held are reported beside them) within a
+    source block plus a destination block plus one staging chunk."""
+    line = {"phase": phase, "nvidia_smi": smi, "backend": "gloo",
+            "ranks": len(rs), "src_mesh": list(src), "dst_mesh": list(dst),
+            "phase_s": max(r["wall_s"] for r in rs),
+            "move_s": [r["move_s"] for r in rs],
+            "sent_bytes": [r["counts"]["sent_bytes"] for r in rs],
+            "want_sent_bytes": [r["want_sent"] for r in rs],
+            "host_staged_bytes": [r["counts"]["host_staged_bytes"]
+                                  for r in rs],
+            "requested_peak_bytes": [r["counts"]["requested_peak_bytes"]
+                                     for r in rs],
+            "measured_peak_bytes": [r["counts"]["measured_peak_bytes"]
+                                    for r in rs],
+            "leaves_measured": [r["leaves_measured"] for r in rs],
+            "leaves_within_src_dst": [r["leaves_within_src_dst"] for r in rs],
+            "largest_leaf": [r["largest_leaf"] for r in rs],
+            "leaves_over_bound": [r["leaves_over_bound"] for r in rs],
+            "state_equal_to_resume": [r["state_equal_to_resume"] for r in rs],
+            "losses": [r["losses"] for r in rs],
+            "launches": [r["launches"] for r in rs],
+            "want_launches": launches}
+    emit(line)
+    check(all(line["state_equal_to_resume"]),
+          f"{phase}: the moved state differs from the checkpoint's resume")
+    check(all(a == b and math.isfinite(a) for a, b in line["losses"]),
+          f"{phase}: the next step's losses {line['losses']}")
+    check(all(x == launches for x in line["launches"]),
+          f"{phase}: B1-B3 launches {line['launches']}, want {launches}")
+    check(line["sent_bytes"] == line["want_sent_bytes"],
+          f"{phase}: sent {line['sent_bytes']}, the shapes' "
+          f"{line['want_sent_bytes']}")
+    check(all(n > 0 for n in line["leaves_measured"])
+          and not any(line["leaves_over_bound"]),
+          f"{phase}: leaves above a source plus a destination block plus "
+          f"one staging chunk {line['leaves_over_bound']}")
+    return line
+
+
+def _dp_slots_serving(device, prompts):
+    """On a tp_ranks rank: the same fp32 TP serving (TF32 off) on a slotted
+    cache of SERVE_KW's 8 slots with the slots on dp at DP_SLOTS, through
+    the eager bodies (gloo), greedy, spec_k 0 (TP_SERVE_NEW_TOKENS new
+    tokens) and SPEC_K with the DRAFT_LAYERS self-draft
+    (DP_SLOTS_SPEC_NEW_TOKENS): the streams, the slots and the cache bytes
+    this rank holds."""
+    mesh = serving_mesh(dp=DP_SLOTS[0], tp=DP_SLOTS[1])
+    out = {}
+    for spec_k, n_new in ((0, TP_SERVE_NEW_TOKENS),
+                          (SPEC_K, DP_SLOTS_SPEC_NEW_TOKENS)):
+        model = gpt2_125m(device=device, seed=1)
+        shard_gpt2_params(model, mesh)
+        kw = dict(SERVE_KW, cache_kind="slotted")
+        if spec_k:
+            kw.update(spec_k=spec_k, draft_layers=DRAFT_LAYERS)
+        engine = InferenceEngine(model, cache_sharding=kv_cache_sharding(
+            mesh, dp_axis="dp"), **kw)
+        sched = Scheduler(engine, emit_events=False)
+        for p in prompts:
+            sched.submit(Request(prompt=p, max_new_tokens=n_new))
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        finished = sched.run()
+        cache = sched.cache
+        out[spec_k] = {
+            "new_tokens": n_new, "graphs": engine.graphs,
+            "wall_s": time.perf_counter() - t0,
+            "steps": sched.decode_steps,
+            "own_slots": [engine.own_slots.start, engine.own_slots.stop],
+            "cache_shape": list(cache.k.shape),
+            "cache_bytes": cache.k.nbytes + cache.v.nbytes,
+            "streams": {f.request_id: f.tokens for f in finished}}
+        del sched, engine, model, cache
+        torch.cuda.empty_cache()
+    return out
 
 
 def _tp_held(name: str, shape, tp: int):
@@ -4866,7 +5108,7 @@ def tp_ranks_phase(pool, smi=None):
     torch.cuda.empty_cache()
     _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as out_dir:
-        wall_s = pool.run(_tp_rank, (out_dir, batches, prompts), 300,
+        wall_s = pool.run(_tp_rank, (out_dir, batches, prompts), 420,
                           "tp_ranks")
         ranks = [torch.load(f"{out_dir}/tp_rank{r}.pt", weights_only=False)
                  for r in range(TP_RANKS)]
@@ -4913,6 +5155,7 @@ def tp_ranks_phase(pool, smi=None):
             departures.append({"request": rid, "at": i, "top2_rel_gap":
                                _top2_gap(ref_model, prompts[rid],
                                          want_tokens, i)})
+    _dp_slots_report(smi, ranks, ref_model, prompts, ref_streams)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
         tf32
     serve = ranks[0]["serve"]
@@ -4946,10 +5189,75 @@ def tp_ranks_phase(pool, smi=None):
     check(all(d["top2_rel_gap"] < TP_GAP_RTOL for d in departures),
           f"tp_ranks: streams depart from the one-rank engine's at a clear "
           f"argmax: {departures}")
+    _reshard_report("tp_reshard", [r["ckpt"]["reshard"] for r in ranks], smi,
+                    dict(TP_RANKS_JOBS_BY_TAG)[TP_CKPT_JOB], TP_RESHARD_DST,
+                    {k: n_layer for k in CAUSAL_KEYS})
     _redistribute_ranks_report(smi, ranks, serve["streams"], ref_streams,
                                departures, n_layer)
     del ref_model
     torch.cuda.empty_cache()
+
+
+def _dp_slots_report(smi, ranks, ref_model, prompts, ref_streams):
+    """The dp_slots line from tp_ranks' ranks (``_dp_slots_serving``), and
+    its checks: every rank's streams equal, each equal to the one-rank
+    fp32 engine's (truncated to the run's new tokens) or departing at a
+    top-2 gap under TP_GAP_RTOL; each rank holds its 8 / dp slots, and
+    exactly a quarter of the whole cache's bytes."""
+    cfg = GPT2Config()
+    dp, tp = DP_SLOTS
+    per = SERVE_KW["n_slots"] // dp
+    whole = 2 * cfg.n_layer * SERVE_KW["n_slots"] * SERVE_KW["max_len"] \
+        * cfg.n_embd * 4                                   # K and V, fp32
+    line = {"phase": "dp_slots", "nvidia_smi": smi, "backend": "gloo",
+            "mesh": {"dp": dp, "tp": tp}, "model": "gpt2-125m",
+            "dtype": "float32", "tf32": False, "cache_kind": "slotted",
+            "n_slots": SERVE_KW["n_slots"], "requests": len(prompts),
+            "whole_cache_bytes": whole, "runs": {}}
+    for spec_k in (0, SPEC_K):
+        runs = [r["dp_slots"][spec_k] for r in ranks]
+        first = runs[0]
+        departures = []
+        for rid, tokens in first["streams"].items():
+            want = ref_streams[rid][:first["new_tokens"]]
+            if tokens != want:
+                i = next(j for j, (a, b) in enumerate(zip(tokens, want))
+                         if a != b)
+                departures.append({"request": rid, "at": i, "top2_rel_gap":
+                                   _top2_gap(ref_model, prompts[rid], want,
+                                             i)})
+        line["runs"][spec_k] = {
+            "spec_k": spec_k, "new_tokens": first["new_tokens"],
+            "draft_layers": DRAFT_LAYERS if spec_k else None,
+            "wall_s": [x["wall_s"] for x in runs],
+            "steps": first["steps"], "graphs": [x["graphs"] for x in runs],
+            "own_slots": [x["own_slots"] for x in runs],
+            "cache_shape": [x["cache_shape"] for x in runs],
+            "cache_bytes": [x["cache_bytes"] for x in runs],
+            "streams_equal_to_one_rank": sum(
+                first["streams"][rid] == ref_streams[rid][:first[
+                    "new_tokens"]] for rid in first["streams"]),
+            "departures": departures,
+            "ranks_agree": all(x["streams"] == first["streams"]
+                               for x in runs)}
+    line["phase_s"] = max(sum(x["wall_s"] for x in r["dp_slots"].values())
+                          for r in ranks)
+    emit(line)
+    for spec_k, r in line["runs"].items():
+        check(r["ranks_agree"] and len(ranks[0]["dp_slots"][spec_k][
+            "streams"]) == len(prompts),
+              f"dp_slots spec_k {spec_k}: the ranks' streams differ")
+        check(all(d["top2_rel_gap"] < TP_GAP_RTOL for d in r["departures"]),
+              f"dp_slots spec_k {spec_k}: streams depart from the one-rank "
+              f"engine's at a clear argmax: {r['departures']}")
+        check(not any(r["graphs"]), f"dp_slots spec_k {spec_k}: graphs on "
+              "a gloo group")
+        check(all(b * dp * tp == whole for b in r["cache_bytes"])
+              and all(o == [k * per, (k + 1) * per] for k, o in zip(
+                  [i // tp for i in range(len(ranks))], r["own_slots"])),
+              f"dp_slots spec_k {spec_k}: cache bytes {r['cache_bytes']} "
+              f"(whole {whole}) or slots {r['own_slots']}")
+    return line
 
 
 def _redistribute_ranks_report(smi, ranks, tp_streams, ref_streams,
@@ -6193,6 +6501,7 @@ PP_RANKS = 4
 PP_RANKS_STEPS = 3
 PP_JOBS = {"pp4": (1, 4), "dp2_pp2": (2, 2)}
 PP_CKPT_JOB = "pp4"          # saved after 2 steps, resumed for the third
+PP_RESHARD_DST = (2, 2)      # its state after the steps moved to (dp, pp)
 PP_EXEC_LAYERS = 8           # 4 stages of 2 blocks, or 8 virtual stages of 1
 PP_EXEC_MICRO = 8            # DualPipeV needs 2 x 4; interleaved 4 | 8
 PP_EXEC_ROWS = (1, 256)      # a microbatch: 1 sequence of 256 tokens
@@ -6557,6 +6866,18 @@ def _pp_rank(rank, out_dir, batches, device, grid_in, ep_in):
                 r["resumed_losses"] = again["losses"]
                 r["resumed_hash"] = _param_hash(fresh.model.parameters())
                 del fresh, fstate
+                # the state after the steps moved to (dp 2, pp 2) without a
+                # checkpoint, against a DCP round of it
+                ts = time.perf_counter()
+                dst = init_device_mesh(PP_RESHARD_DST, ("dp", "pp"))
+                r["reshard"] = _reshard_round(
+                    trainer, state, placed_state(trainer, state),
+                    PipelineParallel(dst, dp_axis="dp"),
+                    lambda seed: _pp_card_trainer(dst, True, seed=seed,
+                                                  dp_axis="dp",
+                                                  capturable=False),
+                    batches[-1], device, f"{out_dir}/ckpt_rs")
+                r["reshard"]["wall_s"] = time.perf_counter() - ts
             else:
                 state, steps = _pp_steps(trainer, state, batches)
             r.update(steps)
@@ -6630,7 +6951,7 @@ def pp_ranks_phase(pool, smi):
     with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as out_dir:
         torch.save(ref_grads, f"{out_dir}/exec_ref.pt")
         wall_s = pool.run(_pp_rank, (out_dir, batches, device, grid_in,
-                                     ep_in), 480, "pp_ranks")
+                                     ep_in), 560, "pp_ranks")
         ranks = [torch.load(f"{out_dir}/pp_rank{r}.pt", weights_only=False)
                  for r in range(PP_RANKS)]
     _ep_ranks_report([r["ep"] for r in ranks], ep_in)
@@ -6727,6 +7048,9 @@ def pp_ranks_phase(pool, smi):
         check(r["tables_equal"], f"pp_ranks {tag}: tables differ")
     check(line[PP_CKPT_JOB]["resume_bit_equal"],
           f"pp_ranks: resumed {line[PP_CKPT_JOB]['resumed_losses']}")
+    _reshard_report("pp_reshard", [r[PP_CKPT_JOB]["reshard"] for r in ranks],
+                    smi, PP_JOBS[PP_CKPT_JOB], PP_RESHARD_DST, _pp_launches(
+                        cfg.n_layer // PP_RESHARD_DST[1], True))
     for schedule, e in execs.items():
         check(len(e["loss"]) == 1 and e["loss_rel_err"][0]
               <= PP_EXEC_LOSS_RTOL,
@@ -6739,6 +7063,178 @@ def pp_ranks_phase(pool, smi):
               f"worst {e['worst_grad_err_of_max']}, repeat "
               f"{e['repeat_equal']}")
     _grid_ranks_report(smi, ranks, grid_in)
+    return line
+
+
+# -- observability: the profiler, the memory breakdown, the flight recorder --
+OBS_WARMUP, OBS_STEPS = 2, 3     # StepProfiler's warm-up and captured steps
+FR_STALL_TIMEOUT_S = 1.0         # the watchdog's timeout in the stall
+FR_STALL_JOIN_S = 2.5            # the other ranks join rank 0 this late
+
+
+def observability_phase(smi):
+    """On the one-rank NCCL group: ``StepProfiler`` (warm-up OBS_WARMUP,
+    OBS_STEPS captured) over replayed steps of the train
+    cell's trainer (runner_train's) through ``AsyncRunner``, one replay
+    and one sync a step: its ``trace_op_breakdown`` must count B1-B3
+    n_layer times each a captured step, and its ``total_ms`` must lie
+    between half the CUDA-event span of those replays and the span;
+    ``memory_breakdown`` of one eager step (the batch's card tensors as
+    the arguments): ``argument_size`` exactly their bytes and a positive
+    ``temp_size``; the process group's eager collectives on NCCL in the
+    flight recorder (which must have loaded), completed with their bytes;
+    ``nan_check`` raising on a card tensor holding an inf."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    n_layer = GPT2Config().n_layer
+    batches = _lm_batches(OBS_WARMUP + OBS_STEPS + 1, 8, 1024, seed=43)
+    trainer, state = _gpt2_runner_trainer()
+    runner = AsyncRunner(trainer, depth=2, drain_every=len(batches))
+    runner.start(state, batches[0])
+    _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as log_dir:
+        sp = observability.StepProfiler(log_dir, n_steps=OBS_STEPS,
+                                        warmup=OBS_WARMUP)
+        with replay_spans() as spans:
+            for batch in batches[1:]:
+                with sp.step():
+                    runner.submit(batch)
+                    runner.sync()
+        summary = sp.summary()
+    state, _ = runner.finish()
+    span_ms = _spans_ms(spans[OBS_WARMUP:OBS_WARMUP + OBS_STEPS])
+    calls = {name: sum(n for k, n in summary.get("calls", {}).items()
+                       if name in k) / OBS_STEPS for name in SM90_KERNELS}
+    x, y = (torch.from_numpy(a).cuda() for a in batches[0])
+    mem = observability.memory_breakdown(
+        lambda xb, yb: trainer.step(state, (xb, yb))[1]["loss"], x, y)
+    del runner, trainer, state
+    torch.cuda.empty_cache()
+
+    pg = pdist.get_default_group()
+    fr = observability.get_flight_recorder()
+    t = torch.ones(1024, device="cuda")
+    pg.all_reduce(t).result()
+    pg.broadcast(t, 0).result()
+    pg.all_gather(t).result()
+    pg.barrier().result()
+    torch.cuda.synchronize()
+    entries = [e for e in fr.dump() if e["group"] == pg.group_name][-4:]
+    bad = torch.ones(4, device="cuda")
+    bad[2] = float("inf")
+    try:
+        observability.nan_check({"w": bad}, name="grads")
+        nan_error = None
+    except FloatingPointError as e:
+        nan_error = str(e)
+    observability.nan_check({"w": torch.ones(4, device="cuda")})
+    line = {"phase": "observability", "nvidia_smi": smi,
+            "step_profiler": {
+                "warmup": OBS_WARMUP, "n_steps": OBS_STEPS,
+                "steps_captured": summary.get("steps_captured"),
+                "error": summary.get("error"),
+                "total_ms": summary.get("total_ms"),
+                "replay_span_ms": span_ms, "replays": len(spans),
+                "flash_calls_per_step": calls,
+                "top_ops_ms": summary.get("top_ops_ms", [])[:6]},
+            "memory_breakdown": mem,
+            "batch_bytes": x.nbytes + y.nbytes,
+            "flight_recorder": {"loaded": pg._fr is not None,
+                                "group": pg.group_name, "entries": entries},
+            "nan_check": nan_error,
+            "phase_s": time.perf_counter() - t_phase}
+    emit(line)
+    sp_line = line["step_profiler"]
+    check(sp_line["steps_captured"] == OBS_STEPS and len(spans) == len(
+        batches) - 1, f"observability: captured {sp_line['steps_captured']} "
+          f"steps ({sp_line['error']}), {len(spans)} replays")
+    check(calls == {name: n_layer for name in SM90_KERNELS},
+          f"observability: B1-B3 per captured step {calls}, want {n_layer}")
+    check(0.5 * span_ms <= sp_line["total_ms"] <= span_ms,
+          f"observability: kernels {sp_line['total_ms']} ms against the "
+          f"replays' span {span_ms} ms")
+    check(mem["argument_size"] == line["batch_bytes"]
+          and mem["temp_size"] > 0,
+          f"observability: memory_breakdown {mem}")
+    check(line["flight_recorder"]["loaded"] and fr is pg._fr
+          and [(e["op"], e["bytes"], e["status"]) for e in entries] == [
+              ("all_reduce", 4096, "completed"),
+              ("broadcast", 4096, "completed"),
+              ("all_gather", 4096, "completed"),
+              ("barrier", 0, "completed")],
+          f"observability: flight recorder {line['flight_recorder']}")
+    check(nan_error == "non-finite values in grads[w]",
+          f"observability: nan_check on a card inf: {nan_error}")
+    return line
+
+
+def _fr_stall_rank(rank, out_dir):
+    """A stalled collective on the pool's gloo group: rank 0 issues an
+    eager ``all_reduce`` under the flight recorder's watchdog
+    (FR_STALL_TIMEOUT_S), the other ranks join FR_STALL_JOIN_S later."""
+    pg = pdist.get_default_group()
+    fr = observability.get_flight_recorder()
+    dist.barrier()
+    r = {"inflight_before": fr.oldest_inflight_age(),
+         "loaded": pg._fr is fr}
+    dump = f"{out_dir}/fr_stall.json"
+    t = torch.ones(256, device="cuda")
+    if rank == 0:
+        fr.start_watchdog(FR_STALL_TIMEOUT_S, dump, poll_interval_s=0.1)
+        t0 = time.perf_counter()
+        out = pg.all_reduce(t).result()
+        r["wait_s"] = time.perf_counter() - t0
+        r["stalled"] = fr.stalled()
+        fr.stop_watchdog()
+        r["dump_exists"] = os.path.exists(dump)
+        r["report"] = observability.fr_trace(dump) if r["dump_exists"] \
+            else None
+        r["sum"] = float(out[0])
+        r["last"] = fr.dump()[-1]
+    else:
+        time.sleep(FR_STALL_JOIN_S)
+        pg.all_reduce(t).result()
+    torch.save(r, f"{out_dir}/fr_stall{rank}.pt")
+
+
+def fr_stall_phase(pool, smi):
+    """``_fr_stall_rank`` on the pool's ranks: the dump exists, the
+    watchdog set ``stalled``, ``fr_trace`` of the dump names the
+    all_reduce (its group and bytes) as the hang suspect, and the
+    all_reduce then completed with every rank's sum."""
+    import tempfile
+
+    _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as out_dir:
+        wall_s = pool.run(_fr_stall_rank, (out_dir,), 60, "fr_stall")
+        ranks = [torch.load(f"{out_dir}/fr_stall{r}.pt", weights_only=False)
+                 for r in range(FSDP_RANKS)]
+    r0 = ranks[0]
+    suspect = (r0["report"] or {}).get("hang_suspect") or {}
+    line = {"phase": "fr_stall", "nvidia_smi": smi, "backend": "gloo",
+            "ranks": FSDP_RANKS, "timeout_s": FR_STALL_TIMEOUT_S,
+            "join_after_s": FR_STALL_JOIN_S, "wait_s": r0.get("wait_s"),
+            "stalled": r0.get("stalled"), "dump_exists": r0.get("dump_exists"),
+            "hang_suspect": suspect, "completed": r0.get("last"),
+            "sum": r0.get("sum"),
+            "inflight_before": [r["inflight_before"] for r in ranks],
+            "phase_s": wall_s}
+    emit(line)
+    check(all(r["loaded"] and r["inflight_before"] is None for r in ranks),
+          f"fr_stall: the recorder held collectives in flight already "
+          f"{line['inflight_before']}")
+    check(r0["stalled"] and r0["dump_exists"]
+          and suspect.get("op") == "all_reduce" and suspect.get(
+              "bytes") == 1024 and suspect.get("status") == "scheduled",
+          f"fr_stall: watchdog {r0['stalled']}, dump {r0['dump_exists']}, "
+          f"suspect {suspect}")
+    check(r0["last"]["id"] == suspect["id"]
+          and r0["last"]["status"] == "completed"
+          and r0["sum"] == float(FSDP_RANKS)
+          and r0["wait_s"] >= FR_STALL_TIMEOUT_S,
+          f"fr_stall: the all_reduce did not complete after the stall: "
+          f"{r0['last']}, sum {r0['sum']}")
     return line
 
 
@@ -7051,6 +7547,8 @@ def _grid_reshard_rank(device, out_dir, batches) -> dict:
               for k, v in sd.items() if "experts" in k and v.dim() == 3}
     peaks_ = {p["name"]: p["measured_peak_bytes"] for p in rdx.leaf_peaks
               if p["name"] in nbytes}
+    requested = {p["name"]: p["requested_peak_bytes"]
+                 for p in rdx.leaf_peaks if p["name"] in nbytes}
     counts = dict(rdx.counts)
     del trainer, state, sd
     torch.cuda.empty_cache()
@@ -7070,7 +7568,8 @@ def _grid_reshard_rank(device, out_dir, batches) -> dict:
     _, a = _ep_steps(resized, rstate, batches[1:2])
     _, b = _ep_steps(resumed, qstate, batches[1:2])
     return {"move_s": move_s, "counts": counts, "leaf_bytes": nbytes,
-            "measured_peak_bytes": peaks_, "state_equal": equal,
+            "measured_peak_bytes": peaks_,
+            "requested_peak_bytes": requested, "state_equal": equal,
             "held": held, "first_loss": first["losses"],
             "next_losses": (a["losses"], b["losses"])}
 
@@ -7150,6 +7649,8 @@ def _grid_ranks_report(smi, ranks, grid_in) -> dict:
                         "leaf_bytes": rsh[0]["leaf_bytes"],
                         "measured_peak_bytes": [r["measured_peak_bytes"]
                                                 for r in rsh],
+                        "requested_peak_bytes": [r["requested_peak_bytes"]
+                                                 for r in rsh],
                         "peak_over_src_plus_dst_bytes": excess,
                         "staging_bound_bytes": REDIST_STAGING,
                         "state_equal_to_resume": [r["state_equal"]
@@ -7312,6 +7813,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         tp_serve_phase(serve_streams, serve_latency)
         redistribute_phase(smi)
+        observability_phase(smi)
     finally:
         pdist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -7323,6 +7825,7 @@ def main() -> int:
         hooks_ranks_phase(pool, fsdp["noshard"]["losses"])
         tp_ranks_phase(pool, smi)
         pp_ranks_phase(pool, smi)
+        fr_stall_phase(pool, smi)
     finally:
         pool.close()
     multihost_phase()

@@ -81,6 +81,7 @@ from pytorch_distributed_tpu_torch.distributed.store import (
     StoreTimeoutError,
     TCPStore,
 )
+from pytorch_distributed_tpu_torch.observability import DebugLevel, debug_level
 
 __all__ = [
     # stores and rendezvous
@@ -141,7 +142,7 @@ _world = _World()
 
 
 def _debug_detail() -> bool:
-    return os.environ.get("TORCH_DISTRIBUTED_DEBUG", "OFF").upper() == "DETAIL"
+    return debug_level() is DebugLevel.DETAIL
 
 
 def _make_pg(impl: Backend, name: str, store: dist.Store,

@@ -23,7 +23,11 @@ API and names over them and not its transport:
   collectives and one ``collective`` event (op, group, bytes, world size,
   ``duration_ms``) and one ``pg.<op>`` metric per collective
   (``observability.record_event`` / ``put_metric``), recorded when the
-  collective completes;
+  collective completes; each collective is also an entry of the
+  process-global flight recorder (``observability.get_flight_recorder``:
+  recorded with op, group and bytes when it is issued, completed ``ok`` or
+  failed when its work completes), and its issue runs inside a
+  ``pg::<op>[<group>]`` profiler region (``observability.annotate``);
 * :class:`ProcessGroupWrapper` checks, before each collective, that every
   rank issues the same op on the same shape and dtype, through the group's
   store, and raises with a per-rank report where they differ.
@@ -47,6 +51,8 @@ import torch
 import torch.distributed as dist
 
 from pytorch_distributed_tpu_torch.observability import (
+    annotate,
+    get_flight_recorder,
     put_metric,
     record_event,
 )
@@ -307,6 +313,12 @@ class ProcessGroup:
             torch.device("cpu"))
         self._seq = 0
         self._lock = threading.Lock()
+        # every collective is an entry of the flight recorder; a recorder
+        # that cannot load (no host compiler) leaves the data path running
+        try:
+            self._fr = get_flight_recorder()
+        except Exception:
+            self._fr = None
 
     @property
     def rank(self) -> int:
@@ -324,9 +336,13 @@ class ProcessGroup:
     def _submit(self, issue: Callable[[], Work], op_name: str,
                 async_op: bool, nbytes: int = 0) -> Work:
         self.next_seq()
+        fr = self._fr
+        entry = fr.record(op_name, self.group_name, nbytes) if fr else None
         t0 = time.perf_counter()
 
         def done(exc):
+            if fr is not None:
+                fr.complete(entry, ok=exc is None)
             if exc is not None:
                 record_event("collective_failed", op=op_name,
                              group=self.group_name, nbytes=nbytes)
@@ -338,7 +354,8 @@ class ProcessGroup:
             put_metric(f"pg.{op_name}")
 
         try:
-            work = issue()
+            with annotate(f"pg::{op_name}[{self.group_name}]"):
+                work = issue()
         except Exception as e:
             done(e)
             raise

@@ -15,7 +15,8 @@ Port of ``pytorch_distributed_tpu/elastic``:
   * ``timer``, ``health`` -- worker watchdog timers, the agent's liveness
     endpoint;
   * ``resume``          -- restore the newest checkpoint onto the current
-    world.
+    world, or move a live state onto it (``reshard_state`` onto
+    ``state_shardings``; a pipeline's state through ``placed_state``).
 
 The stores are ``distributed.store``'s (a c10d ``TCPStore`` by default).
 A restart starts fresh worker processes: each incarnation builds its own
@@ -40,6 +41,7 @@ from pytorch_distributed_tpu_torch.elastic.multiprocessing import (
 )
 from pytorch_distributed_tpu_torch.elastic.rendezvous import DynamicRendezvous
 from pytorch_distributed_tpu_torch.elastic.resume import (
+    placed_state,
     reshard_state,
     resume_from_checkpoint,
     state_shardings,
@@ -62,4 +64,5 @@ __all__ = [
     "resume_from_checkpoint",
     "reshard_state",
     "state_shardings",
+    "placed_state",
 ]

@@ -1,33 +1,95 @@
-"""Metrics and events: latency percentiles, ratio counters, a process-wide
-metric table, a bounded structured-event log and per-iteration training
-stats.
+"""Structured logging, events, metrics, the debug level, the NaN check
+and per-iteration stats.
 
-Minimal copies of what the scheduler and the ResNet entry point use from
-``pytorch_distributed_tpu/observability/logging_utils.py``.
+Port of ``pytorch_distributed_tpu/observability/logging_utils.py``. The
+debug level is read from ``TORCH_DISTRIBUTED_DEBUG`` (torch's switch, which
+also turns on the process groups' desync checks at ``DETAIL``) where the
+reference reads ``TPU_DISTRIBUTED_DEBUG``; its three values are the same.
+:func:`nan_check` scans tensors on any device (a card tensor is reduced
+on the card, and one flag crosses to the host).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import logging
+import os
 import threading
 import time
 from collections import defaultdict
-from typing import Any, Dict, List, Optional
+from enum import Enum
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
 
 logger = logging.getLogger("pytorch_distributed_tpu_torch")
 
 __all__ = [
+    "DebugLevel",
+    "debug_level",
+    "exception_logger",
+    "time_logger",
     "Event",
+    "add_event_handler",
+    "record_event",
+    "recent_events",
+    "put_metric",
+    "get_metrics",
+    "nan_check",
     "IterationLogger",
     "LatencyTracker",
     "RatioTracker",
-    "get_metrics",
-    "put_metric",
-    "recent_events",
-    "record_event",
 ]
+
+
+class DebugLevel(Enum):
+    OFF = "OFF"
+    INFO = "INFO"
+    DETAIL = "DETAIL"
+
+
+def debug_level() -> DebugLevel:
+    """``TORCH_DISTRIBUTED_DEBUG`` (any case); OFF when unset or unknown."""
+    raw = os.environ.get("TORCH_DISTRIBUTED_DEBUG", "OFF").upper()
+    try:
+        return DebugLevel(raw)
+    except ValueError:
+        return DebugLevel.OFF
+
+
+def exception_logger(fn: Callable) -> Callable:
+    """Log an exception of a public distributed API with its call's
+    shape (torch ``c10d_logger``'s decorator), and re-raise it."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        try:
+            return fn(*args, **kwargs)
+        except Exception:
+            logger.exception("distributed API %s failed (args=%d, kwargs=%s)",
+                             fn.__qualname__, len(args), sorted(kwargs))
+            raise
+
+    return wrapper
+
+
+def time_logger(fn: Callable) -> Callable:
+    """Log the wall time of a public distributed API at INFO, unless the
+    debug level is OFF."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if debug_level() is DebugLevel.OFF:
+            return fn(*args, **kwargs)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        logger.info("%s took %.3f ms", fn.__qualname__,
+                    (time.perf_counter() - t0) * 1e3)
+        return out
+
+    return wrapper
 
 
 @dataclasses.dataclass
@@ -41,7 +103,14 @@ class Event:
         return json.dumps(dataclasses.asdict(self))
 
 
+_event_handlers: List[Callable[[Event], None]] = []
 _recorded_events: List[Event] = []
+
+
+def add_event_handler(handler: Callable[[Event], None]) -> None:
+    """Call ``handler(event)`` at every :func:`record_event` from now on (a
+    failing handler is logged, never raised)."""
+    _event_handlers.append(handler)
 
 
 def record_event(name: str, source: str = "agent", **metadata) -> Event:
@@ -50,6 +119,11 @@ def record_event(name: str, source: str = "agent", **metadata) -> Event:
     _recorded_events.append(ev)
     if len(_recorded_events) > 10_000:
         del _recorded_events[:5_000]
+    for h in _event_handlers:
+        try:
+            h(ev)
+        except Exception:
+            logger.exception("event handler failed for %s", name)
     logger.debug("event: %s", ev.serialize())
     return ev
 
@@ -69,6 +143,33 @@ def put_metric(name: str, value: float = 1.0) -> None:
 
 def get_metrics() -> Dict[str, float]:
     return dict(_metrics)
+
+
+def _leaves(tree, path=()):
+    """``(path, leaf)`` in ``jax.tree_util``'s order and key names: dict
+    keys sorted, sequence items as ``[i]``."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (f"[{i}]",))
+    elif tree is not None:
+        yield path, tree
+
+
+def nan_check(tree, *, name: str = "tensor") -> None:
+    """Raise ``FloatingPointError`` naming the first leaf of ``tree`` (a
+    tensor, or nested dicts, lists and tuples of tensors and arrays, on
+    any device) that holds a NaN or an Inf; integer leaves are skipped.
+    The host-side check of a collective's payload or a checkpoint's (the
+    training step reports non-finiteness through the loss scaler)."""
+    for path, leaf in _leaves(tree):
+        t = torch.as_tensor(leaf)
+        if t.is_floating_point() or t.is_complex():
+            if not bool(torch.isfinite(t).all()):
+                key = "/".join(path)
+                raise FloatingPointError(f"non-finite values in {name}[{key}]")
 
 
 class LatencyTracker:

@@ -36,6 +36,7 @@ and ``peak_inflight`` are the same for the same arguments.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -304,6 +305,15 @@ class PipelineParallel(_Replicas):
 
     def is_stage_param(self, name: str) -> bool:
         return name.split(".", 1)[0] in self.stage_param_keys
+
+    def stage_ranks(self, stage: int) -> Tuple[int, ...]:
+        """The global ranks that hold ``stage``'s layers (their ``pp_axis``
+        coordinate is ``stage``), in mesh order."""
+        names, sizes = self.mesh.axis_names, self.mesh.shape
+        inner = math.prod(sizes[a] for a in names[names.index(
+            self.pp_axis) + 1:])
+        return tuple(r for flat, r in enumerate(self.mesh.ranks)
+                     if flat // inner % self.n_stages == stage)
 
     def param_pspec(self, name: str, shape) -> Optional[int]:
         return None

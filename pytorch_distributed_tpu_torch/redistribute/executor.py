@@ -42,7 +42,10 @@ buffer of a chunked step (``staging_bytes_max``) and the largest temporary
 buffer of any step (``buffer_bytes_max``). With :data:`measure_peaks` set,
 each leaf moved on the card also records the resident source and
 destination blocks plus the most the allocator held above them during the
-move (``measured_peak_bytes``, the largest over the leaves).
+move (``measured_peak_bytes``, the largest over the leaves), and the same
+over the sizes it was asked for (``requested_peak_bytes``): the caching
+allocator rounds a request up to its block, and can hold a leaf's small
+block inside a 2 MiB segment.
 
 The reference's ``apply_in_jit`` and ``donated_update_jit`` have no
 counterpart: torch has no traced value to carry a sharding constraint and
@@ -53,7 +56,7 @@ step's collectives are ordinary calls a CUDA graph capture may record.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -61,6 +64,7 @@ import torch.distributed as dist
 from pytorch_distributed_tpu_torch.parallel import comm
 from pytorch_distributed_tpu_torch.redistribute.plan import (
     LeafPlan,
+    Placed,
     Sharding,
     TreePlan,
     boxes,
@@ -87,14 +91,16 @@ __all__ = [
 ]
 
 _KEYS = ("sent_bytes", "host_staged_bytes", "staging_bytes_max",
-         "buffer_bytes_max", "measured_peak_bytes", "leaves")
+         "buffer_bytes_max", "measured_peak_bytes", "requested_peak_bytes",
+         "leaves")
 #: what the executor did since the last :func:`reset_counts`
 counts: Dict[str, int] = dict.fromkeys(_KEYS, 0)
 #: record each card leaf's measured peak (resets the allocator's peak)
 measure_peaks = False
 #: with :data:`measure_peaks`, one entry a card leaf: ``name``, ``op``,
 #: ``dst_sharded``, the plan's ``bytes_moved``/``peak_bytes``/
-#: ``naive_gather_bytes`` and ``measured_peak_bytes``
+#: ``naive_gather_bytes``, ``measured_peak_bytes`` and
+#: ``requested_peak_bytes``
 leaf_peaks: List[Dict[str, Any]] = []
 
 
@@ -108,16 +114,6 @@ def _note_buffer(n: int, staging: bool = False) -> None:
     counts["buffer_bytes_max"] = max(counts["buffer_bytes_max"], n)
     if staging:
         counts["staging_bytes_max"] = max(counts["staging_bytes_max"], n)
-
-
-class Placed(NamedTuple):
-    """A rank's ``block`` of a tensor of global ``shape`` and ``dtype``
-    held under ``sharding``; ``block`` is None on a rank that holds none
-    (it still takes part in a move out of it)."""
-    block: Optional[torch.Tensor]
-    sharding: Sharding
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
 
 
 # -- placements of DTensors -------------------------------------------------
@@ -552,6 +548,13 @@ def _chunked(leaf, plan, step, x, out, me, budget) -> None:
 
 
 # -- the public surface -------------------------------------------------------
+def _requested(device, which: str) -> int:
+    """The bytes the card's allocator was asked for (``current``, or the
+    ``peak`` since its last reset): the allocations' own sizes, not the
+    blocks it rounded them up to."""
+    return torch.cuda.memory_stats(device)[f"requested_bytes.all.{which}"]
+
+
 def _target_device(plan: LeafPlan, x):
     device = getattr(plan.dst.mesh, "device", None)
     if device is not None:
@@ -598,6 +601,7 @@ def execute_plan(x, plan: LeafPlan, *, out: Optional[torch.Tensor] = None,
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
         base = torch.cuda.memory_allocated(device)
+        base_requested = _requested(device, "current")
     if me in leaf.dst:
         shape = _extent(leaf.dst[me])
         device = _target_device(plan, x)
@@ -629,8 +633,11 @@ def execute_plan(x, plan: LeafPlan, *, out: Optional[torch.Tensor] = None,
     if measure:
         torch.cuda.synchronize(device)
         peak = held + torch.cuda.max_memory_allocated(device) - base
+        requested = held + _requested(device, "peak") - base_requested
         counts["measured_peak_bytes"] = max(counts["measured_peak_bytes"],
                                             peak)
+        counts["requested_peak_bytes"] = max(
+            counts["requested_peak_bytes"], requested)
         sizes = dict(plan.dst.mesh.shape)
         leaf_peaks.append({
             "name": name, "op": step.op, "dst_sharded": any(
@@ -639,7 +646,8 @@ def execute_plan(x, plan: LeafPlan, *, out: Optional[torch.Tensor] = None,
             "bytes_moved": plan.cost.bytes_moved,
             "peak_bytes": plan.cost.peak_bytes,
             "naive_gather_bytes": plan.cost.naive_gather_bytes,
-            "measured_peak_bytes": peak})
+            "measured_peak_bytes": peak,
+            "requested_peak_bytes": requested})
     return out
 
 

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +45,7 @@ import torch
 __all__ = [
     "OPS",
     "LocalMesh",
+    "Placed",
     "Sharding",
     "TransferStep",
     "TransferCost",
@@ -84,19 +85,35 @@ def _mesh_key(mesh):
 class LocalMesh:
     """A mesh of this one rank and no axes: ``Sharding(LocalMesh(device))``
     is a tensor held whole by one rank off any mesh (the reference's
-    ``SingleDeviceSharding``)."""
+    ``SingleDeviceSharding``). ``ranks`` makes it a mesh of those ranks,
+    still without axes and without a process group: a tensor each of them
+    holds whole (a pipeline stage's layer on the stage's ranks)."""
 
     axis_names = ()
 
-    def __init__(self, device, rank: Optional[int] = None):
+    def __init__(self, device, rank: Optional[int] = None, *,
+                 ranks: Optional[Sequence[int]] = None):
         import torch.distributed as dist
 
         self.device = torch.device(device)
-        if rank is None:
-            rank = (dist.get_rank() if dist.is_available()
-                    and dist.is_initialized() else 0)
+        if ranks is None:
+            if rank is None:
+                rank = (dist.get_rank() if dist.is_available()
+                        and dist.is_initialized() else 0)
+            ranks = (rank,)
         self.shape = {}
-        self.ranks = (int(rank),)
+        self.ranks = tuple(int(r) for r in ranks)
+
+
+class Placed(NamedTuple):
+    """A rank's ``block`` of a tensor of global ``shape`` and ``dtype``
+    held under ``sharding``; ``block`` is None on a rank that holds none
+    (it still takes part in a move out of it). A tree leaf, never a
+    node."""
+    block: Optional[torch.Tensor]
+    sharding: "Sharding"
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 class Sharding:
@@ -231,15 +248,19 @@ class TreePlan:
 
 
 # -- trees: dicts (keys sorted, as jax.tree_util), lists and tuples ---------
+def _node(t) -> bool:
+    return isinstance(t, (list, tuple)) and not isinstance(t, Placed)
+
+
 def flatten(tree, prefix=()):
     """``[(path, leaf)]`` of a tree of dicts, lists and tuples; anything
-    else (``None`` included) is a leaf."""
+    else (``None`` and a :class:`Placed` included) is a leaf."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
             out.extend(flatten(tree[k], prefix + (k,)))
         return out
-    if isinstance(tree, (list, tuple)):
+    if _node(tree):
         out = []
         for i, v in enumerate(tree):
             out.extend(flatten(v, prefix + (i,)))
@@ -254,7 +275,7 @@ def unflatten(like, leaves):
     def build(t):
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
+        if _node(t):
             return type(t)(build(v) for v in t)
         return next(it)
 
@@ -521,11 +542,10 @@ def plan_transfer(
 
 def leaf_meta(x, src=None):
     """``(global shape, dtype, src sharding)`` of a tree leaf: a DTensor or
-    an ``executor.Placed`` (a global shape and a sharding), a tensor or
+    a :class:`Placed` (a global shape and a sharding), a tensor or
     anything with ``shape`` and ``dtype`` (a global shape; ``src`` the
     caller's)."""
     from pytorch_distributed_tpu_torch.redistribute.executor import (
-        Placed,
         dtensor_sharding,
     )
 

@@ -47,8 +47,17 @@ the model holds this rank's blocks of the weights
 cache holds its ``H/tp`` heads, and every rank runs the same steps on the
 same requests (the all-reduces closing each block keep their hidden
 states equal). A step is one graph where every collective in its body can
-be captured: on a ``tp`` group over NCCL. Over gloo the same bodies run
-eagerly; ``graphs`` says which, decided here from the group's backend.
+be captured: on ``tp`` and ``dp`` groups over NCCL. Over gloo the same
+bodies run eagerly; ``graphs`` says which, decided here from the groups'
+backends.
+
+Slots on dp (``kv_cache_sharding(mesh, dp_axis="dp")``, the slotted cache
+only: the paged pool has no slot dim): a rank holds ``S/dp`` consecutive
+slots of both caches, ``[L, S/dp, T, H/tp, D]``, and every rank runs the
+same ``Scheduler`` over all ``S``. A decode step or a spec round computes
+the rank's own slots and all-gathers its results over dp inside the step
+body, so every scheduler sees every slot's tokens; a prefill runs on the
+slot's owner only and its first token is broadcast over dp.
 
 Parity anchor: with ``SamplingParams(temperature=0)`` the engine, with or
 without speculation, emits exactly the argmax of the full uncached forward
@@ -59,7 +68,7 @@ from __future__ import annotations
 
 import dataclasses
 import weakref
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -131,6 +140,14 @@ def _sample(logits, generator, sp: SamplingParams):
 SwapCost = TransferCost
 
 
+class _DPSlots(NamedTuple):
+    """The dp group the decode batch's slots are cut over, its size and
+    this rank's coordinate on it."""
+    group: Any
+    size: int
+    rank: int
+
+
 def _state_tensors(*caches) -> Tuple[torch.Tensor, ...]:
     """The tensors a step program reads and writes in each cache."""
     return tuple(t for c in caches if c is not None
@@ -171,7 +188,9 @@ class InferenceEngine:
         up to ``prefill_len``.
       sampling: SamplingParams for every phase.
       cache_dtype: KV dtype (defaults to the model compute dtype).
-      seed: seed of the sampling ``torch.Generator``.
+      seed: seed of the sampling ``torch.Generator``; pass the same on
+        every rank. With the slots on dp each dp rank folds its rank into
+        it, so that every slot draws its own noise.
       spec_k: speculative-decoding draft depth; 0 disables speculation.
       draft_layers: self-drafting -- the first N target layers (plus
         ``ln_f`` and the tied head) are the draft, sharing the target's
@@ -189,7 +208,9 @@ class InferenceEngine:
         ``"cpu"`` to run the plain versions on the CPU.
       cache_sharding: TP serving: a ``serving.sharding.CacheSharding``
         with the heads on the tp axis of the mesh that ``model`` (and a
-        draft model) was cut over; the caches hold ``H/tp`` heads.
+        draft model) was cut over; the caches hold ``H/tp`` heads. With
+        the slots on the mesh's dp axis too (slotted cache only), each
+        rank's caches hold ``n_slots / dp`` slots.
     """
 
     def __init__(
@@ -256,13 +277,24 @@ class InferenceEngine:
             self.prefill_buckets = tuple(buckets)
         self.sampling = sampling
         self.cache_dtype = cache_dtype
-        self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
         if cache_kind not in ("slotted", "paged"):
             raise ValueError(
                 f"cache_kind must be 'slotted' or 'paged', got {cache_kind!r}"
             )
         self.cache_kind = cache_kind
+        self._dp = self._dp_slots(cache_sharding, cache_kind, self.n_slots)
+        per = self.n_slots // (self._dp.size if self._dp else 1)
+        first = self._dp.rank * per if self._dp else 0
+        #: this rank's slots of the decode batch (all of them without dp)
+        self.own_slots = range(first, first + per)
+        if self._dp is not None:
+            # a dp rank draws the noise of its own slots only: its rank goes
+            # into the seed, so that no two ranks' slots draw alike (a tp
+            # row keeps one seed: its ranks sample the same tokens)
+            seed = int(np.random.SeedSequence([seed, self._dp.rank])
+                       .generate_state(1, np.uint64)[0]) >> 1
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self.page_size = int(page_size)
         self.max_pages = -(-self.max_len // self.page_size)
         if n_pages is None and cache_kind == "paged":
@@ -313,10 +345,11 @@ class InferenceEngine:
                           if sampling.temperature > 0 and self.spec_k else None)
         self._programs: dict = {}
         self.replays = 0
-        # a step's collectives (the tp all-reduces) can be captured only on
-        # NCCL; a gloo group runs the bodies eagerly
-        self._graphs = self.device.type == "cuda" and (
-            tp is None or dist.get_backend(tp.group) == "nccl")
+        # a step's collectives (the tp all-reduces, the dp gathers) can be
+        # captured only on NCCL; a gloo group runs the bodies eagerly
+        groups = [g.group for g in (tp, self._dp) if g is not None]
+        self._graphs = self.device.type == "cuda" and all(
+            dist.get_backend(g) == "nccl" for g in groups)
         self._pool = self._stream = None
         if self.device.type == "cuda":
             self._pool = torch.cuda.graph_pool_handle()
@@ -339,12 +372,17 @@ class InferenceEngine:
                                  "cache_sharding (its caches hold H/tp "
                                  "heads)")
             return None
-        from pytorch_distributed_tpu_torch.serving.sharding import HEAD_DIM
+        from pytorch_distributed_tpu_torch.serving.sharding import (
+            HEAD_DIM,
+            SLOT_DIM,
+        )
 
-        if set(cache_sharding.dims) != {HEAD_DIM}:
-            raise NotImplementedError(
-                "cache_sharding: only the heads shard (the dp replicas "
-                "serve the same requests); slots on dp are ROADMAP A.15d")
+        if HEAD_DIM not in cache_sharding.dims or not set(
+                cache_sharding.dims) <= {HEAD_DIM, SLOT_DIM}:
+            raise ValueError(
+                f"cache_sharding {cache_sharding.dims}: the heads (dim "
+                f"{HEAD_DIM}) shard over tp, and the slots (dim {SLOT_DIM}) "
+                "may shard over dp")
         size = cache_sharding.mesh.size(cache_sharding.tp_axis)
         for m in (model, draft_model):
             if m is None:
@@ -358,6 +396,27 @@ class InferenceEngine:
             if mtp.sequence_parallel:
                 raise ValueError("serving runs without sequence parallelism")
         return tp
+
+    @staticmethod
+    def _dp_slots(cache_sharding, cache_kind: str, n_slots: int):
+        """The dp group the slots are cut over (``group``, ``size``,
+        ``rank``), or None: the slots whole on every rank."""
+        from pytorch_distributed_tpu_torch.serving.sharding import SLOT_DIM
+
+        axis = (cache_sharding.dims.get(SLOT_DIM)
+                if cache_sharding is not None else None)
+        if axis is None:
+            return None
+        if cache_kind != "slotted":
+            raise ValueError(
+                "cache_sharding puts the slots on dp: a paged cache's pool "
+                "has no slot dim (serving.sharding.paged_kv_cache_sharding)")
+        mesh = cache_sharding.mesh
+        size = mesh.size(axis)
+        if n_slots % size:
+            raise ValueError(f"n_slots {n_slots} does not split over "
+                             f"{axis}={size}")
+        return _DPSlots(mesh.get_group(axis), size, mesh.get_local_rank(axis))
 
     def _cache_cfg(self, cfg):
         """``cfg`` with this rank's heads (the cache's shape)."""
@@ -377,10 +436,22 @@ class InferenceEngine:
                 page_size=self.page_size, n_pages=self.n_pages,
                 dtype=self.cache_dtype, device=self.device,
             )
+        return self._slotted(cfg)
+
+    def _slotted(self, cfg) -> KVCache:
+        """A slotted cache of this rank's slots."""
         return KVCache.create(
-            cfg, n_slots=self.n_slots, max_len=self.max_len,
+            cfg, n_slots=len(self.own_slots), max_len=self.max_len,
             dtype=self.cache_dtype, device=self.device,
         )
+
+    def evict(self, cache, slot: int) -> None:
+        """Free ``slot`` of the decode batch in ``cache``: with the slots
+        on dp, only its owner's cache changes."""
+        if not (0 <= slot < self.n_slots):
+            raise ValueError(f"slot {slot} out of range")
+        if slot in self.own_slots:
+            cache.evict(slot - self.own_slots.start)
 
     def init_draft_cache(self) -> Optional[KVCache]:
         """Slotted cache for the separate draft model (None when
@@ -388,11 +459,7 @@ class InferenceEngine:
         cache)."""
         if self.draft_model is None:
             return None
-        return KVCache.create(
-            self._cache_cfg(self.draft_model.cfg), n_slots=self.n_slots,
-            max_len=self.max_len,
-            dtype=self.cache_dtype, device=self.device,
-        )
+        return self._slotted(self._cache_cfg(self.draft_model.cfg))
 
     def _moves(self, model, state, what: str):
         """The planned move of ``state`` onto ``model``'s parameters, checked
@@ -612,22 +679,36 @@ class InferenceEngine:
         cache alive."""
         ref = weakref.ref(cache)
         dref = weakref.ref(dcache) if dcache is not None else lambda: None
-        last, active, gen = self._last, self._active, self._spec_gen
+        # this rank's slots of the static inputs (views: all of them
+        # without dp)
+        own = slice(self.own_slots.start, self.own_slots.stop)
+        last, active, prev = self._last[own], self._active[own], \
+            self._prev[own]
+        gen = self._spec_gen
         if kind == "decode":
             return torch.no_grad()(
-                lambda: self._decode_fn(ref(), last, active))
+                lambda: self._all_slots(self._decode_fn(ref(), last, active)))
 
         @torch.no_grad()
         def spec():
             if self.draft_model is None:
                 out = self._spec_self_fn(ref(), last, active, gen)
             else:
-                out = self._spec_draft_fn(ref(), dref(), last, self._prev,
-                                          active, gen)
+                out = self._spec_draft_fn(ref(), dref(), last, prev, active,
+                                          gen)
             emitted, counts, prev_next = out
-            return torch.cat([emitted, counts[:, None].long(),
-                              prev_next[:, None]], dim=1)
+            return self._all_slots(torch.cat(
+                [emitted, counts[:, None].long(), prev_next[:, None]], dim=1))
         return spec
+
+    def _all_slots(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a per-slot result, in slot order (an
+        all-gather over dp; ``x`` itself without dp)."""
+        if self._dp is None:
+            return x
+        from pytorch_distributed_tpu_torch.parallel.fsdp import gather
+
+        return gather(x, 0, self._dp.group, self._dp.size)
 
     def _program(self, kind: str, cache, dcache=None):
         """The step program of ``kind`` for these caches, built (on the
@@ -735,15 +816,31 @@ class InferenceEngine:
         padded, n_real = self._pad_prompt(prompt[cached_len:])
         if not (0 <= slot < self.n_slots):
             raise ValueError(f"slot {slot} out of range")
+        if slot not in self.own_slots:
+            # another dp rank's slot: its owner prefills, and broadcasts
+            # the first token
+            return cache, self._first_token(None, slot)
         tokens = torch.from_numpy(padded).to(self.device)
         if self.cache_kind == "paged":
             last = self._paged_prefill_fn(cache, tokens, slot, cached_len,
                                           n_real)
         else:
-            last = self._slot_prefill(self.model, cache, tokens, slot,
+            last = self._slot_prefill(self.model, cache, tokens,
+                                      slot - self.own_slots.start,
                                       n_real)[0, n_real - 1]
-        tok = sample_tokens(last[None], self._gen, self.sampling)[0]
-        return cache, int(tok)
+        tok = sample_tokens(last[None], self._gen, self.sampling)
+        return cache, self._first_token(tok, slot)
+
+    def _first_token(self, tok: Optional[torch.Tensor], slot: int) -> int:
+        """A prefill's first token (``[1]``, None off the slot's owner),
+        broadcast over dp from the rank that holds ``slot``."""
+        if self._dp is not None:
+            from pytorch_distributed_tpu_torch.parallel import comm
+
+            tok = (torch.zeros(1, dtype=torch.int64, device=self.device)
+                   if tok is None else tok.to(torch.int64))
+            comm.broadcast(tok, self._dp.group, slot // len(self.own_slots))
+        return int(tok[0])
 
     @torch.no_grad()
     def prefill_draft(self, draft_cache: KVCache, slot: int,
@@ -756,8 +853,10 @@ class InferenceEngine:
         padded, n = self._pad_prompt(prompt)
         if not (0 <= slot < self.n_slots):
             raise ValueError(f"slot {slot} out of range")
-        self._slot_prefill(self.draft_model, draft_cache,
-                           torch.from_numpy(padded).to(self.device), slot, n)
+        if slot in self.own_slots:
+            self._slot_prefill(self.draft_model, draft_cache,
+                               torch.from_numpy(padded).to(self.device),
+                               slot - self.own_slots.start, n)
         return draft_cache
 
     @torch.no_grad()

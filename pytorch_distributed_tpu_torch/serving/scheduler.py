@@ -462,7 +462,7 @@ class Scheduler:
             # go straight back to the free list; radix-pinned prompt pages
             # stay resident for the next same-prefix admission
             self.allocator.free_slot(slot)
-        self.cache.evict(slot)
+        self.engine.evict(self.cache, slot)
         self.slots[slot] = None
         self.active[slot] = False
         fin = FinishedRequest(

@@ -63,6 +63,8 @@ __all__ = [
 
 #: the heads dim of both caches' ``k``/``v``
 HEAD_DIM = 3
+#: the slots dim of the slotted cache's ``k``/``v``
+SLOT_DIM = 1
 
 
 def serving_mesh(*, dp: int = 1, tp: int = -1) -> DeviceMesh:
@@ -131,10 +133,11 @@ class CacheSharding:
 def kv_cache_sharding(mesh: DeviceMesh, *, tp_axis: str = "tp",
                       dp_axis: Optional[str] = None) -> CacheSharding:
     """The slotted ``[L, S, T, H, D]`` cache: heads on tp (the colwise
-    ``c_attn`` writes a rank's heads); optionally slots on dp."""
+    ``c_attn`` writes a rank's heads); optionally slots on dp (a rank then
+    holds ``S/dp`` slots and decodes only those: ``InferenceEngine``)."""
     dims = {HEAD_DIM: tp_axis}
     if dp_axis is not None:
-        dims[1] = dp_axis
+        dims[SLOT_DIM] = dp_axis
     return CacheSharding(mesh, dims)
 
 

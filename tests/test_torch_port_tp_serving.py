@@ -76,17 +76,35 @@ def test_cache_shardings():
     assert kv_cache_sharding(mesh).tp_axis == "tp"
 
 
-def test_engine_checks_the_models_cut():
+def test_engine_checks_the_models_cut(monkeypatch):
+    """An uncut model is refused; the slotted cache takes the slots on dp
+    (A.15d: a rank holds its ``S/dp`` slots and ``H/tp`` heads), and the
+    paged cache, whose pool has no slot dim, refuses them. (The stand-in
+    mesh has no process group: the cut model's weight cast, a gather of
+    the tied table over tp, is skipped here; the ranks of
+    ``test_torch_port_dp_slots.py`` run it.)"""
     model = GPT2(GPT2Config(**tph.SERVE), device="cpu")
     mesh = StubMesh((1, 2), ("dp", "tp"))
     with pytest.raises(ValueError, match="shard_gpt2_params"):
         InferenceEngine(model, device="cpu",
                         cache_sharding=kv_cache_sharding(mesh))
-    with pytest.raises(NotImplementedError, match="A.15d"):
-        InferenceEngine(model, device="cpu",
-                        cache_sharding=kv_cache_sharding(mesh,
-                                                         dp_axis="dp"))
     assert not InferenceEngine(model, device="cpu").graphs
+    mesh = StubMesh((2, 2), ("dp", "tp"), coords={"dp": 1, "tp": 0})
+    shard_gpt2_params(model, mesh)
+    monkeypatch.setattr(GPT2, "cast_weights", lambda self: None)
+    dp_slots = kv_cache_sharding(mesh, dp_axis="dp")
+    engine = InferenceEngine(model, device="cpu", n_slots=4,
+                             cache_sharding=dp_slots)
+    assert engine.own_slots == range(2, 4) and not engine.graphs
+    cache = engine.init_cache()
+    L, H = tph.SERVE["n_layer"], tph.SERVE["n_head"]
+    assert cache.k.shape[:2] == (L, 2) and cache.k.shape[3] == H // 2
+    with pytest.raises(ValueError, match="paged"):
+        InferenceEngine(model, device="cpu", n_slots=4, cache_kind="paged",
+                        cache_sharding=dp_slots)
+    with pytest.raises(ValueError, match="does not split"):
+        InferenceEngine(model, device="cpu", n_slots=3,
+                        cache_sharding=dp_slots)
 
 
 def test_reshard_raises_naming_a16():
