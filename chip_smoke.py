@@ -166,6 +166,21 @@ capture records; what the replays launched is counted in device traces
                 (losses, parameters, buffers), the collectives issued,
                 nccl_ms_per_step and B1-B3's launches in 3 traced replays,
                 step time against runner_train's NoShard runner;
+  analysis      the port's own analysis on the card's machine: graftlint
+                (``python -m pytorch_distributed_tpu_torch.analysis``)
+                over the package, its bench and this script (zero
+                findings, the five torch rules, the summary counts); then
+                graftir's checks on sharded_runner's DataParallel trainer
+                (one-rank NCCL group) through ``AsyncRunner``: 3 submits
+                are 3 dispatches of 1 built Program and 3 graph launches
+                in a torch.profiler trace, the trace's NCCL kernels a
+                replay equal the inventory's collectives that NCCL runs
+                as kernels (none at one rank: NCCL skips an in-place
+                all-reduce over one rank), every state and ring tensor
+                keeps its data_ptr, the inventory's tensor all-reduce
+                moves 4 B x the parameter count, the collective and
+                layout audits are clean, and the losses are
+                sharded_runner's DataParallel runner's;
   powersgd      the train cell's step (GPT-2 125M, B=8, T=1024, bf16, B1-B3)
                 under DataParallel on the one-rank NCCL group with
                 ``PowerSGD(rank=2, start_iter=3)``, 8 steps across
@@ -447,6 +462,16 @@ from torch.profiler import ProfilerActivity, profile, schedule
 
 from pytorch_distributed_tpu_torch import _graphs, bench, dryrun, observability
 from pytorch_distributed_tpu_torch import distributed as pdist
+from pytorch_distributed_tpu_torch.analysis.ir import (
+    StepProgram,
+    collective_inventory,
+    inplace_findings,
+    summarize_collectives,
+)
+from pytorch_distributed_tpu_torch.analysis.ir.audit import (
+    collective_findings,
+    sharding_findings,
+)
 from pytorch_distributed_tpu_torch.checkpoint import (
     CheckpointManager,
     get_state_dict,
@@ -482,7 +507,10 @@ from pytorch_distributed_tpu_torch.ops import _build
 from pytorch_distributed_tpu_torch.ops import chunked_xent
 from pytorch_distributed_tpu_torch.ops import paged_attention as pa
 from pytorch_distributed_tpu_torch.pipeline_exec import AsyncRunner
-from pytorch_distributed_tpu_torch.pipeline_exec.runner import _step_tensors
+from pytorch_distributed_tpu_torch.pipeline_exec.runner import (
+    _named_step_tensors,
+    _step_tensors,
+)
 from pytorch_distributed_tpu_torch.redistribute import (
     Placed,
     Sharding,
@@ -506,6 +534,7 @@ from pytorch_distributed_tpu_torch.parallel import (
     comm,
     gpt2_tp_plan,
     make_dispatch_masks,
+    make_state_specs,
     make_ring_attention,
     stage_links,
     zigzag_reorder,
@@ -702,10 +731,12 @@ def traced(warm_up=_switch_on, cpu=True):
         activities.insert(0, ProfilerActivity.CPU)
     with profile(activities=activities, schedule=WARM_SCHEDULE) as prof:
         warm_up()
+        # graftlint: disable-next-line=host-sync-in-hot-loop -- the profiled window's opening edge: the warm-up must finish before recording starts
         torch.cuda.synchronize()
         prof.step()
         time.sleep(EDGE_S)
         yield prof
+        # graftlint: disable-next-line=host-sync-in-hot-loop -- the profiled window's closing edge: every recorded kernel must finish inside it
         torch.cuda.synchronize()
         time.sleep(EDGE_S)
 
@@ -2026,6 +2057,7 @@ def train_cp_phase(mesh):
     for batch in batches:
         t0 = time.perf_counter()
         state, m = trainer.step(state, batch)
+        # graftlint: disable-next-line=host-sync-in-hot-loop -- each step is timed on its own: its latency quantiles are the figure
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         losses.append(m["loss"].detach())
@@ -2039,7 +2071,8 @@ def train_cp_phase(mesh):
     fixed_losses = []
     for _ in range(10):
         state, m = trainer.step(state, fixed)
-        fixed_losses.append(float(m["loss"]))
+        fixed_losses.append(m["loss"])
+    fixed_losses = [float(x) for x in fixed_losses]
     n_layer = GPT2Config().n_layer
     expected = n_layer * (warm + timed)
     emit({"phase": "train_cp", "model": "gpt2-125m", "dtype": "bfloat16",
@@ -2453,7 +2486,8 @@ def train_fixed_batch_phase():
     losses = []
     for _ in range(10):
         state, m = trainer.step(state, batch)
-        losses.append(float(m["loss"]))
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]
     emit({"phase": "train_fixed_batch", "dtype": "bfloat16", "steps": 10,
           "losses": losses})
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
@@ -2483,8 +2517,8 @@ def train_bf16_parity_phase(mesh):
         losses = []
         for _ in range(steps):
             state, m = trainer.step(state, batch)
-            losses.append(float(m["loss"]))
-        runs[name] = (losses, dict(fa.launches))
+            losses.append(m["loss"])
+        runs[name] = ([float(x) for x in losses], dict(fa.launches))
         del trainer, state
         torch.cuda.empty_cache()
     dense = runs["dense"][0]
@@ -2532,6 +2566,7 @@ def train_profile_phase(trainer, state, batch, phase="train_profile",
             t0 = time.perf_counter()
             for _ in range(steps):
                 state, _ = trainer.step(state, batch)
+            # graftlint: disable-next-line=host-sync-in-hot-loop -- closes the profiled steps' wall time, once per window
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         device = _device_kernels(prof)
@@ -2878,6 +2913,137 @@ def sharded_runner_phase(noshard_runs):
           "ranks": pdist.get_world_size(),
           "noshard_runner_step_s": noshard_runs["runner"]["step_s"], **out})
     return out
+
+
+#: graftlint's gate: the paths linted and the rules it must run
+LINT_PATHS = ("pytorch_distributed_tpu_torch/",
+              "pytorch_distributed_tpu_torch/bench.py", "chip_smoke.py")
+LINT_RULES = {"collective-axis-mismatch", "comm-staging",
+              "hand-rolled-reshard", "host-sync-in-hot-loop",
+              "uncoalesced-collective"}
+
+
+def analysis_phase(sharded, smi):
+    """(a) graftlint over the linted tree, run here as a user runs it; (b)
+    graftir's checks on runner_train's cell under ``DataParallel`` on the
+    one-rank NCCL group: sharded_runner's trainer and its first 3 batches
+    through ``AsyncRunner``, the step's Program and inventory from
+    ``step_artifacts``, 3 submits traced (torch.profiler: the graph
+    launches on the host, the NCCL kernels on the card), the in-place
+    check over every step and ring tensor, the collective and layout
+    audits, and the losses against sharded_runner's DataParallel runner
+    (equal bit for bit where its eager loop is deterministic run to run,
+    else within that loop's spread)."""
+    repo = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytorch_distributed_tpu_torch.analysis",
+         *LINT_PATHS, "--format", "json"],
+        capture_output=True, text=True, cwd=repo)
+    lint_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"analysis: graftlint exited "
+          f"{proc.returncode}: {proc.stdout[-3000:]} {proc.stderr[-3000:]}")
+    lint = json.loads(proc.stdout)["summary"]
+    check(lint["findings"] == 0 and set(lint["rules_run"]) == LINT_RULES,
+          f"analysis: graftlint summary {lint}")
+
+    t0 = time.perf_counter()
+    steps = 3
+    batches = _lm_batches(steps, 8, 1024, seed=12)   # sharded_runner's first
+    trainer, state = _sharded_trainer("DataParallel")
+    model = trainer.model
+    n_params = sum(p.numel() for p in model.parameters())
+    program = StepProgram(
+        name="runner_train:DataParallel", strategy_name="dp", amp="bf16",
+        trainer=trainer, state=state, batch=batches[0],
+        declared=make_state_specs(model, trainer.optimizer,
+                                  trainer.strategy),
+        shapes={n: tuple(p.shape) for n, p in model.named_parameters()})
+    runner = AsyncRunner(trainer, depth=2, drain_every=steps)
+    runner.start(state, batches[0])
+    step_program, calls = runner.step_artifacts(batches[0])
+    ops = collective_inventory(calls)
+    findings = collective_findings(program, ops)
+    layout, layout_findings = sharding_findings(program)
+    findings += layout_findings
+    named = _named_step_tensors(trainer, state) + [
+        ("ring.idx", runner._ring.idx), ("ring.buf", runner._ring.buf)]
+    before = [t.data_ptr() for _, t in named]
+    comm.reset_counts()
+    with traced() as prof:
+        for batch in batches:
+            runner.submit(batch)
+        runner.sync()
+    in_replays = dict(comm.counts)
+    after = [t.data_ptr() for _, t in _named_step_tensors(trainer, state)
+             + [("ring.idx", runner._ring.idx),
+                ("ring.buf", runner._ring.buf)]]
+    inplace, moved = inplace_findings(
+        f"{program.name}[runner]", [p for p, _ in named], before, after)
+    findings += moved
+    dispatches, built = runner.dispatch_count, runner.executable_count
+    state, hist = runner.finish()
+    losses = hist["loss"].tolist()
+    events = prof.key_averages()
+    graph_launches = sum(e.count for e in events
+                         if e.device_type == DeviceType.CPU
+                         and "cudaGraphLaunch" in e.key)
+    nccl = [e for e in _device_kernels(prof) if "nccl" in e.key.lower()]
+    nccl_per_replay = sum(e.count for e in nccl) / steps
+    # NCCL runs a kernel for a collective over more than one rank; an
+    # in-place all-reduce over one rank is a no-op it skips
+    nccl_expected = sum(1 for op in ops if op.group_size > 1)
+    summary = summarize_collectives(ops)
+    all_reduce = summary["tensor"].get("all-reduce", {})
+    dp = sharded["DataParallel"]
+    want = dp["losses_runner"][:steps]
+    spread = dp["eager_spread"]["losses"]
+    loss_err = max(abs(a - b) for a, b in zip(losses, want))
+    emit({"phase": "analysis", "nvidia_smi": smi,
+          "lint": {k: lint[k] for k in ("files", "findings", "suppressed",
+                                        "baselined", "by_rule",
+                                        "rules_run")},
+          "lint_s": lint_s, "ranks": pdist.get_world_size(),
+          "model": "gpt2-125m", "dtype": "bfloat16", "global_batch": 8,
+          "seq_len": 1024, "submits": steps, "dispatches": dispatches,
+          "executables": built,
+          "programs_per_step": AsyncRunner.programs_per_step,
+          "graph_launches": graph_launches,
+          "captured": step_program.captured,
+          "inventory": [op.describe() for op in ops],
+          "collectives": summary, "n_params": n_params,
+          "nccl_kernels_per_replay": nccl_per_replay,
+          "nccl_kernels_expected": nccl_expected,
+          "nccl_kernels": sorted({e.key[:80] for e in nccl}),
+          "wrapper_calls_in_replays": in_replays,
+          "inplace": inplace, "layout": layout,
+          "findings": [f.render() for f in findings],
+          "losses": losses, "sharded_runner_losses": want,
+          "loss_err": loss_err, "eager_spread": spread,
+          "audit_s": time.perf_counter() - t0})
+    check(not findings, f"analysis: graftir findings "
+          f"{[f.render() for f in findings]}")
+    check(dispatches == steps and built == 1,
+          f"analysis: {dispatches} dispatches and {built} Programs for "
+          f"{steps} submits")
+    check(step_program.captured and graph_launches == steps,
+          f"analysis: {graph_launches} graph launches for {steps} submits")
+    check(nccl_per_replay == nccl_expected,
+          f"analysis: {nccl_per_replay} NCCL kernels a replay, the "
+          f"inventory {[op.describe() for op in ops]} runs "
+          f"{nccl_expected} as kernels on this group")
+    check(not any(in_replays.values()),
+          f"analysis: a replay called a collective wrapper: {in_replays}")
+    check(inplace["donated"] == inplace["realized"] == len(named),
+          f"analysis: in-place {inplace}")
+    check(all_reduce == {"count": 1, "bytes": 4 * n_params},
+          f"analysis: the inventory's all-reduce {all_reduce}, the "
+          f"parameters' fp32 bytes {4 * n_params}")
+    check(loss_err <= spread, f"analysis: losses {losses} against "
+          f"sharded_runner's {want}: {loss_err} beyond its eager spread "
+          f"{spread}")
+    del runner, trainer, state, program, step_program
+    torch.cuda.empty_cache()
 
 
 FSDP_RANKS = 4
@@ -6321,7 +6487,9 @@ def _ep_steps(trainer, state, batches, timed=True):
             comm.reset_counts()
         t0 = time.perf_counter()
         state, m = trainer.step(state, batch)
+        # graftlint: disable-next-line=host-sync-in-hot-loop -- the loss read closes the timed step: step_s is each step's latency
         out["losses"].append(float(m["loss"]))
+        # graftlint: disable-next-line=host-sync-in-hot-loop -- read beside the loss, after the step has finished
         out["moe_aux"].append(float(m["moe_aux"]))
         out["step_s"].append(time.perf_counter() - t0)
     out["counts"] = dict(comm.counts)
@@ -6705,9 +6873,11 @@ def _pp_steps(trainer, state, batches):
             comm.reset_counts()
             stage_links.reset_counts()
         _reset_flash_counts()
+        # graftlint: disable-next-line=host-sync-in-hot-loop -- opens the timed step: step_s is each step's latency
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = trainer.step(state, batch)
+        # graftlint: disable-next-line=host-sync-in-hot-loop -- the loss read closes the timed step
         out["losses"].append(float(m["loss"]))
         out["step_s"].append(time.perf_counter() - t0)
         out["launches"].append({k: fa.launches[k] for k in CAUSAL_KEYS})
@@ -7802,6 +7972,7 @@ def main() -> int:
         cp_launches, cp_split = train_cp_phase(mesh)
         torch.cuda.empty_cache()
         sharded = sharded_runner_phase(noshard_runs)
+        analysis_phase(sharded, smi)
         powersgd_phase(sharded["DataParallel"]["step_s"]["runner"])
         tp_train_phase(noshard_runs, noshard_final)
         del noshard_final

@@ -12,8 +12,20 @@ weight swaps and the serving entry point ``examples.serve_gpt2``.
 ``checkpoint`` and ``elastic`` save and resume training, and restart the
 workers that die (``python -m pytorch_distributed_tpu_torch.elastic.run``).
 Entry points run on the card unless the caller passes ``device="cpu"``.
+``analysis`` lints the package (stdlib only) and audits its step programs.
+
+Importing the package imports nothing else: ``resolve_device`` (and torch
+with it) loads at its first use, so that the stdlib-only linter
+(``python -m pytorch_distributed_tpu_torch.analysis``) runs where torch
+is not installed.
 """
 
-from pytorch_distributed_tpu_torch._device import resolve_device  # noqa: F401
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from pytorch_distributed_tpu_torch._device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,8 @@
+"""``python -m pytorch_distributed_tpu_torch.analysis`` entry point."""
+
+import sys
+
+from pytorch_distributed_tpu_torch.analysis.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

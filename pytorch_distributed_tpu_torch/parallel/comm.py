@@ -9,7 +9,16 @@ collective set is observable the way the kernel wrappers' launches are:
 the bytes this rank put into it (its input: the tensor reduced, gathered
 from or sent), and ``group_counts[name, group]`` the call on the group it
 ran on (a mesh axis's: the dry-run grid asks which axis a family's
-collectives span). The four strategy collectives are always in
+collectives span). ``calls`` keeps each call itself, in order: its
+collective, the dtype and shape of the tensor it moved, its group, and its
+bytes in the terms of the reference's compiled HLO (the tensor reduced for
+an all-reduce or a reduce-scatter, the whole gathered tensor for an
+all-gather, the tensor sent or received for a point-to-point exchange),
+which do not depend on the group's size: the IR audit's inventory
+(``analysis.ir.inventory``) reads it. It holds at most ``CALL_LOG_LIMIT``
+calls (``calls_dropped`` counts the rest), and ``recording()`` collects
+the calls of a block apart from it. The four strategy collectives are
+always in
 ``counts``; the others (``all_to_all``, ``send``, ``recv``, ``barrier``)
 appear at their first call after ``reset_counts``. The counts are what
 ``ShardingStrategy.collective_signature`` describes
@@ -23,7 +32,8 @@ the group's size.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import contextlib
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -33,9 +43,9 @@ from pytorch_distributed_tpu_torch.distributed.batch_ops import (
     batch_isend_irecv,
 )
 
-__all__ = ["counts", "wire_bytes", "group_counts", "reset_counts",
-           "all_reduce", "reduce_scatter", "all_gather", "broadcast",
-           "all_to_all", "p2p", "barrier"]
+__all__ = ["counts", "wire_bytes", "group_counts", "calls", "Call",
+           "recording", "reset_counts", "all_reduce", "reduce_scatter",
+           "all_gather", "broadcast", "all_to_all", "p2p", "barrier"]
 
 _BASE = ("all_reduce", "reduce_scatter", "all_gather", "broadcast")
 
@@ -48,16 +58,66 @@ wire_bytes: Dict[str, int] = {}
 group_counts: Dict[Tuple[str, Any], int] = {}
 
 
+class Call(NamedTuple):
+    """One collective call: ``name`` as in ``counts``, the ``dtype`` and
+    ``shape`` of the tensor it moved (the reduced or gathered whole, or
+    the one sent or received), its ``group`` and ``nbytes`` of that
+    tensor."""
+    name: str
+    dtype: torch.dtype
+    shape: Tuple[int, ...]
+    group: Any
+    nbytes: int
+
+
+#: every call since the last ``reset_counts``, in order, up to
+#: ``CALL_LOG_LIMIT`` of them (a long eager run would grow it without end)
+calls: List[Call] = []
+CALL_LOG_LIMIT = 1 << 16
+#: calls made past the limit, not kept in ``calls``
+calls_dropped = 0
+_recorders: List[List[Call]] = []
+
+
 def reset_counts() -> None:
+    global calls_dropped
     counts.clear()
     counts.update(dict.fromkeys(_BASE, 0))
     wire_bytes.clear()
     group_counts.clear()
+    calls.clear()
+    calls_dropped = 0
 
 
-def _count(name: str, t: Optional[torch.Tensor], group) -> None:
+@contextlib.contextmanager
+def recording():
+    """Yields a list that receives every call made inside the block,
+    whatever ``calls`` holds (an audit's record of one step)."""
+    rec: List[Call] = []
+    _recorders.append(rec)
+    try:
+        yield rec
+    finally:
+        _recorders.remove(rec)
+
+
+def _count(name: str, t: Optional[torch.Tensor], group,
+           result: Optional[torch.Tensor] = None) -> None:
+    """Count a call of ``name`` whose input is ``t`` (its wire bytes) and
+    whose record is of ``result`` (``t`` where None)."""
+    global calls_dropped
     counts[name] = counts.get(name, 0) + 1
     group_counts[name, group] = group_counts.get((name, group), 0) + 1
+    result = t if result is None else result
+    if result is not None:
+        call = Call(name, result.dtype, tuple(result.shape), group,
+                    result.numel() * result.element_size())
+        if len(calls) < CALL_LOG_LIMIT:
+            calls.append(call)
+        else:
+            calls_dropped += 1
+        for rec in _recorders:
+            rec.append(call)
     if t is None:
         return
     key = f"{name}.{str(t.dtype).removeprefix('torch.')}"
@@ -81,7 +141,7 @@ def reduce_scatter(out: torch.Tensor, inp: torch.Tensor, group) -> torch.Tensor:
 
 def all_gather(out: torch.Tensor, inp: torch.Tensor, group) -> torch.Tensor:
     """Every rank's ``inp`` stacked along dim 0 of ``out``, in rank order."""
-    _count("all_gather", inp, group)
+    _count("all_gather", inp, group, out)
     dist.all_gather_into_tensor(out, inp, group=group)
     return out
 
@@ -110,7 +170,7 @@ def p2p(group, sends=(), recvs=()) -> None:
         _count("send", t, group)
         ops.append(P2POp("isend", t, dst))
     for t, src in recvs:
-        _count("recv", None, group)
+        _count("recv", None, group, t)
         ops.append(P2POp("irecv", t, src))
     for w in batch_isend_irecv(group, ops):
         w.wait()

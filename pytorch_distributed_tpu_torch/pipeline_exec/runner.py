@@ -55,6 +55,14 @@ so a run across ``start_iter`` captures two programs, and neither warm-up
 runs the other's branch. The programs share one memory pool and replay
 in the order they were captured.
 
+The audit surface (the reference's ``executable_count`` and
+``step_artifacts``, read by ``analysis.ir``): ``executable_count`` is the
+number of ``Program`` objects the runner has built, 1 after any number of
+same-shape submits; ``step_artifacts`` returns the step's ``Program`` and
+the collectives (``parallel.comm``'s record) its capture recorded, or on
+the CPU those of the last warm-up step, which a call of the eager body
+repeats.
+
 Whether the step is captured is decided when the runner is built, from
 the trainer (``Trainer.graph_capturable``), never after a failed capture:
 a pipeline whose stages talk over gloo (ranks sharing a card) runs its
@@ -75,6 +83,7 @@ import torch
 
 from pytorch_distributed_tpu_torch._graphs import Program, warm_stream
 from pytorch_distributed_tpu_torch.observability import record_event
+from pytorch_distributed_tpu_torch.parallel import comm
 from pytorch_distributed_tpu_torch.pipeline_exec.metric_ring import MetricRing
 
 __all__ = ["AsyncRunner", "MetricHistory"]
@@ -122,35 +131,52 @@ def _make_capturable(optimizer: torch.optim.Optimizer) -> None:
             st["step"] = st["step"].to(p.device)
 
 
-def _step_tensors(trainer, state) -> list:
-    """Every tensor a step changes: the parameters, the model's buffers,
-    the tensors the optimizer steps on where they are not parameters (the
-    blocks of ZeRO1's sharded update), the optimizer state and the scaler
-    state."""
+def _named_step_tensors(trainer, state) -> list:
+    """``(path, tensor)`` of every tensor a step changes: the parameters
+    (``param.<name>``), the model's buffers (``buffer.<name>``), the
+    tensors the optimizer steps on where they are not parameters (the
+    blocks of ZeRO1's sharded update, ``block.<name>``), the optimizer
+    state (``opt.<name>.<key>``), the scaler state (``scaler.<field>``)
+    and a stateful hook's state (``comm_state<keys>``)."""
     model, opt = trainer.model, trainer.optimizer
-    tensors = list(model.parameters()) + list(model.buffers())
-    seen = {id(t) for t in tensors}
-    tensors += [p for group in opt.param_groups for p in group["params"]
-                if id(p) not in seen]
-    for st in opt.state.values():
+    names = {id(p): n for n, p in model.named_parameters()}
+    layout = getattr(trainer, "layout", None)
+    if layout is not None:
+        names.update({id(leaf.tensor): leaf.name for leaf in layout.leaves})
+    out = ([(f"param.{n}", p) for n, p in model.named_parameters()]
+           + [(f"buffer.{n}", b) for n, b in model.named_buffers()])
+    seen = {id(t) for _, t in out}
+    out += [(f"block.{names.get(id(p), '?')}", p)
+            for group in opt.param_groups for p in group["params"]
+            if id(p) not in seen]
+    for p, st in opt.state.items():
         for k, v in st.items():
             if not isinstance(v, torch.Tensor):
                 raise TypeError(
                     f"optimizer state {k!r} is not a tensor: the runner "
                     "puts back tensor state only")
-            tensors.append(v)
+            out.append((f"opt.{names.get(id(p), '?')}.{k}", v))
     if state.scaler is not None:
-        tensors += [state.scaler.scale, state.scaler.growth_tracker]
-    tensors += _tensor_leaves(state.comm_state)
-    return tensors
+        out += [("scaler.scale", state.scaler.scale),
+                ("scaler.growth_tracker", state.scaler.growth_tracker)]
+    out += _tensor_leaves(state.comm_state, "comm_state")
+    return out
 
 
-def _tensor_leaves(tree) -> list:
-    """The tensors of a (nested) dict: a stateful hook's comm state."""
+def _step_tensors(trainer, state) -> list:
+    """Every tensor a step changes (``_named_step_tensors`` without the
+    paths)."""
+    return [t for _, t in _named_step_tensors(trainer, state)]
+
+
+def _tensor_leaves(tree, path: str) -> list:
+    """``(path, tensor)`` of the tensors of a (nested) dict: a stateful
+    hook's comm state."""
     if isinstance(tree, torch.Tensor):
-        return [tree]
+        return [(path, tree)]
     if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _tensor_leaves(v)]
+        return [leaf for k, v in tree.items()
+                for leaf in _tensor_leaves(v, f"{path}[{k!r}]")]
     return []
 
 
@@ -223,6 +249,10 @@ class AsyncRunner:
                        and trainer.graph_capturable)
         #: the captured step programs, by ``Trainer.program_key``
         self.programs: Dict = {}
+        #: the collectives each program's capture recorded (the CPU: its
+        #: last warm-up step's), by key
+        self.inventories: Dict = {}
+        self._built = 0
         self._key = None
         self._ring = None
         self._reset()
@@ -238,6 +268,15 @@ class AsyncRunner:
         """Step programs run since :meth:`start`: graph replays on the
         card, eager bodies on the CPU."""
         return self._dispatches
+
+    @property
+    def executable_count(self) -> int:
+        """``Program`` objects built since the runner was made: 1 after any
+        number of same-shape submits, one more for each batch shape (a
+        ``start`` on another shape rebuilds) and each new program key.
+        With :attr:`dispatch_count`, the structural evidence behind
+        ``programs_per_step == 1`` (the IR audit's program count)."""
+        return self._built
 
     def _reset(self) -> None:
         self._state = None
@@ -278,17 +317,20 @@ class AsyncRunner:
             inputs, ring = self._inputs, self._ring
             restore = _snapshot(trainer, state, (ring.idx, ring.buf))
         side = warm_stream(device) if on_card else None
+        last: list = []   # the collectives of the last warm-up step
         with torch.cuda.stream(side) if on_card else contextlib.nullcontext():
             try:
                 warm = self.warmup_steps
                 if first:
-                    _, metrics = trainer.step(state, inputs)
+                    with comm.recording() as last:
+                        _, metrics = trainer.step(state, inputs)
                     ring = MetricRing.create(_metric_names(metrics),
                                              self.drain_every, device)
                     warm -= 1
                 body = self._body(state, inputs, ring)
                 for _ in range(warm):
-                    body()
+                    with comm.recording() as last:
+                        body()
             finally:
                 restore()
         if on_card:
@@ -296,10 +338,13 @@ class AsyncRunner:
         if first:
             ring.reset()
             self._inputs, self._ring = inputs, ring
-        self.programs[key] = Program(body, device=device, stream=side,
-                                     pool=self._pool,
-                                     generators=trainer.generators,
-                                     capture=self.graphs)
+        with comm.recording() as captured:
+            program = Program(body, device=device, stream=side,
+                              pool=self._pool, generators=trainer.generators,
+                              capture=self.graphs)
+        self.programs[key] = program
+        self.inventories[key] = captured if program.captured else last
+        self._built += 1
 
     def start(self, state, sample_batch) -> "AsyncRunner":
         """Bind the runner to ``state`` and build the pipelined step:
@@ -331,7 +376,7 @@ class AsyncRunner:
                repr([{k: v for k, v in g.items() if k != "params"}
                      for g in self.trainer.optimizer.param_groups]))
         if key != self._key:
-            self.programs = {}
+            self.programs, self.inventories = {}, {}
             self._build(state, sample_batch,
                         self.trainer.program_key(state.step))
             self._key = key
@@ -346,18 +391,11 @@ class AsyncRunner:
         """Dispatch one step. Never blocks on the step just submitted;
         blocks only on the step ``depth`` behind once the pipeline is
         full."""
-        if not self._started:
-            raise RuntimeError("AsyncRunner.start(state, batch) first")
-        if len(batch) != len(self._inputs) or any(
-                tuple(np.shape(x)) != tuple(s.shape)
-                for x, s in zip(batch, self._inputs)):
-            raise ValueError("batch shapes differ from the started batch's")
+        self._check_batch(batch)
         for s, x in zip(self._inputs, batch):
             s.copy_(torch.as_tensor(x), non_blocking=True)
         step = self._state.step + self._n
-        key = self.trainer.program_key(step)
-        if key not in self.programs:
-            self._build(self._state.replace(step=step), None, key)
+        key = self._key_at(step)
         self.trainer.seed_dropout(step)
         self.programs[key]()
         self._n += 1
@@ -368,9 +406,37 @@ class AsyncRunner:
             self._fences.append(done)
             if len(self._fences) > self.depth:
                 # backpressure: the step `depth` behind, never this one
+                # graftlint: disable-next-line=host-sync-in-hot-loop -- bounded K-deep in-flight window: waits on the step `depth` behind, never the one just queued; without it the host queues steps without bound
                 self._fences.popleft().synchronize()
         if self._n % self.drain_every == 0:
             self._drains.append(self._drain())
+
+    def step_artifacts(self, batch):
+        """``(program, inventory)`` of the step the next :meth:`submit` of
+        a batch shaped as ``batch`` runs: its ``_graphs.Program`` (a CUDA
+        graph on the card, the eager body on the CPU) and the collectives
+        recorded when it was built (``parallel.comm.Call`` records). Runs no
+        step on the bound state: a program not built yet is built, and its
+        warm-up undone."""
+        self._check_batch(batch)
+        key = self._key_at(self._state.step + self._n)
+        return self.programs[key], list(self.inventories[key])
+
+    def _check_batch(self, batch) -> None:
+        if not self._started:
+            raise RuntimeError("AsyncRunner.start(state, batch) first")
+        if len(batch) != len(self._inputs) or any(
+                tuple(np.shape(x)) != tuple(s.shape)
+                for x, s in zip(batch, self._inputs)):
+            raise ValueError("batch shapes differ from the started batch's")
+
+    def _key_at(self, step: int):
+        """The program key of step ``step``, its program built first where
+        it is not yet."""
+        key = self.trainer.program_key(step)
+        if key not in self.programs:
+            self._build(self._state.replace(step=step), None, key)
+        return key
 
     def _drain(self) -> torch.Tensor:
         """The ring's window, copied to the host behind the step that

@@ -598,6 +598,21 @@ class Trainer:
         runner = AsyncRunner(self, depth=depth, drain_every=drain_every)
         return runner.run(state, batches)
 
+    def step_artifacts(self, state: TrainState, batch):
+        """``(program, inventory)`` of the train step on batches shaped as
+        ``batch``: the step's ``_graphs.Program`` as the runner builds it
+        (one CUDA graph on the card, the eager body on the CPU) and the
+        collectives recorded when it was built (``parallel.comm.Call`` records,
+        the IR audit's inventory). The reference's ``step_artifacts``
+        (lowered and compiled HLO). Runs no step on ``state``: the build's
+        warm-up steps are undone, every state tensor keeps its values and
+        its address."""
+        from pytorch_distributed_tpu_torch.pipeline_exec import AsyncRunner
+
+        runner = AsyncRunner(self, depth=1, drain_every=1)
+        runner.start(state, batch)
+        return runner.step_artifacts(batch)
+
     # -- eval --------------------------------------------------------------
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch) -> Dict:

@@ -350,3 +350,62 @@ def test_metric_history_accessors():
     assert h.n_steps == 3
     assert h.first() == 3.0
     assert h.last() == 1.0
+
+
+# -- the audit surface (the reference's executable_count, step_artifacts) --
+def test_executable_count_one_over_same_shape_and_grows_on_a_new_shape():
+    trainer, state = _gpt2()
+    runner = AsyncRunner(trainer, depth=2, drain_every=4)
+    assert runner.executable_count == 0
+    batches = _lm_batches(4)
+    runner.start(state, batches[0])
+    for batch in batches:
+        runner.submit(batch)
+    assert runner.dispatch_count == 4
+    assert runner.executable_count == 1
+    state, _ = runner.finish()
+    runner.start(state, batches[0])      # the same shapes: kept
+    runner.submit(batches[0])
+    assert runner.executable_count == 1
+    state, _ = runner.finish()
+    half = tuple(x[:2] for x in batches[1])
+    runner.start(state, half)            # another batch shape: rebuilt
+    runner.submit(half)
+    assert runner.executable_count == 2
+    runner.finish()
+
+
+@pytest.mark.parametrize("via", ["runner", "trainer"])
+def test_step_artifacts_leave_the_state_as_it_was(via):
+    """``step_artifacts`` returns the step's Program and the collectives
+    recorded when it was built, and runs no step on the state: every
+    state tensor keeps its values and its address."""
+    from pytorch_distributed_tpu_torch._graphs import Program
+    from pytorch_distributed_tpu_torch.pipeline_exec.runner import (
+        _named_step_tensors,
+    )
+
+    trainer, state = _scaled()
+    batch = _lm_batches(1)[0]
+    before = _everything(trainer, state)
+    ptrs = [(p, t.data_ptr()) for p, t in _named_step_tensors(trainer, state)]
+    if via == "runner":
+        runner = AsyncRunner(trainer).start(state, batch)
+        program, inventory = runner.step_artifacts(batch)
+        assert runner.dispatch_count == 0
+    else:
+        program, inventory = trainer.step_artifacts(state, batch)
+    assert isinstance(program, Program) and not program.captured
+    assert inventory == []               # NoShard issues no collective
+    after = _everything(trainer, state)
+    assert all(torch.equal(after[k], v) for k, v in before.items())
+    assert [(p, t.data_ptr())
+            for p, t in _named_step_tensors(trainer, state)] == ptrs
+    assert {p.split(".")[0] for p, _ in ptrs} == {"param", "opt", "scaler"}
+    # the body is the step: calling it steps the state once, in place
+    program()
+    stepped = _everything(trainer, state)
+    assert any(not torch.equal(stepped[k], v) for k, v in before.items()
+               if k.startswith("model."))
+    assert [t.data_ptr() for _, t in _named_step_tensors(trainer, state)] \
+        == [ptr for _, ptr in ptrs]
