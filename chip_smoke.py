@@ -113,7 +113,9 @@ capture records; what the replays launched is counted in device traces
                 memory of both;
   train_graph_profile  torch.profiler and CUDA events over 3 replayed
                 training steps: device busy share, kernels per step, B1-B3
-                12 each a replayed step and no B4-B6;
+                12 each a replayed step and no B4-B6; the span marks, 16 a
+                replay, the ring's ms equal to the trace's and the four
+                phases 97-100.5% of the traced device time;
   fsdp_train    the entry point's FSDP (the train phase: a one-rank NCCL
                 group, every parameter whole) against NoShard (the entry
                 point with FSDP patched out, 8 steps): losses equal bit for
@@ -460,6 +462,8 @@ from torch.autograd import DeviceType
 from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.profiler import ProfilerActivity, profile, schedule
 
+from portbench import spans as bench_spans
+from portbench.trace import Trace
 from pytorch_distributed_tpu_torch import _graphs, bench, dryrun, observability
 from pytorch_distributed_tpu_torch import distributed as pdist
 from pytorch_distributed_tpu_torch.analysis.ir import (
@@ -478,6 +482,7 @@ from pytorch_distributed_tpu_torch.checkpoint import (
     set_state_dict,
 )
 from pytorch_distributed_tpu_torch.distributed import TCPStore
+from pytorch_distributed_tpu_torch.observability import spans as obs_spans
 from pytorch_distributed_tpu_torch.elastic import (
     DynamicRendezvous,
     LocalElasticAgent,
@@ -2693,10 +2698,44 @@ def _runner_runs(build, batches, name, flops_per_step=None,
     return runs, spread, got
 
 
+def _replays(runner) -> int:
+    """Graph replays of the runner's programs so far."""
+    return sum(p.replays for p in runner.programs.values())
+
+
+def _span_marks(prof, steps, hist) -> dict:
+    """The span marks (``observability.spans``) of a traced window of
+    ``steps`` replays: per span, its mark pairs a step and its ms a step as
+    the benchmark reads them from the trace (``portbench.spans``) and as
+    the runner's ring holds them (``hist``'s last ``steps`` rows); and the
+    window's device time a step, first to last device operation."""
+    ops = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA
+           and not e.is_user_annotation()]
+    out = {"window_ms_per_step": (max(op[2] for op in ops)
+                                  - min(op[1] for op in ops)) / 1e6 / steps,
+           "spans": {}}
+    trace = Trace(ops)
+    for name in obs_spans.SPANS:
+        found = bench_spans.pairs(trace, name)
+        row = f"span_ms.{name}"
+        if found is None and row not in hist:
+            continue
+        out["spans"][name] = {
+            "pairs_per_step": len(found or ()) / steps,
+            "trace_ms_per_step": bench_spans.ms_per_step(trace, (name,),
+                                                         steps),
+            "ring_ms_per_step": (float(np.mean(hist[row][-steps:]))
+                                 if row in hist else None)}
+    return out
+
+
 def _replay_window(runner, state, batches, prof_steps, expect_calls):
     """``prof_steps`` replays of a started runner's step under ``traced``:
     the device kernels, the calls per step of each name in
-    ``expect_calls``, the replays' CUDA-event spans and the wall time."""
+    ``expect_calls``, the replays' CUDA-event spans, the wall time and the
+    span marks (``_span_marks``)."""
     runner.start(state, batches[0])           # the same step, no rebuild
     with replay_spans() as spans:
         with traced(lambda: (runner.submit(batches[0]),
@@ -2707,11 +2746,11 @@ def _replay_window(runner, state, batches, prof_steps, expect_calls):
                 runner.submit(batches[i + 1])
             runner.sync()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        runner.finish()
+        _, hist = runner.finish()
     device = _device_kernels(prof)
     calls = {name: sum(e.count for e in device if name in e.key)
              / prof_steps for name in expect_calls}
-    return device, calls, spans, wall_ms
+    return device, calls, spans, wall_ms, _span_marks(prof, prof_steps, hist)
 
 
 def _gpt2_runner_trainer():
@@ -2727,6 +2766,41 @@ def _gpt2_runner_trainer():
     return trainer, trainer.init()
 
 
+#: a GPT-2 step's mark pairs through the runner: each phase once, the head
+#: and the loss forward and backward (16 marks)
+SPAN_PAIRS_GPT2 = {"forward": 1, "backward": 1, "grad_exchange": 1,
+                   "update": 1, "lm_head": 2, "lm_loss": 2}
+#: the ring's reading of a span against the trace's: within 2%, or within
+#: 0.05 ms for a span under 2.5 ms
+SPAN_RTOL, SPAN_ATOL_MS, SPAN_SMALL_MS = 0.02, 0.05, 2.5
+#: the four phases' share of the traced device time a step
+PHASES_SHARE = (0.97, 1.005)
+
+
+def _check_span_marks(phase, marks, want_pairs):
+    """The marks of a traced window (``_span_marks``): ``want_pairs`` pairs
+    a replay of each span and of no other, the ring's ms a step equal to
+    the trace's (the program's clock is the trace's), and the four phases,
+    which partition the step body, all but the whole traced window."""
+    got = marks["spans"]
+    pairs = {name: v["pairs_per_step"] for name, v in got.items()}
+    check(pairs == want_pairs,
+          f"{phase}: span mark pairs a replay {pairs}, expected {want_pairs}")
+    for name, v in got.items():
+        ring, read = v["ring_ms_per_step"], v["trace_ms_per_step"]
+        ok = ring is not None and read is not None and abs(ring - read) <= (
+            SPAN_ATOL_MS if read < SPAN_SMALL_MS else SPAN_RTOL * read)
+        check(ok, f"{phase}: span {name} reads {ring} ms a step in the ring "
+                  f"and {read} ms in the trace")
+    phases = sum(got[n]["ring_ms_per_step"] or 0.0
+                 for n in ("forward", "backward", "grad_exchange", "update")
+                 if n in got)
+    share = phases / marks["window_ms_per_step"]
+    check(PHASES_SHARE[0] <= share <= PHASES_SHARE[1],
+          f"{phase}: the four phases are {share:.4f} of the traced window "
+          f"({phases} of {marks['window_ms_per_step']} ms a step)")
+
+
 def runner_train_phase():
     """The train cell through ``Trainer.run``'s executor: GPT-2 125M, bf16,
     B = 8 x 1024, flash attention, 10 steps on distinct batches. The
@@ -2739,7 +2813,10 @@ def runner_train_phase():
     profiled replays (the train_graph_profile line): the profiler's device
     time and the CUDA-event span of each replay against the wall time, and
     B1-B3's launches in the trace, n_layer each a replayed step (a window
-    whose counts are off is profiled once more, see ``recounted``)."""
+    whose counts are off is profiled once more, see ``recounted``); and
+    the span marks in those replays (``_check_span_marks``): 16 a replay,
+    the ring's reading of each span equal to the trace's, the four phases
+    all but the whole traced device time."""
     steps = 10
     bf16_peak, _, _ = peaks()
     batches = _lm_batches(steps, 8, 1024, seed=12)
@@ -2778,7 +2855,7 @@ def runner_train_phase():
     def window():
         return _replay_window(runner, state, batches, prof_steps, expect_calls)
 
-    (device, calls, spans, wall_ms), first = recounted(
+    (device, calls, spans, wall_ms, marks), first = recounted(
         window, lambda r: r[1] == expect_calls)
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     replay_ms = _spans_ms(spans)
@@ -2796,12 +2873,14 @@ def runner_train_phase():
                            "ms_per_step": e.self_device_time_total / 1e3
                            / prof_steps,
                            "calls_per_step": e.count / prof_steps}
-                          for e in top]})
+                          for e in top],
+          "span_marks": marks})
     check(len(spans) == prof_steps and replay_ms > 0,
           f"train_graph_profile: {len(spans)} replays, {replay_ms} ms")
     check(calls == expect_calls,
           f"train_graph_profile: flash calls per replayed step {calls}, "
           f"expected {expect_calls}")
+    _check_span_marks("train_graph_profile", marks, SPAN_PAIRS_GPT2)
     del runner, trainer, state
     torch.cuda.empty_cache()
     return runs, final
@@ -2839,12 +2918,14 @@ def sharded_runner_phase(noshard_runs):
     the step's graph). runner_train's cell: GPT-2 125M, bf16, B = 8 x 1024,
     10 steps; per strategy the eager loop twice and the runner (one replay
     a step), whose losses, parameters and buffers must equal the eager
-    loop's (or lie within its spread), and the collectives its capture
-    recorded: ``comm.counts`` over the two eager runs, the warm-up steps
-    and the capture must be the step's collectives (DataParallel's one
-    all-reduce; at one rank ZeRO1's and FSDP's whole-gradient all-reduce
-    and the norm's) times the steps those ran, and the profiled replays
-    must call no collective wrapper. Then 3 profiled replays of each:
+    loop's (or lie within its spread), and the collectives: ``comm.counts``
+    over the two eager runs, the warm-up steps and the runner's replays
+    must be the step's collectives (DataParallel's one all-reduce; at one
+    rank ZeRO1's and FSDP's whole-gradient all-reduce and the norm's)
+    times the steps those ran (a capture records its collectives
+    uncounted, a replay counts them), and the profiled replays must count
+    one step's collectives each and call no collective wrapper. Then 3
+    profiled replays of each:
     ``nccl_ms_per_step`` (the device time of kernels named nccl; NCCL's
     in-place all-reduce on one rank launches none), B1-B3 n_layer times a
     replayed step, and step time against runner_train's NoShard
@@ -2862,12 +2943,14 @@ def sharded_runner_phase(noshard_runs):
                                          batches, f"sharded_runner {kind}")
         runner, trainer, state = runs["runner"].pop("_runner")
         captured = dict(comm.counts)   # the eager runs', the warm-up's and
-        comm.reset_counts()            # the capture's collectives
-        (device, calls, spans, wall_ms), first = recounted(
+        comm.reset_counts()            # the runner's replays' collectives
+        replays = _replays(runner)
+        (device, calls, spans, wall_ms, _), first = recounted(
             lambda: _replay_window(runner, state, batches, prof_steps,
                                    expect_calls),
             lambda r: r[1] == expect_calls)
-        replays_counted = dict(comm.counts)
+        replays = _replays(runner) - replays
+        replays_counted, wrapper_calls = dict(comm.counts), len(comm.calls)
         nccl = [e for e in device if "nccl" in e.key.lower()]
         out[kind] = {
             "sharded_update": runner.sharded_update,
@@ -2877,7 +2960,7 @@ def sharded_runner_phase(noshard_runs):
             "max_memory_allocated_bytes": {
                 k: runs[k]["max_memory_allocated_bytes"] for k in runs},
             "replays": runs["runner"]["replays"],
-            "collectives_eager_warmup_capture": captured,
+            "collectives_eager_warmup_replays": captured,
             "collectives_in_replays": replays_counted,
             "nccl_ms_per_step": sum(e.self_device_time_total for e in nccl)
             / 1e3 / prof_steps,
@@ -2895,16 +2978,20 @@ def sharded_runner_phase(noshard_runs):
         check(calls == expect_calls,
               f"sharded_runner {kind}: flash calls per replayed step {calls}")
         per_step = 1 if kind == "DataParallel" else 2
-        runs_steps = 2 * steps + AsyncRunner.warmup_steps + 1
+        # the eager runs, the warm-up and the runner's replays (a capture
+        # records its collectives uncounted, a replay counts them)
+        runs_steps = 3 * steps + AsyncRunner.warmup_steps
         check(captured == {"all_reduce": per_step * runs_steps,
                            "reduce_scatter": 0, "all_gather": 0,
                            "broadcast": 3},
               f"sharded_runner {kind}: collectives {captured}, expected "
-              f"{per_step} all-reduces a step over {runs_steps} steps (the "
-              f"capture's among them) and one broadcast an init")
-        check(not any(replays_counted.values()),
-              f"sharded_runner {kind}: a replay called a collective "
-              f"wrapper: {replays_counted}")
+              f"{per_step} all-reduces a step over {runs_steps} steps and "
+              f"one broadcast an init")
+        check(wrapper_calls == 0 and replays_counted == {
+                  "all_reduce": per_step * replays, "reduce_scatter": 0,
+                  "all_gather": 0, "broadcast": 0},
+              f"sharded_runner {kind}: {replays} replays counted "
+              f"{replays_counted}, {wrapper_calls} collective wrapper calls")
         del runner, trainer, state, runs
         torch.cuda.empty_cache()
     emit({"phase": "sharded_runner", "model": "gpt2-125m",
@@ -2974,7 +3061,7 @@ def analysis_phase(sharded, smi):
         for batch in batches:
             runner.submit(batch)
         runner.sync()
-    in_replays = dict(comm.counts)
+    in_replays, wrapper_calls = dict(comm.counts), len(comm.calls)
     after = [t.data_ptr() for _, t in _named_step_tensors(trainer, state)
              + [("ring.idx", runner._ring.idx),
                 ("ring.buf", runner._ring.buf)]]
@@ -3015,7 +3102,7 @@ def analysis_phase(sharded, smi):
           "nccl_kernels_per_replay": nccl_per_replay,
           "nccl_kernels_expected": nccl_expected,
           "nccl_kernels": sorted({e.key[:80] for e in nccl}),
-          "wrapper_calls_in_replays": in_replays,
+          "collectives_in_replays": in_replays,
           "inplace": inplace, "layout": layout,
           "findings": [f.render() for f in findings],
           "losses": losses, "sharded_runner_losses": want,
@@ -3032,8 +3119,11 @@ def analysis_phase(sharded, smi):
           f"analysis: {nccl_per_replay} NCCL kernels a replay, the "
           f"inventory {[op.describe() for op in ops]} runs "
           f"{nccl_expected} as kernels on this group")
-    check(not any(in_replays.values()),
-          f"analysis: a replay called a collective wrapper: {in_replays}")
+    check(wrapper_calls == 0 and in_replays == {
+              "all_reduce": steps * len(calls), "reduce_scatter": 0,
+              "all_gather": 0, "broadcast": 0},
+          f"analysis: {steps} replays counted {in_replays}, "
+          f"{wrapper_calls} collective wrapper calls")
     check(inplace["donated"] == inplace["realized"] == len(named),
           f"analysis: in-place {inplace}")
     check(all_reduce == {"count": 1, "bytes": 4 * n_params},
@@ -3500,7 +3590,7 @@ def powersgd_phase(dp_runner_step_s):
     step_wire = dict(comm.wire_bytes)
     expect_calls = {name: n_layer for name in SM90_KERNELS}
     expect_calls.update({name: 0 for name in MASKED_SM90_KERNELS})
-    (device, calls, spans, wall_ms), first = recounted(
+    (device, calls, spans, wall_ms, _), first = recounted(
         lambda: _replay_window(runner, state, batches, 3, expect_calls),
         lambda r: r[1] == expect_calls)
     # the compressed program's replays alone (the runner's step time above
@@ -4430,10 +4520,12 @@ def tp_train_phase(noshard_runs, noshard_final):
     parallelism off and on: the eager loop twice and the runner (one
     replay a step, the collectives captured in it); the runner's losses,
     parameters and buffers equal NoShard's runner (runner_train) bit for
-    bit; ``comm.counts`` over the eager runs, the warm-up and the capture
-    equal ``_tp_step_collectives`` times the steps those ran, and a replay
-    calls no wrapper; B1-B3 launch n_layer times each a replayed step in a
-    device trace; step time against NoShard's runner."""
+    bit; ``comm.counts`` over the eager runs, the warm-up and the runner's
+    replays equal ``_tp_step_collectives`` times the steps those ran (a
+    capture records its collectives uncounted, a replay counts them), and
+    the profiled replays count one step's collectives each and call no
+    wrapper; B1-B3 launch n_layer times each a replayed step in a device
+    trace; step time against NoShard's runner."""
     t_phase = time.perf_counter()
     steps, prof_steps = 10, 3
     n_layer = GPT2Config().n_layer
@@ -4454,15 +4546,19 @@ def tp_train_phase(noshard_runs, noshard_final):
         same_state = len(final) == len(noshard_final) and all(
             torch.equal(a, b) for a, b in zip(final, noshard_final))
         comm.reset_counts()
-        (device, calls, spans, wall_ms), first = recounted(
+        replays = _replays(runner)
+        (device, calls, spans, wall_ms, _), first = recounted(
             lambda: _replay_window(runner, state, batches, prof_steps,
                                    expect_calls),
             lambda r: r[1] == expect_calls)
-        replays_counted = dict(comm.counts)
+        replays = _replays(runner) - replays
+        replays_counted, wrapper_calls = dict(comm.counts), len(comm.calls)
         per_step = _tp_step_collectives(n_layer, sp)
-        runs_steps = 2 * steps + AsyncRunner.warmup_steps + 1
+        # the eager runs, the warm-up and the runner's replays
+        runs_steps = 3 * steps + AsyncRunner.warmup_steps
         want = {k: v * runs_steps for k, v in per_step.items()}
         want["broadcast"] = 3                       # one an init
+        want_replays = {k: v * replays for k, v in per_step.items()}
         nccl = [e for e in device if "nccl" in e.key.lower()]
         out[key] = {
             "signature": trainer.strategy.collective_signature(),
@@ -4477,9 +4573,9 @@ def tp_train_phase(noshard_runs, noshard_final):
                 k: runs[k]["max_memory_allocated_bytes"] for k in runs},
             "replays": runs["runner"]["replays"],
             "collectives_per_step": per_step,
-            "collectives_eager_warmup_capture": captured,
+            "collectives_eager_warmup_replays": captured,
             "collectives_in_replays": replays_counted,
-            "wire_bytes_eager_warmup_capture": dict(comm.wire_bytes),
+            "wire_bytes_in_replays": dict(comm.wire_bytes),
             "nccl_ms_per_step": sum(e.self_device_time_total for e in nccl)
             / 1e3 / prof_steps,
             "device_busy_ms_per_step": sum(e.self_device_time_total
@@ -4492,9 +4588,11 @@ def tp_train_phase(noshard_runs, noshard_final):
               f"bit (losses {same_losses}, state {same_state})")
         check(captured == want,
               f"tp_train {key}: collectives {captured}, expected {want}")
-        check(not any(replays_counted.values()),
-              f"tp_train {key}: a replay called a collective wrapper: "
-              f"{replays_counted}")
+        check(wrapper_calls == 0 and {k: v for k, v in replays_counted.items()
+                                      if v} == {k: v for k, v in
+                                                want_replays.items() if v},
+              f"tp_train {key}: {replays} replays counted {replays_counted}, "
+              f"{wrapper_calls} collective wrapper calls")
         check(calls == expect_calls,
               f"tp_train {key}: flash calls per replayed step {calls}")
         del runner, trainer, state, runs, final
@@ -6200,7 +6298,7 @@ def moe_train_phase():
         return _replay_window(runner, state, batches, prof_steps,
                               expect_calls)
 
-    (device, calls, spans, wall_ms), first = recounted(
+    (device, calls, spans, wall_ms, _), first = recounted(
         window, lambda r: r[1] == expect_calls)
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / prof_steps
     del runner, trainer, state
@@ -6798,7 +6896,7 @@ def pp_train_phase(noshard_runs):
         expect_calls = {name: want[key] for name, key in
                         zip(SM90_KERNELS, CAUSAL_KEYS)}
         expect_calls.update({name: 0 for name in MASKED_SM90_KERNELS})
-        (device, calls, spans, wall_ms), first = recounted(
+        (device, calls, spans, wall_ms, _), first = recounted(
             lambda: _replay_window(runner, state, batches, 3, expect_calls),
             lambda r: r[1] == expect_calls)
         busy_ms = sum(e.self_device_time_total for e in device) / 1e3
@@ -7492,7 +7590,7 @@ def tp_moe_phase(moe_line):
     ep_kind = type(trainer.model.h[1].moe.ep).__name__
     expect_calls = {name: n_layer for name in SM90_KERNELS}
     expect_calls.update({name: 0 for name in MASKED_SM90_KERNELS})
-    (device, calls, spans, wall_ms), first = recounted(
+    (device, calls, spans, wall_ms, _), first = recounted(
         lambda: _replay_window(runner, state, batches, 3, expect_calls),
         lambda r: r[1] == expect_calls)
     del runner, trainer, state
@@ -7511,7 +7609,7 @@ def tp_moe_phase(moe_line):
             "whole_stacks_losses": whole,
             "whole_stacks_equal_noshard": whole == noshard,
             "eager_spread": spread, "runner_vs_eager": got,
-            "collectives_eager_warmup_capture": collectives,
+            "collectives_eager_warmup_replays": collectives,
             "launches_per_step_eager": {
                 k: runs["eager_a"]["launches"][k] / steps
                 for k in CAUSAL_KEYS + MASKED_KEYS},

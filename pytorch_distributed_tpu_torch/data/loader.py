@@ -19,6 +19,8 @@ import numpy as np
 import torch
 from torch.utils.data import DataLoader
 
+from pytorch_distributed_tpu_torch.observability import annotate
+
 __all__ = ["make_loader", "pad_batch", "prefetch_to_device"]
 
 
@@ -77,20 +79,26 @@ def prefetch_to_device(loader: Iterable, device: torch.device,
     are marked as used on the consumer's stream so that their memory is
     not reused while its work is queued. The copies overlap the step only
     from pinned host memory (``make_loader`` pins on the card). On the CPU
-    the batches pass through as they are.
+    the batches pass through as they are. The wait for the loader's next
+    batch is the host region ``data.wait`` (``observability.annotate``).
     """
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
+    source = iter(loader)
+
+    def wait():
+        with annotate("data.wait"):
+            return next(source, None)
+
     if device.type != "cuda":
-        for batch in loader:
+        while (batch := wait()) is not None:
             yield _to(batch, device, False)
         return
     side = torch.cuda.Stream(device)
     queue: collections.deque = collections.deque()
-    source = iter(loader)
 
     def enqueue() -> bool:
-        batch = next(source, None)
+        batch = wait()
         if batch is None:
             return False
         with torch.cuda.stream(side):

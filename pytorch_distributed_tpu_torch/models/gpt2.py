@@ -75,6 +75,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from pytorch_distributed_tpu_torch._device import resolve_device
+from pytorch_distributed_tpu_torch.observability import spans
 from pytorch_distributed_tpu_torch.ops.chunked_xent import matmul_f32
 from pytorch_distributed_tpu_torch.ops.decode_attention import cached_attention
 from pytorch_distributed_tpu_torch.ops.paged_attention import (
@@ -369,13 +370,19 @@ def tied_head(x: torch.Tensor, wte: torch.Tensor, cfg: GPT2Config,
     dtype): logits in fp32 for a stable softmax, from fp32 operands
     (``head_in_fp32``) or from the compute-dtype ones with fp32 out
     (``HeadMatmul``; ``w`` is ``wte`` in the compute dtype where the
-    caller holds it already)."""
+    caller holds it already). The span ``lm_head`` (``observability.spans``)
+    bounds it, forward and backward. The weight is cast before the span's
+    edge: the edge returns a view of what it is given, through which FSDP's
+    ``regather_saved`` still finds the gathered weight."""
     if cfg.head_in_fp32:
-        return torch.matmul(x.float(), wte.float().t())
-    if w is None:
+        w = wte.float()
+    elif w is None:
         w = wte.to(cfg.dtype)
+    x, w = spans.enter("lm_head", x, w)
+    if cfg.head_in_fp32:
+        return spans.leave("lm_head", torch.matmul(x.float(), w.t()))
     logits = HeadMatmul.apply(x.reshape(-1, x.shape[-1]), w)
-    return logits.reshape(*x.shape[:-1], w.shape[0])
+    return spans.leave("lm_head", logits.reshape(*x.shape[:-1], w.shape[0]))
 
 
 class GPT2(nn.Module):

@@ -47,6 +47,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pytorch_distributed_tpu_torch._device import resolve_device
+from pytorch_distributed_tpu_torch.observability import spans
 
 __all__ = [
     "BasicBlock",
@@ -161,7 +162,11 @@ class BatchNorm(nn.Module):
                                 self.running_var.to(sdt), weight, bias,
                                 False, 0.0, self.epsilon)
         group = self.stats_group
-        if group is not None and dist.get_world_size(group) > 1:
+        grouped = group is not None and dist.get_world_size(group) > 1
+        if grouped:
+            # the span bn_group (observability.spans): the casts, the
+            # group's sums and the buffer update, forward and backward
+            x, weight, bias = spans.enter("bn_group", x, weight, bias)
             y, mean, var = self._global_batch_norm(x.to(sdt), weight, bias,
                                                    group)
             y = y.to(x.dtype)
@@ -172,7 +177,7 @@ class BatchNorm(nn.Module):
                                     1 - self.momentum)
             self.running_var.lerp_(var.to(self.running_var.dtype),
                                    1 - self.momentum)
-        return y
+        return spans.leave("bn_group", y) if grouped else y
 
     def _local_batch_norm(self, x, weight, bias):
         # F.batch_norm at momentum 1 leaves the batch mean and the unbiased

@@ -18,7 +18,10 @@ Port of ``pytorch_distributed_tpu/observability``, module for module:
     (serving's percentiles and rates);
   * ``profiler`` -- ``profile_trace``, ``annotate``,
     ``trace_op_breakdown``, ``memory_breakdown`` and ``StepProfiler`` on
-    ``torch.profiler``.
+    ``torch.profiler``;
+  * ``spans`` -- the port's own: span marks inside the runner's captured
+    step (a kernel pair a span, ``ops/csrc/spans.cu``), read into the
+    runner's metric ring as ``span_ms.<name>`` and from a device trace.
 """
 
 from pytorch_distributed_tpu_torch.observability.flight_recorder import (

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from pytorch_distributed_tpu_torch.observability import spans
+
 __all__ = ["chunked_cross_entropy", "matmul_f32"]
 
 _HALF = (torch.bfloat16, torch.float16)
@@ -97,5 +99,9 @@ def chunked_cross_entropy(x: torch.Tensor, W: torch.Tensor,
                           ) -> torch.Tensor:
     """Per-token cross-entropy ``[N]`` (fp32) of hidden states ``x [N, C]``
     against a tied head ``W [V, C]`` and int labels ``targets [N]`` in
-    ``[0, V)``, computed ``n_chunks`` vocab chunks at a time."""
-    return _ChunkedCrossEntropy.apply(x, W, targets.long(), n_chunks)
+    ``[0, V)``, computed ``n_chunks`` vocab chunks at a time. The span
+    ``lm_head`` (``observability.spans``) bounds it: it applies the head
+    itself."""
+    x, W = spans.enter("lm_head", x, W)
+    loss = _ChunkedCrossEntropy.apply(x, W, targets.long(), n_chunks)
+    return spans.leave("lm_head", loss)

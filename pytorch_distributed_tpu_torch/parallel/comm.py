@@ -27,7 +27,10 @@ appear at their first call after ``reset_counts``. The counts are what
 Each call is synchronous (``async_op=False``) on the caller's stream, so a
 CUDA graph capture of the step records it. A call on a one-rank group is
 issued all the same: its count and its place in the graph do not depend on
-the group's size.
+the group's size. The counts are of collectives run: the runner records a
+capture's calls without counting them (``recording(counted=False)``) and
+counts them at each replay (``count_replay``), so on the card as on the CPU
+``wire_bytes`` after N steps is N steps' worth.
 """
 
 from __future__ import annotations
@@ -44,8 +47,9 @@ from pytorch_distributed_tpu_torch.distributed.batch_ops import (
 )
 
 __all__ = ["counts", "wire_bytes", "group_counts", "calls", "Call",
-           "recording", "reset_counts", "all_reduce", "reduce_scatter",
-           "all_gather", "broadcast", "all_to_all", "p2p", "barrier"]
+           "recording", "count_replay", "reset_counts", "all_reduce",
+           "reduce_scatter", "all_gather", "broadcast", "all_to_all", "p2p",
+           "barrier"]
 
 _BASE = ("all_reduce", "reduce_scatter", "all_gather", "broadcast")
 
@@ -61,13 +65,15 @@ group_counts: Dict[Tuple[str, Any], int] = {}
 class Call(NamedTuple):
     """One collective call: ``name`` as in ``counts``, the ``dtype`` and
     ``shape`` of the tensor it moved (the reduced or gathered whole, or
-    the one sent or received), its ``group`` and ``nbytes`` of that
-    tensor."""
+    the one sent or received), its ``group``, ``nbytes`` of that tensor
+    and ``wire``, the bytes it added to ``wire_bytes`` (None for a
+    receive, which adds none)."""
     name: str
     dtype: torch.dtype
     shape: Tuple[int, ...]
     group: Any
     nbytes: int
+    wire: Optional[int] = None
 
 
 #: every call since the last ``reset_counts``, in order, up to
@@ -77,6 +83,8 @@ CALL_LOG_LIMIT = 1 << 16
 #: calls made past the limit, not kept in ``calls``
 calls_dropped = 0
 _recorders: List[List[Call]] = []
+#: open ``recording(counted=False)`` blocks
+_uncounted = 0
 
 
 def reset_counts() -> None:
@@ -90,15 +98,37 @@ def reset_counts() -> None:
 
 
 @contextlib.contextmanager
-def recording():
+def recording(counted: bool = True):
     """Yields a list that receives every call made inside the block,
-    whatever ``calls`` holds (an audit's record of one step)."""
+    whatever ``calls`` holds (an audit's record of one step). With
+    ``counted`` False the block's calls are recorded only, not counted:
+    a CUDA graph capture, whose calls run at each replay
+    (:func:`count_replay`) and not at the capture."""
+    global _uncounted
     rec: List[Call] = []
     _recorders.append(rec)
+    _uncounted += not counted
     try:
         yield rec
     finally:
+        _uncounted -= not counted
         _recorders.remove(rec)
+
+
+def _add(name: str, group, dtype: torch.dtype, wire: Optional[int]) -> None:
+    """Add one call to ``counts``, ``group_counts`` and ``wire_bytes``."""
+    counts[name] = counts.get(name, 0) + 1
+    group_counts[name, group] = group_counts.get((name, group), 0) + 1
+    if wire is not None:
+        key = f"{name}.{str(dtype).removeprefix('torch.')}"
+        wire_bytes[key] = wire_bytes.get(key, 0) + wire
+
+
+def count_replay(recorded: List[Call]) -> None:
+    """Count the calls a captured program recorded once more: one replay
+    of the program runs them (``calls`` keeps the capture's record)."""
+    for call in recorded:
+        _add(call.name, call.group, call.dtype, call.wire)
 
 
 def _count(name: str, t: Optional[torch.Tensor], group,
@@ -106,22 +136,21 @@ def _count(name: str, t: Optional[torch.Tensor], group,
     """Count a call of ``name`` whose input is ``t`` (its wire bytes) and
     whose record is of ``result`` (``t`` where None)."""
     global calls_dropped
-    counts[name] = counts.get(name, 0) + 1
-    group_counts[name, group] = group_counts.get((name, group), 0) + 1
+    wire = None if t is None else t.numel() * t.element_size()
+    if not _uncounted:
+        _add(name, group, None if t is None else t.dtype, wire)
     result = t if result is None else result
-    if result is not None:
-        call = Call(name, result.dtype, tuple(result.shape), group,
-                    result.numel() * result.element_size())
+    if result is None:
+        return
+    call = Call(name, result.dtype, tuple(result.shape), group,
+                result.numel() * result.element_size(), wire)
+    if not _uncounted:
         if len(calls) < CALL_LOG_LIMIT:
             calls.append(call)
         else:
             calls_dropped += 1
-        for rec in _recorders:
-            rec.append(call)
-    if t is None:
-        return
-    key = f"{name}.{str(t.dtype).removeprefix('torch.')}"
-    wire_bytes[key] = wire_bytes.get(key, 0) + t.numel() * t.element_size()
+    for rec in _recorders:
+        rec.append(call)
 
 
 def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:

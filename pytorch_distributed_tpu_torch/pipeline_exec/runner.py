@@ -22,6 +22,13 @@ is captured once as a CUDA graph (``_graphs.Program``) and every
     it and before the next one overwrites it; the values are read at
     :meth:`AsyncRunner.finish`, the only full sync.
 
+The body also zeroes the runner's span accumulators (one fill, see
+``observability.spans``), runs the step with its ``SpanClock`` active,
+and pushes each span's ms beside the step's metrics as
+``span_ms.<name>``: the phases of
+``Trainer.step_body`` and the model's marked layers, read from marks that
+every replay runs, with no profiler.
+
 Before the capture, :meth:`AsyncRunner.start` runs ``warmup_steps`` eager
 steps on the capture stream (cuDNN's algorithm search, cuBLAS, the first
 build of the port's kernels) and then puts back every tensor they changed:
@@ -82,7 +89,7 @@ import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch._graphs import Program, warm_stream
-from pytorch_distributed_tpu_torch.observability import record_event
+from pytorch_distributed_tpu_torch.observability import record_event, spans
 from pytorch_distributed_tpu_torch.parallel import comm
 from pytorch_distributed_tpu_torch.pipeline_exec.metric_ring import MetricRing
 
@@ -255,6 +262,7 @@ class AsyncRunner:
         self._built = 0
         self._key = None
         self._ring = None
+        self._clock = None
         self._reset()
 
     @property
@@ -288,11 +296,13 @@ class AsyncRunner:
 
     # -- setup -------------------------------------------------------------
     def _body(self, state, inputs, ring):
-        trainer = self.trainer
+        trainer, clock = self.trainer, self._clock
 
         def body():
-            new_state, metrics = trainer.step_body(state, inputs)
-            ring.push(metrics)
+            clock.zero()
+            with clock.active():
+                new_state, metrics = trainer.step_body(state, inputs)
+            ring.push({**metrics, **clock.readings()})
             if trainer._scaling:   # the next step reads the new scale
                 state.scaler.scale.copy_(new_state.scaler.scale)
                 state.scaler.growth_tracker.copy_(
@@ -313,6 +323,7 @@ class AsyncRunner:
                                   for x in sample)
             restore = _snapshot(trainer, state)
             self._pool = torch.cuda.graph_pool_handle() if on_card else None
+            self._clock = spans.SpanClock(device)
         else:
             inputs, ring = self._inputs, self._ring
             restore = _snapshot(trainer, state, (ring.idx, ring.buf))
@@ -322,10 +333,11 @@ class AsyncRunner:
             try:
                 warm = self.warmup_steps
                 if first:
-                    with comm.recording() as last:
+                    with comm.recording() as last, self._clock.active():
                         _, metrics = trainer.step(state, inputs)
-                    ring = MetricRing.create(_metric_names(metrics),
-                                             self.drain_every, device)
+                    names = (_metric_names(metrics)
+                             + tuple(self._clock.readings()))
+                    ring = MetricRing.create(names, self.drain_every, device)
                     warm -= 1
                 body = self._body(state, inputs, ring)
                 for _ in range(warm):
@@ -338,7 +350,8 @@ class AsyncRunner:
         if first:
             ring.reset()
             self._inputs, self._ring = inputs, ring
-        with comm.recording() as captured:
+        # a replay runs the captured collectives; the capture runs none
+        with comm.recording(counted=False) as captured:
             program = Program(body, device=device, stream=side,
                               pool=self._pool, generators=trainer.generators,
                               capture=self.graphs)
@@ -390,14 +403,18 @@ class AsyncRunner:
     def submit(self, batch) -> None:
         """Dispatch one step. Never blocks on the step just submitted;
         blocks only on the step ``depth`` behind once the pipeline is
-        full."""
+        full. A replay counts the collectives its capture recorded in
+        ``parallel.comm``'s counters (an eager body counts its own)."""
         self._check_batch(batch)
         for s, x in zip(self._inputs, batch):
             s.copy_(torch.as_tensor(x), non_blocking=True)
         step = self._state.step + self._n
         key = self._key_at(step)
         self.trainer.seed_dropout(step)
-        self.programs[key]()
+        program = self.programs[key]
+        program()
+        if program.captured:
+            comm.count_replay(self.inventories[key])
         self._n += 1
         self._dispatches += 1
         if self.device.type == "cuda":

@@ -125,6 +125,7 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_distributed_tpu_torch.amp import GradScaler, Policy, get_policy
+from pytorch_distributed_tpu_torch.observability import spans
 from pytorch_distributed_tpu_torch.ops.chunked_xent import chunked_cross_entropy
 from pytorch_distributed_tpu_torch.parallel import (
     DataParallel,
@@ -209,11 +210,12 @@ def lm_loss(model, batch, train: bool):
     tokens, targets, mask = _lm_batch(batch)
     out = model(tokens)
     logits, moe_aux = out if isinstance(out, tuple) else (out, None)
-    logits = logits.float()
+    logits = spans.enter("lm_loss", logits).float()
     B, T, V = logits.shape
     per_tok = F.cross_entropy(logits.reshape(B * T, V),
                               targets.reshape(-1).long(),
                               reduction="none").reshape(B, T)
+    per_tok = spans.leave("lm_loss", per_tok)
     return _reduce_lm_loss(per_tok, mask, moe_aux, train)
 
 
@@ -473,6 +475,10 @@ class Trainer:
         model, params = self.model, self._params
         model.train(True)
         accum = self.grad_accum_steps
+        # the span marks (observability.spans; only under the runner's
+        # clock) partition the body: forward, backward, grad_exchange,
+        # update
+        spans.begin("forward")
         batch = self.policy.cast_to_compute(
             self.strategy.place_batch(batch, accum))
         scaling = self._scaling
@@ -481,17 +487,28 @@ class Trainer:
 
         layout = self.layout
         losses, per_mb = [], []
-        for mb in _microbatches(batch, accum):
+        for i, mb in enumerate(_microbatches(batch, accum)):
+            if i:
+                spans.begin("forward")
             if not self._runs_loss:
+                # a stage before the last: the schedule interleaves its
+                # forwards and backwards, all counted as backward
+                spans.end("forward")
+                spans.begin("backward")
                 self.strategy.stage_backward(model, mb)
+                spans.end("backward")
                 continue
             with (regather_saved() if self._fsdp
                   else contextlib.nullcontext()):
                 loss, metrics = self.loss_fn(model, mb, True)
+            spans.end("forward")
+            spans.begin("backward")
             (self.scaler.scale(loss, state.scaler) if scaling
              else loss).backward()
+            spans.end("backward")
             losses.append(loss.detach())
             per_mb.append({k: v.detach() for k, v in metrics.items()})
+        spans.begin("grad_exchange")
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         if accum > 1:
@@ -504,6 +521,8 @@ class Trainer:
             grads, state = self._hooked(state, grads)
         else:
             grads = self.strategy.reduce_grads(grads)
+        spans.end("grad_exchange")
+        spans.begin("update")
         loss = torch.stack(losses).mean() if losses else None
         metrics = ({k: torch.stack([m[k] for m in per_mb]).mean()
                     for k in per_mb[0]} if per_mb else None)
@@ -536,6 +555,7 @@ class Trainer:
             for p, g in zip(params, grads):
                 p.grad = g.to(p.dtype)
             opt_step()
+        spans.end("update")
 
         out_metrics = {"loss": loss, "grad_norm": grad_norm,
                        "all_finite": all_finite, **metrics}
