@@ -44,6 +44,15 @@ capture records; what the replays launched is counted in device traces
                 checked too; B4-B6 position-masked flash forward, dq, dk/dv
                 on every position pattern a ring hop gives them, with a
                 ragged fp16 and a D=128 pattern);
+  bn_kernels    the four BatchNorm kernels of BatchNorm over a stats group
+                (bn_stats, bn_fwd_elemt, bn_bwd_reduce, bn_bwd_elemt) in
+                bf16 at every BatchNorm shape of ResNet-50 at 224 px and
+                256 images, and fp16, fp32 and narrow-channel checks: each
+                against its plain version, each reduction's bits equal over
+                two launches, a refused launch, a CUDA graph's capture and
+                replays, the launch counts; times per layer and summed over
+                the 53 layers of a step, beside the bound, the plain
+                version's and PyTorch's SyncBatchNorm pieces;
   cp_hops       the ring's own hop functions for 4 ranks emulated on the
                 card (plain and zigzag ring, T=4096): merged outputs and
                 gradients against B1-B3 on the whole sequence;
@@ -276,6 +285,14 @@ capture records; what the replays launched is counted in device traces
                 losses within 1% of NoShard's, the bytes on the wire a step
                 (bf16 half of fp32; PowerSGD's = ``wire_elements``), and
                 ``average_parameters`` one all-reduce per dtype;
+  bn_group      ResNet-50 at 224 px, 32 images a rank, bf16, 3 steps under
+                DataParallel, so BatchNorm runs over the dp group through
+                the four BatchNorm kernels: the same four ranks, eager
+                (one card), or one rank a card over NCCL through
+                AsyncRunner's captured step (two cards or more); 53
+                launches of each kernel a step (at the runner's start,
+                none in its replays), no plain version, the ranks' states
+                equal, the losses within 1% of NoShard's;
   tp_ranks      the same four ranks: TensorParallel at (dp 1, tp 4), with
                 and without sequence parallelism, and (dp 2, tp 2), 3 bf16
                 steps within 1% of NoShard's losses, the collectives and
@@ -509,6 +526,7 @@ from pytorch_distributed_tpu_torch.examples import (
 from pytorch_distributed_tpu_torch.mesh import init_device_mesh
 from pytorch_distributed_tpu_torch.models import GPT2, GPT2Config, gpt2_125m
 from pytorch_distributed_tpu_torch.ops import _build
+from pytorch_distributed_tpu_torch.ops import batch_norm as bnk
 from pytorch_distributed_tpu_torch.ops import chunked_xent
 from pytorch_distributed_tpu_torch.ops import paged_attention as pa
 from pytorch_distributed_tpu_torch.pipeline_exec import AsyncRunner
@@ -614,7 +632,8 @@ MASKED_KERNELS = (
 CAUSAL_KEYS = tuple(key for _, key, _ in FLASH_KERNELS)
 MASKED_KEYS = tuple(key for _, key, _ in MASKED_KERNELS)
 LIBRARIES = ("paged_decode_attention", "flash_attention_causal",
-             "flash_attention_masked")
+             "flash_attention_masked", "batch_norm")
+BN_SOURCE = "pytorch_distributed_tpu_torch/ops/csrc/batch_norm.cu"
 # kernel vs plain version, |a - b| <= tol * (1 + |b|): fp32 sums in another
 # order; bf16 outputs rounded once from fp32 (one bf16 ulp is 2**-8 of the
 # value) and p rounded to bf16 before PV in both
@@ -1942,6 +1961,349 @@ def masked_kernel_phase(resources):
           "backward_bfloat16": backward,
           "results": results})
     return results
+
+
+# ResNet-50's BatchNorm shapes at 224 px (C, H = W, layers), 53 layers in
+# all: bn_init, then each stage's 1x1, 3x3 (v1.5's stride), 1x1 and the
+# first block's downsample
+RESNET50_BN_SHAPES = (
+    (64, 112, 1), (64, 56, 6), (256, 56, 4), (128, 56, 1), (128, 28, 7),
+    (512, 28, 5), (256, 28, 1), (256, 14, 11), (1024, 14, 7), (512, 14, 1),
+    (512, 7, 5), (2048, 7, 4))
+BN_BATCH = 256        # a rank's images in resnet50.ddp4
+BN_EPS = 1e-5
+# activations read and written a call, in passes over x: bn_stats reads x;
+# bn_fwd_elemt reads x, writes y; bn_bwd_reduce reads dy, x; bn_bwd_elemt
+# reads dy, x, writes dx
+BN_PASSES = {"bn_stats": 1, "bn_fwd_elemt": 2, "bn_bwd_reduce": 2,
+             "bn_bwd_elemt": 3}
+# beside the ResNet shapes, the kernels' other routes in one check each:
+# C 24 (3 groups of 8 channels: a CTA's lanes partly idle), fp16, fp32 (4
+# channels a load)
+BN_CHECKS = {"bfloat16_C24": (3, 24, 5, 7, torch.bfloat16),
+             "float16_C40": (4, 40, 3, 9, torch.float16),
+             "float32_C64": (8, 64, 9, 9, torch.float32)}
+# kernel against plain version, both fp32 inside:
+#  * sums: |k - p| <= 3e-5 * (the same sum of absolute terms): fp32 sums of
+#    up to 3.2M terms a channel in two orders, each with a longest chain of
+#    about 200 sequential adds (2**-24 * 200 = 1.2e-5 of the absolute sum a
+#    side, worst case);
+#  * mean and var from the same sums: equal, the same IEEE operations in
+#    the same order (reported; held within 1e-6 of their largest);
+#  * y and dx in 16 bits: one rounding of fp32 values that differ by fp32
+#    round-off (the kernel fuses a multiply-add), so at most one ulp of the
+#    output type (2**-7 of the value in bf16, 2**-10 in fp16) plus 1e-5 of
+#    the largest value near zero; fp32 outputs 1e-5 of the value plus 1e-5
+#    of the largest.
+BN_SUM_TOL = 3e-5
+# PyTorch's SyncBatchNorm pieces that compute each kernel's function: the
+# yardstick of bn_kernels' times
+BN_LIBRARY_CALLS = {"bn_stats": "torch.batch_norm_stats",
+                    "bn_fwd_elemt": "torch.batch_norm_elemt",
+                    "bn_bwd_reduce": "torch.batch_norm_backward_reduce",
+                    "bn_bwd_elemt": "torch.batch_norm_backward_elemt"}
+BN_ULP = {torch.bfloat16: 2**-7, torch.float16: 2**-10, torch.float32: 1e-5}
+
+
+def _bn_inputs(N, C, H, W, dtype, g):
+    """x with per-channel means in [-1, 1] and spreads in [0.5, 2], dy,
+    weight and bias: channels_last activations on the card."""
+    def cl(t):
+        return t.permute(0, 3, 1, 2)
+    mean = torch.rand(C, generator=g) * 2 - 1
+    spread = torch.rand(C, generator=g) * 1.5 + 0.5
+    x = cl(torch.randn(N, H, W, C, generator=g) * spread + mean)
+    dy = cl(torch.randn(N, H, W, C, generator=g))
+    weight = torch.rand(C, generator=g) + 0.5
+    bias = torch.randn(C, generator=g)
+    return (x.to("cuda", dtype), dy.to("cuda", dtype),
+            weight.to("cuda"), bias.to("cuda"))
+
+
+def _bn_rel(k, p, scale) -> float:
+    """max |k - p| / scale (elementwise scale, or one number)."""
+    return float(((k.float() - p.float()).abs() / scale).max())
+
+
+def _bn_check(x, dy, weight, bias):
+    """Each kernel against its plain version on the same inputs (the
+    plain version's sums feed both sides of the later kernels), two
+    launches of each reduction on the same input (their bits equal), and
+    the worst error of each as a share of its tolerance."""
+    dims = (0, 2, 3)
+    C = x.shape[1]
+    ulp = BN_ULP[x.dtype]
+    out = {}
+    stats_p = bnk.bn_stats_reference(x)
+    stats_k = bnk.bn_stats(x)
+    stats_again = bnk.bn_stats(x)
+    xf = x.float()
+    absum = torch.cat([xf.abs().sum(dims), (xf * xf).sum(dims)])
+    out["bn_stats"] = {
+        "share_of_tol": _bn_rel(stats_k[:2 * C], stats_p[:2 * C],
+                                BN_SUM_TOL * absum),
+        "max_abs_err": _bn_rel(stats_k, stats_p, 1.0),
+        "count_equal": bool(stats_k[-1] == stats_p[-1]),
+        "repeat_bit_equal": torch.equal(stats_k, stats_again)}
+    y_p, mean_p, var_p = bnk.bn_fwd_elemt_reference(x, stats_p, weight,
+                                                     bias, BN_EPS)
+    y_k, mean_k, var_k = bnk.bn_fwd_elemt(x, stats_p, weight, bias, BN_EPS)
+    ymax = float(y_p.float().abs().max())
+    out["bn_fwd_elemt"] = {
+        "share_of_tol": _bn_rel(y_k, y_p, ulp * y_p.float().abs()
+                                + 1e-5 * ymax),
+        "max_abs_err": _bn_rel(y_k, y_p, 1.0),
+        "mean_var_equal": torch.equal(mean_k, mean_p)
+        and torch.equal(var_k, var_p),
+        "mean_var_rel": max(_bn_rel(mean_k, mean_p,
+                                    float(mean_p.abs().max())),
+                            _bn_rel(var_k, var_p, float(var_p.abs().max())))}
+    del y_p, y_k
+    dw_p, db_p, sums_p = bnk.bn_bwd_reduce_reference(dy, x, stats_p, BN_EPS)
+    dw_k, db_k, sums_k = bnk.bn_bwd_reduce(dy, x, stats_p, BN_EPS)
+    _, _, sums_again = bnk.bn_bwd_reduce(dy, x, stats_p, BN_EPS)
+    dyf = dy.float()
+    absdy = dyf.abs().sum(dims)
+    absdyx = (dyf.abs() * (xf - mean_p.view(1, C, 1, 1)).abs()).sum(dims)
+    invstd = torch.rsqrt(var_p + BN_EPS)
+    out["bn_bwd_reduce"] = {
+        "share_of_tol": max(
+            _bn_rel(sums_k, sums_p, BN_SUM_TOL * torch.cat([absdy, absdyx])),
+            _bn_rel(db_k, db_p, BN_SUM_TOL * absdy),
+            _bn_rel(dw_k, dw_p, BN_SUM_TOL * absdyx * invstd)),
+        "max_abs_err": max(_bn_rel(sums_k, sums_p, 1.0),
+                           _bn_rel(db_k, db_p, 1.0),
+                           _bn_rel(dw_k, dw_p, 1.0)),
+        "repeat_bit_equal": torch.equal(sums_k, sums_again)}
+    del xf, dyf
+    dx_p = bnk.bn_bwd_elemt_reference(dy, x, stats_p, weight, sums_p, BN_EPS)
+    dx_k = bnk.bn_bwd_elemt(dy, x, stats_p, weight, sums_p, BN_EPS)
+    dxmax = float(dx_p.float().abs().max())
+    out["bn_bwd_elemt"] = {
+        "share_of_tol": _bn_rel(dx_k, dx_p, ulp * dx_p.float().abs()
+                                + 1e-5 * dxmax),
+        "max_abs_err": _bn_rel(dx_k, dx_p, 1.0)}
+    torch.cuda.synchronize()
+    return out, (stats_p, mean_p, var_p, sums_p)
+
+
+def _bn_library(x, dy, weight, bias, stats):
+    """The library calls that compute each kernel's function (PyTorch's
+    SyncBatchNorm pieces), as yardsticks: torch.batch_norm_stats (mean and
+    invstd), batch_norm_elemt, batch_norm_backward_reduce,
+    batch_norm_backward_elemt."""
+    mean, invstd = torch.batch_norm_stats(x, BN_EPS)
+    sum_dy, sum_dy_xmu, _, _ = torch.batch_norm_backward_reduce(
+        dy, x, mean, invstd, weight, True, True, True)
+    count = torch.tensor([x.numel() // x.shape[1]], dtype=torch.int32,
+                         device=x.device)
+    return {
+        "bn_stats": lambda: torch.batch_norm_stats(x, BN_EPS),
+        "bn_fwd_elemt": lambda: torch.batch_norm_elemt(
+            x, weight, bias, mean, invstd, BN_EPS),
+        "bn_bwd_reduce": lambda: torch.batch_norm_backward_reduce(
+            dy, x, mean, invstd, weight, True, True, True),
+        "bn_bwd_elemt": lambda: torch.batch_norm_backward_elemt(
+            dy, x, mean, invstd, weight, sum_dy, sum_dy_xmu, count),
+    }
+
+
+def _bn_graph_check(x, dy, weight, bias):
+    """The four wrappers captured in a CUDA graph: the capture counts one
+    launch of each, three replays count none while the card runs their
+    kernels each time (6 a replay: the two reductions are two kernels
+    each), and a replay's outputs equal the eager ones bit for bit."""
+    def body():
+        stats = bnk.bn_stats(x)
+        y, _, _ = bnk.bn_fwd_elemt(x, stats, weight, bias, BN_EPS)
+        _, _, sums = bnk.bn_bwd_reduce(dy, x, stats, BN_EPS)
+        return stats, y, sums, bnk.bn_bwd_elemt(dy, x, stats, weight, sums,
+                                                BN_EPS)
+
+    eager = body()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(bnk.launches)
+    with torch.cuda.graph(graph):
+        captured = body()
+    at_capture = {k: bnk.launches[k] - before[k] for k in bnk.KERNELS}
+    before = dict(bnk.launches)
+    with device_launches("bn_") as device:
+        for _ in range(3):
+            graph.replay()
+    torch.cuda.synchronize()
+    replays = {k: bnk.launches[k] - before[k] for k in bnk.KERNELS}
+    equal = all(torch.equal(a, b) for a, b in zip(captured, eager))
+    check(at_capture == dict.fromkeys(bnk.KERNELS, 1),
+          f"bn_kernels: a capture counted {at_capture}, expected 1 each")
+    check(not any(replays.values()),
+          f"bn_kernels: replays counted launches {replays}")
+    check(device["bn_"] == 3 * 6,
+          f"bn_kernels: 3 replays ran {device['bn_']} kernels, expected 18")
+    check(equal, "bn_kernels: a replay's outputs differ from eager ones")
+    del graph
+    return {"capture": at_capture, "replays": replays,
+            "device_launches_3_replays": device["bn_"],
+            "replay_bit_equal": equal}
+
+
+def _bn_refusals(x):
+    """A launch the kernels' entry point refuses (a CTA of 48 x 8 threads)
+    raises and counts nothing; so do the wrapper's refusals (fp64; a
+    contiguous NCHW tensor; rows that do not start 16-byte aligned: C 20
+    in bf16)."""
+    before = dict(bnk.launches)
+    refused = {}
+    cases = {
+        "entry_point": (RuntimeError, lambda: bnk.bn_stats(x)),
+        "float64": (TypeError, lambda: bnk.bn_stats(x.double())),
+        "nchw": (ValueError, lambda: bnk.bn_stats(x.contiguous())),
+        "unaligned_rows": (ValueError, lambda: bnk.bn_stats(
+            x[:, :20].contiguous(memory_format=torch.channels_last))),
+    }
+    for name, (error, call) in cases.items():
+        patch = (mock.patch.object(bnk, "_geometry",
+                                   lambda *a: (48, 8, 1, 1))
+                 if name == "entry_point" else contextlib.nullcontext())
+        try:
+            with patch:
+                call()
+            refused[name] = None
+        except error as e:
+            refused[name] = str(e)[:120]
+    torch.cuda.synchronize()
+    check(all(refused.values()), f"bn_kernels: not refused: {refused}")
+    check(bnk.launches == before,
+          f"bn_kernels: refused launches were counted: {bnk.launches}")
+    return refused
+
+
+def bn_resources():
+    """Registers and stack bytes of each kernel of the BatchNorm library
+    (``cuobjdump -res-usage``), by mangled name."""
+    tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    lib = str(_build._target("batch_norm")[1])
+    usage = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                           text=True, check=True).stdout
+    return {fn: {"registers": int(reg), "stack_bytes": int(stack)}
+            for fn, reg, stack in re.findall(
+                r"Function ([^\s:]+):\s*REG:(\d+) STACK:(\d+)", usage)}
+
+
+def bn_kernel_phase():
+    """The four BatchNorm kernels (``ops/batch_norm.py``,
+    ``csrc/batch_norm.cu``) in bf16 at every BatchNorm shape of ResNet-50
+    at 224 px and 256 images (a rank's batch in resnet50.ddp4), and at
+    three small checks of their other routes: each against its plain
+    version (tolerances: BN_SUM_TOL, BN_ULP), each reduction twice on the
+    same input (bit-equal), a refused launch, a CUDA graph capture and its
+    replays, the launch counts. Times: CUDA-event medians with the L2
+    flushed before each call, for the kernel, its plain version and the
+    library call; per step: summed over the 53 layers; bound: the passes
+    over the activation (BN_PASSES) at the card's published bandwidth."""
+    g = torch.Generator().manual_seed(25)
+    flush = torch.empty(128 * 2**20, dtype=torch.int32, device="cuda")
+    hbm = peaks()[2]
+    for k in bnk.KERNELS:
+        bnk.launches[k] = 0
+    expected = dict.fromkeys(bnk.KERNELS, 0)
+    # eager calls of each kernel in one _bn_check
+    per_check = {"bn_stats": 2, "bn_fwd_elemt": 1, "bn_bwd_reduce": 2,
+                 "bn_bwd_elemt": 1}
+    checks = {}
+    for name, (N, C, H, W, dtype) in BN_CHECKS.items():
+        checks[name], _ = _bn_check(*_bn_inputs(N, C, H, W, dtype, g))
+        for k in bnk.KERNELS:
+            expected[k] += per_check[k]
+    reps, plain_reps = 20, 3
+    shapes, per_step = [], {k: dict.fromkeys(
+        ("ms", "bound_ms", "plain_ms", "library_ms"), 0.0)
+        for k in bnk.KERNELS}
+    for C, HW, layers in RESNET50_BN_SHAPES:
+        x, dy, weight, bias = _bn_inputs(BN_BATCH, C, HW, HW, torch.bfloat16,
+                                         g)
+        errs, (stats, _, _, sums) = _bn_check(x, dy, weight, bias)
+        for k in bnk.KERNELS:
+            expected[k] += per_check[k]
+        calls = {
+            "bn_stats": (lambda: bnk.bn_stats(x),
+                         lambda: bnk.bn_stats_reference(x)),
+            "bn_fwd_elemt": (
+                lambda: bnk.bn_fwd_elemt(x, stats, weight, bias, BN_EPS),
+                lambda: bnk.bn_fwd_elemt_reference(x, stats, weight, bias,
+                                                   BN_EPS)),
+            "bn_bwd_reduce": (
+                lambda: bnk.bn_bwd_reduce(dy, x, stats, BN_EPS),
+                lambda: bnk.bn_bwd_reduce_reference(dy, x, stats, BN_EPS)),
+            "bn_bwd_elemt": (
+                lambda: bnk.bn_bwd_elemt(dy, x, stats, weight, sums, BN_EPS),
+                lambda: bnk.bn_bwd_elemt_reference(dy, x, stats, weight,
+                                                   sums, BN_EPS)),
+        }
+        library = _bn_library(x, dy, weight, bias, stats)
+        row = {"shape": [BN_BATCH, C, HW, HW], "layers": layers,
+               "checks": errs}
+        for k, (kernel, plain) in calls.items():
+            bound = BN_PASSES[k] * x.numel() * x.element_size() / hbm * 1e3
+            ms = time_ms(kernel, reps, flush)
+            expected[k] += 3 + reps      # time_ms's warm-up calls and reps
+            lib_ms = time_ms(library[k], reps, flush)
+            plain_ms = time_ms(plain, plain_reps, flush)
+            row[k] = {"ms": ms, "bound_ms": bound, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "ms_over_bound": ms / bound}
+            for key, value in (("ms", ms), ("bound_ms", bound),
+                               ("plain_ms", plain_ms),
+                               ("library_ms", lib_ms)):
+                per_step[k][key] += layers * value
+        shapes.append(row)
+        del x, dy, calls, library
+        torch.cuda.empty_cache()
+    worst = {k: max([r["checks"][k]["share_of_tol"] for r in shapes]
+                    + [c[k]["share_of_tol"] for c in checks.values()])
+             for k in bnk.KERNELS}
+    max_abs_err = {k: max([r["checks"][k]["max_abs_err"] for r in shapes]
+                          + [c[k]["max_abs_err"] for c in checks.values()])
+                   for k in bnk.KERNELS}
+    rows = shapes + [{"checks": c} for c in checks.values()]
+    repeat_equal = all(r["checks"][k]["repeat_bit_equal"] for r in rows
+                       for k in ("bn_stats", "bn_bwd_reduce"))
+    counts_equal = all(r["checks"]["bn_stats"]["count_equal"] for r in rows)
+    mean_var_rel = max(r["checks"]["bn_fwd_elemt"]["mean_var_rel"]
+                       for r in rows)
+    check(all(w <= 1.0 for w in worst.values()),
+          f"bn_kernels: kernel against plain version over tolerance "
+          f"(share of tolerance {worst})")
+    check(repeat_equal, "bn_kernels: a repeated reduction gave other bits")
+    check(counts_equal, "bn_kernels: the count differs from the plain one")
+    check(mean_var_rel <= 1e-6,
+          f"bn_kernels: mean or var {mean_var_rel} from the plain one")
+    check(bnk.launches == expected,
+          f"bn_kernels: launches {bnk.launches}, expected {expected}")
+    x, dy, weight, bias = _bn_inputs(BN_BATCH, 256, 14, 14, torch.bfloat16, g)
+    graph = _bn_graph_check(x, dy, weight, bias)
+    for k in bnk.KERNELS:   # eager, the capture's warm-up, the capture
+        expected[k] += 3
+    refused = _bn_refusals(x)
+    check(bnk.launches == expected,
+          f"bn_kernels: launches {bnk.launches}, expected {expected}")
+    emit({"phase": "bn_kernels", "dtype": "bfloat16", "batch": BN_BATCH,
+          "source": BN_SOURCE, "replaces": None,
+          "resources": bn_resources(),
+          "launches": dict(bnk.launches), "expected_launches": expected,
+          "worst_share_of_tol": worst, "max_abs_err": max_abs_err,
+          "repeat_bit_equal": repeat_equal,
+          "mean_var_equal": all(r["checks"]["bn_fwd_elemt"]["mean_var_equal"]
+                                for r in rows),
+          "mean_var_rel": mean_var_rel,
+          "per_step_53_layers": per_step, "graph": graph,
+          "refused": refused, "shapes": shapes, "checks": checks,
+          "library_call": BN_LIBRARY_CALLS})
+    return {"per_step": per_step, "worst_share_of_tol": worst,
+            "max_abs_err": max_abs_err}
 
 
 def cp_hops_phase():
@@ -3849,6 +4211,204 @@ def hooks_ranks_phase(pool, want, device=torch.device("cuda", 0)):
     check(avg["all_reduces"] == avg["dtypes"],
           f"hooks_ranks: average_parameters made {avg['all_reduces']} "
           f"all-reduces for {avg['dtypes']} dtypes")
+    return line
+
+
+# -- BatchNorm over a stats group in ResNet-50's own step: the path of the
+# four BatchNorm kernels (bn_kernels) --
+
+BN_GROUP_IMAGES = 32      # a rank's images, at 224 px
+BN_GROUP_STEPS = 3
+# the mean of the group's losses (bf16; flax's E[x^2] - E[x]^2 in the
+# kernels) against NoShard's on the global batch (bf16; cuDNN's one-rank
+# statistics): the two normalize with statistics that differ by rounding,
+# so the bf16 limit of the other rank phases
+BN_GROUP_LOSS_RTOL = FSDP_RANKS_LOSS_RTOL
+BN_GROUP_TIMEOUT_S = 600
+
+
+def _bn_group_trainer(device, world: int):
+    """ResNet-50 (1000 classes, bf16 policy, seed 0) with SGD(0.1, 0.9):
+    NoShard on one rank, else DataParallel over a ("dp",) mesh of
+    ``world`` ranks, which binds every BatchNorm's ``stats_group``."""
+    from pytorch_distributed_tpu_torch.models import resnet50
+
+    model = resnet50(num_classes=1000, dtype=torch.bfloat16, device=device,
+                     seed=0)
+    strategy = (NoShard(device) if world == 1 else
+                DataParallel(init_device_mesh((world,), ("dp",))))
+    return Trainer(model, torch.optim.SGD(model.parameters(), lr=0.1,
+                                          momentum=0.9),
+                   strategy, loss_fn=classification_loss, policy="bf16")
+
+
+def _bn_group_batches(world: int):
+    """BN_GROUP_STEPS global batches of ``world`` ranks' images (host
+    arrays, the same in every process)."""
+    rng = np.random.default_rng(25)
+    n = BN_GROUP_IMAGES * world
+    return [(rng.standard_normal((n, 224, 224, 3)).astype(np.float32),
+             rng.integers(0, 1000, n).astype(np.int32))
+            for _ in range(BN_GROUP_STEPS)]
+
+
+def _bn_group_rank(rank, out_dir, world, device, captured):
+    """A rank of the bn_group phase: ResNet-50 under DataParallel for
+    BN_GROUP_STEPS steps, eager (``Trainer.step``) or through
+    ``AsyncRunner`` (``captured``: warm-up steps, the capture, then
+    replays); the BatchNorm kernels' launches counted from 0 around each
+    eager step, or around the runner's start and its replays; the plain
+    versions' calls; the losses; a digest of the final parameters and
+    buffers."""
+    import hashlib
+
+    result = {"rank": rank}
+    try:
+        trainer = _bn_group_trainer(device, world)
+        state = trainer.init()
+        batches = _bn_group_batches(world)
+        result["n_bn"] = len(trainer.model.batch_norms())
+        plain = dict(bnk.plain_calls)
+        launches = {}
+        if captured:
+            runner = AsyncRunner(trainer)
+            for k in bnk.KERNELS:
+                bnk.launches[k] = 0
+            runner.start(state, batches[0])
+            torch.cuda.synchronize(device)
+            launches["start"] = dict(bnk.launches)
+            launches["start_steps"] = runner.warmup_steps + 1
+            for k in bnk.KERNELS:
+                bnk.launches[k] = 0
+            for batch in batches:
+                runner.submit(batch)
+            state, hist = runner.finish()
+            launches["replays"] = dict(bnk.launches)
+            result["losses"] = [float(x) for x in hist["loss"]]
+        else:
+            launches["steps"], result["losses"] = [], []
+            for batch in batches:
+                for k in bnk.KERNELS:
+                    bnk.launches[k] = 0
+                state, m = trainer.step(state, batch)
+                result["losses"].append(float(m["loss"]))
+                launches["steps"].append(dict(bnk.launches))
+        torch.cuda.synchronize(device)
+        result["launches"] = launches
+        result["plain_calls"] = {k: bnk.plain_calls[k] - plain[k]
+                                 for k in bnk.KERNELS}
+        digest = hashlib.sha1()
+        for t in trainer.model.state_dict().values():
+            digest.update(t.detach().float().cpu().numpy().tobytes())
+        result["digest"] = digest.hexdigest()
+        result["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    finally:
+        torch.save(result, f"{out_dir}/bn_group_rank{rank}.pt")
+
+
+def _bn_group_nccl_worker(rank, world, port, out_dir):
+    """A rank on card ``rank`` of an NCCL group: the captured bn_group
+    body."""
+    device = torch.device("cuda", rank)
+    torch.cuda.set_device(device)
+    pdist.init_process_group(init_method=f"tcp://localhost:{port}",
+                             rank=rank, world_size=world, device=device)
+    try:
+        _build.load("batch_norm")
+        _bn_group_rank(rank, out_dir, world, device, True)
+    finally:
+        pdist.destroy_process_group()
+
+
+def bn_group_phase(pool):
+    """ResNet-50 at 224 px, BN_GROUP_IMAGES images a rank, bf16, SGD(0.1,
+    0.9), BN_GROUP_STEPS steps under DataParallel, whose BatchNorms take
+    the statistics of the group's whole batch (``_GroupBatchNorm``, the
+    four kernels of bn_kernels), through the model's own entry. With two
+    or more cards visible: one rank a card (up to 4) over NCCL through
+    ``AsyncRunner``, as resnet50.ddp4 runs, the step captured as a CUDA
+    graph: 53 launches of each kernel a step at the runner's start (its
+    warm-up steps and the capture), none in the replays. With one card:
+    the pool's FSDP_RANKS ranks over gloo, eager steps (gloo is not
+    captured): 53 launches of each kernel every step. Either way no plain
+    version runs, every rank ends with the same parameters and BatchNorm
+    buffers, and the mean of the ranks' losses stays within
+    BN_GROUP_LOSS_RTOL of NoShard's on the global batch here."""
+    import tempfile
+
+    cards = torch.cuda.device_count()
+    captured = cards >= 2
+    world = min(cards, 4) if captured else FSDP_RANKS
+    torch.cuda.empty_cache()
+    ref = _bn_group_trainer(torch.device("cuda", 0), 1)
+    state = ref.init()
+    want = []
+    for batch in _bn_group_batches(world):
+        state, m = ref.step(state, batch)
+        want.append(float(m["loss"]))
+    del ref, state
+    torch.cuda.empty_cache()
+    _build._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_build._BUILD_DIR) as out_dir:
+        if captured:
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            ctx = torch.multiprocessing.start_processes(
+                _bn_group_nccl_worker, args=(world, port, out_dir),
+                nprocs=world, join=False, start_method="spawn")
+            deadline = time.monotonic() + BN_GROUP_TIMEOUT_S
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    for proc in ctx.processes:
+                        proc.kill()
+                    check(False, f"bn_group: the NCCL ranks did not finish "
+                                 f"in {BN_GROUP_TIMEOUT_S} s")
+        else:
+            pool.run(_bn_group_rank, (out_dir, world,
+                                      torch.device("cuda", 0), False),
+                     BN_GROUP_TIMEOUT_S, "bn_group")
+        ranks = [torch.load(f"{out_dir}/bn_group_rank{r}.pt",
+                            weights_only=False) for r in range(world)]
+    wall_s = time.perf_counter() - t0
+    mean = [float(np.mean([r["losses"][i] for r in ranks]))
+            for i in range(BN_GROUP_STEPS)]
+    per_step = dict.fromkeys(bnk.KERNELS, 53)
+    if captured:
+        steps = ranks[0]["launches"]["start_steps"]
+        want_launches = {"start": {k: 53 * steps for k in bnk.KERNELS},
+                         "start_steps": steps,
+                         "replays": dict.fromkeys(bnk.KERNELS, 0)}
+    else:
+        want_launches = {"steps": [per_step] * BN_GROUP_STEPS}
+    line = {"phase": "bn_group", "model": "resnet50", "dtype": "bfloat16",
+            "hw": 224, "images_per_rank": BN_GROUP_IMAGES,
+            "steps": BN_GROUP_STEPS, "ranks": world,
+            "backend": "nccl" if captured else "gloo",
+            "step": "AsyncRunner, captured" if captured
+            else "Trainer.step, eager",
+            "n_bn": [r["n_bn"] for r in ranks],
+            "launches": [r["launches"] for r in ranks],
+            "expected_launches": want_launches,
+            "plain_calls": [r["plain_calls"] for r in ranks],
+            "states_equal_across_ranks": len({r["digest"] for r in ranks})
+            == 1,
+            "mean_losses": mean, "noshard_losses": want,
+            "loss_rel_err": [abs(a - b) / abs(b) for a, b in zip(mean, want)],
+            "loss_rtol": BN_GROUP_LOSS_RTOL,
+            "peak_gib": [r["peak_gib"] for r in ranks], "wall_s": wall_s}
+    emit(line)
+    check(all(n == 53 for n in line["n_bn"]),
+          f"bn_group: BatchNorms a model {line['n_bn']}, expected 53")
+    check(all(r["launches"] == want_launches for r in ranks),
+          f"bn_group: launches {line['launches']}, expected {want_launches}")
+    check(not any(v for r in ranks for v in r["plain_calls"].values()),
+          f"bn_group: plain versions ran on the card: {line['plain_calls']}")
+    check(line["states_equal_across_ranks"],
+          "bn_group: the ranks' parameters or BatchNorm buffers differ")
+    check(max(line["loss_rel_err"]) <= BN_GROUP_LOSS_RTOL,
+          f"bn_group: mean losses {mean} against NoShard's {want}")
     return line
 
 
@@ -8029,6 +8589,7 @@ def main() -> int:
     kres = kernel_phase()
     fres = flash_kernel_phase()
     mres = masked_kernel_phase(resources)
+    bres = bn_kernel_phase()
     cp_hops_phase()
     parity_phase()
     spec_parity_phase()
@@ -8092,6 +8653,7 @@ def main() -> int:
     try:
         fsdp = fsdp_ranks_phase(pool)
         hooks_ranks_phase(pool, fsdp["noshard"]["losses"])
+        bn_group = bn_group_phase(pool)
         tp_ranks_phase(pool, smi)
         pp_ranks_phase(pool, smi)
         fr_stall_phase(pool, smi)
@@ -8198,6 +8760,28 @@ def main() -> int:
             "train_cp_profile_ms_per_launch": cp_split[key] / n_layer,
             "tflops": r["tflops"],
             "cp_moe_launches_per_step": cp_moe["launches_per_step"][key],
+        })
+    group = bn_group["launches"][0]   # rank 0's ResNet-50 steps
+    for name in bnk.KERNELS:
+        summary.append({
+            "name": name,
+            "route": "cuda",
+            "source": BN_SOURCE,
+            "replaces": None,
+            "launches": {"per_step": [c[name] for c in group["steps"]]}
+            if "steps" in group else
+            {"start": group["start"][name],
+             "start_steps": group["start_steps"],
+             "replays": group["replays"][name]},
+            "launches_step": f"ResNet-50, {bn_group['ranks']} ranks over "
+                             f"{bn_group['backend']}, {bn_group['step']}",
+            "max_abs_err": bres["max_abs_err"][name],
+            "worst_share_of_tol": bres["worst_share_of_tol"][name],
+            # summed over the 53 BatchNorms of a ResNet-50 step at 224 px
+            # and 256 images a rank
+            **bres["per_step"][name],
+            "library_call": BN_LIBRARY_CALLS[name],
+            "path": "CUDA cores: 16-byte loads, fixed-order reductions",
         })
     emit({"phase": "total", "nvidia_smi": smi,
           "seconds": time.perf_counter() - t_start})

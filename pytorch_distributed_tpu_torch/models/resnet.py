@@ -48,6 +48,7 @@ import torch.nn.functional as F
 
 from pytorch_distributed_tpu_torch._device import resolve_device
 from pytorch_distributed_tpu_torch.observability import spans
+from pytorch_distributed_tpu_torch.ops import batch_norm
 
 __all__ = [
     "BasicBlock",
@@ -103,22 +104,36 @@ class Conv(nn.Module):
                         stride=self.stride)
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """Sum over ``group``'s ranks; the gradient of every rank's input is the
-    sum of the ranks' output gradients."""
+class _GroupBatchNorm(torch.autograd.Function):
+    """BatchNorm of ``x`` with the statistics of ``group``'s whole batch:
+    ``(y, mean, var)``. The four kernels of ``ops.batch_norm`` (their plain
+    versions for CPU tensors), with the group's sums all-reduced between
+    them: ``[Σx, Σx², n]`` in the forward, ``[Σdy, Σdy (x − mean)]`` in the
+    backward. The gradients of ``weight`` and ``bias`` are this rank's own
+    (the strategy reduces them with the others); ``x``'s is the group's."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        x = x.clone()
-        dist.all_reduce(x, group=group)
-        return x
+    def forward(ctx, x, weight, bias, eps, group):
+        stats = batch_norm.bn_stats(x)
+        dist.all_reduce(stats, group=group)
+        y, mean, var = batch_norm.bn_fwd_elemt(x, stats, weight, bias, eps)
+        ctx.save_for_backward(x, weight, stats)
+        ctx.eps, ctx.group = eps, group
+        ctx.mark_non_differentiable(mean, var)
+        ctx.set_materialize_grads(False)
+        return y, mean, var
 
     @staticmethod
-    def backward(ctx, grad):
-        grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, _mean, _var):
+        x, weight, stats = ctx.saved_tensors
+        # the kernels read dy as they read x (a copy where it is not)
+        dy = dy.contiguous(memory_format=torch.channels_last)
+        dweight, dbias, sums = batch_norm.bn_bwd_reduce(dy, x, stats,
+                                                        ctx.eps)
+        dist.all_reduce(sums, group=ctx.group)
+        dx = batch_norm.bn_bwd_elemt(dy, x, stats, weight, sums, ctx.eps)
+        return dx, dweight, dbias, None, None
 
 
 class BatchNorm(nn.Module):
@@ -130,8 +145,10 @@ class BatchNorm(nn.Module):
     momentum) * batch`` (the biased variance too). With ``stats_group`` set
     to a process group of more than one rank, the statistics are those of
     the batch over every rank of the group: the ranks' ``[sum, sum of
-    squares, count]`` are all-reduced (with autograd), and the variance is
-    ``E[x^2] - E[x]^2`` clipped at zero, as flax computes it. On one rank
+    squares, count]`` are all-reduced, and the variance is ``E[x^2] -
+    E[x]^2`` clipped at zero, as flax computes it (``_GroupBatchNorm``: the
+    kernels of ``ops.batch_norm`` on the card, their plain versions on the
+    CPU; the backward all-reduces its sums the same way). On one rank
     the normalization runs through ``F.batch_norm`` (cuDNN on the card),
     and the statistics for the buffer update are read from it. Eval mode
     normalizes with the running statistics. The output is in the input's
@@ -164,12 +181,11 @@ class BatchNorm(nn.Module):
         group = self.stats_group
         grouped = group is not None and dist.get_world_size(group) > 1
         if grouped:
-            # the span bn_group (observability.spans): the casts, the
-            # group's sums and the buffer update, forward and backward
+            # the span bn_group (observability.spans): the group's sums,
+            # the normalization and the buffer update, forward and backward
             x, weight, bias = spans.enter("bn_group", x, weight, bias)
-            y, mean, var = self._global_batch_norm(x.to(sdt), weight, bias,
-                                                   group)
-            y = y.to(x.dtype)
+            y, mean, var = _GroupBatchNorm.apply(x, weight, bias,
+                                                 self.epsilon, group)
         else:
             y, mean, var = self._local_batch_norm(x, weight, bias)
         with torch.no_grad():   # m * ra + (1 - m) * batch, one kernel each
@@ -187,21 +203,6 @@ class BatchNorm(nn.Module):
         var = torch.ones_like(weight)
         y = F.batch_norm(x, mean, var, weight, bias, True, 1.0, self.epsilon)
         return y, mean, var * ((n - 1) / n)
-
-    def _global_batch_norm(self, x, weight, bias, group):
-        C = x.shape[1]
-        dims = (0, 2, 3)
-        count = torch.full((1,), x.numel() // C, dtype=x.dtype,
-                           device=x.device)
-        stats = _AllReduceSum.apply(
-            torch.cat([x.sum(dims), (x * x).sum(dims), count]), group)
-        n = stats[-1]
-        mean = stats[:C] / n
-        var = torch.clamp(stats[C:2 * C] / n - mean * mean, min=0.0)
-        shape = (1, C, 1, 1)
-        mul = torch.rsqrt(var + self.epsilon) * weight
-        y = (x - mean.view(shape)) * mul.view(shape) + bias.view(shape)
-        return y, mean.detach(), var.detach()
 
 
 class _Block(nn.Module):

@@ -1,5 +1,6 @@
 """Ops of the port: plain torch ops and the CUDA kernels (paged decode,
-causal and position-masked flash attention forward and backward).
+causal and position-masked flash attention forward and backward,
+BatchNorm over a stats group).
 
 Exports are lazy (PEP 562), as in the JAX package's ``ops``: importing this
 package loads no op module, and no kernel is built until a CUDA tensor
